@@ -1,0 +1,440 @@
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit and no
+result line:
+
+1. the card: name and power limit, torch and CUDA versions, compute
+   capability (9.0 required); TF32 off; the kernels built from
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+2. each kernel against its plain PyTorch version on the card, in f32 and
+   bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and on
+   the main path's own shapes;
+3. each kernel timed at the main path's shapes with CUDA events, beside
+   its plain version, a PyTorch library call computing the same function,
+   and the least time the card could take;
+4. serving: a tiny f32 model on the card must emit the same tokens as on
+   the CPU, then full-width llama3.1-8b (32 layers, bf16, seeded random
+   weights made on the card) serves 8 requests through ``ServeDriver`` with
+   chunked prefill, and the launch counts show that prefill, extend and
+   decode went through the kernels;
+5. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+
+Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOPS_S = 989e12          # dense bf16 tensor-core peak
+# f32: the kernels and the plain versions sum in other orders; bf16: inputs
+# and outputs round to 8 mantissa bits.  Both compared in f32 as
+# |got - want| <= tol + tol * |want|, the form of the JAX kernel tests.
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# ---------------------------------------------------------------- phase 1
+def card_and_setup(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "nvidia-smi: " + smi.stderr.strip()
+    print(card)
+    cap = torch.cuda.get_device_capability(0)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, compute capability "
+          f"{cap[0]}.{cap[1]}")
+    check(cap == (9, 0), f"compute capability {cap}, the kernels need 9.0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off for matmuls and cuDNN (f32 comparisons run in full f32)")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    print(f"built {sorted(paths)} with nvcc for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s ({build.build_dir()})")
+    for name in sorted(paths):
+        log = build.build_dir() / f"{name}.log"
+        if log.is_file():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
+    return card
+
+
+# ---------------------------------------------------------------- phase 2
+def _rand(torch, gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _close(torch, got, want, dtype_name):
+    got, want = got.float(), want.float()
+    tol = TOL[dtype_name]
+    err = (got - want).abs()
+    ok = bool((err <= tol + tol * want.abs()).all()) \
+        and bool(torch.isfinite(got).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def flash_cases():
+    # (B, S, H, KV, dh, lengths, window)
+    yield 2, 64, 8, 2, 32, (64, 29), None          # test_kernel_backends
+    yield 2, 64, 8, 2, 32, (64, 29), 24
+    for S in (16, 128, 512, 2048):                # main path: H32 KV8 dh128
+        yield 1, S, 32, 8, 128, (S - S // 4 - 1,), None
+    yield 1, 512, 32, 8, 128, (400,), 128          # a sliding window
+
+
+def paged_cases():
+    # (B, S or None for decode, H, KV, dh, ps, maxp, start, lengths, window)
+    yield 4, None, 4, 2, 16, 16, 4, None, (1, 16, 17, 64), None
+    yield 3, 12, 4, 2, 16, 8, 6, (5, 8, 0), (17, 20, 12), None
+    yield 3, 12, 4, 2, 16, 8, 6, (5, 8, 0), (17, 20, 12), 7
+    # main path: decode at B=8 (one full slot: length == capacity + 1,
+    # not compared) and an extend chunk of 256 from a mid-page start
+    yield (8, None, 32, 8, 128, 64, 32, None,
+           (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
+    yield 1, 256, 32, 8, 128, 64, 32, (293,), (293 + 200,), None
+
+
+def kernels_vs_plain(torch, ops, dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {k: 0.0 for k in ops.KERNELS}
+    print("phase 2: kernel vs plain version (max abs err | tolerance; "
+          "f32 1e-4: the two sum in other orders; bf16 2e-2: inputs and "
+          "outputs round to 8 mantissa bits)")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for B, S, H, KV, dh, lengths, window in flash_cases():
+            q = _rand(torch, gen, (B, S, H, dh), dtype, dev)
+            k = _rand(torch, gen, (B, S, KV, dh), dtype, dev)
+            v = _rand(torch, gen, (B, S, KV, dh), dtype, dev)
+            lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            got = ops.flash_attention(q, k, v, lt, window)
+            torch.cuda.synchronize()
+            want = ops.flash_attention_plain(q, k, v, lt, window)
+            ok, err = True, 0.0
+            for b, n in enumerate(lengths):      # rows an engine reads
+                o, e = _close(torch, got[b, :n], want[b, :n], dn)
+                ok, err = ok and o, max(err, e)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            print(f"  flash {dn} B{B} S{S} H{H} KV{KV} dh{dh} "
+                  f"len{lengths} win{window}: {err:.3g} | {TOL[dn]}")
+            check(ok, f"flash_attention disagrees with its plain version "
+                      f"({dn}, S={S}, window={window}): {err}")
+        for (B, S, H, KV, dh, ps, maxp, start, lengths,
+             window) in paged_cases():
+            P = B * maxp + 1
+            qs = (B, H, dh) if S is None else (B, S, H, dh)
+            q = _rand(torch, gen, qs, dtype, dev)
+            kp = _rand(torch, gen, (P, ps, KV, dh), dtype, dev)
+            vp = _rand(torch, gen, (P, ps, KV, dh), dtype, dev)
+            table = torch.randperm(P - 1, generator=gen, device=dev)[
+                :B * maxp].reshape(B, maxp).to(torch.int32)
+            lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            st = None if start is None else torch.tensor(
+                start, dtype=torch.int32, device=dev)
+            got = ops.paged_attention(q, kp, vp, table, lt, page_size=ps,
+                                      start=st, window=window)
+            torch.cuda.synchronize()
+            want = ops.paged_attention_plain(q, kp, vp, table, lt,
+                                             page_size=ps, start=st,
+                                             window=window)
+            name = "paged_attention_decode" if S is None \
+                else "paged_attention_extend"
+            ok, err = True, 0.0
+            for b, n in enumerate(lengths):
+                if S is None:
+                    if n > maxp * ps:    # an unscheduled full slot
+                        check(bool(torch.isfinite(got[b]).all()),
+                              "paged decode: full-slot row not finite")
+                        continue
+                    o, e = _close(torch, got[b], want[b], dn)
+                else:                    # the chunk's real rows
+                    o, e = _close(torch, got[b, :n - start[b]],
+                                  want[b, :n - start[b]], dn)
+                ok, err = ok and o, max(err, e)
+            worst[name] = max(worst[name], err)
+            print(f"  {name} {dn} B{B} S{S} H{H} KV{KV} dh{dh} ps{ps} "
+                  f"maxp{maxp} len{lengths} win{window}: {err:.3g} | "
+                  f"{TOL[dn]}")
+            check(ok, f"{name} disagrees with its plain version ({dn}, "
+                      f"lengths={lengths}): {err}")
+    return worst
+
+
+# ---------------------------------------------------------------- phase 3
+def time_ms(torch, fn, reps=20, warm=3):
+    """Median of ``reps`` CUDA-event timings of ``fn``, with L2 flushed
+    (a 256 MB write) before each, as a layer's caller finds its inputs."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def timings(torch, ops, dev):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    H, KV, dh, ps, maxp = 32, 8, 128, 64, 32
+    G = H // KV
+    out = {}
+
+    # flash: one prefill chunk of the main path (B=1, S=256, full length)
+    S = 256
+    q = _rand(torch, gen, (1, S, H, dh), bf, dev)
+    k = _rand(torch, gen, (1, S, KV, dh), bf, dev)
+    v = _rand(torch, gen, (1, S, KV, dh), bf, dev)
+    lt = torch.tensor([S], dtype=torch.int32, device=dev)
+    pairs = S * (S + 1) // 2                       # causal (q, kv) pairs
+    nbytes = 2 * q.numel() * 2 + (k.numel() + v.numel()) * 2 + 4
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["flash_attention"] = dict(
+        shape=f"B1 S{S} H{H} KV{KV} dh{dh} bf16",
+        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, lt)),
+        plain_ms=time_ms(torch, lambda: ops.flash_attention_plain(
+            q, k, v, lt)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound=bound(nbytes, 4 * pairs * H * dh))
+
+    def paged_library(q4, kp, vp, table, lengths, start):
+        """Gather the pages, then SDPA under the paged mask."""
+        B, Sq = q4.shape[:2]
+        kg = kp[table.reshape(-1).long()].reshape(B, maxp * ps, KV, dh)
+        vg = vp[table.reshape(-1).long()].reshape(B, maxp * ps, KV, dh)
+        qpos = start.long()[:, None] + torch.arange(Sq, device=dev)
+        kvpos = torch.arange(maxp * ps, device=dev)
+        mask = (kvpos[None, None] <= qpos[..., None]) & \
+            (kvpos[None, None] < lengths.long()[:, None, None])
+        return F.scaled_dot_product_attention(
+            q4.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=True)
+
+    # decode: B=8 rows at the serve's context lengths
+    B = 8
+    P = B * maxp + 1
+    kp = _rand(torch, gen, (P, ps, KV, dh), bf, dev)
+    vp = _rand(torch, gen, (P, ps, KV, dh), bf, dev)
+    table = torch.randperm(P - 1, generator=gen, device=dev)[
+        :B * maxp].reshape(B, maxp).to(torch.int32)
+    lens = (97, 180, 333, 512, 640, 781, 900, 1056)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = _rand(torch, gen, (B, H, dh), bf, dev)
+    kv_rows = sum(lens)
+    nbytes = kv_rows * KV * dh * 2 * 2 + 2 * qd.numel() * 2 \
+        + table.numel() * 4 + B * 4
+    out["paged_attention_decode"] = dict(
+        shape=f"B{B} H{H} KV{KV} dh{dh} ps{ps} len{lens} bf16",
+        ms=time_ms(torch, lambda: ops.paged_attention(
+            qd, kp, vp, table, lt, page_size=ps)),
+        plain_ms=time_ms(torch, lambda: ops.paged_attention_plain(
+            qd, kp, vp, table, lt, page_size=ps)),
+        library_ms=time_ms(torch, lambda: paged_library(
+            qd[:, None], kp, vp, table, lt, lt - 1)),
+        bound=bound(nbytes, 4 * kv_rows * H * dh))
+
+    # extend: one 256-token chunk from a mid-page start (B=1)
+    S, start = 256, 293
+    qe = _rand(torch, gen, (1, S, H, dh), bf, dev)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    lt = st + S
+    pairs = sum(start + s + 1 for s in range(S))
+    nbytes = (start + S) * KV * dh * 2 * 2 + 2 * qe.numel() * 2 \
+        + maxp * 4 + 8
+    out["paged_attention_extend"] = dict(
+        shape=f"B1 S{S} start{start} H{H} KV{KV} dh{dh} ps{ps} bf16",
+        ms=time_ms(torch, lambda: ops.paged_attention(
+            qe, kp, vp, table[:1], lt, page_size=ps, start=st)),
+        plain_ms=time_ms(torch, lambda: ops.paged_attention_plain(
+            qe, kp, vp, table[:1], lt, page_size=ps, start=st)),
+        library_ms=time_ms(torch, lambda: paged_library(
+            qe, kp, vp, table[:1], lt, st)),
+        bound=bound(nbytes, 4 * pairs * H * dh))
+    print("phase 3: times (median of 20, L2 flushed; ms)")
+    for name, t in out.items():
+        print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f}, plain "
+              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+              f"bound {t['bound'][0]:.4f} ({t['bound'][1]})")
+    return out
+
+
+# ---------------------------------------------------------------- phase 4
+def tiny_card_matches_cpu(torch):
+    """A tiny f32 model served on the card (kernels) and on the CPU (plain
+    versions) from the same weights must emit the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SchedulerCfg
+    from repro_torch.models import Model
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    from repro_torch.workload import ShareGPTConfig, generate
+    cfg = dataclasses.replace(get_config("llama3.1-8b-tiny"),
+                              compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    sched = SchedulerCfg(max_batch_size=4, max_batch_tokens=64,
+                         chunked_prefill=True, prefill_chunk=32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        reqs = generate(ShareGPTConfig(
+            n_requests=6, rate=50.0, vocab=cfg.vocab, seed=3,
+            mean_prompt=60, mean_output=8, max_prompt=120, max_output=10,
+            share_fraction=0.0))
+        for r in reqs:       # virtual time must not order the decisions
+            r.arrival = 0.0
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=256,
+                            name="e0", device=dev)
+        drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+        m = drv.run(reqs, warmup=False)
+        inst = drv.runtime.instances["e0"]
+        check(m["finished"] == len(reqs), f"tiny {dev}: {m['finished']}")
+        results[dev] = (dict(inst.backend.out_tokens), list(inst.decisions))
+    check(results["cuda"] == results["cpu"],
+          "tiny llama: tokens or decisions on the card differ from the CPU")
+    n_tok = sum(len(t) for t in results["cuda"][0].values())
+    print(f"phase 4: tiny llama f32, card == CPU: {n_tok} tokens and "
+          f"{len(results['cuda'][1])} decisions identical")
+
+
+def full_serve_setup(torch):
+    """Full-width llama3.1-8b on the card behind a warmed-up ServeDriver,
+    and the 8 requests it serves: (cfg, engine, driver, requests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import SchedulerCfg
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    from repro_torch.workload import ShareGPTConfig, generate
+    cfg = get_config("llama3.1-8b")
+    check(cfg.n_layers == 32 and cfg.d_model == 4096, "not full width")
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, max_batch=8, max_len=2048, name="e0", seed=0)
+    torch.cuda.synchronize()
+    print(f"phase 4: {cfg.name} (32 layers, d_model 4096, bf16, seeded "
+          f"random weights) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    # one prefill must give finite logits of the padded-vocab shape
+    logits, _ = eng.model.prefill(
+        eng.params, torch.arange(64, device="cuda", dtype=torch.int32)[None],
+        lengths=torch.tensor([64], dtype=torch.int32, device="cuda"))
+    check(tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"prefill logits {tuple(logits.shape)} not finite/of shape")
+    reqs = generate(ShareGPTConfig(
+        n_requests=8, rate=10.0, vocab=cfg.vocab, seed=0, mean_prompt=600,
+        sigma_prompt=0.5, max_prompt=1024, mean_output=24, max_output=32,
+        share_fraction=0.0))
+    sched = SchedulerCfg(chunked_prefill=True, prefill_chunk=256,
+                         max_batch_size=8)
+    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+    drv.runtime.warmup()
+    return cfg, eng, drv, reqs
+
+
+def serve_full(torch, ops, card):
+    cfg, eng, drv, reqs = full_serve_setup(torch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = drv.run(reqs, warmup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(m["finished"] == len(reqs),
+          f"finished {m['finished']} of {len(reqs)}")
+    for name in ops.KERNELS:
+        check(launches[name] > 0, f"{name} was not launched while serving")
+    backend = drv.runtime.instances["e0"].backend
+    for r in drv.finished:
+        toks = backend.out_tokens[r.req_id]
+        check(len(toks) == r.output_len
+              and all(0 <= t < cfg.vocab for t in toks),
+              f"request {r.req_id}: {len(toks)} tokens of {r.output_len}")
+    ttft = statistics.median(r.ttft() for r in drv.finished)
+    tpot = statistics.median(r.tpot() for r in drv.finished
+                             if r.tpot() is not None)
+    n_out = sum(r.output_len for r in drv.finished)
+    print(f"serve [{card}] {cfg.name} 8 requests (prompts "
+          f"{min(r.prompt_len for r in drv.finished)}-"
+          f"{max(r.prompt_len for r in drv.finished)}, chunk 256, batch 8): "
+          f"TTFT p50 {ttft * 1e3:.1f} ms, TPOT p50 {tpot * 1e3:.2f} ms, "
+          f"{n_out / wall:.1f} output tok/s over wall {wall:.2f} s")
+    print(f"launches while serving: {json.dumps(launches)}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no port under {SRC}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    try:
+        card = card_and_setup(torch)
+        worst = kernels_vs_plain(torch, ops, dev)
+        times = timings(torch, ops, dev)
+        torch.cuda.empty_cache()
+        tiny_card_matches_cpu(torch)
+        launches = serve_full(torch, ops, card)
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        return 1
+    rows = []
+    for name, (source, replaces) in ops.KERNELS.items():
+        t = times[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": worst[name], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                     "bound_by": t["bound"][1],
+                     "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,52 @@
+"""The port's attention entry points and its kernel registry.
+
+``flash_attention`` and ``paged_attention`` are the kernel wrappers: on a
+CUDA tensor each launches its hand-written Hopper kernel or raises, on a
+CPU tensor each runs its plain PyTorch version.  ``KERNELS`` names every
+kernel with its source and the TPU kernel it replaces, and
+``launch_counts`` / ``reset_launch_counts`` read and clear the counters
+the wrappers bump at each launch.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_plain)
+
+#: name -> (CUDA source in the repo, the TPU kernel it replaces)
+KERNELS = {
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:81"),
+    "paged_attention_decode": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:32"),
+    "paged_attention_extend": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:32"),
+}
+
+_COUNTERS = (_flash.LAUNCHES, _paged.LAUNCHES)
+
+
+def launch_counts() -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+__all__ = ["KERNELS", "flash_attention", "flash_attention_plain",
+           "launch_counts", "paged_attention", "paged_attention_plain",
+           "reset_launch_counts"]

@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the attention kernels (the allclose ground
+truth), the same functions as ``repro/kernels/ref.py``.  The kernel
+wrappers run these for CPU tensors, and the tests and ``chip_smoke.py``
+hold the CUDA kernels against them."""
+from __future__ import annotations
+
+import torch
+
+NO_WINDOW = 1 << 30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, lengths=None,
+                        window=None):
+    """q: (B,S,H,dh); k/v: (B,S,KV,dh) -> (B,S,H,dh)."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, S, KV, G, dh).float() * dh ** -0.5
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qr, k.float())
+    pos = torch.arange(S, device=q.device)
+    q_pos, kv_pos = pos[:, None], pos[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (q_pos >= kv_pos)
+    if window is not None:
+        mask = mask & (q_pos - kv_pos < window)
+    mask = mask[None].expand(B, S, S)
+    if lengths is not None:
+        mask = mask & (kv_pos[None] < lengths.to(q.device)[:, None, None])
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
+    return o.reshape(B, S, H, dh).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_table, lengths, *,
+                        page_size: int, start=None, window=None):
+    """q: (B,H,dh) decode or (B,S,H,dh) extend (with ``start``);
+    k/v_pages: (P,ps,KV,dh); block_table: (B,maxp) int32; lengths: (B,)."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    B, S, H, dh = q.shape
+    P, ps, KV, _ = k_pages.shape
+    G = H // KV
+    maxp = block_table.shape[1]
+    lengths = lengths.to(q.device).long()
+    if start is None:
+        start = torch.clamp(lengths - 1, min=0)
+    start = start.to(q.device).long()
+    flat = block_table.reshape(-1).long()
+    kg = k_pages[flat].reshape(B, maxp * ps, KV, dh)
+    vg = v_pages[flat].reshape(B, maxp * ps, KV, dh)
+    qr = q.reshape(B, S, KV, G, dh).float() * dh ** -0.5
+    s = torch.einsum("bskgd,bjkd->bskgj", qr, kg.float())
+    q_pos = start[:, None] + torch.arange(S, device=q.device)[None, :]
+    kv_pos = torch.arange(maxp * ps, device=q.device)
+    win = NO_WINDOW if window is None else window
+    mask = (kv_pos[None, None] <= q_pos[..., None]) \
+        & (kv_pos[None, None] < lengths[:, None, None]) \
+        & (q_pos[..., None] - kv_pos[None, None] < win)      # (B, S, J)
+    s = torch.where(mask[:, :, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bskgj,bjkd->bskgd", p, vg.float())
+    o = o.reshape(B, S, H, dh).to(q.dtype)
+    return o[:, 0] if squeeze else o

@@ -1,0 +1,354 @@
+"""Dense decoder-only model over a paged KV cache.
+
+The counterpart of ``repro/models/transformer.py`` for attention + MLP
+stages (``ATTN_MLP``), with the same parameter layout (``init``), the same
+entry points (``prefill``, ``decode``, ``extend``) and the same paged
+slot-KV layout (``init_cache``, ``page_geometry``):
+
+* ``prefill`` runs flash attention over a bucketed chunk and returns the
+  chunk's K/V contiguously; the engine scatters it into pages.
+* ``decode`` writes each row's new K/V through the block table and runs
+  paged attention; a negative token marks a row that is not scheduled
+  this step (it computes on token 0; the engine discards its output).
+* ``extend`` writes a chunk of K/V after ``cache["lengths"]`` and runs
+  paged attention with per-sequence ``start``.
+
+Pad-tail positions and writes from full or unscheduled slots go to the
+scratch page (the pool's last page), which is never read.  The JAX model
+updates its pools functionally (``.at[].set``); this one writes them in
+place with ``index_put_``, so the cache a call returns shares its pools
+with the cache it was given.
+
+Attention always goes through ``repro_torch.kernels.ops``: the Hopper
+kernels for CUDA tensors, their plain versions for CPU tensors.
+``ArchConfig.kernels`` is not read.  Speculative ``verify`` is not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
+                                      ZAMBA_SUPER, ArchConfig)
+from repro_torch.kernels import ops
+from repro_torch.models import module as m
+from repro_torch.models.layers import gelu_mlp, rmsnorm, rope, swiglu_mlp
+
+_NOT_PORTED = {
+    ATTN_MOE: "MoE stages wait for ROADMAP queue 1 item 4 (MoE) and the "
+              "moe_gmm kernel (queue 2)",
+    MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 10",
+    ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 10",
+    XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 10",
+}
+
+#: global layers of a local:global interleave attend without a window
+_GLOBAL_WINDOW = 2 ** 30
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def cast_params(params: dict, dtype: torch.dtype, device=None) -> dict:
+    """Move params to ``device`` and cast every weight the forward pass
+    casts to the compute dtype (projections, biases, MLP, embedding, head)
+    once.  Norm scales stay f32: ``rmsnorm`` reads them in f32."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        t = torch.as_tensor(tree).to(device)
+        if t.is_floating_point() and not any("norm" in k for k in path):
+            t = t.to(dtype)
+        return t.contiguous()
+    return walk(params, ())
+
+
+# --------------------------------------------------------------------------
+# per-block init (the layout of repro/models/transformer.py)
+# --------------------------------------------------------------------------
+
+def _init_attn(gen, cfg: ArchConfig, L: int, **kw) -> dict:
+    d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    p = {"wq": m.dense_init(gen, d, H * dh, lead=(L,), **kw),
+         "wk": m.dense_init(gen, d, KV * dh, lead=(L,), **kw),
+         "wv": m.dense_init(gen, d, KV * dh, lead=(L,), **kw),
+         "wo": m.dense_init(gen, H * dh, d, lead=(L,), **kw)}
+    if cfg.qkv_bias:
+        p["bq"] = m.zeros((L, H * dh), **kw)
+        p["bk"] = m.zeros((L, KV * dh), **kw)
+        p["bv"] = m.zeros((L, KV * dh), **kw)
+    if cfg.qk_norm:
+        p["q_norm"] = m.zeros((L, dh), device=kw.get("device"))
+        p["k_norm"] = m.zeros((L, dh), device=kw.get("device"))
+    return p
+
+
+def _init_mlp(gen, cfg: ArchConfig, L: int, **kw) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_gated:
+        return {"w_gate": m.dense_init(gen, d, ff, lead=(L,), **kw),
+                "w_up": m.dense_init(gen, d, ff, lead=(L,), **kw),
+                "w_down": m.dense_init(gen, ff, d, lead=(L,), **kw)}
+    return {"w_in": m.dense_init(gen, d, ff, lead=(L,), **kw),
+            "w_out": m.dense_init(gen, ff, d, lead=(L,), **kw)}
+
+
+# --------------------------------------------------------------------------
+# block forward
+# --------------------------------------------------------------------------
+
+def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
+               cache, block_table, page_size):
+    """One layer's attention. Returns (out, new_cache)."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, KV, dh)
+    v = v.reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "prefill":
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), lengths, window)
+        new_cache = {"k": k.to(torch_dtype(cfg.compute_dtype)),
+                     "v": v.to(torch_dtype(cfg.compute_dtype))}
+    else:
+        kc, vc = cache["k_pages"], cache["v_pages"]
+        n_pages = kc.shape[0]
+        maxp = block_table.shape[1]
+        rows = torch.arange(B, device=x.device)
+        if mode == "decode":
+            pos = torch.clamp(lengths.long() - 1, min=0)[:, None]   # (B,1)
+        else:
+            start = positions[:, 0].to(torch.int32)
+            pos = positions.long()                                  # (B,S)
+        pidx = pos // page_size
+        page = block_table[rows[:, None],
+                           torch.clamp(pidx, max=maxp - 1)].long()
+        # full-slot and pad-tail writes land on the scratch page
+        page = torch.where(pidx < maxp, page,
+                           torch.full_like(page, n_pages - 1))
+        off = pos % page_size
+        # in place (index_put_): the pools are the storage of every slot
+        kc[page, off] = k.to(kc.dtype)
+        vc[page, off] = v.to(vc.dtype)
+        if mode == "decode":
+            out = ops.paged_attention(q[:, 0].contiguous(), kc, vc,
+                                      block_table, lengths,
+                                      page_size=page_size,
+                                      window=window)[:, None]
+        else:
+            out = ops.paged_attention(q.contiguous(), kc, vc, block_table,
+                                      lengths, page_size=page_size,
+                                      start=start, window=window)
+        new_cache = cache
+    out = out.reshape(B, S, H * dh)
+    return out @ p["wo"].to(x.dtype), new_cache
+
+
+def _mlp(p, x, cfg: ArchConfig):
+    if cfg.mlp_gated:
+        return swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+    return gelu_mlp(x, p["w_in"], p["w_out"])
+
+
+def _attn_mlp_block(p, x, cfg, **kw):
+    h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
+                              cfg, **kw)
+    x = x + h
+    x = x + _mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    return x, new_cache
+
+
+def _layer(tree, li):
+    if isinstance(tree, dict):
+        return {k: _layer(v, li) for k, v in tree.items()}
+    return tree[li]
+
+
+# --------------------------------------------------------------------------
+# the Model
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    page_size: int = 64
+
+    def __post_init__(self):
+        for st in self.cfg.stages:
+            if st.kind != ATTN_MLP:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: {_NOT_PORTED.get(st.kind, st.kind)}")
+        if not self.cfg.embed_inputs or self.cfg.n_codebooks:
+            raise NotImplementedError(
+                f"{self.cfg.name}: precomputed-embedding inputs and "
+                f"codebook heads are not ported yet")
+
+    # ---- init ----
+    def init(self, gen: torch.Generator, *, device=None,
+             dtype=torch.float32) -> dict:
+        """Params in the JAX layout; matmul weights in ``dtype``, norm
+        scales in f32."""
+        cfg = self.cfg
+        kw = dict(dtype=dtype, device=device)
+        params: Dict[str, Any] = {
+            "embed": {"tok": m.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                          **kw)}}
+        for i, st in enumerate(cfg.stages):
+            L = st.n_layers
+            params[f"stage{i}"] = {
+                "norm1": m.zeros((L, cfg.d_model), device=device),
+                "attn": _init_attn(gen, cfg, L, **kw),
+                "norm2": m.zeros((L, cfg.d_model), device=device),
+                "mlp": _init_mlp(gen, cfg, L, **kw)}
+        params["final_norm"] = m.zeros((cfg.d_model,), device=device)
+        params["head"] = {"w": m.dense_init(gen, cfg.d_model,
+                                            cfg.padded_vocab, **kw)}
+        return params
+
+    # ---- embedding / head ----
+    def _embed(self, params, tokens):
+        dtype = torch_dtype(self.cfg.compute_dtype)
+        return params["embed"]["tok"].to(dtype)[tokens.long()]
+
+    def _head(self, params, x):
+        """Logits over the *padded* vocab; consumers slice [..., :vocab]."""
+        return x @ params["head"]["w"].to(x.dtype)
+
+    def _window_for_layer(self, li: int, period: int) -> Optional[int]:
+        """None = full causal everywhere; global layers of a local:global
+        interleave get a window wider than any context."""
+        cfg = self.cfg
+        if cfg.sliding_window == 0 or period == 0:
+            return None
+        if li % period == period - 1:
+            return _GLOBAL_WINDOW
+        return cfg.sliding_window
+
+    def _run_stages(self, params, x, *, positions, lengths, mode, cache,
+                    block_table):
+        new_caches = {}
+        for i, st in enumerate(self.cfg.stages):
+            sp = params[f"stage{i}"]
+            layer_caches = []
+            for li in range(st.n_layers):
+                kcache = None if cache is None else \
+                    _layer(cache[f"stage{i}"], li)
+                x, nc = _attn_mlp_block(
+                    _layer(sp, li), x, self.cfg, positions=positions,
+                    lengths=lengths,
+                    window=self._window_for_layer(li,
+                                                  st.local_global_period),
+                    mode=mode, cache=kcache, block_table=block_table,
+                    page_size=self.page_size)
+                layer_caches.append(nc)
+            if mode == "prefill":
+                new_caches[f"stage{i}"] = {
+                    key: torch.stack([c[key] for c in layer_caches])
+                    for key in ("k", "v")}
+            else:
+                # the pools were written in place
+                new_caches[f"stage{i}"] = cache[f"stage{i}"]
+        return x, new_caches
+
+    # ---- entry points ----
+    def prefill(self, params, tokens, *, lengths=None):
+        """Returns (logits_last, cache). tokens: (B,S); the cache holds the
+        chunk's K/V contiguously, ``(L, B, S, KV, dh)`` per stage."""
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.int32,
+                                 device=x.device)
+        x, caches = self._run_stages(params, x, positions=positions,
+                                     lengths=lengths, mode="prefill",
+                                     cache=None, block_table=None)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        idx = torch.clamp(lengths.long() - 1, min=0)
+        x_last = x[torch.arange(B, device=x.device), idx][:, None]
+        caches["lengths"] = lengths
+        return self._head(params, x_last), caches
+
+    def decode(self, params, cache, tokens):
+        """One decode step. tokens: (B,1) ids.
+
+        cache["lengths"] counts tokens *already in* the cache; the new token
+        is written at index lengths (then lengths+1 is returned).  A
+        negative token is the engine's sentinel for a row that is not
+        scheduled this step; it runs on token 0."""
+        x = self._embed(params, torch.clamp(tokens, min=0))
+        lengths = cache["lengths"] + 1       # include current token
+        positions = (lengths - 1)[:, None]
+        block_table = cache["block_table"]
+        x, stages = self._run_stages(params, x, positions=positions,
+                                     lengths=lengths, mode="decode",
+                                     cache=cache, block_table=block_table)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        new_cache = {"lengths": lengths, "block_table": block_table,
+                     **stages}
+        return self._head(params, x), new_cache
+
+    def extend(self, params, cache, tokens, n_new=None):
+        """Cached/chunked prefill: append up to S tokens (``n_new`` (B,)
+        real, rest padding) to a cache holding cache["lengths"] tokens per
+        sequence. Returns (last-real-token logits, cache)."""
+        x = self._embed(params, tokens)
+        B, S = x.shape[:2]
+        start = cache["lengths"]
+        if n_new is None:
+            n_new = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        lengths = (start + n_new).to(torch.int32)
+        positions = start[:, None].long() + \
+            torch.arange(S, device=x.device)[None, :]
+        block_table = cache["block_table"]
+        x, stages = self._run_stages(params, x, positions=positions,
+                                     lengths=lengths, mode="extend",
+                                     cache=cache, block_table=block_table)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        idx = torch.clamp(n_new.long() - 1, min=0)
+        x_last = x[torch.arange(B, device=x.device), idx][:, None]
+        new_cache = {"lengths": lengths, "block_table": block_table,
+                     **stages}
+        return self._head(params, x_last), new_cache
+
+    # ---- cache construction ----
+    def page_geometry(self, batch: int, max_len: int) -> Tuple[int, int]:
+        """(pages per sequence, total pool pages incl. the scratch page)."""
+        maxp = -(-max_len // self.page_size)
+        return maxp, batch * maxp + 1
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Zeroed paged cache in the compute dtype; every table entry starts
+        at the scratch page (the pool's last page)."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.compute_dtype)
+        maxp, n_pages = self.page_geometry(batch, max_len)
+        cache: Dict[str, Any] = {
+            "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device),
+            "block_table": torch.full((batch, maxp), n_pages - 1,
+                                      dtype=torch.int32, device=device)}
+        for i, st in enumerate(cfg.stages):
+            shape = (st.n_layers, n_pages, self.page_size, cfg.n_kv_heads,
+                     cfg.d_head)
+            cache[f"stage{i}"] = {
+                "k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+        return cache

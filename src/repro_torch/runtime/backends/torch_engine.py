@@ -1,0 +1,201 @@
+"""Real-execution backend: prefill/extend/decode over paged slot KV.
+
+The port of ``repro/runtime/backends/jax_engine.py`` (``JaxBackend``).  It
+wraps a ``repro_torch.serve.engine.ServingEngine`` as a KV mechanism; every
+serving decision (admission, chunking, decode composition, preemption)
+comes from the unified runtime.
+
+Hybrid emulation as in the JAX backend: compute is real and wall-clock
+timed, ending in ``torch.cuda.synchronize`` on the card (where JAX calls
+``block_until_ready``) so the time covers the device's work; time is
+virtual, advanced by the measured latencies on the runtime's event queue.
+
+Chunked prefill: the first chunk runs the bucketed ``prefill``; later
+chunks ``extend`` a one-row view of the slot.  One full-buffer ``decode``
+serves all scheduled decode slots per iteration.  Speculative decoding,
+trace-driven MoE routing, the prefix store and P/D export/import are not
+ported yet; the engine refuses configurations that ask for them, and
+``export_kv``/``import_kv`` raise.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.core.config import InstanceCfg
+from repro_torch.core.memory import MemoryModel
+from repro_torch.core.request import SimRequest
+from repro_torch.runtime.backend import KvHandoff
+from repro_torch.runtime.prefix_cache import MatchResult
+from repro_torch.runtime.scheduler import ScheduledWork
+from repro_torch.serve.engine import _bucket
+from repro_torch.serve.sampler import greedy
+
+
+class TorchBackend:
+    name = "torch"
+
+    def __init__(self, engine, cfg: InstanceCfg):
+        if cfg.spec.enabled or cfg.spec.acceptance_trace \
+                or cfg.moe.routing_trace:
+            raise NotImplementedError(
+                f"instance {cfg.name!r}: speculative decoding and "
+                f"trace-driven MoE routing are not ported yet")
+        self.eng = engine
+        self.cfg = cfg
+        self.memory = MemoryModel(cfg)
+        self._slot: Dict[int, int] = {}      # req_id -> engine slot
+        self._len: Dict[int, int] = {}       # slot   -> tokens held in KV
+        self._iterations = 0
+        self.obs = None
+        # output-token capture: req_id -> emitted token ids, in order
+        self.out_tokens: Dict[int, List[int]] = {}
+
+    # ---- helpers ----
+    def prompt_cap(self, req: SimRequest) -> int:
+        """Slot capacity: prompt + generated output + 1 must fit max_len.
+        The runtime truncates the request on submit, so the scheduler's
+        chunk plan and the backend's KV state always agree."""
+        return max(self.eng.max_len - req.output_len - 1, 1)
+
+    def _prompt(self, req: SimRequest) -> List[int]:
+        toks = list(req.prompt_tokens)
+        cap = self.prompt_cap(req)
+        return toks[:cap] if len(toks) > cap else toks
+
+    def warmup(self):
+        eng = self.eng
+        eng.warmup()
+        sched = self.cfg.scheduler
+        if sched.chunked_prefill:
+            # chunk 2+ of a chunked prefill runs ``extend``: run it once at
+            # every padded chunk bucket so the measured run starts warm
+            top = _bucket(min(max(sched.prefill_chunk, 16),
+                              eng.max_len - 1))
+            P = 16
+            while P <= top and P < eng.max_len:
+                pad = eng.tensor(np.zeros((1, P), np.int32))
+                sub = eng._slot_subcache(0, 16)
+                eng.model.extend(eng.params, sub, pad, eng.tensor([P]))
+                eng._write_slot(0, sub, 16)
+                P *= 2
+            eng._release_slot(0)
+        eng.synchronize()
+
+    # ---- execution ----
+    def execute(self, work: List[ScheduledWork], now: float) -> float:
+        t0 = time.perf_counter()
+        decodes = [w for w in work if w.phase == "decode"]
+        prefills = [w for w in work if w.phase == "prefill"]
+        if decodes:
+            self._decode_step(decodes)
+        for w in prefills:
+            self._prefill_chunk(w)
+        self.eng.synchronize()
+        self._iterations += 1
+        return time.perf_counter() - t0
+
+    def _decode_step(self, decodes: List[ScheduledWork]):
+        eng = self.eng
+        for w in decodes:
+            # the decode writes each scheduled slot's new token at its old
+            # length: make sure that page exists
+            slot = self._slot[w.request.req_id]
+            eng.ensure_capacity(slot, self._len[slot] + 1)
+        logits, eng.cache = eng.model.decode(eng.params, eng.cache,
+                                             eng.tensor(eng._tokens_buf))
+        nxt = greedy(logits, eng.cfg.vocab).cpu().numpy()
+        scheduled = set()
+        for w in decodes:
+            slot = self._slot[w.request.req_id]
+            eng._tokens_buf[slot, 0] = int(nxt[slot, 0])
+            self.out_tokens.setdefault(w.request.req_id, []).append(
+                int(nxt[slot, 0]))
+            self._len[slot] += 1
+            scheduled.add(slot)
+        if scheduled != set(self._len):
+            # the full-buffer decode bumped every slot's length; restore
+            # the lengths of mid-prefill / unscheduled slots
+            lengths = np.zeros((eng.max_batch,), np.int32)
+            for s, n in self._len.items():
+                lengths[s] = n
+            eng.cache["lengths"] = eng.tensor(lengths)
+
+    def _prefill_chunk(self, w: ScheduledWork):
+        eng = self.eng
+        req = w.request
+        toks = self._prompt(req)
+        slot = self._slot.get(req.req_id)
+        if slot is None:
+            slot = eng.slot_free.pop()
+            self._slot[req.req_id] = slot
+            self._len[slot] = 0
+        start = self._len[slot]
+        end = min(start + w.tokens, len(toks))
+        chunk = toks[start:end]
+        logits = None
+        if chunk:
+            P = _bucket(len(chunk))
+            pad = np.zeros((1, P), np.int32)
+            pad[0, :len(chunk)] = np.asarray(chunk, np.int32)
+            n_new = eng.tensor([len(chunk)])
+            if start == 0:
+                logits, c1 = eng.model.prefill(eng.params, eng.tensor(pad),
+                                               lengths=n_new)
+                eng._write_slot_from_prefill(slot, c1, len(chunk))
+            else:
+                eng.ensure_capacity(slot, start + len(chunk))
+                sub = eng._slot_subcache(slot, start)
+                logits, new_sub = eng.model.extend(eng.params, sub,
+                                                   eng.tensor(pad), n_new)
+                eng._write_slot(slot, new_sub, start + len(chunk))
+            self._len[slot] = start + len(chunk)
+        if self._len[slot] >= len(toks) and logits is not None:
+            # prompt complete: the last chunk's logits give the first token
+            first = int(greedy(logits, eng.cfg.vocab)[0, 0])
+            eng._tokens_buf[slot, 0] = first
+            self.out_tokens.setdefault(req.req_id, []).append(first)
+
+    # ---- prefix cache (not ported: the engine has no store) ----
+    def on_prefix_hit(self, req: SimRequest, match: MatchResult,
+                      usable: int) -> int:
+        return 0
+
+    def on_prefill_complete(self, req: SimRequest):
+        return None
+
+    def on_preempt(self, req: SimRequest) -> int:
+        self.release(req)
+        # the restart regenerates the whole output from scratch
+        self.out_tokens.pop(req.req_id, None)
+        return 0
+
+    def release(self, req: SimRequest):
+        slot = self._slot.pop(req.req_id, None)
+        if slot is None:
+            return
+        self._len.pop(slot, None)
+        self.eng._release_slot(slot)
+
+    # ---- P/D handoff (not ported) ----
+    def export_kv(self, req: SimRequest) -> KvHandoff:
+        raise NotImplementedError("P/D KV export is not ported yet")
+
+    def import_kv(self, req: SimRequest, handoff: Optional[KvHandoff]):
+        raise NotImplementedError("P/D KV import is not ported yet")
+
+    # ---- lifecycle ----
+    def reset(self):
+        eng = self.eng
+        self._slot.clear()
+        self._len.clear()
+        eng.slot_free = list(range(eng.max_batch))
+        eng.cache["lengths"] = eng.tensor(np.zeros((eng.max_batch,),
+                                                   np.int32))
+        for slot in range(eng.max_batch):
+            eng._free_pages(slot)
+
+    def stats(self) -> dict:
+        return {"engine_iterations": self._iterations}

@@ -1,0 +1,99 @@
+"""Multi-instance real-engine driver: real compute, virtual time.
+
+The port of ``repro/serve/driver.py``: N ``ServingEngine`` instances
+become runtime instances with ``TorchBackend`` execution on the copied
+``ServingRuntime``, so routing, scheduling and virtual time are the same
+code the JAX driver runs and a difference between the two drivers is a
+difference in the engine.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+
+from repro_torch.core.config import (ENGINE_HW, ClusterCfg, HardwareSpec,
+                                     InstanceCfg, NetworkCfg, ParallelismCfg,
+                                     RouterCfg, SchedulerCfg,
+                                     engine_scheduler_cfg)
+from repro_torch.core.request import SimRequest
+from repro_torch.profiler import model_spec_from_arch
+from repro_torch.runtime.backends.torch_engine import TorchBackend
+from repro_torch.runtime.cluster import ServingRuntime
+from repro_torch.serve.engine import ServingEngine
+from repro_torch.workload.sharegpt import Request
+
+
+def device_hw(device: torch.device) -> HardwareSpec:
+    """The hardware spec of the runtime's block ledger for an engine on
+    ``device``: ``ENGINE_HW`` on the CPU (the JAX driver's), and on a card
+    its own memory size with the H100 SXM data-sheet rates (the real
+    backend reads only the memory size)."""
+    if device.type != "cuda":
+        return ENGINE_HW
+    props = torch.cuda.get_device_properties(device)
+    return HardwareSpec(
+        name=props.name, peak_flops=989e12, hbm_bw=3.35e12,
+        hbm_capacity=float(props.total_memory), link_bw=450e9,
+        host_bw=64e9)
+
+
+def engine_instance_cfg(engine: ServingEngine,
+                        scheduler: Optional[SchedulerCfg] = None,
+                        trace_name: Optional[str] = None,
+                        hw: Optional[HardwareSpec] = None) -> InstanceCfg:
+    """Runtime InstanceCfg mirroring a live ``ServingEngine``."""
+    model = model_spec_from_arch(engine.cfg)
+    scheduler = scheduler or engine_scheduler_cfg(engine.max_batch)
+    if scheduler.max_batch_size > engine.max_batch:
+        # the engine's slot count is a physical limit; an oversized batch
+        # would crash slot allocation mid-run
+        scheduler = dataclasses.replace(scheduler,
+                                        max_batch_size=engine.max_batch)
+    return InstanceCfg(
+        name=engine.name,
+        hw=hw if hw is not None else device_hw(engine.device),
+        model=model, n_devices=1, role=engine.role,
+        parallelism=ParallelismCfg(tp=1), scheduler=scheduler,
+        trace_name=trace_name)
+
+
+@dataclasses.dataclass
+class DriverCfg:
+    router: str = "round_robin"         # any registered routing policy
+    kv_transfer_bw: float = 16e9        # bytes/s for P/D handoff
+    kv_transfer_latency: float = 10e-6
+    # None -> ServingEngine-matched semantics; pass any SchedulerCfg to give
+    # the real engine chunked prefill / SJF / preemption etc.
+    scheduler: Optional[SchedulerCfg] = None
+
+
+class ServeDriver:
+    def __init__(self, engines: List[ServingEngine],
+                 cfg: DriverCfg = DriverCfg()):
+        self.cfg = cfg
+        self.engines = {e.name: e for e in engines}
+        ccfg = ClusterCfg(
+            instances=tuple(engine_instance_cfg(e, cfg.scheduler)
+                            for e in engines),
+            router=RouterCfg(cfg.router),
+            network=NetworkCfg(inter_instance_bw=cfg.kv_transfer_bw,
+                               inter_instance_latency=cfg.kv_transfer_latency))
+        self.runtime = ServingRuntime(
+            ccfg,
+            backend_factory=lambda icfg, trace: TorchBackend(
+                self.engines[icfg.name], icfg))
+
+    @property
+    def finished(self) -> List[SimRequest]:
+        return self.runtime.finished
+
+    def run(self, requests: Sequence[Request], warmup: bool = True) -> dict:
+        if warmup:
+            self.runtime.warmup()
+        self.runtime.submit_workload(requests)
+        return self.runtime.run()
+
+    def metrics(self) -> dict:
+        return self.runtime.metrics()

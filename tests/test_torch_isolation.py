@@ -1,0 +1,152 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, runs
+on the card unless asked for the CPU, never trades a kernel for its plain
+version on a CUDA tensor, and its copies of the framework-free layers
+agree with the originals."""
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = f"""
+import importlib, json, pkgutil, sys
+sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(json.dumps({{"n": len(names), "bad": bad}}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] > 30
+    assert res["bad"] == []
+
+
+def test_port_sources_name_no_jax():
+    pat = re.compile(r"import jax|from jax|\brepro\.")
+    hits = [f"{p.relative_to(ROOT)}:{i}"
+            for p in sorted(PORT.rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert hits == []
+
+
+def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(get_config("llama3.1-8b-tiny"))
+    eng = ServingEngine(get_config("llama3.1-8b-tiny"), device="cpu",
+                        max_batch=2, max_len=64)
+    assert eng.device.type == "cpu"
+
+
+@pytest.mark.parametrize("what", ["prefix_cache", "tp", "role", "moe"])
+def test_engine_refuses_unported_options(what):
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServingEngine
+    kw = {"prefix_cache": dict(prefix_cache=True), "tp": dict(tp=2),
+          "role": dict(role="prefill"), "moe": {}}[what]
+    arch = "phimini-moe-tiny" if what == "moe" else "llama3.1-8b-tiny"
+    with pytest.raises(NotImplementedError):
+        ServingEngine(get_config(arch), device="cpu", **kw)
+
+
+def test_cuda_call_without_kernel_library_raises(monkeypatch, tmp_path):
+    """A CUDA tensor must reach the kernel or raise: with no library and
+    no compiler the wrappers raise and never run the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    def no_nvcc():
+        raise build.KernelBuildError("nvcc not found")
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(fa, "flash_attention_plain", plain_must_not_run)
+    monkeypatch.setattr(pa, "paged_attention_plain", plain_must_not_run)
+    with FakeTensorMode():
+        q = torch.empty(1, 16, 4, 16, device="cuda")
+        kv = torch.empty(1, 16, 2, 16, device="cuda")
+        with pytest.raises(build.KernelBuildError):
+            ops.flash_attention(q, kv, kv)
+        pages = torch.empty(3, 8, 2, 16, device="cuda")
+        table = torch.zeros(2, 2, dtype=torch.int32, device="cuda")
+        lengths = torch.ones(2, dtype=torch.int32, device="cuda")
+        with pytest.raises(build.KernelBuildError):
+            ops.paged_attention(torch.empty(2, 3, 4, 16, device="cuda"),
+                                pages, pages, table, lengths, page_size=8,
+                                start=torch.zeros(2, dtype=torch.int32,
+                                                  device="cuda"))
+    assert not any(ops.launch_counts().values())
+
+
+def test_cuda_call_the_kernel_does_not_take_raises():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import ops
+    with FakeTensorMode():
+        q = torch.empty(1, 16, 4, 24, device="cuda")       # head dim 24
+        kv = torch.empty(1, 16, 2, 24, device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention(q, kv, kv)
+        q = torch.empty(1, 16, 4, 16, device="cuda", dtype=torch.float16)
+        kv = torch.empty(1, 16, 2, 16, device="cuda", dtype=torch.float16)
+        with pytest.raises(TypeError):
+            ops.flash_attention(q, kv, kv)
+
+
+def _arch_names():
+    from repro.configs import list_archs
+    return list_archs()
+
+
+@pytest.mark.parametrize("tiny", [False, True])
+def test_copied_configs_match(tiny):
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config, list_archs
+    assert list_archs() == _arch_names()
+    for name in list_archs():
+        n = name + "-tiny" if tiny else name
+        assert dataclasses.asdict(get_config(n)) == \
+            dataclasses.asdict(jax_get_config(n)), n
+
+
+def test_copied_workload_generator_matches():
+    from repro.workload import ShareGPTConfig as JaxCfg
+    from repro.workload import generate as jax_generate
+    from repro_torch.workload import ShareGPTConfig, generate
+
+    def key(reqs):
+        return [(r.req_id, r.arrival, list(r.prompt_tokens), r.output_len)
+                for r in reqs]
+    for seed in (0, 3):
+        kw = dict(n_requests=12, rate=5.0, seed=seed, vocab=1000,
+                  max_prompt=300)
+        assert key(generate(ShareGPTConfig(**kw))) == \
+            key(jax_generate(JaxCfg(**kw)))
