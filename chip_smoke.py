@@ -9,16 +9,20 @@ result line:
    capability (9.0 required); TF32 off; the kernels built from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
 2. each kernel against its plain PyTorch version on the card, in f32 and
-   bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and on
-   the main path's own shapes;
-3. each kernel timed at the main path's shapes with CUDA events, beside
+   bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and
+   ``tests/test_kernels.py`` and on the main paths' own shapes;
+3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take;
-4. serving: a tiny f32 model on the card must emit the same tokens as on
-   the CPU, then full-width llama3.1-8b (32 layers, bf16, seeded random
-   weights made on the card) serves 8 requests through ``ServeDriver`` with
-   chunked prefill, and the launch counts show that prefill, extend and
-   decode went through the kernels;
+4. serving: tiny f32 llama and phimini-moe models on the card must emit
+   the same tokens and make the same decisions as on the CPU (the MoE one
+   also under a replayed expert-routing trace, with equal expert-load
+   counts); then two paths at full width, bf16, seeded random weights made
+   on the card, each serving 8 requests through ``ServeDriver`` with
+   chunked prefill, its launch counts set to 0 just before and read just
+   after: llama3.1-8b (flash prefill, paged extend and decode) and
+   phimini-moe (the same three and the grouped expert matmul, 3 launches
+   per MoE layer per model call);
 5. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -26,6 +30,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -119,6 +124,18 @@ def paged_cases():
     yield 1, 256, 32, 8, 128, 64, 32, (293,), (293 + 200,), None
 
 
+def gmm_cases():
+    # (E, C, d, f, group sizes or None for random 0..C)
+    for E, C, d, f in ((4, 64, 32, 16), (8, 128, 16, 64), (2, 32, 128, 8)):
+        yield E, C, d, f, None                    # tests/test_kernels.py
+    yield 4, 48, 32, 24, (48, 0, 5, 17)           # full, empty, tiny, partial
+    # main path (phimini-moe): gate/up at decode and at a 256-token chunk,
+    # down at the chunk
+    yield 16, 1, 4096, 960, None
+    yield 16, 40, 4096, 960, None
+    yield 16, 40, 960, 4096, None
+
+
 def kernels_vs_plain(torch, ops, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {k: 0.0 for k in ops.KERNELS}
@@ -182,6 +199,28 @@ def kernels_vs_plain(torch, ops, dev):
                   f"{TOL[dn]}")
             check(ok, f"{name} disagrees with its plain version ({dn}, "
                       f"lengths={lengths}): {err}")
+        for E, C, d, f, gs in gmm_cases():
+            x = _rand(torch, gen, (E, C, d), dtype, dev)
+            # fan-in scaled weights, as the model's: unit-scale outputs, so
+            # f32 sums over d = 4096 in two orders agree within 1e-4
+            w = (torch.randn((E, d, f), generator=gen, device=dev)
+                 * d ** -0.5).to(dtype)
+            g = torch.randint(0, C + 1, (E,), generator=gen, device=dev) \
+                if gs is None else torch.tensor(gs, device=dev)
+            g = g.to(torch.int32)
+            got = ops.moe_gmm(x, w, g)
+            torch.cuda.synchronize()
+            want = ops.moe_gmm_plain(x, w, g)
+            ok, err = _close(torch, got, want, dn)
+            past = torch.arange(C, device=dev)[None, :] >= g[:, None]
+            zeros = not bool(got[past].any())
+            worst["moe_gmm"] = max(worst["moe_gmm"], err)
+            print(f"  moe_gmm {dn} E{E} C{C} d{d} f{f} "
+                  f"groups{g.tolist() if E <= 8 else int(g.sum())}: "
+                  f"{err:.3g} | {TOL[dn]}; rows past a group all 0: {zeros}")
+            check(ok and zeros, f"moe_gmm disagrees with its plain version "
+                                f"({dn}, E{E} C{C} d{d} f{f}): {err}, "
+                                f"rows past a group 0: {zeros}")
     return worst
 
 
@@ -290,6 +329,29 @@ def timings(torch, ops, dev):
         library_ms=time_ms(torch, lambda: paged_library(
             qe, kp, vp, table[:1], lt, st)),
         bound=bound(nbytes, 4 * pairs * H * dh))
+    # grouped matmul: gate/up at a 256-token chunk (C = 40) and at batch-8
+    # decode (C = 1), group sizes from a uniform top-2 router over 16
+    # experts; the bound counts only what this data needs (active experts'
+    # weights, rows inside the groups)
+    E, d, f, k = 16, 4096, 960, 2
+    for C, T in ((40, 256), (1, 8)):
+        pick = torch.rand((T, E), generator=gen, device=dev).argsort(-1)[
+            :, :k]
+        counts = torch.bincount(pick.reshape(-1), minlength=E)
+        gs = torch.clamp(counts, max=C).to(torch.int32)
+        x = _rand(torch, gen, (E, C, d), bf, dev)
+        w = _rand(torch, gen, (E, d, f), bf, dev)
+        rows = int(gs.sum())
+        active = int((gs > 0).sum())
+        mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+        nbytes = active * d * f * 2 + rows * d * 2 + E * C * f * 2 + E * 4
+        out["moe_gmm" if C == 40 else "moe_gmm_decode"] = dict(
+            shape=f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
+                  f"{rows} rows",
+            ms=time_ms(torch, lambda: ops.moe_gmm(x, w, gs)),
+            plain_ms=time_ms(torch, lambda: ops.moe_gmm_plain(x, w, gs)),
+            library_ms=time_ms(torch, lambda: torch.bmm(x, w).mul_(mask)),
+            bound=bound(nbytes, 2 * rows * d * f))
     print("phase 3: times (median of 20, L2 flushed; ms)")
     for name, t in out.items():
         print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f}, plain "
@@ -299,49 +361,84 @@ def timings(torch, ops, dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def tiny_card_matches_cpu(torch):
-    """A tiny f32 model served on the card (kernels) and on the CPU (plain
-    versions) from the same weights must emit the same tokens."""
+def _tiny_run(torch, arch, params, dev, routing=None):
+    """Serve 6 requests on ``dev`` with all arrivals at 0 (virtual time
+    must not order the decisions): (tokens, decisions, metrics)."""
     from repro_torch.configs import get_config
     from repro_torch.core.config import SchedulerCfg
-    from repro_torch.models import Model
     from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
     from repro_torch.workload import ShareGPTConfig, generate
-    cfg = dataclasses.replace(get_config("llama3.1-8b-tiny"),
-                              compute_dtype="float32")
-    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
     sched = SchedulerCfg(max_batch_size=4, max_batch_tokens=64,
                          chunked_prefill=True, prefill_chunk=32)
-    results = {}
-    for dev in ("cpu", "cuda"):
-        reqs = generate(ShareGPTConfig(
-            n_requests=6, rate=50.0, vocab=cfg.vocab, seed=3,
-            mean_prompt=60, mean_output=8, max_prompt=120, max_output=10,
-            share_fraction=0.0))
-        for r in reqs:       # virtual time must not order the decisions
-            r.arrival = 0.0
-        eng = ServingEngine(cfg, params, max_batch=4, max_len=256,
-                            name="e0", device=dev)
-        drv = ServeDriver([eng], DriverCfg(scheduler=sched))
-        m = drv.run(reqs, warmup=False)
-        inst = drv.runtime.instances["e0"]
-        check(m["finished"] == len(reqs), f"tiny {dev}: {m['finished']}")
-        results[dev] = (dict(inst.backend.out_tokens), list(inst.decisions))
-    check(results["cuda"] == results["cpu"],
-          "tiny llama: tokens or decisions on the card differ from the CPU")
-    n_tok = sum(len(t) for t in results["cuda"][0].values())
-    print(f"phase 4: tiny llama f32, card == CPU: {n_tok} tokens and "
-          f"{len(results['cuda'][1])} decisions identical")
+    reqs = generate(ShareGPTConfig(
+        n_requests=6, rate=50.0, vocab=cfg.vocab, seed=3, mean_prompt=60,
+        mean_output=8, max_prompt=120, max_output=10, share_fraction=0.0))
+    for r in reqs:
+        r.arrival = 0.0
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=256, name="e0",
+                        device=dev, routing=routing)
+    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+    m = drv.run(reqs, warmup=False)
+    inst = drv.runtime.instances["e0"]
+    check(m["finished"] == len(reqs), f"tiny {arch} {dev}: {m['finished']}")
+    return dict(inst.backend.out_tokens), list(inst.decisions), m
 
 
-def full_serve_setup(torch):
-    """Full-width llama3.1-8b on the card behind a warmed-up ServeDriver,
-    and the 8 requests it serves: (cfg, engine, driver, requests)."""
+def tiny_card_matches_cpu(torch):
+    """Tiny f32 models served on the card (kernels) and on the CPU (plain
+    versions) from the same weights must emit the same tokens and make the
+    same decisions; the MoE one also under a replayed zipf routing trace,
+    with equal expert-load counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.moe import moe_layer_count
+    from repro_torch.workload.expert_skew import (SkewConfig,
+                                                  synthesize_routing)
+    for arch in ("llama3.1-8b-tiny", "phimini-moe-tiny"):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        runs = {dev: _tiny_run(torch, arch, params, dev)
+                for dev in ("cpu", "cuda")}
+        check(runs["cuda"][:2] == runs["cpu"][:2],
+              f"tiny {arch}: tokens or decisions on the card differ from "
+              f"the CPU")
+        n_tok = sum(len(t) for t in runs["cuda"][0].values())
+        print(f"phase 4: tiny {arch} f32, card == CPU: {n_tok} tokens and "
+              f"{len(runs['cuda'][1])} decisions identical")
+    trace = synthesize_routing(
+        moe_layer_count(cfg), cfg.moe.n_experts, cfg.moe.top_k,
+        SkewConfig(kind="zipf", zipf_a=1.4, period=128, seed=7),
+        model=cfg.name)
+    runs = {dev: _tiny_run(torch, arch, params, dev, routing=trace)
+            for dev in ("cpu", "cuda")}
+    loads = {dev: r[2]["expert_load"] for dev, r in runs.items()}
+    check(runs["cuda"][:2] == runs["cpu"][:2]
+          and loads["cuda"]["counts"] == loads["cpu"]["counts"]
+          and loads["cuda"]["tokens"] > 0,
+          f"tiny {arch} under a replayed trace: the card differs from the "
+          f"CPU")
+    print(f"phase 4: tiny {arch} f32 under a replayed zipf trace, card == "
+          f"CPU: tokens, decisions and expert-load counts identical "
+          f"({loads['cuda']['tokens']} tokens routed, imbalance "
+          f"{loads['cuda']['imbalance']:.3f})")
+
+
+#: (arch, the kernels its serve must launch)
+PATHS = (("llama3.1-8b", ("flash_attention", "paged_attention_decode",
+                          "paged_attention_extend")),
+         ("phimini-moe", ("flash_attention", "paged_attention_decode",
+                          "paged_attention_extend", "moe_gmm")))
+
+
+def full_serve_setup(torch, arch="llama3.1-8b"):
+    """A full-width model on the card behind a warmed-up ServeDriver, and
+    the 8 requests it serves: (cfg, engine, driver, requests)."""
     from repro_torch.configs import get_config
     from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
     from repro_torch.workload import ShareGPTConfig, generate
-    cfg = get_config("llama3.1-8b")
+    cfg = get_config(arch)
     check(cfg.n_layers == 32 and cfg.d_model == 4096, "not full width")
     t0 = time.perf_counter()
     eng = ServingEngine(cfg, max_batch=8, max_len=2048, name="e0", seed=0)
@@ -368,8 +465,8 @@ def full_serve_setup(torch):
     return cfg, eng, drv, reqs
 
 
-def serve_full(torch, ops, card):
-    cfg, eng, drv, reqs = full_serve_setup(torch)
+def serve_full(torch, ops, card, arch, must_launch):
+    cfg, eng, drv, reqs = full_serve_setup(torch, arch)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     m = drv.run(reqs, warmup=False)
@@ -377,9 +474,17 @@ def serve_full(torch, ops, card):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     check(m["finished"] == len(reqs),
-          f"finished {m['finished']} of {len(reqs)}")
-    for name in ops.KERNELS:
-        check(launches[name] > 0, f"{name} was not launched while serving")
+          f"{arch}: finished {m['finished']} of {len(reqs)}")
+    for name in must_launch:
+        check(launches[name] > 0,
+              f"{name} was not launched while serving {arch}")
+    calls = (launches["flash_attention"] + launches["paged_attention_decode"]
+             + launches["paged_attention_extend"]) // cfg.n_layers
+    if "moe_gmm" in must_launch:
+        # gate, up and down in each of the 32 MoE layers of every call
+        check(launches["moe_gmm"] == 3 * cfg.n_layers * calls,
+              f"{arch}: {launches['moe_gmm']} moe_gmm launches over "
+              f"{calls} model calls, want {3 * cfg.n_layers} per call")
     backend = drv.runtime.instances["e0"].backend
     for r in drv.finished:
         toks = backend.out_tokens[r.req_id]
@@ -394,8 +499,9 @@ def serve_full(torch, ops, card):
           f"{min(r.prompt_len for r in drv.finished)}-"
           f"{max(r.prompt_len for r in drv.finished)}, chunk 256, batch 8): "
           f"TTFT p50 {ttft * 1e3:.1f} ms, TPOT p50 {tpot * 1e3:.2f} ms, "
-          f"{n_out / wall:.1f} output tok/s over wall {wall:.2f} s")
-    print(f"launches while serving: {json.dumps(launches)}")
+          f"{n_out / wall:.1f} output tok/s over wall {wall:.2f} s, "
+          f"{calls} model calls")
+    print(f"launches while serving {cfg.name}: {json.dumps(launches)}")
     return launches
 
 
@@ -416,15 +522,24 @@ def main() -> int:
         times = timings(torch, ops, dev)
         torch.cuda.empty_cache()
         tiny_card_matches_cpu(torch)
-        launches = serve_full(torch, ops, card)
+        by_path = {}
+        for arch, must in PATHS:
+            by_path[arch] = serve_full(torch, ops, card, arch, must)
+            gc.collect()          # ServeDriver and its runtime form a cycle
+            torch.cuda.empty_cache()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     rows = []
     for name, (source, replaces) in ops.KERNELS.items():
         t = times[name]
+        # each kernel's launches on the first path that needs it
+        path = next(a for a, must in PATHS if name in must)
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": by_path[path][name],
+                     "launches_by_path": {a: n[name]
+                                          for a, n in by_path.items()},
                      "max_abs_err": worst[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],

@@ -1,2 +1,3 @@
-"""Attention kernels of the port: hand-written CUDA for Hopper, each with
-its plain PyTorch version (see ``ops``)."""
+"""Kernels of the port: hand-written CUDA for Hopper (flash and paged
+attention, the grouped expert matmul), each with its plain PyTorch version
+(see ``ops``)."""

@@ -1,8 +1,8 @@
-"""The port's attention entry points and its kernel registry.
+"""The port's kernel entry points and its kernel registry.
 
-``flash_attention`` and ``paged_attention`` are the kernel wrappers: on a
-CUDA tensor each launches its hand-written Hopper kernel or raises, on a
-CPU tensor each runs its plain PyTorch version.  ``KERNELS`` names every
+``flash_attention``, ``paged_attention`` and ``moe_gmm`` are the kernel
+wrappers: on a CUDA tensor each launches its hand-written Hopper kernel or
+raises, on a CPU tensor each runs its plain PyTorch version.  ``KERNELS`` names every
 kernel with its source and the TPU kernel it replaces, and
 ``launch_counts`` / ``reset_launch_counts`` read and clear the counters
 the wrappers bump at each launch.
@@ -12,9 +12,11 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 
@@ -29,9 +31,12 @@ KERNELS = {
     "paged_attention_extend": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:32"),
+    "moe_gmm": (
+        "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "src/repro/kernels/moe_gmm.py:39"),
 }
 
-_COUNTERS = (_flash.LAUNCHES, _paged.LAUNCHES)
+_COUNTERS = (_flash.LAUNCHES, _paged.LAUNCHES, _gmm.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -48,5 +53,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "flash_attention", "flash_attention_plain",
-           "launch_counts", "paged_attention", "paged_attention_plain",
-           "reset_launch_counts"]
+           "launch_counts", "moe_gmm", "moe_gmm_plain", "paged_attention",
+           "paged_attention_plain", "reset_launch_counts"]

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the attention kernels (the allclose ground
-truth), the same functions as ``repro/kernels/ref.py``.  The kernel
+"""Plain PyTorch versions of the kernels (the allclose ground truth), the
+same functions as ``repro/kernels/ref.py``.  The kernel
 wrappers run these for CPU tensors, and the tests and ``chip_smoke.py``
 hold the CUDA kernels against them."""
 from __future__ import annotations
@@ -64,3 +64,12 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, lengths, *,
     o = torch.einsum("bskgj,bjkd->bskgd", p, vg.float())
     o = o.reshape(B, S, H, dh).to(q.dtype)
     return o[:, 0] if squeeze else o
+
+
+def moe_gmm_ref(x, w, group_sizes):
+    """Grouped matmul: x: (E,C,d); w: (E,d,f); rows >= group_sizes[e] give 0."""
+    E, C, d = x.shape
+    out = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+    mask = torch.arange(C, device=x.device)[None, :] \
+        < group_sizes.to(x.device)[:, None]
+    return (out * mask[..., None]).to(x.dtype)

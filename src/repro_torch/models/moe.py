@@ -1,0 +1,132 @@
+"""Mixture-of-Experts FFN with top-k routing and sort-based dispatch.
+
+The counterpart of ``repro/models/moe.py`` on its ``backend="pallas"``
+branch: tokens are sorted by expert id, packed into per-expert capacity
+buffers, run through the grouped expert matmul (``kernels.ops.moe_gmm``:
+the Hopper kernel for CUDA tensors, its plain version for CPU tensors)
+three times (gate, up, down; twice for the GELU path) and scattered back
+with their combine weights.  Capacity overflow is dropped.  The TPU
+mesh constraint ``shard_experts`` is not ported: the port serves on one
+card.
+
+The JAX dispatch buffer is ``(E, C + 1, d)`` with an overflow slot per
+expert that dropped entries all write to ``(0, C)``; here it is
+``(E * C + 1, d)`` with the one overflow row at the end, so the first
+``E * C`` rows are the contiguous ``(E, C, d)`` input the kernel takes.
+Dropped entries read back row ``C - 1`` of expert 0 with weight 0, as in
+JAX, so they add exactly 0.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.expert import expert_capacity
+from repro_torch.kernels import ops
+
+
+def normalize_topk(probs: torch.Tensor, top_k: int):
+    """Top-k of ``probs`` with its weights renormalised to sum to 1:
+    (expert_idx (T,k) int64, combine_w (T,k) f32).  Ties go to the lower
+    index, as ``jax.lax.top_k`` breaks them: a stable descending sort, since
+    ``torch.topk`` promises no order (exact ties are common with bf16
+    router logits)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    combine_w, expert_idx = vals[..., :top_k], idx[..., :top_k]
+    combine_w = combine_w / torch.clamp(combine_w.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return expert_idx, combine_w
+
+
+def router_topk(x, w_router, top_k: int):
+    """Return (expert_idx (T,k) int32, combine_w (T,k) f32, aux_loss)."""
+    logits = (x @ w_router.to(x.dtype)).float()               # (T, E)
+    E = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    expert_idx, combine_w = normalize_topk(probs, top_k)
+    # Switch-style load-balancing aux loss: E * sum_e f_e * p_e
+    me = probs.mean(dim=0)
+    flat = expert_idx.reshape(-1)
+    ce = torch.zeros((E,), dtype=torch.float32, device=x.device) \
+        .index_add_(0, flat, torch.ones(flat.shape, device=x.device)) \
+        / flat.numel()
+    aux = E * torch.sum(me * ce)
+    return expert_idx.to(torch.int32), combine_w, aux
+
+
+def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
+            gated: bool = True, router_fn=None, positions=None, layer=None,
+            valid=None):
+    """x: (T, d). params: router (d,E), w_gate/w_up (E,d,de), w_down (E,de,d).
+
+    ``router_fn`` is the injectable routing hook (``repro_torch.moe.hooks``):
+    called as ``router_fn(logits, positions=(T,), layer=int, top_k=int,
+    valid=(T,) bool or None)`` and returning ``(expert_idx (T,k), combine_w
+    (T,k), aux)``.  It replaces only the assignment step.  ``valid`` flags
+    the rows that are real workload tokens; invalid rows sort into a trash
+    bucket past every expert and go straight to the overflow slot, so they
+    take no real token's capacity.  With ``valid=None`` every row routes
+    and competes for capacity (pad tails included), as in JAX.
+    """
+    T, d = x.shape
+    E = params["router"].shape[-1]
+    if router_fn is None:
+        expert_idx, combine_w, aux = router_topk(x, params["router"], top_k)
+    else:
+        logits = (x @ params["router"].to(x.dtype)).float()
+        expert_idx, combine_w, aux = router_fn(
+            logits, positions=positions, layer=layer, top_k=top_k,
+            valid=valid)
+    C = expert_capacity(T, top_k, E, capacity_factor)
+
+    # --- dispatch: sort (token, k) pairs by expert --------------------------
+    flat_e = expert_idx.reshape(-1).long()                  # (T*k,)
+    if valid is None:
+        sort_e = flat_e
+    else:
+        sort_e = torch.where(valid[:, None].expand(T, top_k).reshape(-1),
+                             flat_e, torch.full_like(flat_e, E))
+    order = torch.argsort(sort_e, stable=True)
+    tok_of = order // top_k                                 # token per entry
+    e_sorted = flat_e[order]
+    s_sorted = sort_e[order]
+    # position within expert group = rank - group_start[expert]
+    # (scatter_add_, not bincount: bincount syncs the host on the card)
+    counts = torch.zeros((E + 1,), dtype=torch.long, device=x.device) \
+        .scatter_add_(0, sort_e, torch.ones_like(sort_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(T * top_k, device=x.device) - starts[s_sorted]
+    keep = (pos_in_e < C) & (s_sorted < E)                  # capacity drop
+    # flat buffer row: expert * C + slot, the overflow row E * C
+    dst = torch.where(keep, e_sorted * C + pos_in_e,
+                      torch.full_like(pos_in_e, E * C))
+    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[dst] = x[tok_of]
+    hidden_in = buf[:E * C].view(E, C, d)
+
+    # --- grouped expert FFN: three launches of the grouped matmul -----------
+    # valid rows per expert buffer; rows >= size come out 0 either way
+    group_sizes = torch.clamp(counts[:E], max=C).to(torch.int32)
+    if gated:
+        g = F.silu(ops.moe_gmm(hidden_in, params["w_gate"].to(x.dtype),
+                               group_sizes))
+        u = ops.moe_gmm(hidden_in, params["w_up"].to(x.dtype), group_sizes)
+        h = g * u
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(ops.moe_gmm(hidden_in, params["w_up"].to(x.dtype),
+                               group_sizes), approximate="tanh")
+    out_e = ops.moe_gmm(h, params["w_down"].to(x.dtype), group_sizes)
+
+    # --- combine: gather back and weight ------------------------------------
+    # dropped entries read expert 0's row C - 1 (JAX's clamp of slot C)
+    src = torch.where(keep, dst, torch.full_like(dst, C - 1))
+    gathered = out_e.reshape(E * C, d)[src]                 # (T*k, d)
+    w = (combine_w.reshape(-1)[order] * keep).to(x.dtype)
+    contrib = gathered * w[:, None]
+    # sorted-order adds onto zeros: with top-2 each row takes exactly two
+    # adds, so the order cannot change a bit even where index_add_ runs on
+    # atomics (the card); with top_k > 2 it can in the last bit
+    y = torch.zeros((T, d), dtype=x.dtype, device=x.device) \
+        .index_add_(0, tok_of, contrib)
+    return y, aux

@@ -1,9 +1,10 @@
-"""Dense decoder-only model over a paged KV cache.
+"""Decoder-only model over a paged KV cache.
 
 The counterpart of ``repro/models/transformer.py`` for attention + MLP
-stages (``ATTN_MLP``), with the same parameter layout (``init``), the same
-entry points (``prefill``, ``decode``, ``extend``) and the same paged
-slot-KV layout (``init_cache``, ``page_geometry``):
+stages (``ATTN_MLP``) and attention + MoE stages (``ATTN_MOE``), with the
+same parameter layout (``init``), the same entry points (``prefill``,
+``decode``, ``extend``) and the same paged slot-KV layout (``init_cache``,
+``page_geometry``):
 
 * ``prefill`` runs flash attention over a bucketed chunk and returns the
   chunk's K/V contiguously; the engine scatters it into pages.
@@ -13,16 +14,25 @@ slot-KV layout (``init_cache``, ``page_geometry``):
 * ``extend`` writes a chunk of K/V after ``cache["lengths"]`` and runs
   paged attention with per-sequence ``start``.
 
-Pad-tail positions and writes from full or unscheduled slots go to the
-scratch page (the pool's last page), which is never read.  The JAX model
+Each slot's unallocated table entries point at a scratch page of its own
+(``init_cache``): a free or unscheduled slot's decode writes its K/V there
+and reads back exactly that, as it would from its own row of the JAX
+model's contiguous cache, and no two slots' throwaway writes collide (on
+the card, which of two colliding writes lands is not defined; an MoE layer
+routes those rows too, so their values reach real tokens through expert
+capacity).  Writes past the table go to the pool's last page, which is
+never read.  The JAX model
 updates its pools functionally (``.at[].set``); this one writes them in
 place with ``index_put_``, so the cache a call returns shares its pools
 with the cache it was given.
 
-Attention always goes through ``repro_torch.kernels.ops``: the Hopper
-kernels for CUDA tensors, their plain versions for CPU tensors.
-``ArchConfig.kernels`` is not read.  Speculative ``verify`` is not ported
-yet.
+Attention and the MoE grouped matmul always go through
+``repro_torch.kernels.ops``: the Hopper kernels for CUDA tensors, their
+plain versions for CPU tensors.  ``ArchConfig.kernels`` is not read.
+``routing_hook`` (``repro_torch.moe.hooks``) replaces the top-k assignment
+of every MoE layer; only then do pad-tail rows and unscheduled decode rows
+(the negative-token sentinel) leave MoE dispatch, as in JAX.  Speculative
+``verify`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,10 +46,9 @@ from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
 from repro_torch.kernels import ops
 from repro_torch.models import module as m
 from repro_torch.models.layers import gelu_mlp, rmsnorm, rope, swiglu_mlp
+from repro_torch.models.moe import moe_ffn
 
 _NOT_PORTED = {
-    ATTN_MOE: "MoE stages wait for ROADMAP queue 1 item 4 (MoE) and the "
-              "moe_gmm kernel (queue 2)",
     MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 10",
     ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 10",
     XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 10",
@@ -97,6 +106,19 @@ def _init_mlp(gen, cfg: ArchConfig, L: int, **kw) -> dict:
             "w_out": m.dense_init(gen, ff, d, lead=(L,), **kw)}
 
 
+def _init_moe(gen, cfg: ArchConfig, L: int, **kw) -> dict:
+    d, mo = cfg.d_model, cfg.moe
+    router = m.dense_init(gen, d, mo.n_experts, lead=(L,),
+                          device=kw.get("device")) * 0.1
+    return {"router": router.to(kw.get("dtype", torch.float32)),
+            "w_gate": m.dense_init(gen, d, mo.d_expert,
+                                   lead=(L, mo.n_experts), **kw),
+            "w_up": m.dense_init(gen, d, mo.d_expert,
+                                 lead=(L, mo.n_experts), **kw),
+            "w_down": m.dense_init(gen, mo.d_expert, d,
+                                   lead=(L, mo.n_experts), **kw)}
+
+
 # --------------------------------------------------------------------------
 # block forward
 # --------------------------------------------------------------------------
@@ -140,7 +162,7 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
         pidx = pos // page_size
         page = block_table[rows[:, None],
                            torch.clamp(pidx, max=maxp - 1)].long()
-        # full-slot and pad-tail writes land on the scratch page
+        # writes past the table land on the last page, never read
         page = torch.where(pidx < maxp, page,
                            torch.full_like(page, n_pages - 1))
         off = pos % page_size
@@ -175,6 +197,34 @@ def _attn_mlp_block(p, x, cfg, **kw):
     return x, new_cache
 
 
+def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
+                    **kw):
+    h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
+                              cfg, **kw)
+    x = x + h
+    B, S, d = x.shape
+    xn = rmsnorm(x, p["norm2"], cfg.norm_eps).reshape(B * S, d)
+    pos_flat = valid = None
+    if routing_hook is not None:
+        # the flattened (B*S,) positions key the hook's per-position
+        # tables; the validity mask drops pad tails (prefill/extend) and,
+        # in decode, empty slots (position 0) and rows the engine marked
+        # unscheduled (``row_valid``, from the negative-token sentinel)
+        positions, lengths = kw["positions"], kw["lengths"]
+        pos_flat = positions.reshape(B * S)
+        if kw["mode"] == "decode":
+            valid = pos_flat > 0
+            if row_valid is not None:
+                valid = valid & row_valid[:, None].expand(B, S).reshape(-1)
+        elif lengths is not None:
+            valid = (positions < lengths[:, None]).reshape(B * S)
+    y, _ = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
+                   capacity_factor=cfg.moe.capacity_factor,
+                   gated=cfg.mlp_gated, router_fn=routing_hook,
+                   positions=pos_flat, layer=layer_idx, valid=valid)
+    return x + y.reshape(B, S, d), new_cache
+
+
 def _layer(tree, li):
     if isinstance(tree, dict):
         return {k: _layer(v, li) for k, v in tree.items()}
@@ -189,10 +239,14 @@ def _layer(tree, li):
 class Model:
     cfg: ArchConfig
     page_size: int = 64
+    # the MoE routing hook (``repro_torch.moe.hooks``): replaces the top-k
+    # assignment step of every MoE layer (forced replay, logit bias or a
+    # recording tap); None routes with the learned router
+    routing_hook: Optional[Any] = None
 
     def __post_init__(self):
         for st in self.cfg.stages:
-            if st.kind != ATTN_MLP:
+            if st.kind not in (ATTN_MLP, ATTN_MOE):
                 raise NotImplementedError(
                     f"{self.cfg.name}: {_NOT_PORTED.get(st.kind, st.kind)}")
         if not self.cfg.embed_inputs or self.cfg.n_codebooks:
@@ -215,8 +269,11 @@ class Model:
             params[f"stage{i}"] = {
                 "norm1": m.zeros((L, cfg.d_model), device=device),
                 "attn": _init_attn(gen, cfg, L, **kw),
-                "norm2": m.zeros((L, cfg.d_model), device=device),
-                "mlp": _init_mlp(gen, cfg, L, **kw)}
+                "norm2": m.zeros((L, cfg.d_model), device=device)}
+            if st.kind == ATTN_MOE:
+                params[f"stage{i}"]["moe"] = _init_moe(gen, cfg, L, **kw)
+            else:
+                params[f"stage{i}"]["mlp"] = _init_mlp(gen, cfg, L, **kw)
         params["final_norm"] = m.zeros((cfg.d_model,), device=device)
         params["head"] = {"w": m.dense_init(gen, cfg.d_model,
                                             cfg.padded_vocab, **kw)}
@@ -242,22 +299,33 @@ class Model:
         return cfg.sliding_window
 
     def _run_stages(self, params, x, *, positions, lengths, mode, cache,
-                    block_table):
+                    block_table, row_valid=None):
         new_caches = {}
+        moe_off = 0          # model-wide MoE layer index of the stage's 0
         for i, st in enumerate(self.cfg.stages):
             sp = params[f"stage{i}"]
             layer_caches = []
             for li in range(st.n_layers):
                 kcache = None if cache is None else \
                     _layer(cache[f"stage{i}"], li)
-                x, nc = _attn_mlp_block(
-                    _layer(sp, li), x, self.cfg, positions=positions,
-                    lengths=lengths,
-                    window=self._window_for_layer(li,
-                                                  st.local_global_period),
-                    mode=mode, cache=kcache, block_table=block_table,
-                    page_size=self.page_size)
+                kw = dict(positions=positions, lengths=lengths, mode=mode,
+                          cache=kcache, block_table=block_table,
+                          page_size=self.page_size)
+                if st.kind == ATTN_MOE:
+                    # MoE layers attend without a window, as in JAX
+                    x, nc = _attn_moe_block(
+                        _layer(sp, li), x, self.cfg, window=None,
+                        layer_idx=moe_off + li,
+                        routing_hook=self.routing_hook,
+                        row_valid=row_valid, **kw)
+                else:
+                    x, nc = _attn_mlp_block(
+                        _layer(sp, li), x, self.cfg,
+                        window=self._window_for_layer(
+                            li, st.local_global_period), **kw)
                 layer_caches.append(nc)
+            if st.kind == ATTN_MOE:
+                moe_off += st.n_layers
             if mode == "prefill":
                 new_caches[f"stage{i}"] = {
                     key: torch.stack([c[key] for c in layer_caches])
@@ -292,14 +360,17 @@ class Model:
         cache["lengths"] counts tokens *already in* the cache; the new token
         is written at index lengths (then lengths+1 is returned).  A
         negative token is the engine's sentinel for a row that is not
-        scheduled this step; it runs on token 0."""
+        scheduled this step; it runs on token 0, and under a routing hook
+        its row takes no MoE capacity and is not recorded."""
+        row_valid = tokens.reshape(tokens.shape[0], -1)[:, 0] >= 0
         x = self._embed(params, torch.clamp(tokens, min=0))
         lengths = cache["lengths"] + 1       # include current token
         positions = (lengths - 1)[:, None]
         block_table = cache["block_table"]
         x, stages = self._run_stages(params, x, positions=positions,
                                      lengths=lengths, mode="decode",
-                                     cache=cache, block_table=block_table)
+                                     cache=cache, block_table=block_table,
+                                     row_valid=row_valid)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         new_cache = {"lengths": lengths, "block_table": block_table,
                      **stages}
@@ -330,21 +401,25 @@ class Model:
 
     # ---- cache construction ----
     def page_geometry(self, batch: int, max_len: int) -> Tuple[int, int]:
-        """(pages per sequence, total pool pages incl. the scratch page)."""
+        """(pages per sequence, total pool pages): ``batch * maxp`` pages to
+        allocate, then one scratch page per slot (slot b's is
+        ``batch * maxp + b``), then the page that takes writes past the
+        table."""
         maxp = -(-max_len // self.page_size)
-        return maxp, batch * maxp + 1
+        return maxp, batch * maxp + batch + 1
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        """Zeroed paged cache in the compute dtype; every table entry starts
-        at the scratch page (the pool's last page)."""
+        """Zeroed paged cache in the compute dtype; every table entry of
+        slot b starts at b's scratch page."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         maxp, n_pages = self.page_geometry(batch, max_len)
+        scratch = batch * maxp + torch.arange(batch, dtype=torch.int32,
+                                              device=device)
         cache: Dict[str, Any] = {
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device),
-            "block_table": torch.full((batch, maxp), n_pages - 1,
-                                      dtype=torch.int32, device=device)}
+            "block_table": scratch[:, None].expand(batch, maxp).contiguous()}
         for i, st in enumerate(cfg.stages):
             shape = (st.n_layers, n_pages, self.page_size, cfg.n_kv_heads,
                      cfg.d_head)

@@ -12,9 +12,18 @@ virtual, advanced by the measured latencies on the runtime's event queue.
 
 Chunked prefill: the first chunk runs the bucketed ``prefill``; later
 chunks ``extend`` a one-row view of the slot.  One full-buffer ``decode``
-serves all scheduled decode slots per iteration.  Speculative decoding,
-trace-driven MoE routing, the prefix store and P/D export/import are not
-ported yet; the engine refuses configurations that ask for them, and
+serves all scheduled decode slots per iteration.
+
+Trace-driven MoE routing as in the JAX backend: an engine built with
+``ServingEngine(routing=<trace>)`` replays the trace in every MoE layer,
+and this backend mirrors it in an ``ExpertLoadTracker`` over the KV
+positions it executed, so ``stats()["expert_load"]`` states what really
+routed.  Under any routing hook the full-buffer decode marks unscheduled
+slots with the token -1 and free slots keep length 0, so neither is
+recorded nor takes a real token's expert capacity.
+
+Speculative decoding, the prefix store and P/D export/import are not
+ported yet; the backend refuses configurations that ask for them, and
 ``export_kv``/``import_kv`` raise.
 """
 from __future__ import annotations
@@ -27,6 +36,7 @@ import numpy as np
 from repro_torch.core.config import InstanceCfg
 from repro_torch.core.memory import MemoryModel
 from repro_torch.core.request import SimRequest
+from repro_torch.moe import ExpertLoadTracker, resolve_routing
 from repro_torch.runtime.backend import KvHandoff
 from repro_torch.runtime.prefix_cache import MatchResult
 from repro_torch.runtime.scheduler import ScheduledWork
@@ -38,11 +48,10 @@ class TorchBackend:
     name = "torch"
 
     def __init__(self, engine, cfg: InstanceCfg):
-        if cfg.spec.enabled or cfg.spec.acceptance_trace \
-                or cfg.moe.routing_trace:
+        if cfg.spec.enabled or cfg.spec.acceptance_trace:
             raise NotImplementedError(
-                f"instance {cfg.name!r}: speculative decoding and "
-                f"trace-driven MoE routing are not ported yet")
+                f"instance {cfg.name!r}: speculative decoding is not "
+                f"ported yet")
         self.eng = engine
         self.cfg = cfg
         self.memory = MemoryModel(cfg)
@@ -52,6 +61,30 @@ class TorchBackend:
         self.obs = None
         # output-token capture: req_id -> emitted token ids, in order
         self.out_tokens: Dict[int, List[int]] = {}
+        # expert-load mirror of a replayed trace: the engine's own trace is
+        # the only valid source; a cfg-named trace the engine does not
+        # replay would report routing that never ran, so it is an error
+        self.routing = engine.routing_trace
+        if cfg.moe.routing_trace:
+            if self.routing is None:
+                raise ValueError(
+                    f"instance {cfg.name!r} names routing_trace="
+                    f"{cfg.moe.routing_trace!r} but its engine replays no "
+                    f"trace; build it with ServingEngine(routing=<trace>) "
+                    f"so the reported expert_load is what actually routed")
+            named = resolve_routing(cfg)
+            if named is not self.routing \
+                    and named.to_json() != self.routing.to_json():
+                raise ValueError(
+                    f"instance {cfg.name!r} names routing_trace="
+                    f"{cfg.moe.routing_trace!r} but its engine replays a "
+                    f"different trace ({self.routing.model!r}); the "
+                    f"accounting table must be the one the model executes")
+        self.expert_load = ExpertLoadTracker(
+            self.routing, ep=cfg.parallelism.ep,
+            capacity_factor=engine.cfg.moe.capacity_factor) \
+            if self.routing is not None else None
+        self._routed_pos: List[int] = []     # positions routed this iter
 
     # ---- helpers ----
     def prompt_cap(self, req: SimRequest) -> int:
@@ -95,17 +128,34 @@ class TorchBackend:
             self._prefill_chunk(w)
         self.eng.synchronize()
         self._iterations += 1
-        return time.perf_counter() - t0
+        latency = time.perf_counter() - t0
+        if self.expert_load is not None:
+            self.expert_load.observe(self._routed_pos, now)
+            self._routed_pos = []
+        return latency
 
     def _decode_step(self, decodes: List[ScheduledWork]):
         eng = self.eng
+        tokens = eng._tokens_buf
         for w in decodes:
             # the decode writes each scheduled slot's new token at its old
             # length: make sure that page exists
             slot = self._slot[w.request.req_id]
             eng.ensure_capacity(slot, self._len[slot] + 1)
+        hooked = eng.model.routing_hook is not None
+        if hooked:
+            # mark every slot that is not scheduled (free, or mid-prefill)
+            # with the sentinel -1: its row still computes, but is neither
+            # recorded nor given expert capacity.  The engine's buffer keeps
+            # the mid-prefill slots' pending first tokens.
+            tokens = tokens.copy()
+            scheduled_slots = {self._slot[w.request.req_id]
+                               for w in decodes}
+            for slot in range(eng.max_batch):
+                if slot not in scheduled_slots:
+                    tokens[slot, 0] = -1
         logits, eng.cache = eng.model.decode(eng.params, eng.cache,
-                                             eng.tensor(eng._tokens_buf))
+                                             eng.tensor(tokens))
         nxt = greedy(logits, eng.cfg.vocab).cpu().numpy()
         scheduled = set()
         for w in decodes:
@@ -113,11 +163,19 @@ class TorchBackend:
             eng._tokens_buf[slot, 0] = int(nxt[slot, 0])
             self.out_tokens.setdefault(w.request.req_id, []).append(
                 int(nxt[slot, 0]))
+            if self.expert_load is not None:
+                # the decode wrote this slot's token at KV index _len
+                self._routed_pos.append(self._len[slot])
             self._len[slot] += 1
             scheduled.add(slot)
-        if scheduled != set(self._len):
+        if scheduled != set(self._len) \
+                or (hooked and len(self._len) < eng.max_batch):
             # the full-buffer decode bumped every slot's length; restore
-            # the lengths of mid-prefill / unscheduled slots
+            # the lengths of mid-prefill / unscheduled slots.  Under a
+            # routing hook also zero the free slots every step: the hook's
+            # decode mask knows an empty slot by its position 0, and bumps
+            # left to pile up over decode-only steps would mark phantom
+            # rows valid
             lengths = np.zeros((eng.max_batch,), np.int32)
             for s, n in self._len.items():
                 lengths[s] = n
@@ -151,6 +209,9 @@ class TorchBackend:
                 logits, new_sub = eng.model.extend(eng.params, sub,
                                                    eng.tensor(pad), n_new)
                 eng._write_slot(slot, new_sub, start + len(chunk))
+            if self.expert_load is not None:
+                # the chunk's tokens occupy KV positions [start, start+n)
+                self._routed_pos.extend(range(start, start + len(chunk)))
             self._len[slot] = start + len(chunk)
         if self._len[slot] >= len(toks) and logits is not None:
             # prompt complete: the last chunk's logits give the first token
@@ -191,6 +252,7 @@ class TorchBackend:
         eng = self.eng
         self._slot.clear()
         self._len.clear()
+        self._routed_pos = []
         eng.slot_free = list(range(eng.max_batch))
         eng.cache["lengths"] = eng.tensor(np.zeros((eng.max_batch,),
                                                    np.int32))
@@ -198,4 +260,7 @@ class TorchBackend:
             eng._free_pages(slot)
 
     def stats(self) -> dict:
-        return {"engine_iterations": self._iterations}
+        s = {"engine_iterations": self._iterations}
+        if self.expert_load is not None:
+            s["expert_load"] = self.expert_load.metrics()
+        return s

@@ -14,8 +14,8 @@ from typing import List, Optional, Sequence
 import torch
 
 from repro_torch.core.config import (ENGINE_HW, ClusterCfg, HardwareSpec,
-                                     InstanceCfg, NetworkCfg, ParallelismCfg,
-                                     RouterCfg, SchedulerCfg,
+                                     InstanceCfg, MoECfg, NetworkCfg,
+                                     ParallelismCfg, RouterCfg, SchedulerCfg,
                                      engine_scheduler_cfg)
 from repro_torch.core.request import SimRequest
 from repro_torch.profiler import model_spec_from_arch
@@ -42,8 +42,13 @@ def device_hw(device: torch.device) -> HardwareSpec:
 def engine_instance_cfg(engine: ServingEngine,
                         scheduler: Optional[SchedulerCfg] = None,
                         trace_name: Optional[str] = None,
+                        moe: Optional[MoECfg] = None,
                         hw: Optional[HardwareSpec] = None) -> InstanceCfg:
-    """Runtime InstanceCfg mirroring a live ``ServingEngine``."""
+    """Runtime InstanceCfg mirroring a live ``ServingEngine``.
+
+    ``moe`` lets the simulated twin of a MoE engine name the same
+    ``routing_trace`` the engine replays, so the two report comparable
+    ``expert_load``."""
     model = model_spec_from_arch(engine.cfg)
     scheduler = scheduler or engine_scheduler_cfg(engine.max_batch)
     if scheduler.max_batch_size > engine.max_batch:
@@ -56,7 +61,7 @@ def engine_instance_cfg(engine: ServingEngine,
         hw=hw if hw is not None else device_hw(engine.device),
         model=model, n_devices=1, role=engine.role,
         parallelism=ParallelismCfg(tp=1), scheduler=scheduler,
-        trace_name=trace_name)
+        moe=moe if moe is not None else MoECfg(), trace_name=trace_name)
 
 
 @dataclasses.dataclass

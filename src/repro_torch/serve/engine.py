@@ -7,11 +7,14 @@ unified runtime (``repro_torch.runtime``) schedules every iteration and
 drives it through ``TorchBackend.execute``.
 
 The KV layout is the JAX package's paged one: shared page pools per layer
-(page size 64), a per-slot block table whose free entries point at a
-scratch page (the pool's last page, never allocated, which takes every
-masked write), and a free-list allocator.  Prefix caching, tensor
-parallelism, trace-driven MoE routing, speculative decoding and P/D roles
-are not ported yet; asking for any of them raises.
+(page size 64), a per-slot block table whose free entries point at the
+slot's own scratch page (never allocated; see ``Model.page_geometry``),
+and a free-list allocator.  MoE routing is injected here,
+as in JAX: ``routing`` is an ``ExpertRoutingTrace`` (replayed, and kept as
+``routing_trace`` so ``TorchBackend`` accounts expert load from the same
+table) or a hook callable (``repro_torch.moe.hooks``).  Prefix caching,
+tensor parallelism, speculative decoding and P/D roles are not ported yet;
+asking for any of them raises.
 """
 from __future__ import annotations
 
@@ -58,7 +61,6 @@ class ServingEngine:
                  tp: int = 1, routing=None, spec=None, device=None):
         for asked, what in ((prefix_cache, "prefix_cache=True"),
                             (int(tp) != 1, f"tp={tp}"),
-                            (routing is not None, "routing="),
                             (spec is not None, "spec="),
                             (role != "unified", f"role={role!r}")):
             if asked:
@@ -73,7 +75,23 @@ class ServingEngine:
         self.radix = None
         self.spec = None
         self.page_size = 64
-        self.model = Model(cfg, page_size=self.page_size)
+        self.routing_trace = None
+        hook = None
+        if routing is not None:
+            if callable(routing):
+                hook = routing
+            else:
+                from repro_torch.moe.hooks import make_replay_hook
+                from repro_torch.moe.trace import moe_layer_count
+                routing.check_model(cfg)
+                if routing.n_layers != moe_layer_count(cfg):
+                    raise ValueError(
+                        f"routing trace {routing.model!r} has "
+                        f"{routing.n_layers} MoE layers but {cfg.name!r} "
+                        f"has {moe_layer_count(cfg)}")
+                self.routing_trace = routing
+                hook = make_replay_hook(routing)
+        self.model = Model(cfg, page_size=self.page_size, routing_hook=hook)
         dtype = torch_dtype(cfg.compute_dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -84,14 +102,18 @@ class ServingEngine:
         self.cache = self.model.init_cache(max_batch, max_len,
                                            device=self.device)
         # page allocator: a free list over the shared pool, a host mirror
-        # of the device block table, and per-slot allocation counts.  The
-        # last pool index is the scratch page.
+        # of the device block table, and per-slot allocation counts.  Past
+        # the allocatable pages come one scratch page per slot, then the
+        # page that takes writes past the table.
         self._maxp, self._n_pages = self.model.page_geometry(max_batch,
                                                              max_len)
+        n_alloc = max_batch * self._maxp
         self._scratch = self._n_pages - 1
-        self._page_free = list(range(self._n_pages - 1))
-        self._table_np = np.full((max_batch, self._maxp), self._scratch,
-                                 np.int32)
+        self._slot_scratch = [n_alloc + b for b in range(max_batch)]
+        self._page_free = list(range(n_alloc))
+        self._table_np = np.repeat(
+            np.asarray(self._slot_scratch, np.int32)[:, None], self._maxp,
+            axis=1)
         self._slot_pages = [0] * max_batch
         self.slot_free = list(range(max_batch))
         self._tokens_buf = np.zeros((max_batch, 1), np.int32)
@@ -107,7 +129,7 @@ class ServingEngine:
     def warmup(self, buckets=(16, 32, 64, 128, 256)):
         """Run prefill at every bucket and one decode, so the first
         measured iteration pays no one-time cost (library handles, the
-        kernels' build and load).  Decode writes land on the scratch page
+        kernels' build and load).  Decode writes land on the scratch pages
         of free slots and its returned cache is dropped."""
         for P in buckets:
             if P >= self.max_len:
@@ -140,7 +162,7 @@ class ServingEngine:
             return
         for j in range(self._slot_pages[slot]):
             self._page_free.append(int(self._table_np[slot, j]))
-            self._table_np[slot, j] = self._scratch
+            self._table_np[slot, j] = self._slot_scratch[slot]
         self._slot_pages[slot] = 0
         self._push_table()
 
@@ -155,7 +177,7 @@ class ServingEngine:
 
     def _write_slot_from_prefill(self, slot: int, cache1, n: int):
         """Scatter a (B=1) prefill cache through ``slot``'s table row;
-        pad-tail positions past the allocation go to the scratch page."""
+        pad-tail positions past the table go to the last page."""
         P = cache1["stage0"]["k"].shape[2]
         self.ensure_capacity(slot, min(P, self.max_len))
         row = self.cache["block_table"][slot].long()

@@ -61,15 +61,14 @@ def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
     assert eng.device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["prefix_cache", "tp", "role", "moe"])
+@pytest.mark.parametrize("what", ["prefix_cache", "tp", "role", "spec"])
 def test_engine_refuses_unported_options(what):
     from repro_torch.configs import get_config
     from repro_torch.serve import ServingEngine
     kw = {"prefix_cache": dict(prefix_cache=True), "tp": dict(tp=2),
-          "role": dict(role="prefill"), "moe": {}}[what]
-    arch = "phimini-moe-tiny" if what == "moe" else "llama3.1-8b-tiny"
+          "role": dict(role="prefill"), "spec": dict(spec=object())}[what]
     with pytest.raises(NotImplementedError):
-        ServingEngine(get_config(arch), device="cpu", **kw)
+        ServingEngine(get_config("llama3.1-8b-tiny"), device="cpu", **kw)
 
 
 def test_cuda_call_without_kernel_library_raises(monkeypatch, tmp_path):
@@ -105,6 +104,66 @@ def test_cuda_call_without_kernel_library_raises(monkeypatch, tmp_path):
                                 start=torch.zeros(2, dtype=torch.int32,
                                                   device="cuda"))
     assert not any(ops.launch_counts().values())
+
+
+def test_moe_gmm_on_cuda_reaches_the_kernel_library_or_raises(monkeypatch,
+                                                              tmp_path):
+    """A CUDA tensor in ``moe_gmm`` goes to the kernel library, never to
+    the plain version: with no compiler it raises the build error, and a
+    shape, dtype or layout the kernel does not take raises before that."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import moe_gmm as gm
+
+    def no_nvcc():
+        raise build.KernelBuildError("nvcc not found")
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(gm, "moe_gmm_plain", plain_must_not_run)
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        x = torch.empty(4, 8, 32, device="cuda")
+        w = torch.empty(4, 32, 16, device="cuda")
+        gs = torch.zeros(4, dtype=torch.int32, device="cuda")
+        with pytest.raises(build.KernelBuildError):
+            ops.moe_gmm(x, w, gs)
+        with pytest.raises(TypeError):
+            ops.moe_gmm(x.half(), w.half(), gs)
+        with pytest.raises(ValueError, match="int32"):
+            ops.moe_gmm(x, w, gs.long())
+        with pytest.raises(ValueError, match="does not match"):
+            ops.moe_gmm(x, torch.empty(4, 16, 16, device="cuda"), gs)
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.moe_gmm(torch.empty_strided((4, 8, 32), (256, 1, 8),
+                                            device="cuda"), w, gs)
+    assert ops.launch_counts()["moe_gmm"] == 0
+
+
+def test_copied_routing_trace_bytes_match(tmp_path):
+    """The port's copies of ``moe/trace.py`` and ``expert_skew.py`` give
+    the JAX package's trace bytes, and each loads the other's file."""
+    from repro.moe.trace import ExpertRoutingTrace as JaxTrace
+    from repro.workload.expert_skew import SkewConfig as JaxSkew
+    from repro.workload.expert_skew import synthesize_routing as jax_synth
+    from repro_torch.moe import ExpertRoutingTrace
+    from repro_torch.workload.expert_skew import (SkewConfig,
+                                                  synthesize_routing)
+    for i, kw in enumerate((dict(kind="zipf", zipf_a=1.4, period=128,
+                                 seed=7),
+                            dict(kind="uniform", period=64, seed=1),
+                            dict(kind="correlated", period=32, seed=3))):
+        j = jax_synth(3, 16, 2, JaxSkew(**kw), model="m")
+        t = synthesize_routing(3, 16, 2, SkewConfig(**kw), model="m")
+        assert t.to_json() == j.to_json()
+        assert ExpertRoutingTrace.load(j.save(
+            str(tmp_path / f"j{i}.json"))).to_json() == j.to_json()
+        assert JaxTrace.load(t.save(
+            str(tmp_path / f"t{i}.json"))).to_json() == t.to_json()
 
 
 def test_cuda_call_the_kernel_does_not_take_raises():

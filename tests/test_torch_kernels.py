@@ -1,4 +1,4 @@
-"""The port's attention kernels.
+"""The port's kernels.
 
 CPU: the plain versions (what the wrappers run for CPU tensors) against the
 JAX package's oracles (``repro/kernels/ref.py``) on the shapes of
@@ -7,7 +7,8 @@ in f32 within 2e-5, over the rows an engine reads.  Inputs are drawn once
 with numpy and handed to both sides.
 
 Card (``-m cuda``, skips without compute capability 9.0): each CUDA kernel
-against its plain version on the same inputs.  These tests import no JAX,
+against its plain version on the same inputs (the grouped matmul's CPU
+checks against JAX are in ``tests/test_torch_moe.py``).  These tests import no JAX,
 so they run on a machine that has none.
 """
 import numpy as np
@@ -194,3 +195,29 @@ def test_paged_kernel_matches_plain(sm90, dtype, S, H, KV, dh, ps, maxp,
                                      window=window).float()
     err = (got - want).abs().max().item()
     assert err <= CUDA_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f,gs", [
+    (4, 64, 32, 16, None), (8, 128, 16, 64, None), (2, 32, 128, 8, None),
+    (4, 48, 32, 24, (48, 0, 5, 17)),
+    # the serving path: decode and a 256-token chunk of phimini-moe
+    (16, 1, 4096, 960, None), (16, 40, 4096, 960, None),
+    (16, 40, 960, 4096, None)])
+def test_moe_gmm_kernel_matches_plain(sm90, dtype, E, C, d, f, gs):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(_normal(rng, (E, C, d))).to(sm90, dtype)
+    # fan-in scaled weights, as the model's: outputs of unit scale, so the
+    # f32 sums over d = 4096 in two orders stay within 1e-4 of each other
+    w = torch.from_numpy(_normal(rng, (E, d, f)) * d ** -0.5).to(sm90,
+                                                                 dtype)
+    if gs is None:
+        gs = rng.integers(0, C + 1, E)
+    gs = torch.tensor(gs, dtype=torch.int32, device=sm90)
+    got = ops.moe_gmm(x, w, gs).float()
+    want = ops.moe_gmm_plain(x, w, gs).float()
+    tol = CUDA_TOL[dtype]
+    assert bool(((got - want).abs() <= tol + tol * want.abs()).all())
+    rows = torch.arange(C, device=sm90)[None, :] >= gs[:, None]
+    assert not got[rows].any()             # rows past a group: exactly 0

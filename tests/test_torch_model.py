@@ -1,11 +1,13 @@
-"""The port's dense ``Model`` against the JAX ``Model`` on the same params.
+"""The port's ``Model`` against the JAX ``Model`` on the same params.
 
 The JAX params go through numpy into ``repro_torch.convert``; every norm
 scale and bias gets numpy noise first, so a term that is zero at init
 cannot hide a missing one.  The JAX side runs ``kernels="reference"`` with
 its contiguous cache; the port runs its paged cache through a permuted
 block table of 16-token pages.  Prefill, extend and decode logits must
-agree in f32 within 2e-5.
+agree in f32 within 2e-5, for dense and for MoE stages (the MoE layers run
+the grouped matmul's plain version; every row routes, pad tails included,
+as in JAX without a routing hook).
 """
 import dataclasses
 
@@ -29,10 +31,21 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 # variant adds a global layer to its local:global interleave
 ARCHS = [("llama3.1-8b-tiny", None), ("qwen3-8b-tiny", None),
          ("qwen1.5-32b-tiny", None), ("gemma3-27b-tiny", None),
-         ("gemma3-27b-tiny", 2), ("starcoder2-7b-tiny", None)]
+         ("gemma3-27b-tiny", 2), ("starcoder2-7b-tiny", None),
+         ("phimini-moe-tiny", None), ("granite-moe-1b-a400m-tiny", None)]
+# granite runs at its published routing (32 experts top-8) and head dim 64
+# over the tiny widths: top-k > 2 adds more than two expert outputs per row
+_WIDTHS = {"granite-moe-1b-a400m-tiny": dict(d_head=64, n_experts=32,
+                                             top_k=8)}
 
 
 def _with_layers(cfg, layers):
+    w = _WIDTHS.get(cfg.name)
+    if w is not None:
+        cfg = dataclasses.replace(
+            cfg, d_head=w["d_head"],
+            moe=dataclasses.replace(cfg.moe, n_experts=w["n_experts"],
+                                    top_k=w["top_k"]))
     if layers is None:
         return cfg
     return dataclasses.replace(
@@ -123,8 +136,6 @@ def test_prefill_extend_decode_logits_match_jax(arch, layers):
 
 
 def test_unported_stages_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Model(get_config("phimini-moe-tiny"))
     with pytest.raises(NotImplementedError, match="item 10"):
         Model(get_config("zamba2-1.2b-tiny"))
     with pytest.raises(NotImplementedError, match="codebook"):
@@ -160,3 +171,20 @@ def test_writes_past_the_table_land_on_scratch():
     changed = (pools[:, :-1] != before).flatten(2).any(-1).any(0)
     # only row 0's last page (positions 28..31) was written
     assert changed.nonzero().flatten().tolist() == [1]
+
+
+def test_free_slots_read_back_their_own_kv():
+    """A decode writes a free slot's K/V (length 0) on that slot's own
+    scratch page and reads back exactly that, as the JAX model's
+    contiguous cache does: two free slots with different tokens give the
+    logits each gives alone (with one shared scratch page the second
+    write would win for both)."""
+    cfg = dataclasses.replace(get_config("llama3.1-8b-tiny"),
+                              compute_dtype="float32")
+    tm = Model(cfg, page_size=16)
+    params = tm.init(torch.Generator().manual_seed(0))
+    toks = torch.tensor([[7], [9], [3]], dtype=torch.int32)
+    both, _ = tm.decode(params, tm.init_cache(3, 32), toks)
+    for b in range(3):
+        alone, _ = tm.decode(params, tm.init_cache(1, 32), toks[b:b + 1])
+        torch.testing.assert_close(both[b], alone[0], rtol=1e-5, atol=1e-5)

@@ -1,10 +1,11 @@
 """Where the time goes when the PyTorch port serves on one card.
 
-    python3 tools/profile_torch_serve.py
+    python3 tools/profile_torch_serve.py [--arch llama3.1-8b|phimini-moe]
 
-Builds the serve of ``chip_smoke.py`` (full-width llama3.1-8b, bf16,
-seeded random weights, 8 requests, chunked prefill of 256, batch 8), runs
-it once without the profiler and once under ``torch.profiler``, and prints:
+Builds a serve of ``chip_smoke.py`` (full-width ``--arch``, llama3.1-8b by
+default, bf16, seeded random weights, 8 requests, chunked prefill of 256,
+batch 8), runs it once without the profiler and once under
+``torch.profiler``, and prints:
 the wall time of each run, the device's busy and idle share of the
 profiled run, device time by kernel class (the port's attention kernels,
 matrix products, everything else) and the top kernels by device time.
@@ -12,6 +13,7 @@ Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import sys
 import time
@@ -26,12 +28,18 @@ def _kernel_class(name: str) -> str:
         return "flash_attention (port)"
     if "paged_fwd_kernel" in n:
         return "paged_attention (port)"
+    if "gmm_kernel" in n:
+        return "moe_gmm (port)"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
     return "other"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.1-8b",
+                    choices=("llama3.1-8b", "phimini-moe"))
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -41,7 +49,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_and_setup(torch)
 
-    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch)
+    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch, args.arch)
     t0 = time.perf_counter()
     m = drv.run(reqs, warmup=False)
     torch.cuda.synchronize()
@@ -51,7 +59,7 @@ def main() -> int:
     gc.collect()             # ServeDriver and its runtime form a cycle
     torch.cuda.empty_cache()
 
-    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch)
+    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch, args.arch)
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
@@ -69,7 +77,8 @@ def main() -> int:
                 torch.autograd.DeviceType.CPU:
             kernels[e.key] = (dev_us / 1e3, e.count)
     busy_ms = sum(ms for ms, _ in kernels.values())
-    print(f"[{card}] serve of chip_smoke.py: {n_iter} iterations, wall "
+    print(f"[{card}] {args.arch} serve of chip_smoke.py: {n_iter} "
+          f"iterations, wall "
           f"{wall_plain * 1e3:.1f} ms without the profiler, "
           f"{wall_prof * 1e3:.1f} ms under it")
     print(f"device busy {busy_ms:.1f} ms = "
