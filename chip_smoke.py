@@ -7,13 +7,19 @@ result line:
 
 1. the card: name and power limit, torch and CUDA versions, compute
    capability (9.0 required); TF32 off; the kernels built from
-   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, and the count of
+   tensor-core (``HGMMA``) instructions in each library, which must not be
+   0 for flash attention and the grouped matmul (their bf16 kernels);
 2. each kernel against its plain PyTorch version on the card, in f32 and
    bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and
-   ``tests/test_kernels.py`` and on the main paths' own shapes;
+   ``tests/test_kernels.py`` and on the main paths' own shapes (flash at
+   every prefill chunk of 16 to 256, the grouped matmul's gate/up and down
+   at every capacity C of 1 to 40); flash and the grouped matmul must also
+   give bitwise the same result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
-   and the least time the card could take;
+   and the least time the card could take (the grouped matmul at gate/up
+   and down, each at a 256-token chunk and at decode);
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
@@ -23,7 +29,8 @@ result line:
    after: llama3.1-8b (flash prefill, paged extend and decode) and
    phimini-moe (the same three and the grouped expert matmul, 3 launches
    per MoE layer per model call);
-5. a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+5. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+   ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -32,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -86,7 +94,26 @@ def card_and_setup(torch):
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {name}: {line.strip()}")
+    hgmma = hgmma_counts(paths)
+    print(f"HGMMA instructions (cuobjdump -sass): {json.dumps(hgmma)}")
+    for name in ("flash_attention", "moe_gmm"):
+        check(hgmma[name] > 0, f"{name}: no HGMMA instruction in its "
+                               f"library, the bf16 kernel is not on wgmma")
     return card
+
+
+def hgmma_counts(paths):
+    """Tensor-core (wgmma) instructions in each built library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(Path(tool).is_file(), "cuobjdump not found")
+    counts = {}
+    for name, path in sorted(paths.items()):
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump {name}: {sass.stderr[-500:]}")
+        counts[name] = sum(" HGMMA." in line
+                           for line in sass.stdout.splitlines())
+    return counts
 
 
 # ---------------------------------------------------------------- phase 2
@@ -110,6 +137,8 @@ def flash_cases():
     for S in (16, 128, 512, 2048):                # main path: H32 KV8 dh128
         yield 1, S, 32, 8, 128, (S - S // 4 - 1,), None
     yield 1, 512, 32, 8, 128, (400,), 128          # a sliding window
+    for S in (16, 32, 64, 128, 256):              # the serve's prefill chunks
+        yield 1, S, 32, 8, 128, (S,), None
 
 
 def paged_cases():
@@ -129,11 +158,14 @@ def gmm_cases():
     for E, C, d, f in ((4, 64, 32, 16), (8, 128, 16, 64), (2, 32, 128, 8)):
         yield E, C, d, f, None                    # tests/test_kernels.py
     yield 4, 48, 32, 24, (48, 0, 5, 17)           # full, empty, tiny, partial
-    # main path (phimini-moe): gate/up at decode and at a 256-token chunk,
-    # down at the chunk
-    yield 16, 1, 4096, 960, None
-    yield 16, 40, 4096, 960, None
-    yield 16, 40, 960, 4096, None
+    yield 3, 7, 20, 13, None                      # rows not 16-byte multiples
+    yield 2, 5, 512, 64, (5, 3)                   # few blocks, long d
+    yield 4, 100, 256, 64, (100, 64, 65, 0)       # C over one N tile of 64
+    # main path (phimini-moe): gate/up and down at every capacity, decode
+    # (C = 1) to a 256-token chunk (C = 40)
+    for d, f in ((4096, 960), (960, 4096)):
+        for C in (1, 2, 5, 10, 20, 40):
+            yield 16, C, d, f, None
 
 
 def kernels_vs_plain(torch, ops, dev):
@@ -141,7 +173,8 @@ def kernels_vs_plain(torch, ops, dev):
     worst = {k: 0.0 for k in ops.KERNELS}
     print("phase 2: kernel vs plain version (max abs err | tolerance; "
           "f32 1e-4: the two sum in other orders; bf16 2e-2: inputs and "
-          "outputs round to 8 mantissa bits)")
+          "outputs round to 8 mantissa bits); flash and moe_gmm also "
+          "bitwise equal over two launches")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for B, S, H, KV, dh, lengths, window in flash_cases():
@@ -150,7 +183,11 @@ def kernels_vs_plain(torch, ops, dev):
             v = _rand(torch, gen, (B, S, KV, dh), dtype, dev)
             lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
             got = ops.flash_attention(q, k, v, lt, window)
+            again = ops.flash_attention(q, k, v, lt, window)
             torch.cuda.synchronize()
+            check(torch.equal(got, again), f"flash_attention ({dn}, S={S}, "
+                                           f"window={window}): two launches "
+                                           f"differ")
             want = ops.flash_attention_plain(q, k, v, lt, window)
             ok, err = True, 0.0
             for b, n in enumerate(lengths):      # rows an engine reads
@@ -209,7 +246,10 @@ def kernels_vs_plain(torch, ops, dev):
                 if gs is None else torch.tensor(gs, device=dev)
             g = g.to(torch.int32)
             got = ops.moe_gmm(x, w, g)
+            again = ops.moe_gmm(x, w, g)
             torch.cuda.synchronize()
+            check(torch.equal(got, again), f"moe_gmm ({dn}, E{E} C{C} d{d} "
+                                           f"f{f}): two launches differ")
             want = ops.moe_gmm_plain(x, w, g)
             ok, err = _close(torch, got, want, dn)
             past = torch.arange(C, device=dev)[None, :] >= g[:, None]
@@ -329,33 +369,40 @@ def timings(torch, ops, dev):
         library_ms=time_ms(torch, lambda: paged_library(
             qe, kp, vp, table[:1], lt, st)),
         bound=bound(nbytes, 4 * pairs * H * dh))
-    # grouped matmul: gate/up at a 256-token chunk (C = 40) and at batch-8
-    # decode (C = 1), group sizes from a uniform top-2 router over 16
-    # experts; the bound counts only what this data needs (active experts'
-    # weights, rows inside the groups)
-    E, d, f, k = 16, 4096, 960, 2
+    # grouped matmul: gate/up (d 4096 -> f 960) and down (960 -> 4096), each
+    # at a 256-token chunk (C = 40) and at batch-8 decode (C = 1), group
+    # sizes from a uniform top-2 router over 16 experts; the bound counts
+    # only what this data needs (active experts' weights, rows inside the
+    # groups)
+    E, k = 16, 2
     for C, T in ((40, 256), (1, 8)):
         pick = torch.rand((T, E), generator=gen, device=dev).argsort(-1)[
             :, :k]
         counts = torch.bincount(pick.reshape(-1), minlength=E)
         gs = torch.clamp(counts, max=C).to(torch.int32)
-        x = _rand(torch, gen, (E, C, d), bf, dev)
-        w = _rand(torch, gen, (E, d, f), bf, dev)
         rows = int(gs.sum())
         active = int((gs > 0).sum())
         mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
-        nbytes = active * d * f * 2 + rows * d * 2 + E * C * f * 2 + E * 4
-        out["moe_gmm" if C == 40 else "moe_gmm_decode"] = dict(
-            shape=f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
-                  f"{rows} rows",
-            ms=time_ms(torch, lambda: ops.moe_gmm(x, w, gs)),
-            plain_ms=time_ms(torch, lambda: ops.moe_gmm_plain(x, w, gs)),
-            library_ms=time_ms(torch, lambda: torch.bmm(x, w).mul_(mask)),
-            bound=bound(nbytes, 2 * rows * d * f))
+        for d, f, part in ((4096, 960, ""), (960, 4096, "_down")):
+            x = _rand(torch, gen, (E, C, d), bf, dev)
+            w = _rand(torch, gen, (E, d, f), bf, dev)
+            nbytes = active * d * f * 2 + rows * d * 2 + E * C * f * 2 + E * 4
+            name = "moe_gmm" + part + ("" if C == 40 else "_decode")
+            out[name] = dict(
+                kernel="moe_gmm",
+                shape=f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
+                      f"{rows} rows",
+                ms=time_ms(torch, lambda: ops.moe_gmm(x, w, gs)),
+                plain_ms=time_ms(torch, lambda: ops.moe_gmm_plain(x, w, gs)),
+                library_ms=time_ms(torch,
+                                   lambda: torch.bmm(x, w).mul_(mask)),
+                bound=bound(nbytes, 2 * rows * d * f))
     print("phase 3: times (median of 20, L2 flushed; ms)")
     for name, t in out.items():
+        t.setdefault("kernel", name)
         print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f}, plain "
-              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+              f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f} "
+              f"(kernel / library {t['ms'] / t['library_ms']:.2f}), "
               f"bound {t['bound'][0]:.4f} ({t['bound'][1]})")
     return out
 
@@ -520,6 +567,8 @@ def main() -> int:
         card = card_and_setup(torch)
         worst = kernels_vs_plain(torch, ops, dev)
         times = timings(torch, ops, dev)
+        untimed = set(ops.KERNELS) - {t["kernel"] for t in times.values()}
+        check(not untimed, f"no phase-3 time for {sorted(untimed)}")
         torch.cuda.empty_cache()
         tiny_card_matches_cpu(torch)
         by_path = {}
@@ -531,16 +580,18 @@ def main() -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     rows = []
-    for name, (source, replaces) in ops.KERNELS.items():
-        t = times[name]
+    for name, t in times.items():           # one row per timed shape
+        kernel = t["kernel"]
+        source, replaces = ops.KERNELS[kernel]
         # each kernel's launches on the first path that needs it
-        path = next(a for a, must in PATHS if name in must)
-        rows.append({"name": name, "route": "cuda", "source": source,
+        path = next(a for a, must in PATHS if kernel in must)
+        rows.append({"name": name, "kernel": kernel, "shape": t["shape"],
+                     "route": "cuda", "source": source,
                      "replaces": replaces,
-                     "launches": by_path[path][name],
-                     "launches_by_path": {a: n[name]
+                     "launches": by_path[path][kernel],
+                     "launches_by_path": {a: n[kernel]
                                           for a, n in by_path.items()},
-                     "max_abs_err": worst[name], "ms": t["ms"],
+                     "max_abs_err": worst[kernel], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
                      "library_ms": t["library_ms"]})

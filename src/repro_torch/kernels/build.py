@@ -6,8 +6,10 @@ Each ``csrc/<name>.cu`` becomes ``lib<name>.so`` under
 covers every source in ``csrc/`` and the compiler flags: an edit rebuilds,
 an unchanged tree reuses what is there.  ``build_all`` starts one ``nvcc``
 per source at once and waits for all of them.  The libraries have a plain
-C interface (no PyTorch headers), so a build takes seconds.  Nothing here
-runs when the module is imported.
+C interface (no PyTorch headers), so a build takes seconds.  The
+tensor-core kernels find libcuda's TMA descriptor encoder with
+``dlsym`` at run time, so nothing links against libcuda (``-ldl`` only).
+Nothing here runs when the module is imported.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 SOURCES = ("flash_attention", "paged_attention", "moe_gmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-ldl",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -41,7 +44,7 @@ def source_hash() -> str:
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -75,7 +78,7 @@ def build_all() -> Dict[str, Path]:
     for name in todo:
         tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+               str(CSRC / f"{name}.cu"), *LINK_FLAGS]
         log = open(out / f"{name}.log", "w")
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT), log, tmp)

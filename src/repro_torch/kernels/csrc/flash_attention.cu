@@ -1,26 +1,43 @@
-// Causal GQA prefill attention (flash) for Hopper, f32 or bf16 in, f32
-// online softmax.
+// Causal GQA prefill attention (flash) for Hopper, f32 online softmax.
+// Two hand-written kernels, chosen by dtype:
+//   bf16: flash_fwd_wgmma_kernel, tensor cores fed by a TMA ring (below);
+//   f32:  flash_fwd_kernel, f32 FMAs (attention_tile.cuh).  Hopper's tensor
+//         cores have no full-f32 product and TF32 keeps only 10 mantissa
+//         bits, which would break the f32 path's 1e-4 agreement with its
+//         plain version and the token-exact f32 card-vs-CPU serve.
+// Neither is a fallback for the other: a dtype reaches one kernel only.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas /
 // _flash_kernel (the Pallas TPU kernel).  Same function: q (B,S,H,dh)
 // against k/v (B,S,KV,dh) of kv-head h // G, masks kv < lengths[b],
-// kv <= q and q - kv < window; rows past a length are unspecified but
-// finite.
+// kv <= q and q - kv < window, a -1e30 sentinel for masked scores and a
+// division by max(l, 1e-20); rows past a length are unspecified but finite.
 //
 // What bounds it on an H100: at serving prefill lengths the work is
 // 4 * S^2 / 2 * H * dh FLOPs against (2*S*H + 2*S*KV) * dh elements of
-// traffic, far above the card's ~295 FLOP/byte ridge, so it is bound by
-// operations.  This first version does them with plain f32 FMAs (about
-// 67 TFLOP/s at most, a fifteenth of the bf16 tensor-core rate) and feeds
-// each FMA from shared memory, which caps it lower still.
+// traffic, above the card's ~295 FLOP/byte ridge at long S; at the serve's
+// S <= 256 both bounds are a few microseconds, and what a kernel loses is
+// latency: the serial chain of load, QK^T, softmax and PV per key tile.
 //
-// What the design does about it: one block per (query block of 16 rows,
-// head, sequence), so a prefill launches S/16 * H blocks and fills the 132
-// SMs; the KV loop stops at the diagonal and at the sequence length and
-// starts at the window's edge, so masked tiles cost nothing; K/V tiles are
-// read with 16-byte loads and widened to f32 once in shared memory.
-// Tensor cores (wgmma with TMA-fed tiles) are the next step.
+// The bf16 design (flash_fwd_wgmma_kernel), in the FlashAttention-3 shape:
+// one block per (64 query rows, head, sequence).  Warp 4 is the producer:
+// one thread loads the Q tile once and then K and V tiles of 64 keys by TMA
+// into a ring of 2 stages (swizzle = the bytes of min(dh, 64) elements),
+// each stage with a full and an empty mbarrier, so the next tile is in
+// flight while the current one is used.  Warpgroup 0 computes
+// S = Q K^T with wgmma from shared memory (both K-major), runs the online
+// softmax on the accumulator fragments in registers (exp2 with the scale
+// folded in; row max and sum across the four lanes of a row by shuffles),
+// converts P to bf16 in registers as the A operand of O += P V, with V
+// read MN-major through the transpose bit.  The key loop starts at the
+// window's edge and stops at the diagonal and at lengths[b]; masks are
+// applied only on tiles that cross one of these edges.
+//
+// The f32 design (flash_fwd_kernel): one block per (16 query rows, head,
+// sequence), 8 lanes per row, K/V tiles of 32 keys widened to f32 in shared
+// memory, scores and the PV sum as f32 FMAs, the same key-loop bounds.
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 namespace repro_attn {
 
@@ -70,10 +87,245 @@ static void launch(const void* q, const void* k, const void* v,
       window, scale);
 }
 
+
+// ---------------------------------------------- bf16: tensor cores, TMA
+
+constexpr int kTcRows = 64;       // query rows per block (wgmma's M)
+constexpr int kTcKeys = 64;       // keys per K/V tile
+constexpr int kTcStages = 2;
+constexpr int kTcThreads = 160;   // warpgroup 0 computes, warp 4 loads
+
+template <int DH>
+struct FlashTc {
+  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // bytes a box row
+  static constexpr int CHUNK = SW / 2;                    // elements a row
+  static constexpr int NC = DH / CHUNK;                   // chunks of dh
+  static constexpr int LAYOUT = repro_hopper::swizzle_layout(SW);
+  static constexpr int Q_BYTES = kTcRows * DH * 2;
+  static constexpr int KV_BYTES = kTcKeys * DH * 2;       // K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int SMEM = Q_BYTES + kTcStages * STAGE + 64 + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const int* __restrict__ lengths,
+                       __nv_bfloat16* __restrict__ out, int S, int H,
+                       int KV, int window, float scale_log2) {
+  using namespace repro_hopper;
+  using L = FlashTc<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* qs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + L::Q_BYTES + kTcStages * L::STAGE);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kTcStages;
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q_lo = qt * kTcRows;
+  const int q_hi = min(q_lo + kTcRows, S) - 1;
+  const int length = lengths[b];
+  const int kv_end = max(min(q_hi + 1, length), 0);
+  const int kv_begin = (max(0, q_lo - window + 1) / kTcKeys) * kTcKeys;
+  const int n_tiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + kTcKeys - 1) / kTcKeys : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {                               // ---- producer
+    if (tid != 128) return;
+    mbar_expect_tx(qbar, L::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < L::NC; ++c)
+      tma_load_4d(qs + c * kTcRows * L::SW, &qmap, qbar, c * L::CHUNK, h,
+                  q_lo, b);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kTcStages;
+      if (t >= kTcStages) mbar_wait(&empty[s], ((t / kTcStages) + 1) & 1);
+      uint8_t* ks = smem + L::Q_BYTES + s * L::STAGE;
+      uint8_t* vs = ks + L::KV_BYTES;
+      const int j0 = kv_begin + t * kTcKeys;
+      mbar_expect_tx(&full[s], L::STAGE);
+#pragma unroll
+      for (int c = 0; c < L::NC; ++c) {
+        tma_load_4d(ks + c * kTcKeys * L::SW, &kmap, &full[s], c * L::CHUNK,
+                    kvh, j0, b);
+        tma_load_4d(vs + c * kTcKeys * L::SW, &vmap, &full[s], c * L::CHUNK,
+                    kvh, j0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer: warpgroup 0.  Accumulator i of thread (warp wq, lane l)
+  // is row wq*16 + l/4 (+8 for i & 2), column (i/4)*8 + (l%4)*2 + (i&1).
+  const int wq = tid / 32, l = tid % 32;
+  const int qp0 = q_lo + wq * 16 + (l >> 2), qp1 = qp0 + 8;
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kTcStages;
+    mbar_wait(&full[s], (t / kTcStages) & 1);
+    const uint8_t* ks = smem + L::Q_BYTES + s * L::STAGE;
+    const uint8_t* vs = ks + L::KV_BYTES;
+    const int j0 = kv_begin + t * kTcKeys;
+
+    float sc[kTcKeys / 2];
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 2; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      // k16 step kk: chunk kk*16 / CHUNK, 32 bytes per step into the row
+      const int off = (kk * 16 / L::CHUNK) * 64 * L::SW +
+                      (kk * 16 % L::CHUNK) * 2;
+      const uint64_t dq = smem_desc(qs + off, 16, 8 * L::SW, L::LAYOUT);
+      const uint64_t dk = smem_desc(ks + off, 16, 8 * L::SW, L::LAYOUT);
+      wgmma_ss<kTcKeys, 0, 0>(sc, dq, dk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // masks only where the tile crosses the diagonal, the length or the
+    // window's edge
+    const bool interior = j0 + kTcKeys - 1 <= q_lo &&
+                          j0 + kTcKeys <= length && q_hi - j0 < window;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 2; ++i) {
+      float v = sc[i] * scale_log2;
+      if (!interior) {
+        const int kv = j0 + (i >> 2) * 8 + (l & 3) * 2 + (i & 1);
+        const int qp = (i & 2) ? qp1 : qp0;
+        if (!(kv <= qp && kv < length && qp - kv < window)) v = kNegInf;
+      }
+      sc[i] = v;
+      if (i & 2) mx1 = fmaxf(mx1, v); else mx0 = fmaxf(mx0, v);
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 2; ++i) {
+      const float p = exp2f(sc[i] - ((i & 2) ? mn1 : mn0));
+      sc[i] = p;
+      if (i & 2) s1 += p; else s0 += p;
+    }
+    l0 = l0 * c0 + s0;                 // per-thread partial row sums
+    l1 = l1 * c1 + s1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
+
+    // P as the register A operand: k16 step kk takes score columns
+    // 16kk..16kk+15, i.e. accumulators 8kk..8kk+7, in pairs
+    uint32_t pa[kTcKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      // V MN-major: 16 key rows per step; chunks of dh kTcKeys rows apart
+      const uint64_t dv = smem_desc(vs + kk * 16 * L::SW, kTcKeys * L::SW,
+                                    8 * L::SW, L::LAYOUT);
+      wgmma_rs<DH, 1>(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) fence_regs(pa[kk]);
+    mbar_arrive(&empty[s]);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 2) {
+    const int qp = (i & 2) ? qp1 : qp0;
+    if (qp >= S) continue;
+    const float inv = (i & 2) ? inv1 : inv0;
+    const int col = (i >> 2) * 8 + (l & 3) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(
+        out + ((int64_t(b) * S + qp) * H + h) * DH + col) =
+        __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+  }
+}
+
+template <int DH>
+static int launch_tc(const void* q, const void* k, const void* v,
+                     const int* lengths, void* out, int B, int S, int H,
+                     int KV, int window, float scale, cudaStream_t stream) {
+  using L = FlashTc<DH>;
+  CUtensorMap maps[3];
+  const void* bases[3] = {q, k, v};
+  const int heads[3] = {H, KV, KV};
+  const uint32_t rows[3] = {kTcRows, kTcKeys, kTcKeys};
+  for (int m = 0; m < 3; ++m) {
+    // (B, S, heads, dh): dims {dh, heads, S, B}; box CHUNK x 1 x rows x 1
+    const uint64_t dims[4] = {uint64_t(DH), uint64_t(heads[m]), uint64_t(S),
+                              uint64_t(B)};
+    const uint64_t strides[3] = {uint64_t(DH) * 2,
+                                 uint64_t(heads[m]) * DH * 2,
+                                 uint64_t(S) * heads[m] * DH * 2};
+    const uint32_t box[4] = {uint32_t(L::CHUNK), 1, rows[m], 1};
+    const int err = repro_hopper::make_tensor_map(&maps[m], bases[m], 4, dims,
+                                                  strides, box, L::SW);
+    if (err) return err;
+  }
+  int err = repro_hopper::allow_smem<flash_fwd_wgmma_kernel<DH>>(L::SMEM);
+  if (err) return err;
+  dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
+  flash_fwd_wgmma_kernel<DH><<<grid, kTcThreads, L::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], lengths,
+      static_cast<__nv_bfloat16*>(out), S, H, KV, window,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro_attn
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t: the launch's
-// own error, or cudaErrorInvalidValue for a head dim or dtype it lacks.
+// dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
+// Returns a cudaError_t: the launch's own, or cudaErrorInvalidValue for a
+// head dim, dtype or shape it lacks.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* lengths,
                                    void* out, int B, int S, int H, int KV,
@@ -81,24 +333,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int dtype, void* stream) {
   using namespace repro_attn;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH(D, T)                                                   \
-  launch<D, T>(q, k, v, lengths, out, B, S, H, KV, window, scale, st)
-#define REPRO_FLASH_DH(T)                                                   \
-  switch (dh) {                                                             \
-    case 16: REPRO_FLASH(16, T); break;                                     \
-    case 32: REPRO_FLASH(32, T); break;                                     \
-    case 64: REPRO_FLASH(64, T); break;                                     \
-    case 128: REPRO_FLASH(128, T); break;                                   \
-    default: return static_cast<int>(cudaErrorInvalidValue);               \
-  }
   if (dtype == 0) {
-    REPRO_FLASH_DH(float)
-  } else if (dtype == 1) {
-    REPRO_FLASH_DH(__nv_bfloat16)
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    switch (dh) {
+      case 16: launch<16, float>(q, k, v, lengths, out, B, S, H, KV, window,
+                                 scale, st); break;
+      case 32: launch<32, float>(q, k, v, lengths, out, B, S, H, KV, window,
+                                 scale, st); break;
+      case 64: launch<64, float>(q, k, v, lengths, out, B, S, H, KV, window,
+                                 scale, st); break;
+      case 128: launch<128, float>(q, k, v, lengths, out, B, S, H, KV,
+                                   window, scale, st); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-#undef REPRO_FLASH_DH
-#undef REPRO_FLASH
-  return static_cast<int>(cudaGetLastError());
+  if (dtype != 1 || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FLASH_TC(D)                                                   \
+  case D:                                                                   \
+    return launch_tc<D>(q, k, v, lengths, out, B, S, H, KV, window, scale, st);
+  switch (dh) {
+    REPRO_FLASH_TC(16) REPRO_FLASH_TC(32) REPRO_FLASH_TC(64)
+    REPRO_FLASH_TC(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_FLASH_TC
 }

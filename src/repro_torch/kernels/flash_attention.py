@@ -3,6 +3,7 @@ version, and its launch counter.
 
 Replaces ``repro/kernels/flash_attention.py`` (``flash_attention_pallas``).
 ``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA tensors
+(the dtype picks the kernel: bf16 the tensor-core one, f32 the FMA one)
 and runs the plain version for CPU tensors; anything else, or a CUDA call
 the kernel does not take, raises.  There is no fallback from the kernel to
 the plain version.

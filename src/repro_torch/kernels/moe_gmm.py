@@ -4,10 +4,11 @@ its launch counter.
 Replaces ``repro/kernels/moe_gmm.py`` (``moe_gmm_pallas``).  ``moe_gmm``
 launches ``csrc/moe_gmm.cu`` for CUDA tensors and runs the plain version
 for CPU tensors; anything else, or a CUDA call the kernel does not take,
-raises.  There is no fallback from the kernel to the plain version.  Tile
-sizes are the kernel's own choice (the TPU wrapper's ``bc`` has no
-counterpart), and the kernel reads ``group_sizes`` from device memory, so
-a call costs no host sync.
+raises.  There is no fallback from the kernel to the plain version.  The
+dtype picks the kernel: bf16 the tensor-core one, f32 the FMA one; each
+chooses its own tiles (the TPU wrapper's ``bc`` has no counterpart), and
+both read ``group_sizes`` from device memory, so a call costs no host
+sync.
 """
 from __future__ import annotations
 

@@ -6,10 +6,14 @@ JAX package's oracles (``repro/kernels/ref.py``) on the shapes of
 in f32 within 2e-5, over the rows an engine reads.  Inputs are drawn once
 with numpy and handed to both sides.
 
+CPU, no JAX: the serve profiler's kernel classes over every kernel the
+CUDA sources define.
+
 Card (``-m cuda``, skips without compute capability 9.0): each CUDA kernel
 against its plain version on the same inputs (the grouped matmul's CPU
-checks against JAX are in ``tests/test_torch_moe.py``).  These tests import no JAX,
-so they run on a machine that has none.
+checks against JAX are in ``tests/test_torch_moe.py``), including the bf16
+tensor-core kernels' own paths, and two launches giving the same bits.
+These tests import no JAX, so they run on a machine that has none.
 """
 import numpy as np
 import pytest
@@ -221,3 +225,97 @@ def test_moe_gmm_kernel_matches_plain(sm90, dtype, E, C, d, f, gs):
     assert bool(((got - want).abs() <= tol + tol * want.abs()).all())
     rows = torch.arange(C, device=sm90)[None, :] >= gs[:, None]
     assert not got[rows].any()             # rows past a group: exactly 0
+
+
+# the bf16 kernels' own paths (tensor cores): partial and empty tiles, the
+# non-TMA loads, long d in few blocks, head dims 16 to 128, windows, lengths
+# that end inside a tile; and both dtypes' kernels give the same bits twice
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,dh,lengths,window", [
+    (64, 4, 2, 16, (64, 37), None), (96, 4, 1, 32, (96, 50), 17),
+    (130, 2, 2, 64, (130, 65), None), (200, 8, 2, 128, (200, 129), 64),
+    (256, 32, 8, 128, (256, 100), None), (16, 32, 8, 128, (16, 9), None)])
+def test_flash_tensor_core_paths(sm90, dtype, S, H, KV, dh, lengths,
+                                 window):
+    q, k, v = (torch.from_numpy(a).to(sm90, dtype)
+               for a in _flash_case(9, 2, S, H, KV, dh))
+    lt = torch.tensor(lengths, dtype=torch.int32, device=sm90)
+    got = ops.flash_attention(q, k, v, lt, window)
+    assert torch.equal(got, ops.flash_attention(q, k, v, lt, window))
+    want = ops.flash_attention_plain(q, k, v, lt, window).float()
+    tol = CUDA_TOL[dtype]
+    for b, n in enumerate(lengths):
+        g, w = got[b, :n].float(), want[b, :n]
+        assert bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,d,f,gs", [
+    (3, 5, 64, 64, (5, 0, 2)),            # C not a multiple of 8, empty
+    (2, 13, 128, 32, (13, 13)),           # full groups
+    (4, 100, 256, 64, (100, 64, 65, 0)),  # C over one N tile of 64
+    (2, 130, 64, 16, (130, 1)),           # three N tiles
+    (2, 5, 512, 64, (5, 3)),              # few blocks, 4 ring laps
+    (1, 1, 4096, 64, (1,)),               # one block walks d = 4096
+    (3, 9, 64, 8, None), (3, 9, 64, 24, None),   # narrow, ragged f
+    (3, 7, 20, 13, None), (2, 6, 24, 40, None)])  # no TMA; d 24
+def test_moe_gmm_tensor_core_paths(sm90, dtype, E, C, d, f, gs):
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(_normal(rng, (E, C, d))).to(sm90, dtype)
+    w = torch.from_numpy(_normal(rng, (E, d, f)) * d ** -0.5).to(sm90,
+                                                                 dtype)
+    if gs is None:
+        gs = rng.integers(0, C + 1, E)
+    gs = torch.tensor(gs, dtype=torch.int32, device=sm90)
+    got = ops.moe_gmm(x, w, gs)
+    assert torch.equal(got, ops.moe_gmm(x, w, gs))
+    got = got.float()
+    want = ops.moe_gmm_plain(x, w, gs).float()
+    tol = CUDA_TOL[dtype]
+    assert bool(((got - want).abs() <= tol + tol * want.abs()).all())
+    rows = torch.arange(C, device=sm90)[None, :] >= gs[:, None]
+    assert not got[rows].any()
+
+
+# ---------- the profiler's kernel classes (CPU) ----------
+
+def _kernel_symbols():
+    """(kernel name, source file) for every __global__ in csrc/."""
+    import re
+    from pathlib import Path
+    csrc = Path(ops.__file__).resolve().parent / "csrc"
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                     r"(\w+)\s*\(")
+    return [(name, p.stem) for p in sorted(csrc.glob("*.cu"))
+            for name in pat.findall(p.read_text())]
+
+
+def test_profiler_classifies_every_port_kernel():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "profile_torch_serve.py"
+    spec = importlib.util.spec_from_file_location("profile_torch_serve",
+                                                  path)
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    want = {"flash_attention": "flash_attention (port)",
+            "paged_attention": "paged_attention (port)",
+            "moe_gmm": "moe_gmm (port)"}
+    symbols = _kernel_symbols()
+    names = {n for n, _ in symbols}
+    assert {"flash_fwd_kernel", "flash_fwd_wgmma_kernel", "paged_fwd_kernel",
+            "gmm_kernel", "gmm_wgmma_kernel"} <= names
+    for name, src in symbols:
+        ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"
+        for shown in (f"void {ns}::{name}<128>(int const*, float*)",
+                      f"_ZN{len(ns)}{ns}{len(name)}{name}ILi128EEEvPKiPf"):
+            assert prof._kernel_class(shown) == want[src], shown
+    assert prof._kernel_class(
+        "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64"
+    ) == "matmul (cuBLAS)"
+    assert prof._kernel_class("void at::native::vectorized_elementwise_"
+                              "kernel<4, ...>") == "other"

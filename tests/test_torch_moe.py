@@ -82,8 +82,10 @@ def _check_gmm(x, w, gs, dtype, bc):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("E,C,d,f", [(4, 64, 32, 16), (8, 128, 16, 64),
-                                     (2, 32, 128, 8)])
+@pytest.mark.parametrize("E,C,d,f", [
+    (4, 64, 32, 16), (8, 128, 16, 64), (2, 32, 128, 8),
+    # phimini-moe's capacities, batch-8 decode to a 256-token chunk
+    *((16, C, 64, 24) for C in (1, 2, 5, 10, 20, 40))])
 def test_moe_gmm_plain_matches_jax_sweep(E, C, d, f, dtype):
     _check_gmm(*_gmm_case(2, E, C, d, f), dtype, bc=32)
 

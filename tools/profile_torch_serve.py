@@ -22,14 +22,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+#: (kernel name in csrc/*.cu, class): the kernels of both dtypes; a name
+#: is matched as a substring, so demangled ("void repro_gmm::gmm_kernel<...>
+#: (...)") and mangled symbols both fall into their class
+PORT_CLASSES = (("flash_fwd_kernel", "flash_attention (port)"),
+                ("flash_fwd_wgmma_kernel", "flash_attention (port)"),
+                ("paged_fwd_kernel", "paged_attention (port)"),
+                ("gmm_kernel", "moe_gmm (port)"),
+                ("gmm_wgmma_kernel", "moe_gmm (port)"))
+
+
 def _kernel_class(name: str) -> str:
+    for key, cls in PORT_CLASSES:
+        if key in name:
+            return cls
     n = name.lower()
-    if "flash_fwd_kernel" in n:
-        return "flash_attention (port)"
-    if "paged_fwd_kernel" in n:
-        return "paged_attention (port)"
-    if "gmm_kernel" in n:
-        return "moe_gmm (port)"
     if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
     return "other"
