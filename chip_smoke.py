@@ -9,17 +9,22 @@ result line:
    capability (9.0 required); TF32 off; the kernels built from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, and the count of
    tensor-core (``HGMMA``) instructions in each library, which must not be
-   0 for flash attention and the grouped matmul (their bf16 kernels);
+   0 for flash attention, paged attention and the grouped matmul (their
+   bf16 prefill, extend and matmul kernels);
 2. each kernel against its plain PyTorch version on the card, in f32 and
    bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and
    ``tests/test_kernels.py`` and on the main paths' own shapes (flash at
-   every prefill chunk of 16 to 256, the grouped matmul's gate/up and down
-   at every capacity C of 1 to 40); flash and the grouped matmul must also
-   give bitwise the same result on a second launch;
+   every prefill chunk of 16 to 256, paged decode and extend at the serve's
+   shapes and at groups of 1 to 9 query heads per kv-head with decode
+   splits and windows, the grouped matmul's gate/up and down at every
+   capacity C of 1 to 40); every kernel must also give bitwise the same
+   result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
-   and down, each at a 256-token chunk and at decode);
+   and down, each at a 256-token chunk and at decode), with the decode
+   kernel's pages per split and split count, and the host's time to issue
+   one call of each kernel's wrapper (the serves are host-bound);
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
@@ -96,7 +101,7 @@ def card_and_setup(torch):
                     print(f"  ptxas {name}: {line.strip()}")
     hgmma = hgmma_counts(paths)
     print(f"HGMMA instructions (cuobjdump -sass): {json.dumps(hgmma)}")
-    for name in ("flash_attention", "moe_gmm"):
+    for name in ("flash_attention", "paged_attention", "moe_gmm"):
         check(hgmma[name] > 0, f"{name}: no HGMMA instruction in its "
                                f"library, the bf16 kernel is not on wgmma")
     return card
@@ -151,6 +156,15 @@ def paged_cases():
     yield (8, None, 32, 8, 128, 64, 32, None,
            (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
     yield 1, 256, 32, 8, 128, 64, 32, (293,), (293 + 200,), None
+    # groups of 3, 9, 8 and 1 query heads per kv-head (granite-moe-3b,
+    # starcoder2-7b, chameleon-34b, qwen1.5-32b); decodes over many splits
+    # with a window whose edge falls inside one
+    yield 5, None, 6, 2, 64, 16, 24, None, (1, 16, 17, 200, 384), 150
+    yield 3, None, 36, 4, 128, 64, 32, None, (65, 1056, 2048), 700
+    yield 2, None, 64, 8, 128, 64, 32, None, (1500, 2049), None
+    yield 3, 12, 6, 2, 16, 8, 6, (5, 8, 0), (17, 20, 12), None
+    yield 2, 100, 36, 4, 128, 64, 8, (29, 64), (129, 164), 50
+    yield 2, 64, 40, 40, 128, 16, 12, (0, 77), (64, 141), None
 
 
 def gmm_cases():
@@ -173,8 +187,8 @@ def kernels_vs_plain(torch, ops, dev):
     worst = {k: 0.0 for k in ops.KERNELS}
     print("phase 2: kernel vs plain version (max abs err | tolerance; "
           "f32 1e-4: the two sum in other orders; bf16 2e-2: inputs and "
-          "outputs round to 8 mantissa bits); flash and moe_gmm also "
-          "bitwise equal over two launches")
+          "outputs round to 8 mantissa bits); every kernel also bitwise "
+          "equal over two launches")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
         for B, S, H, KV, dh, lengths, window in flash_cases():
@@ -212,12 +226,17 @@ def kernels_vs_plain(torch, ops, dev):
                 start, dtype=torch.int32, device=dev)
             got = ops.paged_attention(q, kp, vp, table, lt, page_size=ps,
                                       start=st, window=window)
+            again = ops.paged_attention(q, kp, vp, table, lt, page_size=ps,
+                                        start=st, window=window)
             torch.cuda.synchronize()
+            name = "paged_attention_decode" if S is None \
+                else "paged_attention_extend"
+            check(torch.equal(got, again), f"{name} ({dn}, H{H} KV{KV}, "
+                                           f"lengths={lengths}): two "
+                                           f"launches differ")
             want = ops.paged_attention_plain(q, kp, vp, table, lt,
                                              page_size=ps, start=st,
                                              window=window)
-            name = "paged_attention_decode" if S is None \
-                else "paged_attention_extend"
             ok, err = True, 0.0
             for b, n in enumerate(lengths):
                 if S is None:
@@ -267,13 +286,17 @@ def kernels_vs_plain(torch, ops, dev):
 # ---------------------------------------------------------------- phase 3
 def time_ms(torch, fn, reps=20, warm=3):
     """Median of ``reps`` CUDA-event timings of ``fn``, with L2 flushed
-    (a 256 MB write) before each, as a layer's caller finds its inputs."""
+    (a 256 MB write) before each, as a layer's caller finds its inputs.
+    The card then spins for about 0.1 ms, so the host has issued all of
+    ``fn`` before the first event is reached: what is timed is the card's
+    work for the call, not the host's (``host_us`` times that)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(200_000)     # clock cycles
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -282,6 +305,20 @@ def time_ms(torch, fn, reps=20, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(torch, fn, n=100):
+    """Host time to issue one call of ``fn`` (checks, allocation, launch),
+    averaged over ``n`` calls issued back to back: the cost a host-bound
+    serve pays per launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def bound(nbytes, flops):
@@ -298,6 +335,12 @@ def timings(torch, ops, dev):
     G = H // KV
     out = {}
 
+    def measure(call, plain, library, **row):
+        return dict(row, ms=time_ms(torch, call),
+                    plain_ms=time_ms(torch, plain),
+                    library_ms=time_ms(torch, library),
+                    host_us=host_us(torch, call))
+
     # flash: one prefill chunk of the main path (B=1, S=256, full length)
     S = 256
     q = _rand(torch, gen, (1, S, H, dh), bf, dev)
@@ -307,13 +350,12 @@ def timings(torch, ops, dev):
     pairs = S * (S + 1) // 2                       # causal (q, kv) pairs
     nbytes = 2 * q.numel() * 2 + (k.numel() + v.numel()) * 2 + 4
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out["flash_attention"] = dict(
+    out["flash_attention"] = measure(
+        lambda: ops.flash_attention(q, k, v, lt),
+        lambda: ops.flash_attention_plain(q, k, v, lt),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
         shape=f"B1 S{S} H{H} KV{KV} dh{dh} bf16",
-        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, lt)),
-        plain_ms=time_ms(torch, lambda: ops.flash_attention_plain(
-            q, k, v, lt)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
         bound=bound(nbytes, 4 * pairs * H * dh))
 
     def paged_library(q4, kp, vp, table, lengths, start):
@@ -339,17 +381,20 @@ def timings(torch, ops, dev):
     lens = (97, 180, 333, 512, 640, 781, 900, 1056)
     lt = torch.tensor(lens, dtype=torch.int32, device=dev)
     qd = _rand(torch, gen, (B, H, dh), bf, dev)
+    from repro_torch.kernels import build
+    lib = build.load("paged_attention")
+    print(f"phase 3: paged decode takes "
+          f"{lib.paged_decode_pages_per_split()} pages per split: "
+          f"{lib.paged_decode_splits(maxp)} splits for {maxp} pages a table")
     kv_rows = sum(lens)
     nbytes = kv_rows * KV * dh * 2 * 2 + 2 * qd.numel() * 2 \
         + table.numel() * 4 + B * 4
-    out["paged_attention_decode"] = dict(
+    out["paged_attention_decode"] = measure(
+        lambda: ops.paged_attention(qd, kp, vp, table, lt, page_size=ps),
+        lambda: ops.paged_attention_plain(qd, kp, vp, table, lt,
+                                          page_size=ps),
+        lambda: paged_library(qd[:, None], kp, vp, table, lt, lt - 1),
         shape=f"B{B} H{H} KV{KV} dh{dh} ps{ps} len{lens} bf16",
-        ms=time_ms(torch, lambda: ops.paged_attention(
-            qd, kp, vp, table, lt, page_size=ps)),
-        plain_ms=time_ms(torch, lambda: ops.paged_attention_plain(
-            qd, kp, vp, table, lt, page_size=ps)),
-        library_ms=time_ms(torch, lambda: paged_library(
-            qd[:, None], kp, vp, table, lt, lt - 1)),
         bound=bound(nbytes, 4 * kv_rows * H * dh))
 
     # extend: one 256-token chunk from a mid-page start (B=1)
@@ -360,14 +405,13 @@ def timings(torch, ops, dev):
     pairs = sum(start + s + 1 for s in range(S))
     nbytes = (start + S) * KV * dh * 2 * 2 + 2 * qe.numel() * 2 \
         + maxp * 4 + 8
-    out["paged_attention_extend"] = dict(
+    out["paged_attention_extend"] = measure(
+        lambda: ops.paged_attention(qe, kp, vp, table[:1], lt,
+                                    page_size=ps, start=st),
+        lambda: ops.paged_attention_plain(qe, kp, vp, table[:1], lt,
+                                          page_size=ps, start=st),
+        lambda: paged_library(qe, kp, vp, table[:1], lt, st),
         shape=f"B1 S{S} start{start} H{H} KV{KV} dh{dh} ps{ps} bf16",
-        ms=time_ms(torch, lambda: ops.paged_attention(
-            qe, kp, vp, table[:1], lt, page_size=ps, start=st)),
-        plain_ms=time_ms(torch, lambda: ops.paged_attention_plain(
-            qe, kp, vp, table[:1], lt, page_size=ps, start=st)),
-        library_ms=time_ms(torch, lambda: paged_library(
-            qe, kp, vp, table[:1], lt, st)),
         bound=bound(nbytes, 4 * pairs * H * dh))
     # grouped matmul: gate/up (d 4096 -> f 960) and down (960 -> 4096), each
     # at a 256-token chunk (C = 40) and at batch-8 decode (C = 1), group
@@ -388,22 +432,23 @@ def timings(torch, ops, dev):
             w = _rand(torch, gen, (E, d, f), bf, dev)
             nbytes = active * d * f * 2 + rows * d * 2 + E * C * f * 2 + E * 4
             name = "moe_gmm" + part + ("" if C == 40 else "_decode")
-            out[name] = dict(
+            out[name] = measure(
+                lambda: ops.moe_gmm(x, w, gs),
+                lambda: ops.moe_gmm_plain(x, w, gs),
+                lambda: torch.bmm(x, w).mul_(mask),
                 kernel="moe_gmm",
                 shape=f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
                       f"{rows} rows",
-                ms=time_ms(torch, lambda: ops.moe_gmm(x, w, gs)),
-                plain_ms=time_ms(torch, lambda: ops.moe_gmm_plain(x, w, gs)),
-                library_ms=time_ms(torch,
-                                   lambda: torch.bmm(x, w).mul_(mask)),
                 bound=bound(nbytes, 2 * rows * d * f))
-    print("phase 3: times (median of 20, L2 flushed; ms)")
+    print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
+          "time to issue one kernel call (us)")
     for name, t in out.items():
         t.setdefault("kernel", name)
         print(f"  {name} [{t['shape']}]: kernel {t['ms']:.4f}, plain "
               f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f} "
               f"(kernel / library {t['ms'] / t['library_ms']:.2f}), "
-              f"bound {t['bound'][0]:.4f} ({t['bound'][1]})")
+              f"bound {t['bound'][0]:.4f} ({t['bound'][1]}); host "
+              f"{t['host_us']:.1f} us a call")
     return out
 
 
@@ -594,7 +639,8 @@ def main() -> int:
                      "max_abs_err": worst[kernel], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
-                     "library_ms": t["library_ms"]})
+                     "library_ms": t["library_ms"],
+                     "host_us": t["host_us"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-// Shared device code of the two attention kernels (flash prefill, paged
-// decode/extend): one query row per group of kLanes threads, an f32 online
-// softmax carried in registers, and K/V staged through shared memory in
-// tiles of kTile key rows.
+// Shared device code of the f32 FMA attention kernels (flash prefill, paged
+// extend): one query row per group of kLanes threads, an f32 online softmax
+// carried in registers, and K/V staged through shared memory in tiles of
+// kTile key rows.  The paged decode kernel uses its loads and conversions.
 //
 // Row layout: lane t of a row group owns head dims {i * kLanes + t}, so the
 // eight lanes of a group read eight consecutive shared-memory words (no

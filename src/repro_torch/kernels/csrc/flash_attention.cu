@@ -29,7 +29,8 @@
 // softmax on the accumulator fragments in registers (exp2 with the scale
 // folded in; row max and sum across the four lanes of a row by shuffles),
 // converts P to bf16 in registers as the A operand of O += P V, with V
-// read MN-major through the transpose bit.  The key loop starts at the
+// read MN-major through the transpose bit (that step is shared with the
+// paged extend kernel: attention_wgmma.cuh).  The key loop starts at the
 // window's edge and stops at the diagonal and at lengths[b]; masks are
 // applied only on tiles that cross one of these edges.
 //
@@ -37,6 +38,7 @@
 // sequence), 8 lanes per row, K/V tiles of 32 keys widened to f32 in shared
 // memory, scores and the PV sum as f32 FMAs, the same key-loop bounds.
 #include "attention_tile.cuh"
+#include "attention_wgmma.cuh"
 #include "hopper.cuh"
 
 namespace repro_attn {
@@ -90,28 +92,6 @@ static void launch(const void* q, const void* k, const void* v,
 
 // ---------------------------------------------- bf16: tensor cores, TMA
 
-constexpr int kTcRows = 64;       // query rows per block (wgmma's M)
-constexpr int kTcKeys = 64;       // keys per K/V tile
-constexpr int kTcStages = 2;
-constexpr int kTcThreads = 160;   // warpgroup 0 computes, warp 4 loads
-
-template <int DH>
-struct FlashTc {
-  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // bytes a box row
-  static constexpr int CHUNK = SW / 2;                    // elements a row
-  static constexpr int NC = DH / CHUNK;                   // chunks of dh
-  static constexpr int LAYOUT = repro_hopper::swizzle_layout(SW);
-  static constexpr int Q_BYTES = kTcRows * DH * 2;
-  static constexpr int KV_BYTES = kTcKeys * DH * 2;       // K or V tile
-  static constexpr int STAGE = 2 * KV_BYTES;
-  static constexpr int SMEM = Q_BYTES + kTcStages * STAGE + 64 + 1024;
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -121,7 +101,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        __nv_bfloat16* __restrict__ out, int S, int H,
                        int KV, int window, float scale_log2) {
   using namespace repro_hopper;
-  using L = FlashTc<DH>;
+  using L = TcLayout<DH>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint8_t* qs = smem;
@@ -177,107 +157,31 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     return;
   }
 
-  // ---- consumer: warpgroup 0.  Accumulator i of thread (warp wq, lane l)
-  // is row wq*16 + l/4 (+8 for i & 2), column (i/4)*8 + (l%4)*2 + (i&1).
+  // ---- consumer: warpgroup 0, two rows a thread (attention_wgmma.cuh)
   const int wq = tid / 32, l = tid % 32;
   const int qp0 = q_lo + wq * 16 + (l >> 2), qp1 = qp0 + 8;
-  float o[DH / 2];
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  TcRows<DH> rows;
   mbar_wait(qbar, 0);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int s = t % kTcStages;
     mbar_wait(&full[s], (t / kTcStages) & 1);
     const uint8_t* ks = smem + L::Q_BYTES + s * L::STAGE;
-    const uint8_t* vs = ks + L::KV_BYTES;
     const int j0 = kv_begin + t * kTcKeys;
-
-    float sc[kTcKeys / 2];
-#pragma unroll
-    for (int i = 0; i < kTcKeys / 2; ++i) sc[i] = 0.f;
-    fence_regs(sc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      // k16 step kk: chunk kk*16 / CHUNK, 32 bytes per step into the row
-      const int off = (kk * 16 / L::CHUNK) * 64 * L::SW +
-                      (kk * 16 % L::CHUNK) * 2;
-      const uint64_t dq = smem_desc(qs + off, 16, 8 * L::SW, L::LAYOUT);
-      const uint64_t dk = smem_desc(ks + off, 16, 8 * L::SW, L::LAYOUT);
-      wgmma_ss<kTcKeys, 0, 0>(sc, dq, dk);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
     // masks only where the tile crosses the diagonal, the length or the
     // window's edge
     const bool interior = j0 + kTcKeys - 1 <= q_lo &&
                           j0 + kTcKeys <= length && q_hi - j0 < window;
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int i = 0; i < kTcKeys / 2; ++i) {
-      float v = sc[i] * scale_log2;
-      if (!interior) {
-        const int kv = j0 + (i >> 2) * 8 + (l & 3) * 2 + (i & 1);
-        const int qp = (i & 2) ? qp1 : qp0;
-        if (!(kv <= qp && kv < length && qp - kv < window)) v = kNegInf;
-      }
-      sc[i] = v;
-      if (i & 2) mx1 = fmaxf(mx1, v); else mx0 = fmaxf(mx0, v);
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < kTcKeys / 2; ++i) {
-      const float p = exp2f(sc[i] - ((i & 2) ? mn1 : mn0));
-      sc[i] = p;
-      if (i & 2) s1 += p; else s0 += p;
-    }
-    l0 = l0 * c0 + s0;                 // per-thread partial row sums
-    l1 = l1 * c1 + s1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] *= (i & 2) ? c1 : c0;
-
-    // P as the register A operand: k16 step kk takes score columns
-    // 16kk..16kk+15, i.e. accumulators 8kk..8kk+7, in pairs
-    uint32_t pa[kTcKeys / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      // V MN-major: 16 key rows per step; chunks of dh kTcKeys rows apart
-      const uint64_t dv = smem_desc(vs + kk * 16 * L::SW, kTcKeys * L::SW,
-                                    8 * L::SW, L::LAYOUT);
-      wgmma_rs<DH, 1>(o, pa[kk], dv);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-#pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk) fence_regs(pa[kk]);
+    tc_attend_tile<DH>(rows, qs, ks, ks + L::KV_BYTES, j0, interior,
+                       scale_log2, l, [&](int kv, bool second) {
+                         const int qp = second ? qp1 : qp0;
+                         return kv <= qp && kv < length && qp - kv < window;
+                       });
     mbar_arrive(&empty[s]);
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-20f), inv1 = 1.f / fmaxf(l1, 1e-20f);
+  float inv0, inv1;
+  tc_row_scales(rows, inv0, inv1);
 #pragma unroll
   for (int i = 0; i < DH / 2; i += 2) {
     const int qp = (i & 2) ? qp1 : qp0;
@@ -286,7 +190,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int col = (i >> 2) * 8 + (l & 3) * 2;
     *reinterpret_cast<__nv_bfloat162*>(
         out + ((int64_t(b) * S + qp) * H + h) * DH + col) =
-        __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+        __floats2bfloat162_rn(rows.o[i] * inv, rows.o[i + 1] * inv);
   }
 }
 
@@ -294,7 +198,7 @@ template <int DH>
 static int launch_tc(const void* q, const void* k, const void* v,
                      const int* lengths, void* out, int B, int S, int H,
                      int KV, int window, float scale, cudaStream_t stream) {
-  using L = FlashTc<DH>;
+  using L = TcLayout<DH>;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   const int heads[3] = {H, KV, KV};

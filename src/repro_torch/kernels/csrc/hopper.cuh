@@ -1,5 +1,6 @@
-// Hopper building blocks shared by the tensor-core kernels (flash prefill
-// and the grouped expert matmul, bf16): mbarriers, TMA tile loads, wgmma
+// Hopper building blocks shared by the tensor-core kernels (flash prefill,
+// paged extend and the grouped expert matmul, bf16) and the split-KV paged
+// decode: mbarriers, TMA tile loads, 16-byte cp.async copies, wgmma
 // shared-memory descriptors and the wgmma instructions themselves, all as
 // inline PTX for sm_90a, and the host-side encoding of TMA descriptors.
 //
@@ -102,6 +103,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One 16-byte copy from global to shared memory that completes in the
+// background (L2 only, no L1).  ``src_bytes`` 0 writes 16 zero bytes and
+// reads nothing.  Copies issued before a ``cp_async_commit`` form a group;
+// ``cp_async_wait<N>`` waits until at most N groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+                  "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // wgmma descriptor layout code of a swizzle of ``sw`` bytes.
@@ -440,9 +460,12 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int rank,
 }
 
 // Let ``Kernel`` take ``bytes`` of dynamic shared memory (needed above
-// 48 KB); asks the runtime once per kernel and size.
+// 48 KB); asks the runtime once per kernel and size.  Internal linkage: a
+// static local of an inline template is one object in the whole process,
+// shared by every library that instantiates it, so a second build of the
+// same kernel loaded beside the first would skip its own request.
 template <auto Kernel>
-inline int allow_smem(int bytes) {
+static int allow_smem(int bytes) {
   static int allowed = 0;
   if (bytes <= allowed) return 0;
   const cudaError_t e = cudaFuncSetAttribute(

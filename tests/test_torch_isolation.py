@@ -106,6 +106,51 @@ def test_cuda_call_without_kernel_library_raises(monkeypatch, tmp_path):
     assert not any(ops.launch_counts().values())
 
 
+def test_paged_attention_refuses_what_its_kernel_cannot_take(monkeypatch,
+                                                             tmp_path):
+    """The mode and dtype pick one paged kernel; a CUDA extend call that
+    kernel cannot take raises before any library is built, and nothing
+    else runs: bf16 extend needs a page size that is a multiple of 8 (and
+    at most 64 query heads per kv-head); f32 extend takes any.  What they
+    take reaches the library.  (Decode's refusal is a card test: a fake
+    CUDA tensor cannot be indexed without CUDA.)"""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import paged_attention as pa
+
+    def no_nvcc():
+        raise build.KernelBuildError("nvcc not found")
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(pa, "paged_attention_plain", plain_must_not_run)
+    ops.reset_launch_counts()
+    with FakeTensorMode():
+        def extend(H, KV, ps, dtype):
+            pages = torch.empty(3, ps, KV, 16, device="cuda", dtype=dtype)
+            return ops.paged_attention(
+                torch.empty(2, 3, H, 16, device="cuda", dtype=dtype), pages,
+                pages, torch.zeros(2, 2, dtype=torch.int32, device="cuda"),
+                torch.ones(2, dtype=torch.int32, device="cuda"),
+                page_size=ps,
+                start=torch.zeros(2, dtype=torch.int32, device="cuda"))
+
+        with pytest.raises(ValueError, match="multiple of 8"):
+            extend(4, 2, 12, torch.bfloat16)
+        with pytest.raises(ValueError, match="at most 64"):
+            extend(130, 2, 8, torch.bfloat16)
+        for args in ((4, 2, 12, torch.float32),    # f32 extend: FMA kernel
+                     (130, 2, 12, torch.float32),
+                     (34, 2, 8, torch.bfloat16)):  # 17 heads a kv-head
+            with pytest.raises(build.KernelBuildError):
+                extend(*args)
+    assert not any(ops.launch_counts().values())
+
+
 def test_moe_gmm_on_cuda_reaches_the_kernel_library_or_raises(monkeypatch,
                                                               tmp_path):
     """A CUDA tensor in ``moe_gmm`` goes to the kernel library, never to

@@ -108,9 +108,19 @@ def test_paged_decode_ragged_page_boundaries():
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
-@pytest.mark.parametrize("window", [None, 7])
-def test_paged_extend_crossing_pages(window):
-    H, KV, dh, ps, maxp, S, B = 4, 2, 16, 8, 6, 12, 3
+@pytest.mark.parametrize("window,H,KV,ps,S", [
+    pytest.param(None, 4, 2, 8, 12, id="None"),
+    pytest.param(7, 4, 2, 8, 12, id="7"),
+    # the bf16 extend kernel's group packing: 21 tokens x 3 heads and
+    # 7 tokens x 9 heads per 64 rows, one row left over
+    pytest.param(None, 6, 2, 8, 12, id="G3"),
+    pytest.param(5, 9, 1, 16, 12, id="G9-window"),
+    # the engine's page size, chunks from a mid-page start
+    pytest.param(None, 4, 2, 64, 40, id="ps64-mid-page"),
+])
+def test_paged_extend_crossing_pages(window, H, KV, ps, S):
+    dh, B = 16, 3
+    maxp = max(6, -(-(ps + S) // ps) + 1)
     q, kp, vp, table = _paged_case(3, B, S, H, KV, dh, ps, maxp,
                                    B * maxp + 1)
     # chunks starting mid-page, on a boundary, and at zero
@@ -120,14 +130,25 @@ def test_paged_extend_crossing_pages(window):
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
-@pytest.mark.parametrize("B,H,KV,dh,ps,maxp", [
-    (2, 4, 2, 16, 16, 4), (3, 8, 4, 32, 8, 6), (1, 2, 1, 64, 32, 3)])
-def test_paged_decode_sweep(B, H, KV, dh, ps, maxp):
+@pytest.mark.parametrize("B,H,KV,dh,ps,maxp,window", [
+    pytest.param(2, 4, 2, 16, 16, 4, None, id="2-4-2-16-16-4"),
+    pytest.param(3, 8, 4, 32, 8, 6, None, id="3-8-4-32-8-6"),
+    pytest.param(1, 2, 1, 64, 32, 3, None, id="1-2-1-64-32-3"),
+    # groups of 3 and 9 query heads per kv-head
+    pytest.param(3, 6, 2, 16, 16, 4, None, id="G3"),
+    pytest.param(2, 9, 1, 32, 8, 6, None, id="G9"),
+    # lengths over 20-odd pages, a window whose edge falls mid-page
+    pytest.param(3, 8, 2, 16, 8, 24, 50, id="many-pages-window"),
+])
+def test_paged_decode_sweep(B, H, KV, dh, ps, maxp, window):
     q, kp, vp, table = _paged_case(4, B, None, H, KV, dh, ps, maxp,
                                    B * maxp + 2)
-    lengths = np.array([(i % maxp) * ps + ps // 2 + 1 for i in range(B)],
-                       np.int32)
-    got, want = _paged_both(q, kp, vp, table, lengths, ps)
+    if window is None:
+        lengths = [(i % maxp) * ps + ps // 2 + 1 for i in range(B)]
+    else:
+        lengths = [maxp * ps - 7 * i - 3 for i in range(B)]
+    lengths = np.array(lengths, np.int32)
+    got, want = _paged_both(q, kp, vp, table, lengths, ps, window=window)
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
@@ -280,6 +301,94 @@ def test_moe_gmm_tensor_core_paths(sm90, dtype, E, C, d, f, gs):
     assert not got[rows].any()
 
 
+# the paged kernels' own paths: the split-KV decode with one, several and
+# all splits holding keys, lengths of 1, one page and one page + 1, a
+# window whose edge falls inside a split, the unscheduled full slot
+# (length == maxp * ps + 1: finite, not compared), groups of 1 to 9 query
+# heads per kv-head; the bf16 tensor-core extend (and the f32 FMA one) at
+# the same groups and page sizes 8 to 64; both give the same bits twice
+
+def _paged_card_case(sm90, dtype, seed, B, S, H, KV, dh, ps, maxp):
+    q, kp, vp, table = (torch.from_numpy(a).to(sm90)
+                        for a in _paged_case(seed, B, S, H, KV, dh, ps, maxp,
+                                             B * maxp + 1))
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), table
+
+
+def _assert_close(got, want, tol):
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= tol + tol * want.abs()).all()), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,dh,ps,maxp,lengths,window", [
+    (4, 4, 16, 8, 12, (1, 8, 9, 96), None),
+    (8, 4, 32, 16, 8, (1, 16, 17, 128, 129), None),
+    (6, 2, 64, 16, 10, (40, 100, 160), 37),
+    (32, 8, 128, 64, 32, (1, 64, 65, 700, 2048, 2049), None),
+    (16, 2, 128, 64, 8, (300, 512), 100),
+    (9, 1, 128, 16, 24, (5, 200, 384), 150),
+    (18, 2, 64, 8, 40, (320, 33), 77)])
+def test_paged_split_decode_paths(sm90, dtype, H, KV, dh, ps, maxp, lengths,
+                                  window):
+    B = len(lengths)
+    q, kp, vp, table = _paged_card_case(sm90, dtype, 11, B, None, H, KV, dh,
+                                        ps, maxp)
+    lt = torch.tensor(lengths, dtype=torch.int32, device=sm90)
+    got = ops.paged_attention(q, kp, vp, table, lt, page_size=ps,
+                              window=window)
+    assert torch.equal(got, ops.paged_attention(q, kp, vp, table, lt,
+                                                page_size=ps, window=window))
+    want = ops.paged_attention_plain(q, kp, vp, table, lt, page_size=ps,
+                                     window=window)
+    for b, n in enumerate(lengths):
+        if n > maxp * ps:                  # an unscheduled full slot
+            assert bool(torch.isfinite(got[b].float()).all())
+        else:
+            _assert_close(got[b], want[b], CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_refuses_large_groups(sm90, dtype):
+    """Decode carries at most 16 query heads per kv-head: 17 raises, and
+    nothing is launched."""
+    ops.reset_launch_counts()
+    q, kp, vp, table = _paged_card_case(sm90, dtype, 13, 2, None, 34, 2, 16,
+                                        8, 4)
+    lt = torch.tensor([5, 32], dtype=torch.int32, device=sm90)
+    with pytest.raises(ValueError, match="at most 16"):
+        ops.paged_attention(q, kp, vp, table, lt, page_size=8)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,dh,ps,maxp,start,window", [
+    (12, 6, 2, 16, 8, 6, (5, 8, 0), None),
+    (12, 9, 1, 32, 16, 4, (13, 16, 0), 7),
+    (256, 32, 8, 128, 64, 32, (293, 0, 61), None),
+    (100, 36, 4, 128, 64, 8, (29, 64, 0), 50),
+    (70, 8, 8, 64, 32, 6, (3, 32, 100), None),
+    (40, 16, 2, 32, 16, 10, (0, 77, 120), 33)])
+def test_paged_extend_tensor_core_paths(sm90, dtype, S, H, KV, dh, ps, maxp,
+                                        start, window):
+    B = len(start)
+    q, kp, vp, table = _paged_card_case(sm90, dtype, 12, B, S, H, KV, dh, ps,
+                                        maxp)
+    st = torch.tensor(start, dtype=torch.int32, device=sm90)
+    lt = st + S
+    got = ops.paged_attention(q, kp, vp, table, lt, page_size=ps, start=st,
+                              window=window)
+    assert torch.equal(got, ops.paged_attention(
+        q, kp, vp, table, lt, page_size=ps, start=st, window=window))
+    want = ops.paged_attention_plain(q, kp, vp, table, lt, page_size=ps,
+                                     start=st, window=window)
+    _assert_close(got, want, CUDA_TOL[dtype])
+
+
 # ---------- the profiler's kernel classes (CPU) ----------
 
 def _kernel_symbols():
@@ -308,6 +417,7 @@ def test_profiler_classifies_every_port_kernel():
     symbols = _kernel_symbols()
     names = {n for n, _ in symbols}
     assert {"flash_fwd_kernel", "flash_fwd_wgmma_kernel", "paged_fwd_kernel",
+            "paged_decode_split_kernel", "paged_extend_wgmma_kernel",
             "gmm_kernel", "gmm_wgmma_kernel"} <= names
     for name, src in symbols:
         ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"

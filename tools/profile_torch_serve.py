@@ -28,6 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_CLASSES = (("flash_fwd_kernel", "flash_attention (port)"),
                 ("flash_fwd_wgmma_kernel", "flash_attention (port)"),
                 ("paged_fwd_kernel", "paged_attention (port)"),
+                ("paged_decode_split_kernel", "paged_attention (port)"),
+                ("paged_extend_wgmma_kernel", "paged_attention (port)"),
                 ("gmm_kernel", "moe_gmm (port)"),
                 ("gmm_wgmma_kernel", "moe_gmm (port)"))
 
