@@ -34,15 +34,33 @@ result line:
    after: llama3.1-8b (flash prefill, paged extend and decode) and
    phimini-moe (the same three and the grouped expert matmul, 3 launches
    per MoE layer per model call);
-5. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+5. the paper's loop on the card: llama3.1-8b and then phimini-moe profiled
+   at full width (batch 8, max_len 2048, bf16, the serve's seeded weights)
+   through the profiler CLI's function (``profile --device h100 --mode
+   measured --kernels``) on a grid that covers the serve, each artifact
+   written under ``build/`` and reloaded through the port's hardware
+   registry, with the launches of the kernel sweep and of the runtime
+   probes read from the counters; then the Fig. 2 twin
+   (``repro_torch.bench.fig2_fidelity``) on the serve's 8 requests: S(D),
+   M(D) and PD(D) on llama3.1-8b and S(M) on phimini-moe, real against
+   simulated TTFT p50, TPOT and tokens/s with their errors, each
+   configuration with its launch counts; a structural gate only (every
+   request finishes on both sides, the P/D handoff moves bytes on both
+   sides, sim/real tokens/s within [0.5, 2]): 8 requests are too few to
+   measure the error, which ``tools/torch_fidelity.py`` measures on more;
+   and tiny f32 llama on the
+   card and the port's simulator make the same decisions, unified and P/D;
+6. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import shutil
 import statistics
@@ -523,13 +541,27 @@ PATHS = (("llama3.1-8b", ("flash_attention", "paged_attention_decode",
                           "paged_attention_extend", "moe_gmm")))
 
 
+def serve_requests(vocab, n=8, seed=0):
+    """The ShareGPT-shaped requests both full-width phases serve (8, seed
+    0); ``tools/torch_fidelity.py`` serves more of the same shape."""
+    from repro_torch.workload import ShareGPTConfig, generate
+    return generate(ShareGPTConfig(
+        n_requests=n, rate=10.0, vocab=vocab, seed=seed, mean_prompt=600,
+        sigma_prompt=0.5, max_prompt=1024, mean_output=24, max_output=32,
+        share_fraction=0.0))
+
+
+def serve_scheduler():
+    from repro_torch.core.config import SchedulerCfg
+    return SchedulerCfg(chunked_prefill=True, prefill_chunk=256,
+                        max_batch_size=8)
+
+
 def full_serve_setup(torch, arch="llama3.1-8b"):
     """A full-width model on the card behind a warmed-up ServeDriver, and
     the 8 requests it serves: (cfg, engine, driver, requests)."""
     from repro_torch.configs import get_config
-    from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
-    from repro_torch.workload import ShareGPTConfig, generate
     cfg = get_config(arch)
     check(cfg.n_layers == 32 and cfg.d_model == 4096, "not full width")
     t0 = time.perf_counter()
@@ -546,13 +578,8 @@ def full_serve_setup(torch, arch="llama3.1-8b"):
     check(tuple(logits.shape) == (1, 1, cfg.padded_vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"prefill logits {tuple(logits.shape)} not finite/of shape")
-    reqs = generate(ShareGPTConfig(
-        n_requests=8, rate=10.0, vocab=cfg.vocab, seed=0, mean_prompt=600,
-        sigma_prompt=0.5, max_prompt=1024, mean_output=24, max_output=32,
-        share_fraction=0.0))
-    sched = SchedulerCfg(chunked_prefill=True, prefill_chunk=256,
-                         max_batch_size=8)
-    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+    reqs = serve_requests(cfg.vocab)
+    drv = ServeDriver([eng], DriverCfg(scheduler=serve_scheduler()))
     drv.runtime.warmup()
     return cfg, eng, drv, reqs
 
@@ -597,6 +624,200 @@ def serve_full(torch, ops, card, arch, must_launch):
     return launches
 
 
+# ---------------------------------------------------------------- phase 5
+#: the profile grid covers phase 4's serve, so the simulator interpolates
+#: and never extrapolates: whole prompts and chunks at buckets 16 to 1024,
+#: decode contexts to 1280 (the serve's reach 1056) at batches 1, 4 and 8,
+#: and 256-token extend chunks after 256, 512 and 768 tokens
+PROFILE_GRID = ("--prefill-buckets", "16,32,64,128,256,512,1024",
+                "--decode-ctxs", "64,128,256,512,768,1024,1280",
+                "--extend-ctxs", "256,512,768", "--extend-suffixes", "256")
+#: (configuration, arch) pairs of the Fig. 2 twin on the card
+FIDELITY = (("S(D)", "llama3.1-8b"), ("M(D)", "llama3.1-8b"),
+            ("PD(D)", "llama3.1-8b"), ("S(M)", "phimini-moe"))
+
+
+def profile_card(torch, ops, arch, reps=3):
+    """``profile --device h100 --mode measured --kernels`` in process (the
+    median of ``reps`` timings a point), the artifact reloaded through the
+    port's registry: (its Trace, the run's launch counts)."""
+    from repro_torch.hw import HardwareRegistry
+    from repro_torch.profiler.__main__ import main as profiler_main
+    out = ROOT / "build" / "traces" / f"h100-{arch}.json"
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # the CLI's summary
+        summary = profiler_main([
+            "profile", "--device", "h100", "--mode", "measured", "--arch",
+            arch, "--kernels", "--max-batch", "8", "--max-len", "2048",
+            "--reps", str(reps), *PROFILE_GRID, "--out", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    hwt = HardwareRegistry().load_file(str(out))
+    check(hwt.device == "h100" and hwt.model == arch
+          and hwt.spec.name == "h100"
+          and len(hwt.points) == summary["n_points"] > 0,
+          f"profile {arch}: the reloaded artifact differs from the run")
+    swept = hwt.meta["kernel_launches"]
+    must = ["flash_attention", "paged_attention_decode"] + (
+        ["moe_gmm"] if "moe" in arch else [])
+    check(all(swept["cuda"][k] > 0 for k in must)
+          and not any(swept["reference"].values()),
+          f"profile {arch}: the cuda sweep launched {swept['cuda']}, the "
+          f"reference sweep {swept['reference']}")
+    probes = {k: n - swept["cuda"][k] for k, n in launches.items()}
+    check(all(probes[k] > 0 for k in must + ["paged_attention_extend"]),
+          f"profile {arch}: the runtime probes launched {probes}")
+    kinds = {}
+    for p in hwt.points:
+        kinds[p.op] = kinds.get(p.op, 0) + 1
+    print(f"phase 5: profiled {arch} on the card in {wall:.1f} s (runtime "
+          f"probes {hwt.meta['profile_wall_s']:.1f} s, kernel sweep "
+          f"{hwt.meta['kernel_wall_s']:.1f} s): {len(hwt.points)} points "
+          f"{json.dumps(kinds)}; {out.relative_to(ROOT)} reloaded through "
+          f"HardwareRegistry")
+    print(f"  launches: kernel sweep {json.dumps(swept['cuda'])}; runtime "
+          f"probes {json.dumps(probes)}")
+    trace = hwt.to_trace()
+    from repro_torch.bench.fig2_fidelity import kernel_attribution
+    for r in kernel_attribution(trace, arch, "cuda"):
+        if (r["phase"], r["tokens"], r["context"]) in (
+                ("prefill", 256, 256), ("decode", 8, 512),
+                ("decode", 8, 1024)):
+            print(f"  {r['phase']} {r['tokens']}@{r['context']}: iteration "
+                  f"{r['iter_ms']:.2f} ms, kern:cuda rows compose "
+                  f"{r['kernel_sum_ms']:.2f} ms ({r['gap_pct']:+.1f}%; "
+                  + ", ".join(f"{k} {100 * v:.0f}%"
+                              for k, v in r["share"].items()) + ")")
+    return trace, launches
+
+
+def fidelity_card(torch, ops, card, traces, n=8, seed=0):
+    """The Fig. 2 twin on the card on ``n`` requests from ``seed``: the
+    launch counts of each configuration, and one row per configuration.
+    At phase 5's 8 requests the run is a structural gate, too small to
+    measure the error (``tools/torch_fidelity.py`` measures it)."""
+    from repro_torch.bench.fig2_fidelity import compare, summarize
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ServingEngine
+    rows, by_config, params = [], {}, {}
+    for config, arch in FIDELITY:
+        cfg = get_config(arch)
+        if arch not in params:
+            params.clear()          # one full-width model on the card
+            gc.collect()
+            torch.cuda.empty_cache()
+            params[arch] = ServingEngine(cfg, max_batch=1, max_len=64,
+                                         seed=0).params
+        reqs = serve_requests(cfg.vocab, n, seed)
+        ops.reset_launch_counts()
+        row = compare(config, arch, reqs, traces[arch],
+                      scheduler=serve_scheduler(), params=params[arch],
+                      max_batch=8, max_len=2048)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        must = ["flash_attention", "paged_attention_decode",
+                "paged_attention_extend"] + (
+            ["moe_gmm"] if "moe" in arch else [])
+        check(all(launches[k] > 0 for k in must),
+              f"fidelity {config}: launches {launches}")
+        check(row["real_finished"] == row["sim_finished"] == len(reqs),
+              f"fidelity {config}: finished real {row['real_finished']}, "
+              f"sim {row['sim_finished']} of {len(reqs)}")
+        if config.startswith("PD"):
+            check(row["real_handoff_bytes"] > 0
+                  and row["sim_handoff_bytes"] > 0,
+                  f"fidelity {config}: the handoff moved "
+                  f"{row['real_handoff_bytes']} / "
+                  f"{row['sim_handoff_bytes']} bytes (real / sim)")
+        ratio = row["sim_tput"] / row["real_tput"]
+        check(0.5 <= ratio <= 2.0,
+              f"fidelity {config}: sim/real tokens/s {ratio:.3f} outside "
+              f"[0.5, 2], a unit or pricing fault")
+        print(f"fidelity [{card}] {config} {arch}, {n} requests, seed "
+              f"{seed}: TTFT p50 real "
+              f"{row['real_ttft_p50_ms']:.1f} sim {row['sim_ttft_p50_ms']:.1f}"
+              f" ms ({row['ttft_err_pct']:.1f}%), TPOT mean real "
+              f"{row['real_tpot_ms']:.2f} sim {row['sim_tpot_ms']:.2f} ms "
+              f"({row['tpot_err_pct']:.1f}%), tokens/s real "
+              f"{row['real_tput']:.1f} sim {row['sim_tput']:.1f} "
+              f"({row['tput_err_pct']:.1f}%); handoff bytes real "
+              f"{row['real_handoff_bytes']:.0f} sim "
+              f"{row['sim_handoff_bytes']:.0f}")
+        print("  iterations (count, mean ms) real / sim: " + ", ".join(
+            f"{n} {row['real_iterations'][n]}, "
+            f"{row['real_iter_ms'][n]:.2f} / {row['sim_iterations'][n]}, "
+            f"{row['sim_iter_ms'][n]:.2f}" for n in row["real_iterations"]))
+        print(f"  launches: {json.dumps(launches)}")
+        rows.append(row)
+        by_config[f"fig2 {config} {arch}"] = launches
+    params.clear()
+    s = summarize(rows)
+    print(f"fidelity [{card}], {n} requests, seed {seed}: TPOT and "
+          f"tokens/s error mean {s['mean_err_pct']:.1f}%, max "
+          f"{s['max_err_pct']:.1f}%; TTFT p50 error mean "
+          f"{s['ttft_mean_err_pct']:.1f}%, max {s['ttft_max_err_pct']:.1f}%")
+    return by_config, rows
+
+
+def tiny_decisions_card_equal_sim(torch):
+    """Tiny f32 llama, every arrival at 0: the real engine on the card and
+    the port's simulator make the same decisions on every instance,
+    unified (batch 2) and P/D (batch 1: the handoffs land at times the
+    latencies set, and one at a time is decoded in the order the
+    prefills ended)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClusterCfg, RouterCfg
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.config import SchedulerCfg
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    from repro_torch.serve.driver import engine_instance_cfg
+    from repro_torch.workload import ShareGPTConfig, generate
+    cfg = dataclasses.replace(get_config("llama3.1-8b-tiny"),
+                              compute_dtype="float32")
+
+    def reqs():
+        out = generate(ShareGPTConfig(
+            n_requests=6, rate=50.0, vocab=cfg.vocab, seed=3,
+            mean_prompt=60, mean_output=8, max_prompt=120, max_output=10,
+            share_fraction=0.0))
+        for r in out:
+            r.arrival = 0.0
+        return out
+    for pd in (False, True):
+        sched = SchedulerCfg(max_batch_size=1 if pd else 2,
+                             max_batch_tokens=64, chunked_prefill=True,
+                             prefill_chunk=32)
+        first = ServingEngine(cfg, max_batch=2, max_len=256,
+                              name="p0" if pd else "e0",
+                              role="prefill" if pd else "unified")
+        engines = [first] + ([ServingEngine(
+            cfg, first.params, max_batch=2, max_len=256, name="d0",
+            role="decode")] if pd else [])
+        pd_map = {"p0": ("d0",)} if pd else None
+        drv = ServeDriver(engines, DriverCfg(scheduler=sched),
+                          pd_map=pd_map)
+        real = drv.run(reqs(), warmup=False)
+        sim = Cluster(ClusterCfg(
+            instances=tuple(engine_instance_cfg(e, sched) for e in engines),
+            router=RouterCfg("round_robin"), pd_map=pd_map))
+        sim.submit_workload(reqs())
+        m = sim.run()
+        decisions = {n: i.decisions for n, i in drv.runtime.instances.items()}
+        check(real["finished"] == m["finished"] == 6
+              and decisions == {n: i.decisions
+                                for n, i in sim.instances.items()},
+              f"tiny {'P/D' if pd else 'unified'}: the card's decisions "
+              f"differ from the simulator's")
+        print(f"phase 5: tiny llama f32 {'P/D' if pd else 'unified'}, card "
+              f"== simulator: "
+              f"{sum(len(d) for d in decisions.values())} decisions "
+              f"identical")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -621,6 +842,14 @@ def main() -> int:
             by_path[arch] = serve_full(torch, ops, card, arch, must)
             gc.collect()          # ServeDriver and its runtime form a cycle
             torch.cuda.empty_cache()
+        traces = {}
+        for arch, _ in PATHS:
+            traces[arch], by_path[f"profile {arch}"] = profile_card(
+                torch, ops, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        by_path.update(fidelity_card(torch, ops, card, traces)[0])
+        tiny_decisions_card_equal_sim(torch)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

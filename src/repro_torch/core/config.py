@@ -220,8 +220,8 @@ class InstanceCfg:
     kv_block_tokens: int = 16        # PagedAttention block size
     trace_name: Optional[str] = None  # perf-model trace to use
     # which kernel backend's hwtrace/3 sub-bucket rows price this instance
-    # ("pallas" | "reference").  None auto-picks: pallas rows when the
-    # trace carries them, else reference, else no kernel tier.
+    # ("cuda" | "reference").  None auto-picks: cuda rows when the trace
+    # carries them, else reference, else no kernel tier.
     kernel_backend: Optional[str] = None
     # hardware by name: resolved through the repro_torch.hw registry at instance
     # build time (measured HardwareTrace if one is loaded, synthetic
@@ -285,6 +285,12 @@ PIM_DEVICE = HardwareSpec(
     name="pim", peak_flops=8e12, hbm_bw=2.0e12, hbm_capacity=16e9,
     link_bw=25e9,   # memory-side accelerator for expert offloading [7,8]
     inter_instance_bw=25e9)
+
+H100 = HardwareSpec(
+    # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak, HBM3, 80 GB,
+    # NVLink 4 per direction, PCIe 5.0 x16 host link
+    name="h100", peak_flops=989e12, hbm_bw=3.35e12, hbm_capacity=80e9,
+    link_bw=450e9, host_bw=64e9)
 
 CPU_HOST = HardwareSpec(
     name="cpu-host", peak_flops=2e12, hbm_bw=80e9, hbm_capacity=256e9,

@@ -5,9 +5,9 @@
 
 Runs on the card by default; ``--device cpu`` runs on the CPU (use a
 ``-tiny`` arch there).  The flags are those of the JAX package's CLI
-(``src/repro/launch/serve.py``);
-``--pd``, ``--prefix-cache`` and ``--tp`` > 1 are not ported yet and
-raise.
+(``src/repro/launch/serve.py``); ``--pd`` serves one prefill and one
+decode engine that share their weights.  ``--prefix-cache`` and ``--tp``
+> 1 are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -49,12 +49,16 @@ def main(argv=None):
               prefix_cache=args.prefix_cache, tp=args.tp,
               device=args.device)
     if args.pd:
-        raise NotImplementedError("--pd: P/D disaggregation is not ported "
-                                  "yet")
-    e0 = ServingEngine(cfg, name="e0", **kw)
-    engines = [e0] + [
-        ServingEngine(cfg, params=e0.params, name=f"e{i}", **kw)
-        for i in range(1, args.instances)]
+        p0 = ServingEngine(cfg, name="p0", role="prefill", **kw)
+        engines = [p0, ServingEngine(cfg, params=p0.params, name="d0",
+                                     role="decode", **kw)]
+        pd = {"p0": ("d0",)}
+    else:
+        e0 = ServingEngine(cfg, name="e0", **kw)
+        engines = [e0] + [
+            ServingEngine(cfg, params=e0.params, name=f"e{i}", **kw)
+            for i in range(1, args.instances)]
+        pd = None
     sched = None
     if args.chunked_prefill:
         from repro_torch.core.config import SchedulerCfg
@@ -62,7 +66,7 @@ def main(argv=None):
                              max_batch_tokens=256,
                              chunked_prefill=True, prefill_chunk=64)
     drv = ServeDriver(engines, DriverCfg(router=args.router,
-                                         scheduler=sched))
+                                         scheduler=sched), pd_map=pd)
     m = drv.run(reqs)
     print(json.dumps(m, indent=1, default=float))
 

@@ -1,0 +1,350 @@
+"""Profiler CLI: the paper's single-command hardware integration.
+
+The port of ``repro/profiler/__main__.py``.  Emit a portable
+``HardwareTrace`` artifact for one device, measured through the port's
+``TorchBackend`` on a torch device, or synthesized from a hardware spec
+for a device that is not at hand:
+
+  # measure the card through the real engine, with the kernel sweep
+  python -m repro_torch.profiler profile --device h100 --mode measured \\
+      --arch llama3.1-8b --kernels --out traces/h100.json
+
+  # measure on the CPU (tiny archs)
+  python -m repro_torch.profiler profile --device cpu-engine \\
+      --arch llama3.1-8b-tiny
+
+  # synthesize a never-measured accelerator from its spec sheet
+  python -m repro_torch.profiler profile --device tpu-v6e \\
+      --arch llama3.1-8b-tiny --out traces/tpu-v6e.json
+
+``--engine-device`` names the torch device the engine runs on (default:
+the CPU for a CPU label such as ``cpu-engine``, ``cpu-measured`` or
+``local``, else the card); ``--device`` (``--hw`` for ``ops``) is the
+artifact's label, and a run on the card refuses a CPU label.  The grid flags
+(``--prefill-buckets``, ``--decode-ctxs``, ``--extend-ctxs``,
+``--extend-suffixes``) default to the JAX package's grid.  The artifact
+loads via ``repro_torch.hw`` and is referenced from cluster configs by
+``InstanceCfg(hw_name="<device>")``.
+
+MoE architectures have a second artifact, the expert-routing trace
+(``record-routing``, or ``profile --experts``).  Not ported yet: the
+acceptance trace (``record-acceptance``, ``profile --spec``; ROADMAP queue
+1 item 7) and measured tensor-parallel grids (``--tp`` above 1 in
+measured mode; item 9); asking for them exits with a message.
+
+The operator-level profiler (raw ``Trace``) is the ``ops`` subcommand; a
+bare ``python -m repro_torch.profiler --arch ...`` means ``ops``.
+"""
+import argparse
+import json
+import sys
+
+
+def _parse_ints(value, flag) -> list:
+    """``--tp 1,2`` -> sorted unique integers [1, 2]."""
+    if isinstance(value, int):
+        value = str(value)
+    try:
+        out = sorted({int(t) for t in value.split(",") if t.strip()})
+    except ValueError:
+        raise SystemExit(
+            f"{flag} expects comma-separated integers (e.g. {flag} 1,2), "
+            f"got {value!r}") from None
+    if not out:
+        raise SystemExit(f"{flag} needs at least one value")
+    if out[0] < 1:
+        raise SystemExit(f"{flag} values must be >= 1, got {out[0]}")
+    return out
+
+
+def _grid(args) -> dict:
+    return {name: tuple(_parse_ints(getattr(args, name),
+                                    "--" + name.replace("_", "-")))
+            for name in ("prefill_buckets", "decode_ctxs", "extend_ctxs",
+                         "extend_suffixes")}
+
+
+def _engine_device(args, label):
+    """``--engine-device``, else the CPU for a CPU label, else None (the
+    card)."""
+    from repro_torch.profiler.runtime_profiler import is_cpu_label
+    if args.engine_device is None and label is not None \
+            and is_cpu_label(label):
+        return "cpu"
+    return args.engine_device
+
+
+def _no_spec():
+    raise SystemExit(
+        "speculative decoding (acceptance traces) is not ported yet: "
+        "ROADMAP queue 1 item 7")
+
+
+def _cmd_profile(args):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import HardwareSpec
+    from repro_torch.hw import HardwareRegistry, get_hw, register_hw
+    from repro_torch.profiler.arch_spec import model_spec_from_arch
+
+    if args.spec is not None:
+        _no_spec()
+    spec_flags = {k: getattr(args, k) for k in
+                  ("peak_flops", "hbm_bw", "hbm_capacity", "link_bw")}
+    if any(v is not None for v in spec_flags.values()):
+        missing = [k for k, v in spec_flags.items() if v is None]
+        if missing:
+            raise SystemExit(
+                f"defining a new device spec needs all of --peak-flops "
+                f"--hbm-bw --hbm-capacity --link-bw (missing: "
+                f"{', '.join('--' + m.replace('_', '-') for m in missing)})")
+        register_hw(HardwareSpec(
+            name=args.device,
+            mmu_efficiency=args.mmu_efficiency
+            if args.mmu_efficiency is not None else 0.85,
+            **spec_flags))
+    elif args.mmu_efficiency is not None:
+        # derate/uprate a known spec without redefining the whole device
+        register_hw(dataclasses.replace(
+            get_hw(args.device), mmu_efficiency=args.mmu_efficiency))
+
+    tps = _parse_ints(args.tp, "--tp")
+    mode = args.mode
+    if mode == "auto":
+        mode = "measured" if args.device in ("cpu-engine", "local") \
+            else "synthetic"
+    if mode == "measured":
+        if tps != [1]:
+            raise SystemExit(
+                f"--tp {args.tp}: measured tensor-parallel grids need a "
+                f"sharded engine, not ported yet: ROADMAP queue 1 item 9")
+        from repro_torch.profiler.runtime_profiler import runtime_trace
+        grid = _grid(args)
+        engine_device = _engine_device(args, args.device)
+        hwt = runtime_trace(args.arch, device=args.device,
+                            max_batch=args.max_batch, max_len=args.max_len,
+                            reps=args.reps, seed=args.seed,
+                            engine_device=engine_device, **grid)
+        hwt.meta.pop("tp", None)
+        if args.kernels is not None:
+            # hwtrace/3 kernel sub-buckets: per-kernel rows per backend on
+            # the base grid
+            from repro_torch.profiler.kernel_profiler import add_kernel_grid
+            backends = [b for b in args.kernels.split(",") if b.strip()]
+            add_kernel_grid(hwt, args.arch, backends,
+                            device=engine_device,
+                            max_batch=args.max_batch, max_len=args.max_len,
+                            reps=args.reps, seed=args.seed,
+                            prefill_buckets=grid["prefill_buckets"],
+                            decode_ctxs=grid["decode_ctxs"])
+    else:
+        if args.kernels is not None:
+            raise SystemExit(
+                "--kernels sweeps real kernels and needs measured mode "
+                "(--device cpu-engine/local, or --mode measured)")
+        from repro_torch.hw.synthetic import synthetic_trace
+        hwt = synthetic_trace(get_hw(args.device),
+                              model_spec_from_arch(get_config(args.arch)),
+                              tp=tps, device=args.device)
+    hwt.meta["tp_degrees"] = hwt.tp_degrees()
+    hwt.meta["n_points"] = sum(
+        len(hwt.grid(t)) for t in hwt.tp_degrees())
+    out = args.out or f"traces/{args.device}.json"
+    hwt.save(out)
+    # round-trip through the registry so a broken artifact fails HERE,
+    # not at simulation time
+    HardwareRegistry().load_file(out)
+    summary = {"trace": out, "device": hwt.device,
+               "model": hwt.model, **hwt.meta}
+    if args.experts is not None:
+        rout = args.experts if args.experts != "auto" \
+            else f"traces/{args.device}.routing.json"
+        summary["routing_trace"] = _emit_routing(
+            args, out=rout, synthetic=(mode != "measured"))
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def _emit_routing(args, out: str, synthetic: bool) -> str:
+    """Shared by ``profile --experts`` and ``record-routing``: emit (and
+    round-trip check) one ExpertRoutingTrace artifact for ``args.arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.moe import RoutingRegistry, moe_layer_count
+
+    cfg = get_config(args.arch)
+    if cfg.moe is None:
+        raise SystemExit(
+            f"--arch {args.arch} is not a MoE architecture; expert-routing "
+            f"traces need one (e.g. granite-moe-1b-a400m-tiny)")
+    if synthetic:
+        from repro_torch.workload.expert_skew import (SkewConfig,
+                                                      synthesize_routing)
+        trace = synthesize_routing(
+            moe_layer_count(cfg), cfg.moe.n_experts, cfg.moe.top_k,
+            SkewConfig(kind=getattr(args, "skew", "zipf"),
+                       zipf_a=getattr(args, "zipf_a", 1.1),
+                       period=args.period, seed=args.seed),
+            model=cfg.name)
+    else:
+        from repro_torch.moe.record import record_routing
+        trace = record_routing(
+            args.arch, n_requests=getattr(args, "requests", 8),
+            max_batch=args.max_batch, max_len=args.max_len,
+            period=args.period, seed=args.seed,
+            device=_engine_device(args, getattr(args, "device", None)))
+    trace.save(out)
+    RoutingRegistry().load_file(out)   # broken artifacts fail at emit time
+    return out
+
+
+def _cmd_record_routing(args):
+    out = _emit_routing(args,
+                        out=args.out or f"traces/{args.arch}.routing.json",
+                        synthetic=(args.mode == "synthetic"))
+    from repro_torch.moe import ExpertRoutingTrace
+    trace = ExpertRoutingTrace.load(out)
+    summary = {"trace": out, "model": trace.model,
+               "n_layers": trace.n_layers, "n_experts": trace.n_experts,
+               "top_k": trace.top_k,
+               "static_imbalance": trace.static_imbalance(), **trace.meta}
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def _cmd_ops(args):
+    from repro_torch.profiler.operator_profiler import profile_arch
+    trace = profile_arch(args.arch, hardware=args.hw, mode=args.mode,
+                         tp=args.tp, device=_engine_device(args, args.hw))
+    out = args.out or f"traces/{args.arch}.{trace.hardware}.{args.mode}.json"
+    trace.save(out)
+    summary = {"trace": out, **trace.meta}
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0].startswith("-"):
+        argv = ["ops", *argv]      # legacy: python -m ... --arch X
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.profiler")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    def engine_device(p):
+        p.add_argument("--engine-device", default=None,
+                       help="torch device the engine runs on in measured "
+                            "mode (default: the CPU for a CPU label, else "
+                            "the card)")
+
+    p = sub.add_parser(
+        "profile", help="emit a HardwareTrace artifact for one device")
+    p.add_argument("--device", required=True,
+                   help="device name (registry key of the artifact)")
+    p.add_argument("--arch", default="llama3.1-8b-tiny")
+    p.add_argument("--mode", default="auto",
+                   choices=["auto", "measured", "synthetic"],
+                   help="auto: measured for cpu-engine/local, synthetic "
+                        "(spec-derived) otherwise")
+    p.add_argument("--out", default=None,
+                   help="output path (default traces/<device>.json)")
+    p.add_argument("--tp", default="1",
+                   help="tensor-parallel degree(s), comma-separated; "
+                        "synthetic mode emits one grid per degree, "
+                        "measured mode takes only 1")
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--max-len", type=int, default=512)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--prefill-buckets", default="16,32,64,128,256",
+                   help="measured mode: whole-prompt prefill buckets")
+    p.add_argument("--decode-ctxs", default="32,64,128,256",
+                   help="measured mode: decode contexts (batches 1, "
+                        "max-batch/2 and max-batch at each)")
+    p.add_argument("--extend-ctxs", default="16,64,128",
+                   help="measured mode: contexts an extend chunk follows")
+    p.add_argument("--extend-suffixes", default="16,64,128",
+                   help="measured mode: extend chunk sizes")
+    engine_device(p)
+    # inline spec definition for a brand-new accelerator
+    p.add_argument("--peak-flops", type=float, default=None)
+    p.add_argument("--hbm-bw", type=float, default=None)
+    p.add_argument("--hbm-capacity", type=float, default=None)
+    p.add_argument("--link-bw", type=float, default=None)
+    p.add_argument("--mmu-efficiency", type=float, default=None,
+                   help="achievable fraction of peak on matmuls (default "
+                        "0.85 for new specs; overrides a known spec's "
+                        "value when given alone)")
+    p.add_argument("--experts", nargs="?", const="auto", default=None,
+                   metavar="PATH",
+                   help="MoE archs: also emit an ExpertRoutingTrace "
+                        "artifact (recorded through the engine in "
+                        "measured mode, synthesized otherwise) to PATH "
+                        "(default traces/<device>.routing.json)")
+    p.add_argument("--period", type=int, default=256,
+                   help="routing-trace position-bucket length")
+    p.add_argument("--spec", nargs="?", const="auto", default=None,
+                   metavar="PATH",
+                   help="acceptance trace: not ported yet (exits)")
+    p.add_argument("--kernels", nargs="?", const="reference,cuda",
+                   default=None, metavar="BACKENDS",
+                   help="measured mode: also sweep per-kernel latencies "
+                        "(attention/mlp/moe_gmm/head) for the given "
+                        "comma-separated kernel backends (default "
+                        "'reference,cuda') into hwtrace/3 sub-buckets")
+    p.set_defaults(fn=_cmd_profile, requests=8)
+
+    r = sub.add_parser(
+        "record-routing",
+        help="emit an ExpertRoutingTrace artifact for a MoE arch: record "
+             "the real model's routing through the port's engine, or "
+             "synthesize a parameterized skew")
+    r.add_argument("--arch", required=True,
+                   help="MoE architecture (e.g. granite-moe-1b-a400m-tiny)")
+    r.add_argument("--mode", default="measured",
+                   choices=["measured", "synthetic"],
+                   help="measured: free-running recording tap on the real "
+                        "engine; synthetic: parameterized skew generator")
+    r.add_argument("--out", default=None,
+                   help="output path (default traces/<arch>.routing.json)")
+    r.add_argument("--requests", type=int, default=8,
+                   help="workload size for measured recording")
+    r.add_argument("--max-batch", type=int, default=4)
+    r.add_argument("--max-len", type=int, default=256)
+    r.add_argument("--period", type=int, default=256,
+                   help="position-bucket length of the assignment tables")
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--skew", default="zipf",
+                   choices=["uniform", "zipf", "correlated"],
+                   help="synthetic mode: skew family")
+    r.add_argument("--zipf-a", type=float, default=1.1,
+                   help="synthetic mode: zipf exponent")
+    engine_device(r)
+    r.set_defaults(fn=_cmd_record_routing)
+
+    a = sub.add_parser(
+        "record-acceptance",
+        help="acceptance traces: not ported yet (exits)")
+    a.set_defaults(fn=lambda args: _no_spec())
+
+    o = sub.add_parser(
+        "ops", help="operator-level trace (raw Trace, legacy format)")
+    o.add_argument("--arch", required=True)
+    o.add_argument("--hw", default=None,
+                   help="the trace's label (default: cpu-measured, or h100 "
+                        "when measured on the card)")
+    o.add_argument("--mode", default="measured",
+                   choices=["measured", "analytical"])
+    o.add_argument("--tp", type=int, default=1)
+    o.add_argument("--out", default=None)
+    engine_device(o)
+    o.set_defaults(fn=_cmd_ops)
+
+    args, rest = ap.parse_known_args(argv)
+    if rest and args.cmd != "record-acceptance":
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,9 +22,14 @@ routed.  Under any routing hook the full-buffer decode marks unscheduled
 slots with the token -1 and free slots keep length 0, so neither is
 recorded nor takes a real token's expert capacity.
 
-Speculative decoding, the prefix store and P/D export/import are not
-ported yet; the backend refuses configurations that ask for them, and
-``export_kv``/``import_kv`` raise.
+P/D disaggregation as in the JAX backend: ``export_kv`` copies a prefill
+slot's KV out (``ServingEngine._export_slot``, to host memory), frees the
+slot and charges its wall time to the next iteration through ``_carry_s``;
+``import_kv`` restores the payload into a free decode slot with the first
+token the prefill emitted pending.
+
+Speculative decoding and the prefix store are not ported yet; the backend
+refuses configurations that ask for them.
 """
 from __future__ import annotations
 
@@ -40,8 +45,6 @@ from repro_torch.moe import ExpertLoadTracker, resolve_routing
 from repro_torch.runtime.backend import KvHandoff
 from repro_torch.runtime.prefix_cache import MatchResult
 from repro_torch.runtime.scheduler import ScheduledWork
-from repro_torch.serve.engine import _bucket
-from repro_torch.serve.sampler import greedy
 
 
 class TorchBackend:
@@ -58,6 +61,9 @@ class TorchBackend:
         self._slot: Dict[int, int] = {}      # req_id -> engine slot
         self._len: Dict[int, int] = {}       # slot   -> tokens held in KV
         self._iterations = 0
+        # real work done outside execute() (P/D export) is wall-timed and
+        # charged to the next iteration
+        self._carry_s = 0.0
         self.obs = None
         # output-token capture: req_id -> emitted token ids, in order
         self.out_tokens: Dict[int, List[int]] = {}
@@ -99,6 +105,8 @@ class TorchBackend:
         return toks[:cap] if len(toks) > cap else toks
 
     def warmup(self):
+        # serve/ imports this module back (driver): import it late
+        from repro_torch.serve.engine import _bucket
         eng = self.eng
         eng.warmup()
         sched = self.cfg.scheduler
@@ -128,13 +136,15 @@ class TorchBackend:
             self._prefill_chunk(w)
         self.eng.synchronize()
         self._iterations += 1
-        latency = time.perf_counter() - t0
+        latency = time.perf_counter() - t0 + self._carry_s
+        self._carry_s = 0.0
         if self.expert_load is not None:
             self.expert_load.observe(self._routed_pos, now)
             self._routed_pos = []
         return latency
 
     def _decode_step(self, decodes: List[ScheduledWork]):
+        from repro_torch.serve.sampler import greedy
         eng = self.eng
         tokens = eng._tokens_buf
         for w in decodes:
@@ -182,6 +192,8 @@ class TorchBackend:
             eng.cache["lengths"] = eng.tensor(lengths)
 
     def _prefill_chunk(self, w: ScheduledWork):
+        from repro_torch.serve.engine import _bucket
+        from repro_torch.serve.sampler import greedy
         eng = self.eng
         req = w.request
         toks = self._prompt(req)
@@ -240,12 +252,31 @@ class TorchBackend:
         self._len.pop(slot, None)
         self.eng._release_slot(slot)
 
-    # ---- P/D handoff (not ported) ----
+    # ---- P/D handoff ----
     def export_kv(self, req: SimRequest) -> KvHandoff:
-        raise NotImplementedError("P/D KV export is not ported yet")
+        t0 = time.perf_counter()
+        slot = self._slot[req.req_id]
+        length = self._len[slot]
+        kv = self.eng._export_slot(slot, length)
+        first = int(self.eng._tokens_buf[slot, 0])
+        nbytes = float(sum(t.nbytes for key, layer in kv.items()
+                           if not key.startswith("_")
+                           for t in layer.values()))
+        self.release(req)
+        self._carry_s += time.perf_counter() - t0
+        return KvHandoff(nbytes=nbytes,
+                         payload={"kv": kv, "first": first, "len": length})
 
     def import_kv(self, req: SimRequest, handoff: Optional[KvHandoff]):
-        raise NotImplementedError("P/D KV import is not ported yet")
+        if handoff is None or handoff.payload is None:
+            return
+        slot = self.eng.slot_free.pop()
+        self._slot[req.req_id] = slot
+        p = handoff.payload
+        self.eng._restore_slot(slot, p["kv"], p["len"])
+        self.eng._tokens_buf[slot, 0] = p["first"]
+        self._len[slot] = p["len"]
+        self.out_tokens.setdefault(req.req_id, []).append(p["first"])
 
     # ---- lifecycle ----
     def reset(self):

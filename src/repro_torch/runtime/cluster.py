@@ -11,16 +11,14 @@ Every instance — whether built at construction time or added later via
 scale-out instances join the shared global prefix cache and get P/D handoff
 wiring exactly like their siblings (previously they silently got neither).
 
-Port cuts: this copy has no hardware-trace registry, so ``hw`` stays None
-and an ``InstanceCfg`` that names an ``hw_name`` raises
-``NotImplementedError``; and it has no event tracing yet, so passing a
-``recorder`` raises ``NotImplementedError``.
+Port cut: this copy has no event tracing yet (``obs/record.py`` is not
+copied), so passing a ``recorder`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Sequence
 
 from repro_torch.core.config import ClusterCfg, InstanceCfg
 from repro_torch.core.engine import EventQueue
@@ -35,6 +33,9 @@ from repro_torch.runtime.backend import ExecutionBackend
 from repro_torch.runtime.instance import RuntimeInstance
 from repro_torch.runtime.prefix_cache import RadixPrefixCache
 from repro_torch.runtime.router import GlobalRouter
+
+if TYPE_CHECKING:
+    from repro_torch.hw.registry import HardwareRegistry
 
 BackendFactory = Callable[[InstanceCfg, Optional[Trace]], ExecutionBackend]
 
@@ -52,7 +53,7 @@ class ServingRuntime:
 
     def __init__(self, cfg: ClusterCfg, backend_factory: BackendFactory,
                  traces: Optional[TraceRegistry] = None,
-                 hw=None,
+                 hw: Optional["HardwareRegistry"] = None,
                  recorder=None):
         self.cfg = cfg
         self.backend_factory = backend_factory
@@ -63,11 +64,15 @@ class ServingRuntime:
         self.queue = EventQueue()
         self.network = NetworkModel(cfg.network)
         self.traces = traces or TraceRegistry()
-        # hardware-by-name resolution (InstanceCfg.hw_name) needs a
-        # hardware-trace registry passed as ``hw``; the port has none yet
         if recorder is not None:
             raise NotImplementedError(
                 "event tracing (recorder=) is not ported yet")
+        # hardware-by-name resolution (InstanceCfg.hw_name): measured
+        # HardwareTrace artifacts when loaded, synthetic otherwise.
+        # Imported lazily: repro_torch.hw sits above repro_torch.core in the layering,
+        # so a cold `import repro_torch.hw` must not re-enter this module.
+        if hw is None:
+            from repro_torch.hw.registry import default_registry as hw
         self.hw = hw
         self.instances: Dict[str, RuntimeInstance] = {}
         # instances removed by elastic scale-in: kept for metrics (their
@@ -102,10 +107,6 @@ class ServingRuntime:
     def _build_instance(self, icfg: InstanceCfg) -> RuntimeInstance:
         trace = (self.traces.get(icfg.trace_name)
                  if icfg.trace_name else None)
-        if trace is None and icfg.hw_name and self.hw is None:
-            raise NotImplementedError(
-                f"instance {icfg.name!r} names hw_name={icfg.hw_name!r}; "
-                f"the port has no hardware-trace registry yet")
         if trace is None and icfg.hw_name:
             hwt = self.hw.resolve(icfg.hw_name, icfg.model,
                                   tp=icfg.parallelism.tp)

@@ -17,10 +17,6 @@ per-request ledger, decode extensions grow the reservation as the context
 grows, and completion/preemption/requeue free exactly what was reserved —
 never ``context + output//4`` recomputed after the fact (which silently
 over-freed the pool as decode advanced).
-
-Port cut: the JAX package imports ``BatchItem`` from ``core/perfmodel.py``,
-which pulls in the hardware-trace layer; this copy defines the same
-dataclass locally.
 """
 from __future__ import annotations
 
@@ -33,17 +29,8 @@ import numpy as np
 
 from repro_torch.core.config import SchedulerCfg
 from repro_torch.core.memory import MemoryModel
+from repro_torch.core.perfmodel import BatchItem
 from repro_torch.core.request import (DECODING, PREFILLING, QUEUED, SimRequest)
-
-
-@dataclasses.dataclass
-class BatchItem:
-    tokens: int          # tokens processed for this request this iteration
-    context: int         # total context length (for attention cost)
-    phase: str           # prefill | decode
-    start: int = 0       # KV already in cache before this work (cache hits
-                         # and chunked-prefill continuations run ``extend``)
-    completes: bool = True   # this work finishes the request's prefill
 
 
 @dataclasses.dataclass

@@ -9,14 +9,14 @@ difference in the engine.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.config import (ENGINE_HW, ClusterCfg, HardwareSpec,
-                                     InstanceCfg, MoECfg, NetworkCfg,
-                                     ParallelismCfg, RouterCfg, SchedulerCfg,
-                                     engine_scheduler_cfg)
+from repro_torch.core.config import (ENGINE_HW, H100, ClusterCfg,
+                                     HardwareSpec, InstanceCfg, MoECfg,
+                                     NetworkCfg, ParallelismCfg, RouterCfg,
+                                     SchedulerCfg, engine_scheduler_cfg)
 from repro_torch.core.request import SimRequest
 from repro_torch.profiler import model_spec_from_arch
 from repro_torch.runtime.backends.torch_engine import TorchBackend
@@ -28,15 +28,12 @@ from repro_torch.workload.sharegpt import Request
 def device_hw(device: torch.device) -> HardwareSpec:
     """The hardware spec of the runtime's block ledger for an engine on
     ``device``: ``ENGINE_HW`` on the CPU (the JAX driver's), and on a card
-    its own memory size with the H100 SXM data-sheet rates (the real
-    backend reads only the memory size)."""
+    the ``h100`` preset with the card's own memory size (the real backend
+    reads only the memory size; a simulated twin prices with the rest)."""
     if device.type != "cuda":
         return ENGINE_HW
     props = torch.cuda.get_device_properties(device)
-    return HardwareSpec(
-        name=props.name, peak_flops=989e12, hbm_bw=3.35e12,
-        hbm_capacity=float(props.total_memory), link_bw=450e9,
-        host_bw=64e9)
+    return dataclasses.replace(H100, hbm_capacity=float(props.total_memory))
 
 
 def engine_instance_cfg(engine: ServingEngine,
@@ -76,7 +73,8 @@ class DriverCfg:
 
 class ServeDriver:
     def __init__(self, engines: List[ServingEngine],
-                 cfg: DriverCfg = DriverCfg()):
+                 cfg: DriverCfg = DriverCfg(),
+                 pd_map: Optional[Dict[str, Tuple[str, ...]]] = None):
         self.cfg = cfg
         self.engines = {e.name: e for e in engines}
         ccfg = ClusterCfg(
@@ -84,7 +82,8 @@ class ServeDriver:
                             for e in engines),
             router=RouterCfg(cfg.router),
             network=NetworkCfg(inter_instance_bw=cfg.kv_transfer_bw,
-                               inter_instance_latency=cfg.kv_transfer_latency))
+                               inter_instance_latency=cfg.kv_transfer_latency),
+            pd_map=pd_map)
         self.runtime = ServingRuntime(
             ccfg,
             backend_factory=lambda icfg, trace: TorchBackend(

@@ -12,9 +12,12 @@ slot's own scratch page (never allocated; see ``Model.page_geometry``),
 and a free-list allocator.  MoE routing is injected here,
 as in JAX: ``routing`` is an ``ExpertRoutingTrace`` (replayed, and kept as
 ``routing_trace`` so ``TorchBackend`` accounts expert load from the same
-table) or a hook callable (``repro_torch.moe.hooks``).  Prefix caching,
-tensor parallelism, speculative decoding and P/D roles are not ported yet;
-asking for any of them raises.
+table) or a hook callable (``repro_torch.moe.hooks``).  A slot's KV can be
+copied out and restored into another slot or engine (``_export_slot`` /
+``_restore_slot``, the P/D handoff) in the JAX package's contiguous payload
+layout; ``role`` ("unified" | "prefill" | "decode") is only stored, as in
+JAX.  Prefix caching, tensor parallelism and speculative decoding are not
+ported yet; asking for any of them raises.
 """
 from __future__ import annotations
 
@@ -61,8 +64,7 @@ class ServingEngine:
                  tp: int = 1, routing=None, spec=None, device=None):
         for asked, what in ((prefix_cache, "prefix_cache=True"),
                             (int(tp) != 1, f"tp={tp}"),
-                            (spec is not None, "spec="),
-                            (role != "unified", f"role={role!r}")):
+                            (spec is not None, "spec=")):
             if asked:
                 raise NotImplementedError(
                     f"ServingEngine: {what} is not ported yet (ROADMAP "
@@ -208,3 +210,50 @@ class ServingEngine:
         """Adopt an ``extend`` on a subcache: its writes are already in
         the shared pools, so only the slot's length changes."""
         self._set_length(slot, n)
+
+    # ---- slot KV copy-out / restore (P/D handoff) ----
+    def _export_slot(self, slot: int, length: int,
+                     to_host: bool = True) -> dict:
+        """Copy a slot's KV out in the JAX package's contiguous layout:
+        per stage ``{"k", "v"}`` of ``(layers, blen, KV, dh)`` with ``blen``
+        the bucketed length (capped at ``max_len``), gathered through the
+        slot's table row.  Rows past the pages in use come from the slot's
+        scratch page (finite, never read back).  ``to_host=True`` copies
+        the payload to host memory."""
+        blen = min(_bucket(length), self.max_len)
+        ps = self.page_size
+        npg = min(-(-blen // ps), self._maxp)
+        pages = self.cache["block_table"][slot, :npg].long()
+        out = {}
+        for key, stage in self.cache.items():
+            if key in ("lengths", "block_table"):
+                continue
+            kv = {}
+            for name in ("k", "v"):
+                pool = stage[f"{name}_pages"][:, pages]
+                t = pool.reshape((pool.shape[0], npg * ps)
+                                 + pool.shape[3:])[:, :blen].contiguous()
+                kv[name] = t.cpu() if to_host else t
+            out[key] = kv
+        out["_length"] = length
+        out["_length_bucket"] = blen
+        return out
+
+    def _restore_slot(self, slot: int, kv: dict, length: int):
+        """Scatter an ``_export_slot`` payload through ``slot``'s freshly
+        allocated table row and set its length.  Pages are allocated for
+        ``length`` tokens; payload rows past them land on the slot's own
+        scratch page."""
+        blen = kv["_length_bucket"]
+        self.ensure_capacity(slot, length)
+        row = self.cache["block_table"][slot].long()
+        pos = torch.arange(blen, device=self.device)
+        page = row[pos // self.page_size]
+        off = pos % self.page_size
+        for key, stage in self.cache.items():
+            if key in ("lengths", "block_table"):
+                continue
+            for name in ("k", "v"):
+                stage[f"{name}_pages"][:, page, off] = \
+                    kv[key][name].to(self.device)
+        self._set_length(slot, length)

@@ -61,12 +61,12 @@ def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
     assert eng.device.type == "cpu"
 
 
-@pytest.mark.parametrize("what", ["prefix_cache", "tp", "role", "spec"])
+@pytest.mark.parametrize("what", ["prefix_cache", "tp", "spec"])
 def test_engine_refuses_unported_options(what):
     from repro_torch.configs import get_config
     from repro_torch.serve import ServingEngine
     kw = {"prefix_cache": dict(prefix_cache=True), "tp": dict(tp=2),
-          "role": dict(role="prefill"), "spec": dict(spec=object())}[what]
+          "spec": dict(spec=object())}[what]
     with pytest.raises(NotImplementedError):
         ServingEngine(get_config("llama3.1-8b-tiny"), device="cpu", **kw)
 
