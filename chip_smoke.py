@@ -16,24 +16,35 @@ result line:
    ``tests/test_kernels.py`` and on the main paths' own shapes (flash at
    every prefill chunk of 16 to 256, paged decode and extend at the serve's
    shapes and at groups of 1 to 9 query heads per kv-head with decode
-   splits and windows, the grouped matmul's gate/up and down at every
-   capacity C of 1 to 40); every kernel must also give bitwise the same
-   result on a second launch;
+   splits and windows, paged extend at speculative verify's shape, B8 S5
+   from ragged starts 1..2043 and from page edges, the grouped matmul's
+   gate/up and down at every capacity C of 1 to 40); every kernel must
+   also give bitwise the same result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
-   and down, each at a 256-token chunk and at decode), with the decode
-   kernel's pages per split and split count, and the host's time to issue
-   one call of each kernel's wrapper (the serves are host-bound);
+   and down, each at a 256-token chunk and at decode; paged extend also at
+   the verify shape), with the decode kernel's pages per split and split
+   count, and the host's time to issue one call of each kernel's wrapper
+   (the serves are host-bound);
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
-   counts); then two paths at full width, bf16, seeded random weights made
-   on the card, each serving 8 requests through ``ServeDriver`` with
-   chunked prefill, its launch counts set to 0 just before and read just
-   after: llama3.1-8b (flash prefill, paged extend and decode) and
-   phimini-moe (the same three and the grouped expert matmul, 3 launches
-   per MoE layer per model call);
+   counts); tiny f32 llama with the prefix store (tokens, decisions and
+   KV-tier counters, restores through the host tier) and with speculative
+   decoding under a perfect and an unrelated draft (both emitting exactly
+   the vanilla greedy tokens) on the card equals the CPU, and the prefix
+   store's device -> host -> SSD -> device round trip on the card; then
+   three paths at full width, bf16, seeded random weights made on the
+   card, each serving 8 requests through ``ServeDriver`` with chunked
+   prefill, its launch counts set to 0 just before and read just after:
+   llama3.1-8b (flash prefill, paged extend and decode), phimini-moe (the
+   same three and the grouped expert matmul, 3 launches per MoE layer per
+   model call), and llama3.1-8b speculating k = 4 with a draft sharing its
+   weights under a replayed acceptance trace (alpha 0.6; every arrival at
+   0; draft prefill on flash, draft decodes on paged decode, each verify
+   one paged extend launch a layer at B8 S<=5), whose per-step accepted
+   lengths must equal the port simulator's;
 5. the paper's loop on the card: llama3.1-8b and then phimini-moe profiled
    at full width (batch 8, max_len 2048, bf16, the serve's seeded weights)
    through the profiler CLI's function (``profile --device h100 --mode
@@ -42,10 +53,14 @@ result line:
    registry, with the launches of the kernel sweep and of the runtime
    probes read from the counters; then the Fig. 2 twin
    (``repro_torch.bench.fig2_fidelity``) on the serve's 8 requests: S(D),
-   M(D) and PD(D) on llama3.1-8b and S(M) on phimini-moe, real against
-   simulated TTFT p50, TPOT and tokens/s with their errors, each
-   configuration with its launch counts; a structural gate only (every
-   request finishes on both sides, the P/D handoff moves bytes on both
+   M(D), PD(D) and S(D)+PC (the prefix store, on a prefix-sharing variant
+   of the requests) on llama3.1-8b and S(M) on phimini-moe, each with an
+   event recorder on both sides, real against simulated TTFT p50, TPOT
+   and tokens/s with their errors and the attribution's segment totals
+   (queueing, prefill, decode, tier restore, handoff), each configuration
+   with its launch counts; a structural gate only (every request finishes
+   on both sides, its attribution sums to its e2e latency, the P/D
+   handoff moves bytes on both sides, S(D)+PC restores a prefix on both
    sides, sim/real tokens/s within [0.5, 2]): 8 requests are too few to
    measure the error, which ``tools/torch_fidelity.py`` measures on more;
    and tiny f32 llama on the
@@ -164,6 +179,11 @@ def flash_cases():
         yield 1, S, 32, 8, 128, (S,), None
 
 
+#: the verify shape's starts (no page edge) and a batch on page edges
+VERIFY_STARTS = (1, 63, 300, 511, 777, 1031, 1500, 2043)
+VERIFY_EDGE_STARTS = (64, 128, 0, 640, 1984, 2040, 704, 1024)
+
+
 def paged_cases():
     # (B, S or None for decode, H, KV, dh, ps, maxp, start, lengths, window)
     yield 4, None, 4, 2, 16, 16, 4, None, (1, 16, 17, 64), None
@@ -183,6 +203,14 @@ def paged_cases():
     yield 3, 12, 6, 2, 16, 8, 6, (5, 8, 0), (17, 20, 12), None
     yield 2, 100, 36, 4, 128, 64, 8, (29, 64), (129, 164), 50
     yield 2, 64, 40, 40, 128, 16, 12, (0, 77), (64, 141), None
+    # speculative verify at k = 4 on a full batch of llama3.1-8b (S = 5):
+    # ragged starts 1..2043, then starts on page edges with two rows that
+    # verify fewer than 5 tokens (the tail clamp)
+    yield (8, 5, 32, 8, 128, 64, 32, VERIFY_STARTS,
+           tuple(st + 5 for st in VERIFY_STARTS), None)
+    yield (8, 5, 32, 8, 128, 64, 32, VERIFY_EDGE_STARTS,
+           tuple(st + n for st, n in zip(VERIFY_EDGE_STARTS,
+                                         (5, 5, 5, 2, 5, 5, 1, 5))), None)
 
 
 def gmm_cases():
@@ -431,6 +459,7 @@ def timings(torch, ops, dev):
         lambda: paged_library(qe, kp, vp, table[:1], lt, st),
         shape=f"B1 S{S} start{start} H{H} KV{KV} dh{dh} ps{ps} bf16",
         bound=bound(nbytes, 4 * pairs * H * dh))
+
     # grouped matmul: gate/up (d 4096 -> f 960) and down (960 -> 4096), each
     # at a 256-token chunk (C = 40) and at batch-8 decode (C = 1), group
     # sizes from a uniform top-2 router over 16 experts; the bound counts
@@ -458,6 +487,27 @@ def timings(torch, ops, dev):
                 shape=f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
                       f"{rows} rows",
                 bound=bound(nbytes, 2 * rows * d * f))
+    # verify: the extend kernel at speculative decoding's k = 4 check of a
+    # full batch (B = 8, S = 5) from the ragged starts of phase 2, on the
+    # decode's pools (timed last, so the other rows' draws stay as they
+    # were); its launches are those of the full-width spec serve
+    S = 5
+    st = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    lt = st + S
+    qv = _rand(torch, gen, (B, S, H, dh), bf, dev)
+    pairs = sum(s0 + s + 1 for s0 in VERIFY_STARTS for s in range(S))
+    nbytes = sum(s0 + S for s0 in VERIFY_STARTS) * KV * dh * 2 * 2 \
+        + 2 * qv.numel() * 2 + table.numel() * 4 + 2 * B * 4
+    out["paged_attention_verify"] = measure(
+        lambda: ops.paged_attention(qv, kp, vp, table, lt, page_size=ps,
+                                    start=st),
+        lambda: ops.paged_attention_plain(qv, kp, vp, table, lt,
+                                          page_size=ps, start=st),
+        lambda: paged_library(qv, kp, vp, table, lt, st),
+        kernel="paged_attention_extend", path=SPEC_PATH,
+        shape=f"B{B} S{S} starts{VERIFY_STARTS} H{H} KV{KV} dh{dh} "
+              f"ps{ps} bf16",
+        bound=bound(nbytes, 4 * pairs * H * dh))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
           "time to issue one kernel call (us)")
     for name, t in out.items():
@@ -471,28 +521,44 @@ def timings(torch, ops, dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def _tiny_run(torch, arch, params, dev, routing=None):
-    """Serve 6 requests on ``dev`` with all arrivals at 0 (virtual time
-    must not order the decisions): (tokens, decisions, metrics)."""
-    from repro_torch.configs import get_config
+def _tiny_serve(cfg, params, dev, reqs, *, max_batch=2, chunk=16,
+                **engine_kw):
+    """One tiny engine on ``dev`` (``engine_kw``: routing, spec,
+    prefix_cache) behind a chunked-prefill ServeDriver: (tokens,
+    decisions, metrics).  The callers' arrivals do not depend on
+    latencies (all at 0, or phases far apart), so neither do the
+    decisions.  A prefix store's radix tree is held to 3 device blocks,
+    so it spills to the host tier."""
     from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    eng = ServingEngine(cfg, params, max_batch=max_batch, max_len=256,
+                        name="e0", device=dev, **engine_kw)
+    drv = ServeDriver([eng], DriverCfg(scheduler=SchedulerCfg(
+        max_batch_size=max_batch, max_batch_tokens=64, chunked_prefill=True,
+        prefill_chunk=chunk)))
+    if engine_kw.get("prefix_cache"):
+        for inst in drv.runtime.instances.values():
+            inst.cache.capacity_blocks = 3
+    m = drv.run([dataclasses.replace(r) for r in reqs], warmup=False)
+    inst = drv.runtime.instances["e0"]
+    check(m["finished"] == len(reqs), f"tiny {cfg.name} on {dev}: finished "
+                                      f"{m['finished']} of {len(reqs)}")
+    return dict(inst.backend.out_tokens), list(inst.decisions), m
+
+
+def _tiny_run(torch, arch, params, dev, routing=None):
+    """Serve 6 requests on ``dev`` at batch 4: (tokens, decisions,
+    metrics)."""
+    from repro_torch.configs import get_config
     from repro_torch.workload import ShareGPTConfig, generate
     cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
-    sched = SchedulerCfg(max_batch_size=4, max_batch_tokens=64,
-                         chunked_prefill=True, prefill_chunk=32)
     reqs = generate(ShareGPTConfig(
         n_requests=6, rate=50.0, vocab=cfg.vocab, seed=3, mean_prompt=60,
         mean_output=8, max_prompt=120, max_output=10, share_fraction=0.0))
     for r in reqs:
         r.arrival = 0.0
-    eng = ServingEngine(cfg, params, max_batch=4, max_len=256, name="e0",
-                        device=dev, routing=routing)
-    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
-    m = drv.run(reqs, warmup=False)
-    inst = drv.runtime.instances["e0"]
-    check(m["finished"] == len(reqs), f"tiny {arch} {dev}: {m['finished']}")
-    return dict(inst.backend.out_tokens), list(inst.decisions), m
+    return _tiny_serve(cfg, params, dev, reqs, max_batch=4, chunk=32,
+                       routing=routing)
 
 
 def tiny_card_matches_cpu(torch):
@@ -534,6 +600,120 @@ def tiny_card_matches_cpu(torch):
           f"{loads['cuda']['imbalance']:.3f})")
 
 
+def _grouped_requests(vocab):
+    """Two phases of a shared-prefix workload: two requests at t = 0 fill
+    the prefix store, four at t = 1e6 hit it (32-token shared prefixes,
+    whole blocks; ``tests/test_torch_prefix.py``'s workload)."""
+    from repro_torch.workload.sharegpt import Request
+    reqs = []
+    for phase, arrival in ((0, 0.0), (1, 1e6)):
+        for g in range(2):
+            base = [(g * 977 + j * 13) % vocab for j in range(32)]
+            for k in range(1 + phase):
+                tail = [(g * 53 + k * 7 + 2 + 29 * phase + j) % vocab
+                        for j in range(8)]
+                reqs.append(Request(req_id=len(reqs), arrival=arrival,
+                                    prompt_tokens=base + tail,
+                                    output_len=4))
+    return reqs
+
+
+def tiny_prefix_and_spec_card_matches_cpu(torch):
+    """Tiny f32 llama on the card and on the CPU from the same weights:
+    (a) with the prefix store on a shared-prefix workload, the same
+    tokens, decisions and KV-tier counters, restores through the host
+    tier; (b) speculative decoding with a perfect draft (the target's
+    weights) and (c) with an unrelated draft, both emitting exactly the
+    vanilla greedy tokens, with equal ``spec_decode`` counts on both
+    devices; and the prefix store's device -> host -> SSD -> device round
+    trip on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import SpecDecodeCfg
+    from repro_torch.workload import ShareGPTConfig, generate
+    cfg = dataclasses.replace(get_config("llama3.1-8b-tiny"),
+                              compute_dtype="float32")
+    params = Model(cfg).init(torch.Generator().manual_seed(0))
+    counters = ("residency_blocks", "hit_tokens", "transfers",
+                "restored_tokens", "restore_events", "tier_moves",
+                "store_residency")
+    grouped = _grouped_requests(cfg.vocab)
+    runs = {dev: _tiny_serve(cfg, params, dev, grouped, prefix_cache=True)
+            for dev in ("cpu", "cuda")}
+    tiers = {dev: r[2]["instances"]["e0"]["kv_tiers"]
+             for dev, r in runs.items()}
+    kv = {dev: {k: t[k] for k in counters} for dev, t in tiers.items()}
+    check(runs["cuda"][:2] == runs["cpu"][:2] and kv["cuda"] == kv["cpu"]
+          and kv["cuda"]["restore_events"] > 0
+          and kv["cuda"]["hit_tokens"]["host"] > 0,
+          f"tiny prefix-cached llama: the card differs from the CPU or "
+          f"restored nothing through the host tier ({kv})")
+    print(f"phase 4: tiny llama f32 with the prefix store, card == CPU: "
+          f"tokens, decisions and KV-tier counters identical "
+          f"({kv['cuda']['restore_events']} restores, "
+          f"{kv['cuda']['restored_tokens']} tokens, host hits "
+          f"{kv['cuda']['hit_tokens']['host']}, tier moves "
+          f"{kv['cuda']['tier_moves']}, card tier_move_s "
+          f"{tiers['cuda']['tier_move_s']:.4f})")
+    reqs = generate(ShareGPTConfig(
+        n_requests=5, rate=50.0, vocab=cfg.vocab, seed=3, mean_prompt=30,
+        mean_output=8, sigma_prompt=0.4, sigma_output=0.3, max_prompt=60,
+        max_output=10, share_fraction=0.0))
+    for r in reqs:
+        r.arrival = 0.0
+    vanilla = _tiny_serve(cfg, params, "cpu", reqs)[0]
+    unrelated = Model(cfg).init(torch.Generator().manual_seed(7))
+    for label, draft_params in (("perfect", params),
+                                ("unrelated", unrelated)):
+        spec = SpecDecodeCfg(draft=cfg, k=3, draft_params=draft_params)
+        runs = {dev: _tiny_serve(cfg, params, dev, reqs, spec=spec)
+                for dev in ("cpu", "cuda")}
+        sd = {dev: {k: v for k, v in r[2]["spec_decode"].items()
+                    if k not in ("step_timeline", "instances_merged")}
+              for dev, r in runs.items()}
+        check(runs["cuda"][0] == runs["cpu"][0] == vanilla
+              and runs["cuda"][1] == runs["cpu"][1]
+              and sd["cuda"] == sd["cpu"],
+              f"tiny spec decode ({label} draft): the tokens differ from "
+              f"vanilla greedy, or the card from the CPU")
+        print(f"phase 4: tiny llama f32 spec decode, {label} draft, k 3: "
+              f"card == CPU == vanilla greedy tokens; "
+              f"{sd['cuda']['steps']} steps, acceptance rate "
+              f"{sd['cuda']['acceptance_rate']:.3f}")
+    store_round_trip_on_card(torch)
+
+
+def store_round_trip_on_card(torch):
+    """A payload in the prefix store on the card: device -> host -> SSD ->
+    device moves its bytes each step, the spill file goes away on the
+    promotion, and the payload comes back bit for bit."""
+    import os
+    from repro_torch.serve import RealRadixCache
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    data = {f"stage{i}": {n: torch.randn((2, 64, 8, 128), generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                          for n in ("k", "v")} for i in range(2)}
+    nbytes = sum(t.nbytes for v in data.values() for t in v.values())
+    store = RealRadixCache(device="cuda")
+    toks = list(range(64))
+    store.insert(toks, {**data, "_length": 60, "_length_bucket": 64})
+    moved = [store.demote(toks, "host"), store.demote(toks, "ssd")]
+    spill = store.store[tuple(toks)]["_ssd"]
+    check(os.path.isfile(spill), "prefix store: no spill file on the SSD "
+                                 "tier")
+    moved.append(store.promote(toks))
+    back = store.store[tuple(toks)]
+    check(moved == [nbytes] * 3 and not os.path.exists(spill)
+          and all(back[k][n].device.type == "cuda"
+                  and torch.equal(back[k][n], data[k][n])
+                  for k in data for n in ("k", "v")),
+          f"prefix store round trip on the card: moved {moved} of "
+          f"{nbytes} bytes, spill left: {os.path.exists(spill)}")
+    print(f"phase 4: prefix store on the card: device -> host -> SSD -> "
+          f"device moved {nbytes} bytes each step, the spill file removed, "
+          f"the payload back bit for bit")
+
+
 #: (arch, the kernels its serve must launch)
 PATHS = (("llama3.1-8b", ("flash_attention", "paged_attention_decode",
                           "paged_attention_extend")),
@@ -541,14 +721,16 @@ PATHS = (("llama3.1-8b", ("flash_attention", "paged_attention_decode",
                           "paged_attention_extend", "moe_gmm")))
 
 
-def serve_requests(vocab, n=8, seed=0):
+def serve_requests(vocab, n=8, seed=0, share=0.0):
     """The ShareGPT-shaped requests both full-width phases serve (8, seed
-    0); ``tools/torch_fidelity.py`` serves more of the same shape."""
+    0); ``tools/torch_fidelity.py`` serves more of the same shape.
+    ``share``: the fraction that continue one of 4 conversations (the
+    prefix-cache configuration's workload)."""
     from repro_torch.workload import ShareGPTConfig, generate
     return generate(ShareGPTConfig(
         n_requests=n, rate=10.0, vocab=vocab, seed=seed, mean_prompt=600,
         sigma_prompt=0.5, max_prompt=1024, mean_output=24, max_output=32,
-        share_fraction=0.0))
+        share_fraction=share, n_conversations=4 if share else 20))
 
 
 def serve_scheduler():
@@ -624,6 +806,108 @@ def serve_full(torch, ops, card, arch, must_launch):
     return launches
 
 
+#: the by-path key of the full-width speculative serve
+SPEC_PATH = "spec llama3.1-8b"
+SPEC_K = 4
+
+
+def spec_serve_full(torch, ops, card):
+    """llama3.1-8b at full width, bf16, speculating k = 4 with a draft that
+    shares the target's weights, replaying ``synthesize_acceptance(alpha
+    0.6, k 4)``, on phase 4's 8 requests all arriving at t = 0 (decode
+    reserves k + 1 = 5 tokens a step).  Every request must finish, and the
+    per-step accepted lengths (and decisions) must equal the port
+    simulator's on the same trace.  Returns the serve's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClusterCfg, RouterCfg, SpecCfg
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.models import Model
+    from repro_torch.profiler import model_spec_from_arch
+    from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
+                                   SpecDecodeCfg)
+    from repro_torch.serve.driver import engine_instance_cfg
+    from repro_torch.spec import register_acceptance
+    from repro_torch.workload.acceptance import (AcceptanceConfig,
+                                                 synthesize_acceptance)
+    cfg = get_config("llama3.1-8b")
+    trace = synthesize_acceptance(AcceptanceConfig(alpha=0.6, k=SPEC_K),
+                                  model=cfg.name)
+    register_acceptance("chip-smoke-alpha0.6", trace)
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", dtype=torch.bfloat16)
+    eng = ServingEngine(cfg, params, max_batch=8, max_len=2048, name="e0",
+                        spec=SpecDecodeCfg(draft=cfg, k=SPEC_K,
+                                           acceptance=trace,
+                                           draft_params=params))
+    check(eng.draft.params["embed"]["tok"].data_ptr()
+          == eng.params["embed"]["tok"].data_ptr(),
+          "spec serve: the draft does not share the target's weights")
+    reqs = serve_requests(cfg.vocab)
+    for r in reqs:
+        r.arrival = 0.0
+    sched = serve_scheduler()
+    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+    drv.runtime.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = drv.run([dataclasses.replace(r) for r in reqs], warmup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    inst = drv.runtime.instances["e0"]
+    check(m["finished"] == len(reqs),
+          f"spec serve: finished {m['finished']} of {len(reqs)}")
+    for r in drv.finished:
+        toks = inst.backend.out_tokens[r.req_id]
+        check(len(toks) == r.output_len
+              and all(0 <= t < cfg.vocab for t in toks),
+              f"spec serve request {r.req_id}: {len(toks)} tokens of "
+              f"{r.output_len}")
+    verify_calls = sum(any(w[1] == "decode" for w in it)
+                       for it in inst.decisions)
+    check(verify_calls > 0
+          and launches["paged_attention_extend"]
+          >= verify_calls * cfg.n_layers
+          and launches["paged_attention_decode"] > 0
+          and launches["flash_attention"] > 0,
+          f"spec serve: {verify_calls} verify calls, launches {launches}")
+    sim = Cluster(ClusterCfg(instances=(engine_instance_cfg(
+        eng, sched, spec=SpecCfg(enabled=True, k=SPEC_K,
+                                 acceptance_trace="chip-smoke-alpha0.6",
+                                 draft=model_spec_from_arch(cfg))),),
+        router=RouterCfg("round_robin")))
+    sim.submit_workload([dataclasses.replace(r) for r in reqs])
+    sm = sim.run()
+    real_sd = m["instances"]["e0"]["spec_decode"]
+    sim_sd = sm["instances"]["e0"]["spec_decode"]
+    steps = [(p, a) for _, p, a in real_sd["step_timeline"]]
+    check(sm["finished"] == len(reqs)
+          and steps == [(p, a) for _, p, a in sim_sd["step_timeline"]]
+          and real_sd["accepted_hist"] == sim_sd["accepted_hist"]
+          and list(inst.decisions) == list(sim.instances["e0"].decisions),
+          "spec serve: the accepted lengths or decisions differ from the "
+          "port simulator's on the same trace")
+    tpot = statistics.median(r.tpot() for r in drv.finished
+                             if r.tpot() is not None)
+    n_out = sum(r.output_len for r in drv.finished)
+    print(f"spec serve [{card}] llama3.1-8b bf16 k {SPEC_K}, draft sharing "
+          f"the target's weights, acceptance replayed (alpha 0.6), 8 "
+          f"requests at t = 0: TPOT p50 {tpot * 1e3:.2f} ms, "
+          f"{n_out / wall:.1f} output tok/s over wall {wall:.2f} s; "
+          f"{real_sd['steps']} spec steps, acceptance rate "
+          f"{real_sd['acceptance_rate']:.3f}, mean accepted "
+          f"{real_sd['mean_accepted_len']:.3f}; {verify_calls} verify calls "
+          f"= {verify_calls * cfg.n_layers} paged extend launches at B8 "
+          f"S<=5 (extend launches in all "
+          f"{launches['paged_attention_extend']}); per-step accepted "
+          f"lengths == simulator's ({len(steps)} steps); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"launches while serving with spec decoding: "
+          f"{json.dumps(launches)}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 5
 #: the profile grid covers phase 4's serve, so the simulator interpolates
 #: and never extrapolates: whole prompts and chunks at buckets 16 to 1024,
@@ -634,7 +918,8 @@ PROFILE_GRID = ("--prefill-buckets", "16,32,64,128,256,512,1024",
                 "--extend-ctxs", "256,512,768", "--extend-suffixes", "256")
 #: (configuration, arch) pairs of the Fig. 2 twin on the card
 FIDELITY = (("S(D)", "llama3.1-8b"), ("M(D)", "llama3.1-8b"),
-            ("PD(D)", "llama3.1-8b"), ("S(M)", "phimini-moe"))
+            ("PD(D)", "llama3.1-8b"), ("S(D)+PC", "llama3.1-8b"),
+            ("S(M)", "phimini-moe"))
 
 
 def profile_card(torch, ops, arch, reps=3):
@@ -698,7 +983,7 @@ def fidelity_card(torch, ops, card, traces, n=8, seed=0):
     launch counts of each configuration, and one row per configuration.
     At phase 5's 8 requests the run is a structural gate, too small to
     measure the error (``tools/torch_fidelity.py`` measures it)."""
-    from repro_torch.bench.fig2_fidelity import compare, summarize
+    from repro_torch.bench.fig2_fidelity import PC_SHARE, compare, summarize
     from repro_torch.configs import get_config
     from repro_torch.serve import ServingEngine
     rows, by_config, params = [], {}, {}
@@ -710,8 +995,11 @@ def fidelity_card(torch, ops, card, traces, n=8, seed=0):
             torch.cuda.empty_cache()
             params[arch] = ServingEngine(cfg, max_batch=1, max_len=64,
                                          seed=0).params
-        reqs = serve_requests(cfg.vocab, n, seed)
+        pc = config.endswith("PC")
+        reqs = serve_requests(cfg.vocab, n, seed,
+                              share=PC_SHARE if pc else 0.0)
         ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         row = compare(config, arch, reqs, traces[arch],
                       scheduler=serve_scheduler(), params=params[arch],
                       max_batch=8, max_len=2048)
@@ -733,6 +1021,19 @@ def fidelity_card(torch, ops, card, traces, n=8, seed=0):
                   f"fidelity {config}: the handoff moved "
                   f"{row['real_handoff_bytes']} / "
                   f"{row['sim_handoff_bytes']} bytes (real / sim)")
+        attr = {side: (row[f"{side}_attr_requests"],
+                       row[f"{side}_attr_max_gap_s"])
+                for side in ("real", "sim")}
+        check(all(n_req == len(reqs) and gap <= 1e-6
+                  for n_req, gap in attr.values()),
+              f"fidelity {config}: attribution (requests, largest gap of "
+              f"a request's segments to its e2e latency) {attr}")
+        if pc:
+            kv = {side: row[f"{side}_kv_tiers"]["e0"]
+                  for side in ("real", "sim")}
+            check(all(kv[side]["restore_events"] > 0
+                      for side in ("real", "sim")),
+                  f"fidelity {config}: no prefix restored on one side {kv}")
         ratio = row["sim_tput"] / row["real_tput"]
         check(0.5 <= ratio <= 2.0,
               f"fidelity {config}: sim/real tokens/s {ratio:.3f} outside "
@@ -751,6 +1052,20 @@ def fidelity_card(torch, ops, card, traces, n=8, seed=0):
             f"{n} {row['real_iterations'][n]}, "
             f"{row['real_iter_ms'][n]:.2f} / {row['sim_iterations'][n]}, "
             f"{row['sim_iter_ms'][n]:.2f}" for n in row["real_iterations"]))
+        if pc:
+            print(f"  prefix store: restores real "
+                  f"{kv['real']['restore_events']} "
+                  f"({kv['real']['restored_tokens']} tokens) sim "
+                  f"{kv['sim']['restore_events']} "
+                  f"({kv['sim']['restored_tokens']} tokens); real "
+                  f"tier_move_s {kv['real']['tier_move_s']:.4f}, residency "
+                  f"{json.dumps(kv['real']['store_residency'])}; peak "
+                  f"allocated {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+                  f" GiB")
+        print("  attribution (segment totals, s) real / sim: "
+              + ", ".join(f"{k} {row['real_segments'][k]:.3f} / "
+                          f"{row['sim_segments'][k]:.3f}"
+                          for k in row["real_segments"]))
         print(f"  launches: {json.dumps(launches)}")
         rows.append(row)
         by_config[f"fig2 {config} {arch}"] = launches
@@ -837,11 +1152,15 @@ def main() -> int:
         check(not untimed, f"no phase-3 time for {sorted(untimed)}")
         torch.cuda.empty_cache()
         tiny_card_matches_cpu(torch)
+        tiny_prefix_and_spec_card_matches_cpu(torch)
         by_path = {}
         for arch, must in PATHS:
             by_path[arch] = serve_full(torch, ops, card, arch, must)
             gc.collect()          # ServeDriver and its runtime form a cycle
             torch.cuda.empty_cache()
+        by_path[SPEC_PATH] = spec_serve_full(torch, ops, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         traces = {}
         for arch, _ in PATHS:
             traces[arch], by_path[f"profile {arch}"] = profile_card(
@@ -857,8 +1176,10 @@ def main() -> int:
     for name, t in times.items():           # one row per timed shape
         kernel = t["kernel"]
         source, replaces = ops.KERNELS[kernel]
-        # each kernel's launches on the first path that needs it
-        path = next(a for a, must in PATHS if kernel in must)
+        # each kernel's launches on the first path that needs it, or on
+        # the path its row names (the verify shape: the spec serve)
+        path = t.get("path") or next(a for a, must in PATHS
+                                     if kernel in must)
         rows.append({"name": name, "kernel": kernel, "shape": t["shape"],
                      "route": "cuda", "source": source,
                      "replaces": replaces,

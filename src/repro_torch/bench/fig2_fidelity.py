@@ -12,11 +12,14 @@ by the measured trace.
 
 Configurations: S(D) one dense engine, S(M) one MoE engine, M(D) two dense
 engines behind round robin, PD(D) a dense prefill engine handing KV to a
-dense decode engine; the engines of one configuration share their weights.
-S(D)+PC (the prefix cache) waits for the real radix prefix store (ROADMAP
-queue 1 item 6) and raises.  The arch, the engine sizes, the scheduler and
-the workload are arguments, so the same code runs tiny on the CPU and at
-full width on the card.  The real engine is wall-clock timed: run it on a
+dense decode engine, S(D)+PC one dense engine with the real radix prefix
+store (on a workload that shares prefixes, ``PC_SHARE``); the engines of
+one configuration share their weights.  ``compare`` attaches an event
+recorder to both sides and adds the attribution's segment totals to the
+row (queueing, prefill, decode, tier restore, handoff), which splits a
+TTFT error into queueing and pricing.  The arch, the engine sizes, the
+scheduler and the workload are arguments, so the same code runs tiny on
+the CPU and at full width on the card.  The real engine is wall-clock timed: run it on a
 quiet machine.
 """
 from __future__ import annotations
@@ -32,11 +35,14 @@ from repro_torch.core import ClusterCfg, NetworkCfg, RouterCfg, TraceRegistry
 from repro_torch.core.cluster import Cluster
 from repro_torch.core.config import SchedulerCfg
 from repro_torch.hw.trace import kern_op
+from repro_torch.obs import SEGMENTS, EventRecorder
 from repro_torch.profiler.arch_spec import model_spec_from_arch
 from repro_torch.workload import ShareGPTConfig, generate
 
-#: configurations the twin runs (S(D)+PC raises, see the module docstring)
-CONFIGS = ("S(D)", "S(M)", "M(D)", "PD(D)")
+#: configurations the twin runs
+CONFIGS = ("S(D)", "S(M)", "M(D)", "PD(D)", "S(D)+PC")
+#: the prefix-shared fraction of the S(D)+PC workload (the JAX benchmark's)
+PC_SHARE = 0.6
 N_REQ = 36
 RATE = 8.0
 KV_TRANSFER_BW = 16e9       # the real driver's P/D handoff rate (DriverCfg)
@@ -59,14 +65,12 @@ def make_engines(config: str, arch: str, *, params=None, max_batch: int = 4,
     engine draws weights from seed 0 unless ``params`` is given; the
     others share them."""
     from repro_torch.serve import ServingEngine
-    if config.endswith("PC"):
-        raise NotImplementedError(
-            f"{config}: the prefix cache needs the real radix prefix "
-            f"store, not ported yet (ROADMAP queue 1 item 6)")
     cfg = get_config(arch)
     kw = dict(max_batch=max_batch, max_len=max_len, device=device)
     if config.startswith("S"):
-        return [ServingEngine(cfg, params, name="e0", **kw)], None
+        return [ServingEngine(cfg, params, name="e0",
+                              prefix_cache=config.endswith("PC"), **kw)], \
+            None
     if config.startswith("M"):
         e0 = ServingEngine(cfg, params, name="e0", **kw)
         return [e0, ServingEngine(cfg, e0.params, name="e1", **kw)], None
@@ -84,12 +88,25 @@ def _summary(m: dict) -> dict:
     # mispriced iteration from a different iteration count
     iters = {n: (s["iterations"], s["busy_s"] / max(s["iterations"], 1))
              for n, s in m["instances"].items()}
-    return {"finished": m["finished"], "ttft_p50_s": ttft, "iters": iters,
-            "tpot_mean_s": m.get("tpot_mean_s"),
-            "itl_mean_s": m.get("itl_mean_s"),
-            "throughput_tok_s": m.get("throughput_tok_s"),
-            "handoff_bytes": float(sum(m.get("network_bytes", {})
-                                       .values()))}
+    out = {"finished": m["finished"], "ttft_p50_s": ttft, "iters": iters,
+           "tpot_mean_s": m.get("tpot_mean_s"),
+           "itl_mean_s": m.get("itl_mean_s"),
+           "throughput_tok_s": m.get("throughput_tok_s"),
+           "handoff_bytes": float(sum(m.get("network_bytes", {})
+                                      .values())),
+           "kv_tiers": {n: s["kv_tiers"] for n, s in m["instances"].items()
+                        if "kv_tiers" in s}}
+    # per-request waterfalls: segment totals, and the largest gap between
+    # a request's segments and its e2e latency (0 up to float rounding:
+    # the segments partition the lifetime)
+    rows = m["attribution"]["requests"].values()
+    out["segments"] = {k: sum(r["segments"][k] for r in rows)
+                       for k in SEGMENTS}
+    out["attr_requests"] = len(rows)
+    out["attr_max_gap_s"] = max(
+        (abs(sum(r["segments"].values()) - r["total_s"]) for r in rows),
+        default=0.0)
+    return out
 
 
 def compare(config: str, arch: str, reqs, trace, *,
@@ -97,7 +114,9 @@ def compare(config: str, arch: str, reqs, trace, *,
             max_batch: int = 4, max_len: int = 512, device=None) -> dict:
     """Serve ``reqs`` on the real engines of ``config`` and simulate the
     same cluster priced by ``trace`` (a ``repro_torch.core.trace.Trace``
-    measured for ``arch``): one row of real and sim metrics and errors."""
+    measured for ``arch``): one row of real and sim metrics and errors,
+    with each side's attribution from an event recorder (wall-clock
+    stamps on the real one)."""
     from repro_torch.serve import DriverCfg, ServeDriver
     from repro_torch.serve.driver import engine_instance_cfg
     engines, pd = make_engines(config, arch, params=params,
@@ -105,7 +124,7 @@ def compare(config: str, arch: str, reqs, trace, *,
                                device=device)
     drv = ServeDriver(engines, DriverCfg(scheduler=scheduler,
                                          kv_transfer_bw=KV_TRANSFER_BW),
-                      pd_map=pd)
+                      pd_map=pd, recorder=EventRecorder(wall_clock=True))
     real = _summary(drv.run(reqs))
     registry = TraceRegistry()
     registry.register(arch, trace)
@@ -114,7 +133,7 @@ def compare(config: str, arch: str, reqs, trace, *,
                         for e in engines),
         router=RouterCfg("round_robin"),
         network=NetworkCfg(inter_instance_bw=KV_TRANSFER_BW), pd_map=pd)
-    cluster = Cluster(ccfg, traces=registry)
+    cluster = Cluster(ccfg, traces=registry, recorder=EventRecorder())
     cluster.submit_workload(reqs)
     sim = _summary(cluster.run())
     row = {"config": config, "arch": arch, "n": len(reqs)}
@@ -129,6 +148,9 @@ def compare(config: str, arch: str, reqs, trace, *,
                                      for n, (c, _) in m["iters"].items()}
         row[f"{side}_iter_ms"] = {n: t * 1e3
                                   for n, (_, t) in m["iters"].items()}
+        for key in ("kv_tiers", "segments", "attr_requests",
+                    "attr_max_gap_s"):
+            row[f"{side}_{key}"] = m[key]
     for key, name in (("ttft_p50_s", "ttft"), ("tpot_mean_s", "tpot"),
                       ("itl_mean_s", "itl"), ("throughput_tok_s", "tput")):
         row[f"{name}_err_pct"] = pct_err(sim[key], real[key])
@@ -200,7 +222,9 @@ def run(quick: bool = False, kernels: bool = False, *, device=None,
         traces[arch] = tr
     for config in configs:
         arch = archs[config]
-        reqs = workload(get_config(arch).vocab, n=n_requests)
+        reqs = workload(get_config(arch).vocab, n=n_requests,
+                        share_fraction=PC_SHARE if config.endswith("PC")
+                        else 0.0)
         row = compare(config, arch, reqs, traces[arch], device=device)
         rows.append(row)
         print(f"fig2,{config},ttft_err={row['ttft_err_pct']:.1f}%,"

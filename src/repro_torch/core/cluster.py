@@ -8,9 +8,6 @@ path, different ``ExecutionBackend``.
 decode fast-forward; it is decision- and metric-identical to the stepped
 exact mode (``fast_path=False``), which remains available as the reference
 for the parity suite and for debugging event-by-event timelines.
-
-A copy of ``repro/core/cluster.py``; the event-tracing cut is named in
-``simulate``.
 """
 from __future__ import annotations
 
@@ -49,15 +46,30 @@ def simulate(cfg: ClusterCfg, requests: Sequence[Request],
     """Run the workload to completion.  ``autoscale`` optionally attaches
     an SLO autoscaler (metrics land under ``metrics()["autoscale"]``).
 
-    Port cut: ``trace`` (runtime event tracing) raises
-    ``NotImplementedError`` until ``obs/{record,attribution,export}.py``
-    are copied.
+    ``trace`` enables runtime event tracing (``docs/observability.md``):
+    pass a ``repro_torch.obs.EventRecorder`` to keep the event log in hand, or
+    a path string to write a Perfetto-loadable Chrome trace JSON there.
+    Either way ``metrics()["attribution"]`` carries the per-request
+    latency waterfalls.  ``None`` (default) records nothing and costs
+    nothing.
     """
+    recorder, trace_path = None, None
     if trace is not None:
-        raise NotImplementedError(
-            "simulate(trace=...): event tracing is not ported yet")
-    cluster = Cluster(cfg, traces=traces, hw=hw, fast_path=fast_path)
+        # lazy import: repro_torch.core must not pull higher layers at
+        # load time
+        from repro_torch.obs.record import EventRecorder
+        if isinstance(trace, EventRecorder):
+            recorder = trace
+        else:
+            trace_path = str(trace)
+            recorder = EventRecorder()
+    cluster = Cluster(cfg, traces=traces, hw=hw, fast_path=fast_path,
+                      recorder=recorder)
     if autoscale is not None:
         cluster.attach_autoscaler(autoscale)
     cluster.submit_workload(requests)
-    return cluster.run(until=until)
+    m = cluster.run(until=until)
+    if trace_path is not None:
+        from repro_torch.obs.export import write_chrome_trace
+        write_chrome_trace(recorder, trace_path)
+    return m

@@ -6,17 +6,29 @@
 Runs on the card by default; ``--device cpu`` runs on the CPU (use a
 ``-tiny`` arch there).  The flags are those of the JAX package's CLI
 (``src/repro/launch/serve.py``); ``--pd`` serves one prefill and one
-decode engine that share their weights.  ``--prefix-cache`` and ``--tp``
-> 1 are not ported yet and raise.
+decode engine that share their weights, and ``--prefix-cache`` gives each
+engine the real radix prefix store (the workload then shares prefixes).
+Speculative decoding: ``--spec-k K`` drafts K tokens a step with a draft
+that shares the target's weights (always right: the mechanism, not a
+speed-up), greedy-lossless, or replaying an acceptance trace synthesized
+at ``--alpha``.  ``--tp`` above 1 is not ported yet and raises.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+import torch
+
 from repro_torch.configs import get_config
-from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+from repro_torch.models import Model
+from repro_torch.models.transformer import torch_dtype
+from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
+                               SpecDecodeCfg)
+from repro_torch.serve.engine import resolve_device
 from repro_torch.workload import ShareGPTConfig, generate
+from repro_torch.workload.acceptance import (AcceptanceConfig,
+                                             synthesize_acceptance)
 
 
 def main(argv=None):
@@ -38,6 +50,13 @@ def main(argv=None):
                          "real engine (unified runtime scheduler)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft tokens per step "
+                         "(0: off)")
+    ap.add_argument("--alpha", type=float, default=None,
+                    help="replay an acceptance trace synthesized at this "
+                         "per-token acceptance rate (default: greedy "
+                         "acceptance)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -48,16 +67,29 @@ def main(argv=None):
     kw = dict(max_batch=args.max_batch, max_len=args.max_len,
               prefix_cache=args.prefix_cache, tp=args.tp,
               device=args.device)
+    # the weights every engine shares (and a default draft with them)
+    dev = resolve_device(args.device)
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev,
+                             dtype=torch_dtype(cfg.compute_dtype))
+    spec = None
+    if args.spec_k > 0:
+        acceptance = None
+        if args.alpha is not None:
+            acceptance = synthesize_acceptance(
+                AcceptanceConfig(alpha=args.alpha, k=args.spec_k),
+                model=cfg.name)
+        spec = SpecDecodeCfg(draft=cfg, k=args.spec_k,
+                             acceptance=acceptance, draft_params=params)
     if args.pd:
-        p0 = ServingEngine(cfg, name="p0", role="prefill", **kw)
-        engines = [p0, ServingEngine(cfg, params=p0.params, name="d0",
-                                     role="decode", **kw)]
+        engines = [ServingEngine(cfg, params, name="p0", role="prefill",
+                                 **kw),
+                   ServingEngine(cfg, params, name="d0", role="decode",
+                                 spec=spec, **kw)]
         pd = {"p0": ("d0",)}
     else:
-        e0 = ServingEngine(cfg, name="e0", **kw)
-        engines = [e0] + [
-            ServingEngine(cfg, params=e0.params, name=f"e{i}", **kw)
-            for i in range(1, args.instances)]
+        engines = [ServingEngine(cfg, params, name=f"e{i}", spec=spec, **kw)
+                   for i in range(args.instances)]
         pd = None
     sched = None
     if args.chunked_prefill:

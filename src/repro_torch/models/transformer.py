@@ -3,8 +3,8 @@
 The counterpart of ``repro/models/transformer.py`` for attention + MLP
 stages (``ATTN_MLP``) and attention + MoE stages (``ATTN_MOE``), with the
 same parameter layout (``init``), the same entry points (``prefill``,
-``decode``, ``extend``) and the same paged slot-KV layout (``init_cache``,
-``page_geometry``):
+``decode``, ``extend``, ``verify``) and the same paged slot-KV layout
+(``init_cache``, ``page_geometry``):
 
 * ``prefill`` runs flash attention over a bucketed chunk and returns the
   chunk's K/V contiguously; the engine scatters it into pages.
@@ -31,8 +31,9 @@ Attention and the MoE grouped matmul always go through
 plain versions for CPU tensors.  ``ArchConfig.kernels`` is not read.
 ``routing_hook`` (``repro_torch.moe.hooks``) replaces the top-k assignment
 of every MoE layer; only then do pad-tail rows and unscheduled decode rows
-(the negative-token sentinel) leave MoE dispatch, as in JAX.  Speculative
-``verify`` is not ported yet.
+(the negative-token sentinel) leave MoE dispatch, as in JAX.  ``verify``
+(speculative decoding) is ``extend`` returning every position's logits: on
+the card it runs the same paged extend kernel, at S = k + 1.
 """
 from __future__ import annotations
 
@@ -49,9 +50,9 @@ from repro_torch.models.layers import gelu_mlp, rmsnorm, rope, swiglu_mlp
 from repro_torch.models.moe import moe_ffn
 
 _NOT_PORTED = {
-    MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 10",
-    ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 10",
-    XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 10",
+    MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 3",
+    ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 3",
+    XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 3",
 }
 
 #: global layers of a local:global interleave attend without a window
@@ -376,10 +377,10 @@ class Model:
                      **stages}
         return self._head(params, x), new_cache
 
-    def extend(self, params, cache, tokens, n_new=None):
-        """Cached/chunked prefill: append up to S tokens (``n_new`` (B,)
-        real, rest padding) to a cache holding cache["lengths"] tokens per
-        sequence. Returns (last-real-token logits, cache)."""
+    def _extend_states(self, params, cache, tokens, n_new):
+        """Shared body of ``extend`` and ``verify``: append up to S tokens
+        to the cache and return the final-norm hidden states of every
+        position, ``(B, S, d)``, the new cache and ``n_new``."""
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
         start = cache["lengths"]
@@ -393,11 +394,29 @@ class Model:
                                      lengths=lengths, mode="extend",
                                      cache=cache, block_table=block_table)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        idx = torch.clamp(n_new.long() - 1, min=0)
-        x_last = x[torch.arange(B, device=x.device), idx][:, None]
         new_cache = {"lengths": lengths, "block_table": block_table,
                      **stages}
+        return x, new_cache, n_new
+
+    def extend(self, params, cache, tokens, n_new=None):
+        """Cached/chunked prefill: append up to S tokens (``n_new`` (B,)
+        real, rest padding) to a cache holding cache["lengths"] tokens per
+        sequence. Returns (last-real-token logits, cache)."""
+        x, new_cache, n_new = self._extend_states(params, cache, tokens,
+                                                  n_new)
+        idx = torch.clamp(n_new.long() - 1, min=0)
+        x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
         return self._head(params, x_last), new_cache
+
+    def verify(self, params, cache, tokens, n_new=None):
+        """Speculative verification: ``extend`` the cache with up to S
+        tokens (the pending token and the draft's proposals) and return the
+        logits at every position, ``(B, S, Vpad)``, so the caller can take
+        the accepted prefix and the bonus token.  K/V of all S positions is
+        written; the caller rolls ``lengths`` back to the accepted context
+        (rows past it are overwritten by the next write there)."""
+        x, new_cache, _ = self._extend_states(params, cache, tokens, n_new)
+        return self._head(params, x), new_cache
 
     # ---- cache construction ----
     def page_geometry(self, batch: int, max_len: int) -> Tuple[int, int]:

@@ -27,10 +27,24 @@ loads via ``repro_torch.hw`` and is referenced from cluster configs by
 ``InstanceCfg(hw_name="<device>")``.
 
 MoE architectures have a second artifact, the expert-routing trace
-(``record-routing``, or ``profile --experts``).  Not ported yet: the
-acceptance trace (``record-acceptance``, ``profile --spec``; ROADMAP queue
-1 item 7) and measured tensor-parallel grids (``--tp`` above 1 in
-measured mode; item 9); asking for them exits with a message.
+(``record-routing``, or ``profile --experts``), and speculative decoding a
+third, the acceptance trace (``spectrace/1``):
+
+  # record draft/target acceptance through a speculating engine
+  python -m repro_torch.profiler record-acceptance \\
+      --arch llama3.1-8b-tiny --engine-device cpu --k 4
+
+  # or synthesize it from a per-token acceptance rate
+  python -m repro_torch.profiler record-acceptance \\
+      --arch llama3.1-8b-tiny --mode synthetic --alpha 0.7
+
+  # ride along with a hardware profile
+  python -m repro_torch.profiler profile --device cpu-engine \\
+      --arch llama3.1-8b-tiny --spec
+
+Not ported yet: measured tensor-parallel grids (``--tp`` above 1 in
+measured mode; ROADMAP queue 1 item 2); asking for them exits with a
+message.
 
 The operator-level profiler (raw ``Trace``) is the ``ops`` subcommand; a
 bare ``python -m repro_torch.profiler --arch ...`` means ``ops``.
@@ -74,12 +88,6 @@ def _engine_device(args, label):
     return args.engine_device
 
 
-def _no_spec():
-    raise SystemExit(
-        "speculative decoding (acceptance traces) is not ported yet: "
-        "ROADMAP queue 1 item 7")
-
-
 def _cmd_profile(args):
     import dataclasses
 
@@ -87,9 +95,6 @@ def _cmd_profile(args):
     from repro_torch.core.config import HardwareSpec
     from repro_torch.hw import HardwareRegistry, get_hw, register_hw
     from repro_torch.profiler.arch_spec import model_spec_from_arch
-
-    if args.spec is not None:
-        _no_spec()
     spec_flags = {k: getattr(args, k) for k in
                   ("peak_flops", "hbm_bw", "hbm_capacity", "link_bw")}
     if any(v is not None for v in spec_flags.values()):
@@ -118,7 +123,7 @@ def _cmd_profile(args):
         if tps != [1]:
             raise SystemExit(
                 f"--tp {args.tp}: measured tensor-parallel grids need a "
-                f"sharded engine, not ported yet: ROADMAP queue 1 item 9")
+                f"sharded engine, not ported yet: ROADMAP queue 1 item 2")
         from repro_torch.profiler.runtime_profiler import runtime_trace
         grid = _grid(args)
         engine_device = _engine_device(args, args.device)
@@ -162,6 +167,11 @@ def _cmd_profile(args):
             else f"traces/{args.device}.routing.json"
         summary["routing_trace"] = _emit_routing(
             args, out=rout, synthetic=(mode != "measured"))
+    if args.spec is not None:
+        acc = args.spec if args.spec != "auto" \
+            else f"traces/{args.device}.acceptance.json"
+        summary["acceptance_trace"] = _emit_acceptance(
+            args, out=acc, synthetic=(mode != "measured"))
     print(json.dumps(summary, indent=1))
     return summary
 
@@ -198,6 +208,35 @@ def _emit_routing(args, out: str, synthetic: bool) -> str:
     return out
 
 
+def _emit_acceptance(args, out: str, synthetic: bool) -> str:
+    """Shared by ``profile --spec`` and ``record-acceptance``: emit (and
+    round-trip check) one AcceptanceTrace artifact for ``args.arch``."""
+    from repro_torch.spec import AcceptanceRegistry
+
+    k = getattr(args, "k", 4)
+    if synthetic:
+        from repro_torch.workload.acceptance import (AcceptanceConfig,
+                                                     synthesize_acceptance)
+        trace = synthesize_acceptance(
+            AcceptanceConfig(alpha=getattr(args, "alpha", 0.7), k=k,
+                             period=args.period,
+                             jitter=getattr(args, "jitter", 0.0),
+                             seed=args.seed),
+            model=args.arch)
+    else:
+        from repro_torch.spec import record_acceptance
+        trace = record_acceptance(
+            args.arch, getattr(args, "draft_arch", None), k=k,
+            n_requests=getattr(args, "requests", 8),
+            max_batch=args.max_batch, max_len=args.max_len,
+            period=args.period, seed=args.seed,
+            draft_seed=getattr(args, "draft_seed", 1),
+            device=_engine_device(args, getattr(args, "device", None)))
+    trace.save(out)
+    AcceptanceRegistry().load_file(out)  # broken artifacts fail at emit
+    return out
+
+
 def _cmd_record_routing(args):
     out = _emit_routing(args,
                         out=args.out or f"traces/{args.arch}.routing.json",
@@ -208,6 +247,20 @@ def _cmd_record_routing(args):
                "n_layers": trace.n_layers, "n_experts": trace.n_experts,
                "top_k": trace.top_k,
                "static_imbalance": trace.static_imbalance(), **trace.meta}
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+def _cmd_record_acceptance(args):
+    out = _emit_acceptance(
+        args, out=args.out or f"traces/{args.arch}.acceptance.json",
+        synthetic=(args.mode == "synthetic"))
+    from repro_torch.spec import AcceptanceTrace
+    trace = AcceptanceTrace.load(out)
+    summary = {"trace": out, "model": trace.model, "draft": trace.draft,
+               "k": trace.k, "period": trace.period,
+               "mean_accepted": trace.mean_accepted(),
+               "acceptance_rate": trace.acceptance_rate(), **trace.meta}
     print(json.dumps(summary, indent=1))
     return summary
 
@@ -282,17 +335,23 @@ def main(argv=None):
                         "measured mode, synthesized otherwise) to PATH "
                         "(default traces/<device>.routing.json)")
     p.add_argument("--period", type=int, default=256,
-                   help="routing-trace position-bucket length")
+                   help="routing/acceptance-trace position-bucket length")
     p.add_argument("--spec", nargs="?", const="auto", default=None,
                    metavar="PATH",
-                   help="acceptance trace: not ported yet (exits)")
+                   help="also emit an AcceptanceTrace artifact (recorded "
+                        "through a speculating engine in measured mode, "
+                        "synthesized otherwise) to PATH (default "
+                        "traces/<device>.acceptance.json)")
+    p.add_argument("--k", type=int, default=4,
+                   help="speculative draft length for --spec")
     p.add_argument("--kernels", nargs="?", const="reference,cuda",
                    default=None, metavar="BACKENDS",
                    help="measured mode: also sweep per-kernel latencies "
                         "(attention/mlp/moe_gmm/head) for the given "
                         "comma-separated kernel backends (default "
                         "'reference,cuda') into hwtrace/3 sub-buckets")
-    p.set_defaults(fn=_cmd_profile, requests=8)
+    p.set_defaults(fn=_cmd_profile, requests=8, alpha=0.7, jitter=0.0,
+                   draft_arch=None, draft_seed=1)
 
     r = sub.add_parser(
         "record-routing",
@@ -324,8 +383,39 @@ def main(argv=None):
 
     a = sub.add_parser(
         "record-acceptance",
-        help="acceptance traces: not ported yet (exits)")
-    a.set_defaults(fn=lambda args: _no_spec())
+        help="emit an AcceptanceTrace artifact: record draft/target "
+             "acceptance through a speculating engine, or synthesize it "
+             "from a per-token acceptance rate")
+    a.add_argument("--arch", required=True,
+                   help="target architecture (e.g. llama3.1-8b-tiny)")
+    a.add_argument("--draft-arch", default=None,
+                   help="draft architecture (default: the target arch "
+                        "itself with another parameter seed)")
+    a.add_argument("--mode", default="measured",
+                   choices=["measured", "synthetic"],
+                   help="measured: real draft proposals verified by the "
+                        "real target; synthetic: truncated-geometric "
+                        "distributions from --alpha")
+    a.add_argument("--out", default=None,
+                   help="output path (default "
+                        "traces/<arch>.acceptance.json)")
+    a.add_argument("--k", type=int, default=4,
+                   help="draft proposal length per spec step")
+    a.add_argument("--requests", type=int, default=8,
+                   help="workload size for measured recording")
+    a.add_argument("--max-batch", type=int, default=4)
+    a.add_argument("--max-len", type=int, default=256)
+    a.add_argument("--period", type=int, default=256,
+                   help="position-bucket count of the distributions")
+    a.add_argument("--seed", type=int, default=0)
+    a.add_argument("--draft-seed", type=int, default=1,
+                   help="measured mode: draft parameter seed")
+    a.add_argument("--alpha", type=float, default=0.7,
+                   help="synthetic mode: per-token target acceptance rate")
+    a.add_argument("--jitter", type=float, default=0.0,
+                   help="synthetic mode: per-bucket alpha perturbation")
+    engine_device(a)
+    a.set_defaults(fn=_cmd_record_acceptance)
 
     o = sub.add_parser(
         "ops", help="operator-level trace (raw Trace, legacy format)")
@@ -340,9 +430,7 @@ def main(argv=None):
     engine_device(o)
     o.set_defaults(fn=_cmd_ops)
 
-    args, rest = ap.parse_known_args(argv)
-    if rest and args.cmd != "record-acceptance":
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
     return args.fn(args)
 
 

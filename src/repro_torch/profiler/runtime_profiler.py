@@ -94,7 +94,7 @@ def runtime_trace(arch: str, *, device: Optional[str] = None,
     ``engine`` may supply a pre-built ``ServingEngine`` (params reuse);
     otherwise one is made from ``seed`` on ``engine_device`` (None means
     the card).  ``tp`` > 1 raises until tensor parallelism is ported
-    (ROADMAP queue 1 item 9).  Returns a ``HardwareTrace`` labelled
+    (ROADMAP queue 1 item 2).  Returns a ``HardwareTrace`` labelled
     ``device`` (default: ``cpu-engine`` on the CPU, ``h100`` on the card)
     with the engine device's spec embedded.
     """

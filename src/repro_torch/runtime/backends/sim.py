@@ -4,10 +4,6 @@ Wraps the trace-driven ``PerfModel`` + paged ``MemoryModel`` — exactly the
 pricing the old ``core.instance.Instance`` iteration loop did inline.  All
 scheduling/caching/routing decisions arrive from the unified runtime; this
 class only turns a decided batch into seconds.
-
-A copy of ``repro/runtime/backends/sim.py``.  Port cut: ``spec/`` is not
-copied yet, so an instance with ``SpecCfg(enabled=True)`` raises
-``NotImplementedError``; the spec-step pricing below waits for it.
 """
 from __future__ import annotations
 
@@ -51,7 +47,8 @@ class SimBackend:
         # speculative decoding (SpecCfg): every decode step becomes a
         # draft-propose + target-verify pair priced below, advancing the
         # request by accepted + 1 tokens drawn deterministically from the
-        # named AcceptanceTrace (``spec/``, not copied yet).
+        # named AcceptanceTrace (repro_torch.spec — lazily imported, same
+        # layering rule as repro_torch.moe above).
         self.spec = cfg.spec if getattr(cfg.spec, "enabled", False) else None
         self.spec_trace = None
         self.spec_tracker = None
@@ -59,9 +56,40 @@ class SimBackend:
         self._emitted = {}       # req_id -> tokens emitted by the last step
         self._spec_steps = {}    # req_id -> spec-step ordinal (quantile key)
         if self.spec is not None:
-            raise NotImplementedError(
-                f"instance {cfg.name!r}: speculative decoding is not "
-                f"ported yet (ROADMAP queue 1 item 7 copies spec/)")
+            import dataclasses
+
+            from repro_torch.spec import (SpecDecodeTracker,
+                                          draft_model_spec,
+                                          resolve_acceptance)
+            if self.routing is not None:
+                raise ValueError(
+                    f"instance {cfg.name!r} enables both a routing trace "
+                    f"and speculative decoding — the combination is not "
+                    f"supported (positions of draft tokens that fail "
+                    f"verification have no expert-load semantics)")
+            self.spec_trace = resolve_acceptance(cfg)
+            if self.spec_trace is None:
+                raise ValueError(
+                    f"instance {cfg.name!r} enables speculative decoding "
+                    f"but names no acceptance_trace; the simulator draws "
+                    f"accepted lengths from the trace — record one with "
+                    f"`python -m repro_torch.profiler record-acceptance` or "
+                    f"synthesize one with repro_torch.workload.acceptance")
+            if cfg.scheduler.decode_tokens != self.spec.k + 1:
+                raise ValueError(
+                    f"instance {cfg.name!r} speculates k={self.spec.k} "
+                    f"but its scheduler reserves decode_tokens="
+                    f"{cfg.scheduler.decode_tokens}; set SchedulerCfg("
+                    f"decode_tokens=k + 1) so the KV ledger covers the "
+                    f"verification window")
+            self.spec_tracker = SpecDecodeTracker(self.spec.k)
+            draft = self.spec.draft or draft_model_spec(
+                cfg.model, self.spec.draft_scale)
+            self.draft_perf = PerfModel(
+                dataclasses.replace(cfg, model=draft,
+                                    spec=dataclasses.replace(
+                                        cfg.spec, enabled=False)),
+                trace=None)
         # prefix-cache restore / tier-fetch latency charged to the next
         # iteration (the request that hit pays for its own fetch); spill
         # traffic (device->host->ssd demotions) is priced the same way —

@@ -28,8 +28,21 @@ slot and charges its wall time to the next iteration through ``_carry_s``;
 ``import_kv`` restores the payload into a free decode slot with the first
 token the prefill emitted pending.
 
-Speculative decoding and the prefix store are not ported yet; the backend
-refuses configurations that ask for them.
+The prefix store as in the JAX backend: a runtime prefix hit matches the
+engine's ``RealRadixCache`` (``on_prefix_hit``), and the request's first
+chunk restores the matched payload into its slot (``_restore_slot``; an SSD
+stub is read back there, inside the timed region) and extends from the
+restored length; ``on_prefill_complete`` inserts the prompt's KV on the
+device tier and ``on_tier_transfer`` carries out the runtime's tier moves,
+both wall-timed into ``_carry_s``.
+
+Speculative decoding as in the JAX backend (``_spec_decode_step``): the
+draft engine proposes k tokens per slot, the target verifies them in one
+batched ``Model.verify`` (the paged extend kernel at S = k + 1 on the
+card), each slot keeps its accepted prefix and the target's bonus token,
+and both KV lengths roll back.  Acceptance is the greedy match, or replayed
+from the engine's ``AcceptanceTrace``; ``stats()["spec_decode"]`` accounts
+it.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ from repro_torch.core.config import InstanceCfg
 from repro_torch.core.memory import MemoryModel
 from repro_torch.core.request import SimRequest
 from repro_torch.moe import ExpertLoadTracker, resolve_routing
+from repro_torch.obs.events import SPEC_STEP
 from repro_torch.runtime.backend import KvHandoff
 from repro_torch.runtime.prefix_cache import MatchResult
 from repro_torch.runtime.scheduler import ScheduledWork
@@ -51,22 +65,79 @@ class TorchBackend:
     name = "torch"
 
     def __init__(self, engine, cfg: InstanceCfg):
-        if cfg.spec.enabled or cfg.spec.acceptance_trace:
-            raise NotImplementedError(
-                f"instance {cfg.name!r}: speculative decoding is not "
-                f"ported yet")
         self.eng = engine
         self.cfg = cfg
         self.memory = MemoryModel(cfg)
         self._slot: Dict[int, int] = {}      # req_id -> engine slot
         self._len: Dict[int, int] = {}       # slot   -> tokens held in KV
+        self._restore: Dict[int, tuple] = {} # req_id -> (payload, length)
         self._iterations = 0
-        # real work done outside execute() (P/D export) is wall-timed and
-        # charged to the next iteration
+        # real work done outside execute() (prefix store, P/D export) is
+        # wall-timed and charged to the next iteration
         self._carry_s = 0.0
+        # event recorder, wired by RuntimeInstance.attach_obs; restore
+        # cost is folded into the wall-timed iteration, so kv_restore
+        # reports 0 seconds
         self.obs = None
+        self.last_restore_s = 0.0
+        # KV-tier accounting: restores counted at match time (as the
+        # simulator does), tier moves measured as they run on the store
+        self._restored_tokens = 0
+        self._restore_events = 0
+        self._tier_moves = 0
+        self._tier_move_s = 0.0
         # output-token capture: req_id -> emitted token ids, in order
         self.out_tokens: Dict[int, List[int]] = {}
+        # speculative decoding: the engine carries the mechanism (draft
+        # engine, ServingEngine(spec=...)); this backend runs propose /
+        # verify / rollback and accounts spec_decode.  A cfg that names
+        # spec decoding the engine does not run, or another acceptance
+        # trace than the engine replays, is an error
+        self.spec = engine.spec
+        self.spec_tracker = None
+        if (cfg.spec.enabled or cfg.spec.acceptance_trace) \
+                and self.spec is None:
+            raise ValueError(
+                f"instance {cfg.name!r} configures speculative decoding "
+                f"but its engine has no draft; build it with "
+                f"ServingEngine(spec=SpecDecodeCfg(...)) so the "
+                f"scheduler's multi-token accounting matches what "
+                f"actually executes")
+        if self.spec is not None:
+            from repro_torch.spec import SpecDecodeTracker, resolve_acceptance
+            if cfg.spec.acceptance_trace:
+                named = resolve_acceptance(cfg)
+                if self.spec.acceptance is None:
+                    raise ValueError(
+                        f"instance {cfg.name!r} names acceptance_trace="
+                        f"{cfg.spec.acceptance_trace!r} but its engine "
+                        f"replays no trace; build it with ServingEngine("
+                        f"spec=SpecDecodeCfg(acceptance=<trace>)) so the "
+                        f"reported spec_decode is what actually ran")
+                if named is not self.spec.acceptance \
+                        and named.to_json() != self.spec.acceptance.to_json():
+                    raise ValueError(
+                        f"instance {cfg.name!r} names acceptance_trace="
+                        f"{cfg.spec.acceptance_trace!r} but its engine "
+                        f"replays a different trace; the accounting "
+                        f"table must be the one the engine draws from")
+            dt = cfg.scheduler.decode_tokens
+            if dt != self.spec.k + 1:
+                raise ValueError(
+                    f"instance {cfg.name!r} speculates k={self.spec.k} "
+                    f"but its scheduler reserves decode_tokens={dt}; set "
+                    f"SchedulerCfg(decode_tokens=k + 1) (engine_instance_"
+                    f"cfg does this automatically) so the KV ledger "
+                    f"covers the verification window")
+            self.spec_tracker = SpecDecodeTracker(self.spec.k)
+        # spec bookkeeping by engine slot, kept apart from the scheduler's
+        # (the sim/real parity tests hold the two to each other): token
+        # history in the target KV, draft KV length, emitted-token count
+        self._hist: Dict[int, List[int]] = {}
+        self._draft_len: Dict[int, int] = {}
+        self._emit: Dict[int, int] = {}
+        self._steps: Dict[int, int] = {}     # slot -> spec-step ordinal
+        self._emitted: Dict[int, int] = {}   # req_id -> last step's tokens
         # expert-load mirror of a replayed trace: the engine's own trace is
         # the only valid source; a cfg-named trace the engine does not
         # replay would report routing that never ran, so it is an error
@@ -96,8 +167,11 @@ class TorchBackend:
     def prompt_cap(self, req: SimRequest) -> int:
         """Slot capacity: prompt + generated output + 1 must fit max_len.
         The runtime truncates the request on submit, so the scheduler's
-        chunk plan and the backend's KV state always agree."""
-        return max(self.eng.max_len - req.output_len - 1, 1)
+        chunk plan and the backend's KV state always agree.  Speculative
+        decoding writes up to k draft rows past the accepted context before
+        the rollback, so the window shrinks by k."""
+        extra = self.eng.spec.k if self.eng.spec is not None else 0
+        return max(self.eng.max_len - req.output_len - 1 - extra, 1)
 
     def _prompt(self, req: SimRequest) -> List[int]:
         toks = list(req.prompt_tokens)
@@ -110,11 +184,13 @@ class TorchBackend:
         eng = self.eng
         eng.warmup()
         sched = self.cfg.scheduler
-        if sched.chunked_prefill:
-            # chunk 2+ of a chunked prefill runs ``extend``: run it once at
-            # every padded chunk bucket so the measured run starts warm
+        if sched.chunked_prefill or eng.radix is not None:
+            # chunk 2+ of a chunked prefill (and any prefix-hit suffix)
+            # runs ``extend``: run it once at every padded chunk bucket so
+            # the measured run starts warm
             top = _bucket(min(max(sched.prefill_chunk, 16),
-                              eng.max_len - 1))
+                              eng.max_len - 1)) \
+                if sched.chunked_prefill else eng.max_len - 1
             P = 16
             while P <= top and P < eng.max_len:
                 pad = eng.tensor(np.zeros((1, P), np.int32))
@@ -123,6 +199,23 @@ class TorchBackend:
                 eng._write_slot(0, sub, 16)
                 P *= 2
             eng._release_slot(0)
+        if eng.radix is not None:
+            # the slot export / restore at every bucket a hit can restore
+            for blen in (16, 32, 64, 128, 256):
+                if blen >= eng.max_len:
+                    break
+                payload = eng._export_slot(0, blen)
+                eng._restore_slot(0, payload, blen)
+            eng._release_slot(0)
+        if eng.spec is not None:
+            # draft prefill / decode buckets and one verify of every slot
+            # (its writes land on the free slots' scratch pages)
+            eng.draft.warmup()
+            vt = eng.tensor(np.zeros((eng.max_batch, eng.spec.k + 1),
+                                     np.int32))
+            eng.model.verify(eng.params, eng.cache, vt,
+                             eng.tensor(np.zeros((eng.max_batch,),
+                                                 np.int32)))
         eng.synchronize()
 
     # ---- execution ----
@@ -131,7 +224,10 @@ class TorchBackend:
         decodes = [w for w in work if w.phase == "decode"]
         prefills = [w for w in work if w.phase == "prefill"]
         if decodes:
-            self._decode_step(decodes)
+            if self.eng.spec is not None:
+                self._spec_decode_step(decodes, now)
+            else:
+                self._decode_step(decodes)
         for w in prefills:
             self._prefill_chunk(w)
         self.eng.synchronize()
@@ -191,6 +287,138 @@ class TorchBackend:
                 lengths[s] = n
             eng.cache["lengths"] = eng.tensor(lengths)
 
+    def _spec_decode_step(self, decodes: List[ScheduledWork], now: float):
+        """One speculative iteration for the scheduled decode set: the
+        draft proposes k tokens per slot (k + 1 full-buffer draft decodes:
+        the last consumes the last proposal, so the draft KV stays one
+        pending token behind, like the target's), the target verifies all
+        proposals in one batched ``verify``, and each slot keeps the
+        accepted prefix and the target's bonus token, rolling both KV
+        lengths back to the accepted context.  Acceptance is the greedy
+        match unless the engine replays an ``AcceptanceTrace``: then the
+        decision is the trace's draw at the slot's emitted position."""
+        from repro_torch.serve.engine import _bucket
+        from repro_torch.serve.sampler import accept_length, greedy
+        eng = self.eng
+        dr = eng.draft
+        k = eng.spec.k
+        trace = eng.spec.acceptance
+        recorder = eng.spec.recorder
+
+        # 1. draft context sync: rebuild a slot's draft KV from its token
+        # history whenever the two diverged (first spec step, preemption
+        # restart, P/D arrival): one bucketed draft prefill per slot
+        for w in decodes:
+            slot = self._slot[w.request.req_id]
+            hist = self._hist[slot]
+            if self._draft_len.get(slot) != len(hist):
+                P = _bucket(max(len(hist), 1))
+                pad = np.zeros((1, P), np.int32)
+                pad[0, :len(hist)] = np.asarray(hist, np.int32)
+                _, c1 = dr.model.prefill(dr.params, dr.tensor(pad),
+                                         lengths=dr.tensor([len(hist)]))
+                dr._write_slot_from_prefill(slot, c1, len(hist))
+                self._draft_len[slot] = len(hist)
+
+        # tail clamp: a request with r output tokens left emits at most r
+        # a step (accepted + bonus), so it proposes min(k, r - 1) drafts;
+        # the simulator prices the same step the same way
+        k_eff = {}
+        for w in decodes:
+            req = w.request
+            k_eff[self._slot[req.req_id]] = max(
+                0, min(k, req.output_len - req.generated - 1))
+        k_step = max(k_eff.values(), default=0)
+
+        # verify writes the pending token and k_eff drafts at [len, len +
+        # k_eff]; the draft's k_step + 1 decodes walk one position a call
+        for w in decodes:
+            slot = self._slot[w.request.req_id]
+            eng.ensure_capacity(slot, self._len[slot] + k_eff[slot] + 1)
+            dr.ensure_capacity(slot,
+                               self._draft_len.get(slot, 0) + k_step + 1)
+
+        # 2. propose: k_step + 1 full-buffer draft decodes
+        cur = np.maximum(eng._tokens_buf, 0)
+        drafts = np.zeros((eng.max_batch, k_step), np.int32)
+        for j in range(k_step + 1):
+            dlogits, dr.cache = dr.model.decode(dr.params, dr.cache,
+                                                dr.tensor(cur))
+            cur = greedy(dlogits, eng.cfg.vocab).cpu().numpy()
+            if j < k_step:
+                drafts[:, j] = cur[:, 0]
+
+        # 3. one batched target verification over [pending, d1..dk_eff]
+        vt = np.concatenate([np.maximum(eng._tokens_buf, 0), drafts],
+                            axis=1)
+        n_new = np.zeros((eng.max_batch,), np.int32)
+        for w in decodes:
+            slot = self._slot[w.request.req_id]
+            n_new[slot] = k_eff[slot] + 1
+        vlogits, eng.cache = eng.model.verify(eng.params, eng.cache,
+                                              eng.tensor(vt),
+                                              eng.tensor(n_new))
+        target = greedy(vlogits, eng.cfg.vocab).cpu().numpy()  # (B, k+1)
+        matched = accept_length(drafts, target)
+
+        # 4. acceptance and rollback per scheduled slot
+        for w in decodes:
+            req = w.request
+            slot = self._slot[req.req_id]
+            pos = self._emit[slot] - 1       # last emitted token's index
+            step = self._steps.get(slot, 0)
+            self._steps[slot] = step + 1
+            if trace is not None:
+                accepted = trace.accepted_for(pos, step)
+            else:
+                accepted = int(matched[slot])
+            # a slot near its output budget verified only k_eff positions
+            # (the target's later rows are padding), so clamp first
+            accepted = min(accepted, k_eff[slot])
+            if recorder is not None:
+                recorder.observe(pos, min(int(matched[slot]), k_eff[slot]))
+            if self.spec_tracker is not None:
+                self.spec_tracker.observe(pos, accepted, now,
+                                          proposed=k_eff[slot])
+            bonus = int(target[slot, accepted])
+            emitted = [int(t) for t in drafts[slot, :accepted]] + [bonus]
+            remaining = max(req.output_len - req.generated, 1)
+            emitted = emitted[:remaining]
+            t0 = int(eng._tokens_buf[slot, 0])
+            self._hist[slot].extend(
+                [t0] + [int(t) for t in drafts[slot, :accepted]])
+            self._len[slot] += 1 + accepted
+            self._draft_len[slot] += 1 + accepted
+            # truncation happens only on the request's last step (its slot
+            # is released before another decode), so the bonus is always
+            # the right next pending token
+            eng._tokens_buf[slot, 0] = bonus
+            self.out_tokens.setdefault(req.req_id, []).extend(emitted)
+            self._emit[slot] += len(emitted)
+            self._emitted[req.req_id] = len(emitted)
+            if self.obs is not None:
+                self.obs.emit(now, SPEC_STEP, inst=self.cfg.name,
+                              req=req.req_id, tenant=req.tenant,
+                              payload={"accepted": int(accepted),
+                                       "proposed": int(k_eff[slot])})
+
+        # 5. authoritative lengths on both caches: verify bumped the
+        # scheduled slots to the full window, the draft decodes every row;
+        # rows past a length are overwritten by the next write there
+        lengths = np.zeros((eng.max_batch,), np.int32)
+        for s, n in self._len.items():
+            lengths[s] = n
+        eng.cache["lengths"] = eng.tensor(lengths)
+        dlen = np.zeros((eng.max_batch,), np.int32)
+        for s, n in self._draft_len.items():
+            dlen[s] = n
+        dr.cache["lengths"] = dr.tensor(dlen)
+
+    def decode_emitted(self, req: SimRequest) -> int:
+        """Tokens the last decode step emitted for ``req`` (1 for vanilla
+        decode; accepted + 1 under speculative decoding)."""
+        return self._emitted.pop(req.req_id, 1)
+
     def _prefill_chunk(self, w: ScheduledWork):
         from repro_torch.serve.engine import _bucket
         from repro_torch.serve.sampler import greedy
@@ -202,6 +430,18 @@ class TorchBackend:
             slot = eng.slot_free.pop()
             self._slot[req.req_id] = slot
             self._len[slot] = 0
+            self._hist[slot] = []
+            self._draft_len.pop(slot, None)
+            restore = self._restore.pop(req.req_id, None)
+            if restore is not None and req.cached_prefix > 0:
+                payload, length = restore
+                length = min(length, req.cached_prefix)
+                # an SSD-tier stub loads here, inside execute()'s timed
+                # region, so the disk read lands on the virtual clock
+                payload = eng.radix.resolve(payload)
+                eng._restore_slot(slot, payload, length)
+                self._len[slot] = length
+                self._hist[slot] = list(toks[:length])
         start = self._len[slot]
         end = min(start + w.tokens, len(toks))
         chunk = toks[start:end]
@@ -225,31 +465,99 @@ class TorchBackend:
                 # the chunk's tokens occupy KV positions [start, start+n)
                 self._routed_pos.extend(range(start, start + len(chunk)))
             self._len[slot] = start + len(chunk)
+            self._hist[slot].extend(int(t) for t in chunk)
         if self._len[slot] >= len(toks) and logits is not None:
             # prompt complete: the last chunk's logits give the first token
             first = int(greedy(logits, eng.cfg.vocab)[0, 0])
             eng._tokens_buf[slot, 0] = first
             self.out_tokens.setdefault(req.req_id, []).append(first)
+            self._emit[slot] = 1
 
-    # ---- prefix cache (not ported: the engine has no store) ----
+    # ---- prefix store ----
     def on_prefix_hit(self, req: SimRequest, match: MatchResult,
                       usable: int) -> int:
-        return 0
+        if self.eng.radix is None or usable <= 0:
+            return 0
+        toks = self._prompt(req)
+        limit = min(usable, len(toks) - 1 if toks else 0)
+        length, payload = self.eng.radix.match(toks, limit=limit)
+        if payload is None or length <= 0:
+            return 0
+        self._restore[req.req_id] = (payload, length)
+        if match is not None:
+            # match is None on the preemption re-match (on_preempt): that
+            # restore was counted when the request first hit
+            self._restored_tokens += length
+            self._restore_events += 1
+        return length
 
     def on_prefill_complete(self, req: SimRequest):
-        return None
+        if self.eng.radix is None:
+            return
+        slot = self._slot.get(req.req_id)
+        if slot is None:
+            return
+        t0 = time.perf_counter()
+        toks = self._prompt(req)
+        blk = (len(toks) // self.eng.radix.block) * self.eng.radix.block
+        if blk > 0:
+            # a device-tier entry: the gathered tensors stay on the
+            # engine's device until the runtime demotes them
+            self.eng.radix.insert(
+                toks, self.eng._export_slot(slot, blk, to_host=False))
+        self.eng.synchronize()    # the carry covers the device's gather
+        self._carry_s += time.perf_counter() - t0
+
+    def on_tier_transfer(self, src: str, dst: str, n_bytes: float,
+                         prefix) -> None:
+        """Carry out the runtime's tier decision on the payload store:
+        demotions copy device entries to host memory (and on to a spill
+        file for SSD), promotions copy them back, drops delete.  All of it
+        is wall-timed into ``_carry_s``, as store inserts are, so tier
+        traffic is measured here where the simulator prices it."""
+        if self.eng.radix is None:
+            return
+        t0 = time.perf_counter()
+        if dst == "device":
+            self.eng.radix.promote(prefix)
+        elif dst in ("host", "ssd"):
+            self.eng.radix.demote(prefix, dst)
+        else:
+            self.eng.radix.drop(prefix)
+        self.eng.synchronize()    # the move's copies, not their enqueue
+        dt = time.perf_counter() - t0
+        self._carry_s += dt
+        self._tier_move_s += dt
+        self._tier_moves += 1
+
+    def kv_tier_stats(self) -> dict:
+        s = {"restored_tokens": self._restored_tokens,
+             "restore_events": self._restore_events,
+             "tier_moves": self._tier_moves,
+             "tier_move_s": self._tier_move_s}
+        if self.eng.radix is not None:
+            s["store_residency"] = self.eng.radix.residency()
+        return s
 
     def on_preempt(self, req: SimRequest) -> int:
         self.release(req)
         # the restart regenerates the whole output from scratch
         self.out_tokens.pop(req.req_id, None)
-        return 0
+        # re-match the store so the restart restores whatever KV survives
+        return self.on_prefix_hit(req, None, req.cached_prefix) \
+            if req.cached_prefix > 0 else 0
 
     def release(self, req: SimRequest):
         slot = self._slot.pop(req.req_id, None)
+        self._restore.pop(req.req_id, None)
+        self._emitted.pop(req.req_id, None)
         if slot is None:
             return
         self._len.pop(slot, None)
+        self._hist.pop(slot, None)
+        self._draft_len.pop(slot, None)
+        self._emit.pop(slot, None)
+        self._steps.pop(slot, None)
         self.eng._release_slot(slot)
 
     # ---- P/D handoff ----
@@ -276,6 +584,11 @@ class TorchBackend:
         self.eng._restore_slot(slot, p["kv"], p["len"])
         self.eng._tokens_buf[slot, 0] = p["first"]
         self._len[slot] = p["len"]
+        # spec bookkeeping: the KV holds exactly the (possibly truncated)
+        # prompt; the pending first token is the one emitted
+        self._hist[slot] = list(self._prompt(req))[:p["len"]]
+        self._draft_len.pop(slot, None)
+        self._emit[slot] = 1
         self.out_tokens.setdefault(req.req_id, []).append(p["first"])
 
     # ---- lifecycle ----
@@ -283,15 +596,27 @@ class TorchBackend:
         eng = self.eng
         self._slot.clear()
         self._len.clear()
+        self._restore.clear()
         self._routed_pos = []
+        self._hist.clear()
+        self._draft_len.clear()
+        self._emit.clear()
+        self._steps.clear()
+        self._emitted.clear()
+        engines = [eng] + ([eng.draft] if eng.spec is not None else [])
         eng.slot_free = list(range(eng.max_batch))
-        eng.cache["lengths"] = eng.tensor(np.zeros((eng.max_batch,),
-                                                   np.int32))
-        for slot in range(eng.max_batch):
-            eng._free_pages(slot)
+        for e in engines:
+            e.cache["lengths"] = e.tensor(np.zeros((e.max_batch,), np.int32))
+            for slot in range(e.max_batch):
+                e._free_pages(slot)
 
     def stats(self) -> dict:
         s = {"engine_iterations": self._iterations}
+        if self.eng.radix is not None:
+            s["kv_store_hits"] = self.eng.radix.hits
+            s["kv_store_misses"] = self.eng.radix.misses
         if self.expert_load is not None:
             s["expert_load"] = self.expert_load.metrics()
+        if self.spec_tracker is not None:
+            s["spec_decode"] = self.spec_tracker.metrics()
         return s

@@ -10,9 +10,6 @@ Every instance — whether built at construction time or added later via
 ``add_instance`` — goes through one ``_build_instance`` path, so elastic
 scale-out instances join the shared global prefix cache and get P/D handoff
 wiring exactly like their siblings (previously they silently got neither).
-
-Port cut: this copy has no event tracing yet (``obs/record.py`` is not
-copied), so passing a ``recorder`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -64,9 +61,6 @@ class ServingRuntime:
         self.queue = EventQueue()
         self.network = NetworkModel(cfg.network)
         self.traces = traces or TraceRegistry()
-        if recorder is not None:
-            raise NotImplementedError(
-                "event tracing (recorder=) is not ported yet")
         # hardware-by-name resolution (InstanceCfg.hw_name): measured
         # HardwareTrace artifacts when loaded, synthetic otherwise.
         # Imported lazily: repro_torch.hw sits above repro_torch.core in the layering,
@@ -393,4 +387,7 @@ class ServingRuntime:
         # appears when a recorder is attached — keeping tracing-disabled
         # metrics byte-identical to pre-tracing builds
         m["routing"] = self.router.stats()
+        if self.obs is not None:
+            from repro_torch.obs.attribution import attribution
+            m["attribution"] = attribution(self._all_requests, self.obs)
         return m

@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.core.config import (ENGINE_HW, H100, ClusterCfg,
                                      HardwareSpec, InstanceCfg, MoECfg,
-                                     NetworkCfg, ParallelismCfg, RouterCfg,
-                                     SchedulerCfg, engine_scheduler_cfg)
+                                     NetworkCfg, ParallelismCfg,
+                                     PrefixCacheCfg, RouterCfg, SchedulerCfg,
+                                     SpecCfg, engine_scheduler_cfg)
 from repro_torch.core.request import SimRequest
 from repro_torch.profiler import model_spec_from_arch
 from repro_torch.runtime.backends.torch_engine import TorchBackend
@@ -40,12 +41,21 @@ def engine_instance_cfg(engine: ServingEngine,
                         scheduler: Optional[SchedulerCfg] = None,
                         trace_name: Optional[str] = None,
                         moe: Optional[MoECfg] = None,
-                        hw: Optional[HardwareSpec] = None) -> InstanceCfg:
+                        spec: Optional[SpecCfg] = None,
+                        hw: Optional[HardwareSpec] = None,
+                        prefix_cache: Optional[PrefixCacheCfg] = None
+                        ) -> InstanceCfg:
     """Runtime InstanceCfg mirroring a live ``ServingEngine``.
 
     ``moe`` lets the simulated twin of a MoE engine name the same
-    ``routing_trace`` the engine replays, so the two report comparable
-    ``expert_load``."""
+    ``routing_trace`` the engine replays, and ``spec`` the same
+    ``acceptance_trace`` a speculating engine replays, so the two report
+    comparable ``expert_load`` / ``spec_decode``.  A speculating engine
+    always mirrors its draft length into the scheduler (``decode_tokens =
+    k + 1``) so the KV ledger reserves the verification window.
+    ``prefix_cache`` overrides the ``PrefixCacheCfg`` derived from the
+    engine's store (e.g. tier capacities shrunk so both backends walk the
+    same spill chain)."""
     model = model_spec_from_arch(engine.cfg)
     scheduler = scheduler or engine_scheduler_cfg(engine.max_batch)
     if scheduler.max_batch_size > engine.max_batch:
@@ -53,12 +63,26 @@ def engine_instance_cfg(engine: ServingEngine,
         # would crash slot allocation mid-run
         scheduler = dataclasses.replace(scheduler,
                                         max_batch_size=engine.max_batch)
+    if spec is None and engine.spec is not None:
+        spec = SpecCfg(enabled=True, k=engine.spec.k,
+                       draft=model_spec_from_arch(engine.spec.draft))
+    if engine.spec is not None:
+        scheduler = dataclasses.replace(scheduler,
+                                        decode_tokens=engine.spec.k + 1)
+    if prefix_cache is None:
+        prefix_cache = PrefixCacheCfg(
+            enabled=engine.radix is not None,
+            block_tokens=engine.radix.block if engine.radix else 16,
+            capacity_fraction=0.5)
     return InstanceCfg(
         name=engine.name,
         hw=hw if hw is not None else device_hw(engine.device),
         model=model, n_devices=1, role=engine.role,
         parallelism=ParallelismCfg(tp=1), scheduler=scheduler,
-        moe=moe if moe is not None else MoECfg(), trace_name=trace_name)
+        prefix_cache=prefix_cache,
+        moe=moe if moe is not None else MoECfg(),
+        spec=spec if spec is not None else SpecCfg(),
+        trace_name=trace_name)
 
 
 @dataclasses.dataclass
@@ -74,7 +98,8 @@ class DriverCfg:
 class ServeDriver:
     def __init__(self, engines: List[ServingEngine],
                  cfg: DriverCfg = DriverCfg(),
-                 pd_map: Optional[Dict[str, Tuple[str, ...]]] = None):
+                 pd_map: Optional[Dict[str, Tuple[str, ...]]] = None,
+                 recorder=None):
         self.cfg = cfg
         self.engines = {e.name: e for e in engines}
         ccfg = ClusterCfg(
@@ -84,10 +109,14 @@ class ServeDriver:
             network=NetworkCfg(inter_instance_bw=cfg.kv_transfer_bw,
                                inter_instance_latency=cfg.kv_transfer_latency),
             pd_map=pd_map)
+        # recorder: a repro_torch.obs.EventRecorder; build it with
+        # wall_clock=True so the real engine's events carry wall-clock
+        # stamps beside the virtual time (the simulator's schema)
         self.runtime = ServingRuntime(
             ccfg,
             backend_factory=lambda icfg, trace: TorchBackend(
-                self.engines[icfg.name], icfg))
+                self.engines[icfg.name], icfg),
+            recorder=recorder)
 
     @property
     def finished(self) -> List[SimRequest]:
@@ -97,7 +126,15 @@ class ServeDriver:
         if warmup:
             self.runtime.warmup()
         self.runtime.submit_workload(requests)
-        return self.runtime.run()
+        return self._augment(self.runtime.run())
 
     def metrics(self) -> dict:
-        return self.runtime.metrics()
+        return self._augment(self.runtime.metrics())
+
+    def _augment(self, m: dict) -> dict:
+        for name, stats in m.get("instances", {}).items():
+            cache = stats.get("prefix_cache")
+            if cache:
+                m[f"{name}_cache_hits"] = cache["hits"]
+                m[f"{name}_cache_misses"] = cache["misses"]
+        return m

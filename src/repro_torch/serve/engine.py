@@ -14,14 +14,26 @@ as in JAX: ``routing`` is an ``ExpertRoutingTrace`` (replayed, and kept as
 ``routing_trace`` so ``TorchBackend`` accounts expert load from the same
 table) or a hook callable (``repro_torch.moe.hooks``).  A slot's KV can be
 copied out and restored into another slot or engine (``_export_slot`` /
-``_restore_slot``, the P/D handoff) in the JAX package's contiguous payload
-layout; ``role`` ("unified" | "prefill" | "decode") is only stored, as in
-JAX.  Prefix caching, tensor parallelism and speculative decoding are not
-ported yet; asking for any of them raises.
+``_restore_slot``, the P/D handoff and the prefix store) in the JAX
+package's contiguous payload layout; ``role`` ("unified" | "prefill" |
+"decode") is only stored, as in JAX.
+
+``prefix_cache=True`` gives the engine a real radix prefix store
+(``RealRadixCache``: KV payloads keyed by token prefix on three tiers,
+the card, host memory and a spill file).  ``spec=SpecDecodeCfg(...)``
+gives it a nested draft engine with the same slot geometry on the same
+device (and stream), so draft slot i mirrors target slot i; the target
+verifies all proposals in one ``Model.verify`` call (the paged extend
+kernel at S = k + 1).  ``TorchBackend`` drives both.  Tensor parallelism is
+not ported yet; ``tp`` above 1 raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import os
+import tempfile
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,11 +43,192 @@ from repro_torch.models import Model
 from repro_torch.models.transformer import cast_params, torch_dtype
 
 
+@dataclasses.dataclass
+class SpecDecodeCfg:
+    """Speculative decoding for a real engine: draft model + verification.
+
+    ``draft`` is the proposer's architecture (its own params, its own slot
+    KV cache: a nested mechanism-only ``ServingEngine``; ``draft_params``
+    lets it share another engine's tensors); the target verifies all ``k``
+    proposals in one batched ``verify``.  With ``acceptance`` unset the
+    engine is greedy-lossless: it emits exactly the tokens of vanilla
+    greedy decode (the accepted prefix and the target's own bonus token).
+    With an ``AcceptanceTrace`` attached the acceptance decision is
+    replayed from the trace, so the simulator and the engine can be held
+    to the same steps; ``recorder`` taps (position, accepted) pairs
+    (``repro_torch.spec.record``)."""
+    draft: ArchConfig
+    k: int = 4
+    acceptance: Optional[Any] = None      # repro_torch.spec.AcceptanceTrace
+    draft_seed: int = 1
+    draft_params: Optional[Any] = None
+    recorder: Optional[Any] = None        # repro_torch.spec.AcceptanceRecorder
+
+
 def _bucket(n: int, lo: int = 16) -> int:
     b = lo
     while b < n:
         b *= 2
     return b
+
+
+#: hotter tiers have lower rank; demotion only moves entries downward
+_TIER_RANK = {"device": 0, "host": 1, "ssd": 2}
+
+
+def _payload_map(payload: dict, fn) -> dict:
+    """Apply ``fn`` to every tensor of a store entry; metadata keys (a
+    leading ``_``) pass through."""
+    return {k: v if k.startswith("_") else {n: fn(t) for n, t in v.items()}
+            for k, v in payload.items()}
+
+
+def _payload_to_host(payload: dict) -> dict:
+    """Device -> host copy of a store entry."""
+    return _payload_map(payload, lambda t: t.cpu())
+
+
+def _payload_nbytes(payload: dict) -> float:
+    return float(sum(t.nbytes for k, v in payload.items()
+                     if not k.startswith("_") for t in v.values()))
+
+
+class RealRadixCache:
+    """Real prefix cache: token prefix -> stored KV payload, tier-tagged.
+
+    The port of ``repro/serve/engine.py``'s store.  Entries live on one of
+    three tiers mirroring the runtime radix tree's block accounting:
+    ``device`` (tensors on the engine's device, the insert default),
+    ``host`` (CPU tensors), ``ssd`` (written with ``torch.save`` to a spill
+    file under a ``tempfile.mkdtemp`` directory; a matched stub is read
+    back only through :meth:`resolve`, so the disk read lands inside the
+    caller's wall-timed region).  Tier moves are driven by the runtime's
+    eviction decisions through ``TorchBackend.on_tier_transfer``; this
+    class is mechanism only.  Moves are entry-granular: demoting one radix
+    block demotes every stored entry containing it (payloads are
+    whole-prefix slices, not per-block pages).  A spill that fails
+    raises."""
+
+    def __init__(self, block: int = 16, max_entries: int = 64,
+                 device=None):
+        self.block = block
+        self.device = torch.device("cpu" if device is None else device)
+        self.store: "OrderedDict[tuple, dict]" = OrderedDict()
+        self.tier: Dict[tuple, str] = {}
+        self.max_entries = max_entries
+        self.hits = 0
+        self.misses = 0
+        self._ssd_dir: Optional[str] = None
+        self._ssd_seq = 0
+
+    def match(self, tokens,
+              limit: Optional[int] = None) -> Tuple[int, Optional[dict]]:
+        """Longest stored prefix of ``tokens`` (optionally capped at
+        ``limit`` tokens, e.g. the runtime's radix-tree match length)."""
+        best_len, best = 0, None
+        n = (len(tokens) // self.block) * self.block
+        if limit is not None:
+            n = min(n, (limit // self.block) * self.block)
+        for l in range(n, 0, -self.block):
+            key = tuple(tokens[:l])
+            if key in self.store:
+                self.store.move_to_end(key)
+                best_len, best = l, self.store[key]
+                break
+        if best is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return best_len, best
+
+    def insert(self, tokens, kv_slices: dict, tier: str = "device"):
+        l = (len(tokens) // self.block) * self.block
+        if l == 0:
+            return
+        key = tuple(tokens[:l])
+        if key in self.store:
+            return
+        self.store[key] = kv_slices
+        self.tier[key] = tier
+        while len(self.store) > self.max_entries:
+            old, payload = self.store.popitem(last=False)
+            self.tier.pop(old, None)
+            self._unlink(payload)
+
+    # ---- tier moves (entry-granular; see class docstring) ----
+    def _covering(self, prefix) -> list:
+        p = tuple(prefix)
+        n = len(p)
+        return [k for k in list(self.store) if len(k) >= n and k[:n] == p]
+
+    def demote(self, prefix, dst: str) -> float:
+        """Move entries containing ``prefix`` down to ``dst`` ("host" |
+        "ssd"); returns the bytes moved."""
+        moved = 0.0
+        for k in self._covering(prefix):
+            if _TIER_RANK.get(self.tier.get(k, "host"), 1) \
+                    >= _TIER_RANK[dst]:
+                continue
+            host = _payload_to_host(self.resolve(self.store[k]))
+            moved += _payload_nbytes(host)
+            self._unlink(self.store[k])
+            self.store[k] = host if dst == "host" else self._to_ssd(host)
+            self.tier[k] = dst
+        return moved
+
+    def promote(self, prefix) -> float:
+        """Bring entries containing ``prefix`` back to the device."""
+        moved = 0.0
+        for k in self._covering(prefix):
+            if self.tier.get(k, "device") == "device":
+                continue
+            host = self.resolve(self.store[k])
+            moved += _payload_nbytes(host)
+            dev = _payload_map(host, lambda t: t.to(self.device))
+            self._unlink(self.store[k])
+            self.store[k] = dev
+            self.tier[k] = "device"
+        return moved
+
+    def drop(self, prefix):
+        for k in self._covering(prefix):
+            payload = self.store.pop(k)
+            self.tier.pop(k, None)
+            self._unlink(payload)
+
+    def resolve(self, payload: dict) -> dict:
+        """Materialize a matched payload: SSD stubs are loaded here, so
+        call this inside the region whose wall time should absorb the disk
+        read (``TorchBackend._prefill_chunk`` does)."""
+        if isinstance(payload, dict) and "_ssd" in payload:
+            return torch.load(payload["_ssd"], weights_only=True)
+        return payload
+
+    def residency(self) -> Dict[str, int]:
+        out = {"device": 0, "host": 0, "ssd": 0}
+        for k in self.store:
+            out[self.tier.get(k, "device")] += 1
+        return out
+
+    def _to_ssd(self, host_payload: dict) -> dict:
+        if self._ssd_dir is None:
+            self._ssd_dir = tempfile.mkdtemp(prefix="kv-ssd-")
+        self._ssd_seq += 1
+        path = os.path.join(self._ssd_dir, f"kv{self._ssd_seq}.pt")
+        with open(path, "wb") as f:
+            torch.save(host_payload, f)
+        return {"_ssd": path,
+                "_length": host_payload.get("_length"),
+                "_length_bucket": host_payload.get("_length_bucket")}
+
+    @staticmethod
+    def _unlink(payload):
+        path = payload.get("_ssd") if isinstance(payload, dict) else None
+        if path:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
 
 
 def resolve_device(device) -> torch.device:
@@ -61,21 +254,32 @@ class ServingEngine:
     def __init__(self, cfg: ArchConfig, params=None, *, max_batch: int = 8,
                  max_len: int = 512, prefix_cache: bool = False,
                  role: str = "unified", name: str = "engine0", seed: int = 0,
-                 tp: int = 1, routing=None, spec=None, device=None):
-        for asked, what in ((prefix_cache, "prefix_cache=True"),
-                            (int(tp) != 1, f"tp={tp}"),
-                            (spec is not None, "spec=")):
-            if asked:
-                raise NotImplementedError(
-                    f"ServingEngine: {what} is not ported yet (ROADMAP "
-                    f"queue 1)")
+                 tp: int = 1, routing=None,
+                 spec: Optional[SpecDecodeCfg] = None, device=None):
+        if int(tp) != 1:
+            raise NotImplementedError(
+                f"ServingEngine: tp={tp} is not ported yet (ROADMAP queue "
+                f"1 item 2)")
+        if spec is not None:
+            if routing is not None:
+                raise ValueError(
+                    "speculative decoding and trace-driven MoE routing "
+                    "cannot be combined on one engine (draft tokens that "
+                    "fail verification have no expert-load semantics)")
+            if spec.k < 1:
+                raise ValueError(f"spec.k must be >= 1, got {spec.k}")
+            if spec.draft.vocab != cfg.vocab:
+                raise ValueError(
+                    f"draft {spec.draft.name!r} has vocab "
+                    f"{spec.draft.vocab} but target {cfg.name!r} has "
+                    f"{cfg.vocab}; draft/target token ids must line up")
+            if spec.acceptance is not None:
+                spec.acceptance.validate().check_k(spec.k)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.name = name
         self.role = role
         self.tp = 1
-        self.radix = None
-        self.spec = None
         self.page_size = 64
         self.routing_trace = None
         hook = None
@@ -119,6 +323,18 @@ class ServingEngine:
         self._slot_pages = [0] * max_batch
         self.slot_free = list(range(max_batch))
         self._tokens_buf = np.zeros((max_batch, 1), np.int32)
+        self.radix = RealRadixCache(device=self.device) \
+            if prefix_cache else None
+        # speculative decoding: a nested mechanism-only draft engine with
+        # the same slot geometry on the same device (draft slot i mirrors
+        # target slot i); TorchBackend runs propose / verify / rollback
+        self.spec = spec
+        self.draft = None
+        if spec is not None:
+            self.draft = ServingEngine(
+                spec.draft, params=spec.draft_params, max_batch=max_batch,
+                max_len=max_len, name=f"{name}.draft", seed=spec.draft_seed,
+                device=self.device)
 
     def tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -129,15 +345,19 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def warmup(self, buckets=(16, 32, 64, 128, 256)):
-        """Run prefill at every bucket and one decode, so the first
-        measured iteration pays no one-time cost (library handles, the
-        kernels' build and load).  Decode writes land on the scratch pages
-        of free slots and its returned cache is dropped."""
+        """Run prefill (and, with a prefix store, extend) at every bucket
+        and one decode, so the first measured iteration pays no one-time
+        cost (library handles, the kernels' build and load).  Extend and
+        decode writes land on the scratch pages of free slots and their
+        returned caches are dropped."""
         for P in buckets:
             if P >= self.max_len:
                 continue
             pad = torch.zeros((1, P), dtype=torch.int32, device=self.device)
             self.model.prefill(self.params, pad, lengths=self.tensor([P]))
+            if self.radix is not None:
+                self.model.extend(self.params, self._slot_subcache(0, 16),
+                                  pad, self.tensor([P]))
         self.model.decode(self.params, self.cache,
                           self.tensor(self._tokens_buf))
         self.synchronize()

@@ -2,9 +2,10 @@
 tiny on the CPU.
 
 It profiles each tiny arch through the port's real engine, then serves and
-simulates S(D), S(M), M(D) and PD(D).  Only structure is checked: every
-request finishes on both sides, the metrics are finite, the P/D handoff
-moved bytes on both sides.  No timing ratio is gated: the real side is
+simulates S(D), S(M), M(D), PD(D) and S(D)+PC.  Only structure is
+checked: every request finishes on both sides, the metrics are finite, the
+P/D handoff moved bytes on both sides, and each request's attribution sums
+to its e2e latency on both sides.  No timing ratio is gated: the real side is
 wall-clock timed and this machine's CPU may be shared (the JAX package's
 ``test_engine_vs_sim_fidelity_smoke`` fails for that reason), so the
 errors are measured on the card by ``chip_smoke.py`` and recorded in
@@ -33,6 +34,11 @@ def test_fig2_twin_runs_every_config_on_the_cpu():
         for side in ("real", "sim"):
             assert r[f"{side}_tput"] > 0 and r[f"{side}_tpot_ms"] > 0
             assert (r[f"{side}_handoff_bytes"] > 0) == (config == "PD(D)")
+            # each request's attribution partitions its e2e latency
+            assert r[f"{side}_attr_requests"] == 6
+            assert r[f"{side}_attr_max_gap_s"] <= 1e-9
+            assert r[f"{side}_segments"]["prefill"] > 0
+            assert ("e0" in r[f"{side}_kv_tiers"]) == (config == "S(D)+PC")
     for key in ("mean_err_pct", "max_err_pct", "ttft_mean_err_pct"):
         assert math.isfinite(out[key])
     attribution = out["kernel_attribution"]
@@ -44,6 +50,11 @@ def test_fig2_twin_runs_every_config_on_the_cpu():
 
 
 def test_prefix_cache_config_waits_for_the_radix_store():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fig2_fidelity.make_engines("S(D)+PC", fig2_fidelity.DENSE_TINY,
-                                   device="cpu")
+    """S(D)+PC builds one engine with the real radix prefix store (it
+    waited for the store, which is ported now)."""
+    from repro_torch.serve import RealRadixCache
+    engines, pd = fig2_fidelity.make_engines(
+        "S(D)+PC", fig2_fidelity.DENSE_TINY, device="cpu", max_batch=2,
+        max_len=64)
+    assert pd is None and [e.name for e in engines] == ["e0"]
+    assert isinstance(engines[0].radix, RealRadixCache)

@@ -63,12 +63,25 @@ def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
 
 @pytest.mark.parametrize("what", ["prefix_cache", "tp", "spec"])
 def test_engine_refuses_unported_options(what):
+    """``tp`` above 1 is still not ported and raises; the prefix store and
+    speculative decoding are ported: ``prefix_cache=True`` builds an engine
+    with a ``RealRadixCache``, and a bad ``SpecDecodeCfg`` raises the JAX
+    engine's ``ValueError``."""
     from repro_torch.configs import get_config
-    from repro_torch.serve import ServingEngine
-    kw = {"prefix_cache": dict(prefix_cache=True), "tp": dict(tp=2),
-          "spec": dict(spec=object())}[what]
-    with pytest.raises(NotImplementedError):
-        ServingEngine(get_config("llama3.1-8b-tiny"), device="cpu", **kw)
+    from repro_torch.serve import (RealRadixCache, ServingEngine,
+                                   SpecDecodeCfg)
+    cfg = get_config("llama3.1-8b-tiny")
+    kw = dict(device="cpu", max_batch=2, max_len=64)
+    if what == "tp":
+        with pytest.raises(NotImplementedError, match="tp=2"):
+            ServingEngine(cfg, tp=2, **kw)
+    elif what == "prefix_cache":
+        eng = ServingEngine(cfg, prefix_cache=True, **kw)
+        assert isinstance(eng.radix, RealRadixCache)
+        assert eng.radix.device == eng.device
+    else:
+        with pytest.raises(ValueError, match="k must be >= 1"):
+            ServingEngine(cfg, spec=SpecDecodeCfg(draft=cfg, k=0), **kw)
 
 
 def test_cuda_call_without_kernel_library_raises(monkeypatch, tmp_path):

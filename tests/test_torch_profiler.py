@@ -126,10 +126,11 @@ def test_cli_synthetic_routing_equals_jax(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["record-acceptance", "--arch", DENSE], "item 7"),
-    (["profile", "--device", "cpu-engine", "--spec"], "item 7"),
     (["profile", "--device", "cpu-engine", "--engine-device", "cpu",
-      "--tp", "1,2"], "item 9"),
+      "--tp", "2"], "item 2"),
+    (["profile", "--device", "cpu-engine", "--tp", "4"], "item 2"),
+    (["profile", "--device", "cpu-engine", "--engine-device", "cpu",
+      "--tp", "1,2"], "item 2"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, args, item):
     res = _cli("repro_torch", args, tmp_path)

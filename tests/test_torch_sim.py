@@ -133,19 +133,25 @@ def test_simulate_equals_jax(config, fast_path):
     assert _strip(again) == _strip(tm)
 
 
-def test_simulate_refuses_what_is_not_ported():
-    """Event tracing and speculative decoding raise until ``obs/`` and
-    ``spec/`` are copied."""
+def test_simulate_refuses_what_is_not_ported(tmp_path):
+    """Event tracing and speculative decoding were refused until ``obs/``
+    and ``spec/`` were copied: ``simulate(trace=path)`` now writes a valid
+    Chrome trace, and what the simulator still refuses is the JAX one's
+    refusal: speculative decoding that names no acceptance trace."""
+    import json
     from repro_torch.core import InstanceCfg, SpecCfg
     from repro_torch.core.config import H100
+    from repro_torch.obs import validate_chrome_trace
     spec = model_spec_from_arch(get_config(DENSE_TINY))
     reqs = _workload(generate, ShareGPTConfig, get_config(DENSE_TINY).vocab,
                      0.0)
     plain = ClusterCfg(instances=(InstanceCfg(name="i0", hw=H100,
                                               model=spec),))
-    with pytest.raises(NotImplementedError, match="tracing"):
-        simulate(plain, reqs, trace="events.json")
+    out = tmp_path / "events.json"
+    m = simulate(plain, reqs, trace=str(out))
+    assert m["finished"] == len(reqs) and "attribution" in m
+    assert validate_chrome_trace(json.loads(out.read_text())) == []
     specced = ClusterCfg(instances=(InstanceCfg(
         name="i0", hw=H100, model=spec, spec=SpecCfg(enabled=True)),))
-    with pytest.raises(NotImplementedError, match="speculative"):
+    with pytest.raises(ValueError, match="acceptance_trace"):
         simulate(specced, reqs)

@@ -10,8 +10,11 @@ CLI's ``main``: batch 8, max_len 2048, bf16, seeded weights, a grid that
 covers the serve, each point the median of ``--reps`` timings), then, for
 each seed, serves ``--n`` requests of phase 4's shape (ShareGPT-shaped,
 prompts up to 1024 tokens, outputs up to 32, rate 10/s, chunked prefill
-of 256, batch 8) in S(D), M(D) and PD(D) on llama3.1-8b and S(M) on
-phimini-moe, each beside its simulated twin priced by that profile.
+of 256, batch 8) in S(D), M(D), PD(D) and S(D)+PC (the prefix store, on
+a variant of the requests of which 0.6 continue one of 4 conversations)
+on llama3.1-8b and S(M) on phimini-moe, each beside its simulated twin
+priced by that profile, both sides with an event recorder (each row
+carries the attribution's segment totals).
 Prints one line per configuration and seed (real and simulated TTFT p50,
 TPOT mean and tokens/s, and the error of each), the mean and max error
 per seed, and writes every row, with the profiles' whole-iteration
