@@ -18,7 +18,8 @@ result line:
    shapes and at groups of 1 to 9 query heads per kv-head with decode
    splits and windows, paged extend at speculative verify's shape, B8 S5
    from ragged starts 1..2043 and from page edges, the grouped matmul's
-   gate/up and down at every capacity C of 1 to 40); every kernel must
+   gate/up and down at every capacity C of 1 to 40, and phase 6's
+   per-rank shapes at tp = 2: H16 KV4 and 8 experts); every kernel must
    also give bitwise the same result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
@@ -65,7 +66,21 @@ result line:
    measure the error, which ``tools/torch_fidelity.py`` measures on more;
    and tiny f32 llama on the
    card and the port's simulator make the same decisions, unified and P/D;
-6. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+6. tenants and tensor parallelism: two tenants (``generate_tenants``)
+   served by tiny f32 llama on the card under ``policy="priority"`` make
+   the port simulator's decisions and per-tenant rollup; then two ranks of
+   one engine group share the card over gloo (``run_ranks`` with
+   ``devices=["cuda:0", "cuda:0"]``; a correctness check of the sharded
+   path, no time of it a TP speed): tiny f32 llama and phimini-moe (expert
+   parallel, E4 -> E2 a rank) at tp = 2 emit tp = 1's tokens on the card
+   and the CPU, decide alike on both ranks and as the port simulator at
+   tp = 2, and give tp = 1's prefill and decode logits within 1e-5; then
+   full-width bf16 llama3.1-8b and phimini-moe (E16 -> E8) at tp = 2 serve
+   phase 4's 8 requests, every request finishing, both ranks deciding
+   alike, the kernels launched at the rank's shapes (16 query and 4 KV
+   heads, 8 experts: phases 2 and 3 hold and time them there), with the
+   prefill argmax agreement with tp = 1 and each rank's memory printed;
+7. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -93,6 +108,11 @@ BF16_FLOPS_S = 989e12          # dense bf16 tensor-core peak
 # and outputs round to 8 mantissa bits.  Both compared in f32 as
 # |got - want| <= tol + tol * |want|, the form of the JAX kernel tests.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: tensor-parallel degree of phase 6 (two ranks share the one card), and
+#: the by-path keys of its full-width serves
+TP = 2
+TP2_PATH = "tp2 llama3.1-8b"
+TP2_MOE_PATH = "tp2 phimini-moe"
 
 
 class SmokeFailure(RuntimeError):
@@ -177,6 +197,8 @@ def flash_cases():
     yield 1, 512, 32, 8, 128, (400,), 128          # a sliding window
     for S in (16, 32, 64, 128, 256):              # the serve's prefill chunks
         yield 1, S, 32, 8, 128, (S,), None
+    for S in (16, 64, 256):                       # a rank's heads at tp = 2
+        yield 1, S, 32 // TP, 8 // TP, 128, (S - S // 4 - 1,), None
 
 
 #: the verify shape's starts (no page edge) and a batch on page edges
@@ -211,6 +233,11 @@ def paged_cases():
     yield (8, 5, 32, 8, 128, 64, 32, VERIFY_EDGE_STARTS,
            tuple(st + n for st, n in zip(VERIFY_EDGE_STARTS,
                                          (5, 5, 5, 2, 5, 5, 1, 5))), None)
+    # a rank's heads at tp = 2 (H16 KV4, G = 4 as at tp = 1): the serve's
+    # decode and extend, the pools holding the rank's KV heads only
+    yield (8, None, 32 // TP, 8 // TP, 128, 64, 32, None,
+           (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
+    yield 1, 256, 32 // TP, 8 // TP, 128, 64, 32, (293,), (293 + 200,), None
 
 
 def gmm_cases():
@@ -226,6 +253,10 @@ def gmm_cases():
     for d, f in ((4096, 960), (960, 4096)):
         for C in (1, 2, 5, 10, 20, 40):
             yield 16, C, d, f, None
+    # a rank's experts at tp = 2 (expert parallel: E16 -> E8)
+    for d, f in ((4096, 960), (960, 4096)):
+        for C in (1, 10, 40):
+            yield 16 // TP, C, d, f, None
 
 
 def kernels_vs_plain(torch, ops, dev):
@@ -407,8 +438,9 @@ def timings(torch, ops, dev):
     def paged_library(q4, kp, vp, table, lengths, start):
         """Gather the pages, then SDPA under the paged mask."""
         B, Sq = q4.shape[:2]
-        kg = kp[table.reshape(-1).long()].reshape(B, maxp * ps, KV, dh)
-        vg = vp[table.reshape(-1).long()].reshape(B, maxp * ps, KV, dh)
+        kv = kp.shape[-2]
+        kg = kp[table.reshape(-1).long()].reshape(B, maxp * ps, kv, dh)
+        vg = vp[table.reshape(-1).long()].reshape(B, maxp * ps, kv, dh)
         qpos = start.long()[:, None] + torch.arange(Sq, device=dev)
         kvpos = torch.arange(maxp * ps, device=dev)
         mask = (kvpos[None, None] <= qpos[..., None]) & \
@@ -508,6 +540,81 @@ def timings(torch, ops, dev):
         shape=f"B{B} S{S} starts{VERIFY_STARTS} H{H} KV{KV} dh{dh} "
               f"ps{ps} bf16",
         bound=bound(nbytes, 4 * pairs * H * dh))
+
+    # a rank's shapes at tp = 2 (phase 6's serves): 16 query and 4 KV
+    # heads, the serve's prefill chunk, decode and extend, and phimini-moe's
+    # experts E16 -> E8 (rank 0's share of uniform top-2 groups); their own
+    # generator, so the rows above keep their draws; launches from phase 6
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H2, KV2, S = H // TP, KV // TP, 256
+    q2 = _rand(torch, gen, (1, S, H2, dh), bf, dev)
+    k2 = _rand(torch, gen, (1, S, KV2, dh), bf, dev)
+    v2 = _rand(torch, gen, (1, S, KV2, dh), bf, dev)
+    lt2 = torch.tensor([S], dtype=torch.int32, device=dev)
+    pairs = S * (S + 1) // 2
+    nbytes = 2 * q2.numel() * 2 + (k2.numel() + v2.numel()) * 2 + 4
+    qt, kt, vt = (x.transpose(1, 2) for x in (q2, k2, v2))
+    out["flash_attention_tp2"] = measure(
+        lambda: ops.flash_attention(q2, k2, v2, lt2),
+        lambda: ops.flash_attention_plain(q2, k2, v2, lt2),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        kernel="flash_attention", path=TP2_PATH,
+        shape=f"B1 S{S} H{H2} KV{KV2} dh{dh} bf16",
+        bound=bound(nbytes, 4 * pairs * H2 * dh))
+    kp2 = _rand(torch, gen, (P, ps, KV2, dh), bf, dev)
+    vp2 = _rand(torch, gen, (P, ps, KV2, dh), bf, dev)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = _rand(torch, gen, (B, H2, dh), bf, dev)
+    nbytes = kv_rows * KV2 * dh * 2 * 2 + 2 * qd.numel() * 2 \
+        + table.numel() * 4 + B * 4
+    out["paged_attention_decode_tp2"] = measure(
+        lambda: ops.paged_attention(qd, kp2, vp2, table, lt, page_size=ps),
+        lambda: ops.paged_attention_plain(qd, kp2, vp2, table, lt,
+                                          page_size=ps),
+        lambda: paged_library(qd[:, None], kp2, vp2, table, lt, lt - 1),
+        kernel="paged_attention_decode", path=TP2_PATH,
+        shape=f"B{B} H{H2} KV{KV2} dh{dh} ps{ps} len{lens} bf16",
+        bound=bound(nbytes, 4 * kv_rows * H2 * dh))
+    S, start = 256, 293
+    qe = _rand(torch, gen, (1, S, H2, dh), bf, dev)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    lt = st + S
+    pairs = sum(start + s + 1 for s in range(S))
+    nbytes = (start + S) * KV2 * dh * 2 * 2 + 2 * qe.numel() * 2 \
+        + maxp * 4 + 8
+    out["paged_attention_extend_tp2"] = measure(
+        lambda: ops.paged_attention(qe, kp2, vp2, table[:1], lt,
+                                    page_size=ps, start=st),
+        lambda: ops.paged_attention_plain(qe, kp2, vp2, table[:1], lt,
+                                          page_size=ps, start=st),
+        lambda: paged_library(qe, kp2, vp2, table[:1], lt, st),
+        kernel="paged_attention_extend", path=TP2_PATH,
+        shape=f"B1 S{S} start{start} H{H2} KV{KV2} dh{dh} ps{ps} bf16",
+        bound=bound(nbytes, 4 * pairs * H2 * dh))
+    E2 = E // TP
+    for C, T in ((40, 256), (1, 8)):
+        pick = torch.rand((T, E), generator=gen, device=dev).argsort(-1)[
+            :, :k]
+        counts = torch.bincount(pick.reshape(-1), minlength=E)[:E2]
+        gs = torch.clamp(counts, max=C).to(torch.int32)
+        rows = int(gs.sum())
+        active = int((gs > 0).sum())
+        mask = (torch.arange(C, device=dev)[None, :] < gs[:, None])[..., None]
+        for d, f, part in ((4096, 960, ""), (960, 4096, "_down")):
+            x = _rand(torch, gen, (E2, C, d), bf, dev)
+            w = _rand(torch, gen, (E2, d, f), bf, dev)
+            nbytes = active * d * f * 2 + rows * d * 2 + E2 * C * f * 2 \
+                + E2 * 4
+            name = "moe_gmm" + part + "_tp2" + ("" if C == 40 else "_decode")
+            out[name] = measure(
+                lambda: ops.moe_gmm(x, w, gs),
+                lambda: ops.moe_gmm_plain(x, w, gs),
+                lambda: torch.bmm(x, w).mul_(mask),
+                kernel="moe_gmm", path=TP2_MOE_PATH,
+                shape=f"E{E2} C{C} d{d} f{f} bf16, {active} experts active, "
+                      f"{rows} rows",
+                bound=bound(nbytes, 2 * rows * d * f))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
           "time to issue one kernel call (us)")
     for name, t in out.items():
@@ -524,11 +631,11 @@ def timings(torch, ops, dev):
 def _tiny_serve(cfg, params, dev, reqs, *, max_batch=2, chunk=16,
                 **engine_kw):
     """One tiny engine on ``dev`` (``engine_kw``: routing, spec,
-    prefix_cache) behind a chunked-prefill ServeDriver: (tokens,
-    decisions, metrics).  The callers' arrivals do not depend on
-    latencies (all at 0, or phases far apart), so neither do the
-    decisions.  A prefix store's radix tree is held to 3 device blocks,
-    so it spills to the host tier."""
+    prefix_cache, tp and group) behind a chunked-prefill ServeDriver:
+    (tokens, decisions, metrics, its InstanceCfg).  The callers' arrivals
+    do not depend on latencies (all at 0, or phases far apart), so
+    neither do the decisions.  A prefix store's radix tree is held to 3
+    device blocks, so it spills to the host tier."""
     from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
     eng = ServingEngine(cfg, params, max_batch=max_batch, max_len=256,
@@ -543,22 +650,27 @@ def _tiny_serve(cfg, params, dev, reqs, *, max_batch=2, chunk=16,
     inst = drv.runtime.instances["e0"]
     check(m["finished"] == len(reqs), f"tiny {cfg.name} on {dev}: finished "
                                       f"{m['finished']} of {len(reqs)}")
-    return dict(inst.backend.out_tokens), list(inst.decisions), m
+    return dict(inst.backend.out_tokens), list(inst.decisions), m, inst.cfg
 
 
-def _tiny_run(torch, arch, params, dev, routing=None):
-    """Serve 6 requests on ``dev`` at batch 4: (tokens, decisions,
-    metrics)."""
-    from repro_torch.configs import get_config
+def _tiny_requests(vocab):
+    """6 requests, every arrival at 0."""
     from repro_torch.workload import ShareGPTConfig, generate
-    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
     reqs = generate(ShareGPTConfig(
-        n_requests=6, rate=50.0, vocab=cfg.vocab, seed=3, mean_prompt=60,
+        n_requests=6, rate=50.0, vocab=vocab, seed=3, mean_prompt=60,
         mean_output=8, max_prompt=120, max_output=10, share_fraction=0.0))
     for r in reqs:
         r.arrival = 0.0
-    return _tiny_serve(cfg, params, dev, reqs, max_batch=4, chunk=32,
-                       routing=routing)
+    return reqs
+
+
+def _tiny_run(torch, arch, params, dev, **engine_kw):
+    """Serve ``_tiny_requests`` on ``dev`` at batch 4: (tokens, decisions,
+    metrics, InstanceCfg)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    return _tiny_serve(cfg, params, dev, _tiny_requests(cfg.vocab),
+                       max_batch=4, chunk=32, **engine_kw)
 
 
 def tiny_card_matches_cpu(torch):
@@ -766,7 +878,25 @@ def full_serve_setup(torch, arch="llama3.1-8b"):
     return cfg, eng, drv, reqs
 
 
+def probe_tokens(reqs, n=128):
+    """The first ``n`` prompt tokens of each of the serve's requests, the
+    (B, n) prefill phase 6 holds tp = 2 to tp = 1 on."""
+    import numpy as np
+    return np.asarray([list(r.prompt_tokens[:n]) for r in reqs], np.int32)
+
+
+def probe_logits(torch, eng, reqs):
+    """bf16 prefill logits of ``probe_tokens`` (f32 copy on the host)."""
+    toks = torch.from_numpy(probe_tokens(reqs)).to(eng.device)
+    lengths = torch.full((toks.shape[0],), toks.shape[1], dtype=torch.int32,
+                         device=eng.device)
+    logits, _ = eng.model.prefill(eng.params, toks, lengths=lengths)
+    return logits[:, 0].float().cpu().numpy()
+
+
 def serve_full(torch, ops, card, arch, must_launch):
+    """Serve phase 4's requests at full width: (the launch counts, the
+    tp = 1 probe logits phase 6 compares with)."""
     cfg, eng, drv, reqs = full_serve_setup(torch, arch)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -803,7 +933,7 @@ def serve_full(torch, ops, card, arch, must_launch):
           f"{n_out / wall:.1f} output tok/s over wall {wall:.2f} s, "
           f"{calls} model calls")
     print(f"launches while serving {cfg.name}: {json.dumps(launches)}")
-    return launches
+    return launches, probe_logits(torch, eng, reqs)
 
 
 #: the by-path key of the full-width speculative serve
@@ -1133,6 +1263,346 @@ def tiny_decisions_card_equal_sim(torch):
               f"identical")
 
 
+# ---------------------------------------------------------------- phase 6
+def tenants_on_card(torch):
+    """Two tenants (``repro_torch.workload.tenants``) served by tiny f32
+    llama on the card under ``policy="priority"``, every arrival at 0: the
+    decisions and the per-tenant rollup's counts and classes equal the
+    port simulator's, and priority orders the queue (the twin of
+    ``tests/test_tenants.py::test_tenant_parity_sim_vs_real_engine``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClusterCfg, RouterCfg, TenantClass
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.config import SchedulerCfg
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    from repro_torch.serve.driver import engine_instance_cfg
+    from repro_torch.workload import (TenantSpec, TenantWorkloadCfg,
+                                      generate_tenants)
+    cfg = dataclasses.replace(get_config("llama3.1-8b-tiny"),
+                              compute_dtype="float32")
+    spec = dict(mean_prompt=40, max_prompt=90, mean_output=6, max_output=10)
+    reqs = generate_tenants(TenantWorkloadCfg(tenants=(
+        TenantSpec(TenantClass("gold", priority=10, slo_ttft_ms=500.0,
+                               slo_tpot_ms=50.0, weight=3.0), **spec),
+        TenantSpec(TenantClass("free", priority=0, slo_ttft_ms=5000.0,
+                               slo_tpot_ms=500.0), **spec)),
+        n_requests=8, rate=50.0, seed=7, vocab=cfg.vocab))
+    for r in reqs:
+        r.arrival = 0.0
+    sched = SchedulerCfg(max_batch_size=2, max_batch_tokens=1 << 16,
+                         policy="priority", chunked_prefill=False,
+                         prefill_exclusive=True)
+    eng = ServingEngine(cfg, max_batch=2, max_len=256, name="e0")
+    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+    real = drv.run([dataclasses.replace(r) for r in reqs], warmup=False)
+    sim = Cluster(ClusterCfg(instances=(engine_instance_cfg(eng, sched),),
+                             router=RouterCfg("round_robin")))
+    sim.submit_workload([dataclasses.replace(r) for r in reqs])
+    sm = sim.run()
+    keys = ("submitted", "finished", "priority", "slo_ttft_ms",
+            "slo_tpot_ms")
+    roll = {side: {t: {k: row[k] for k in keys} for t, row in
+                   m["tenants"].items()} for side, m in (("real", real),
+                                                         ("sim", sm))}
+    dec = list(drv.runtime.instances["e0"].decisions)
+    order = []
+    for it in dec:
+        for rid, phase, _ in it:
+            if phase == "prefill" and rid not in order:
+                order.append(rid)
+    prio = [reqs[rid].priority for rid in order[1:]]
+    check(real["finished"] == sm["finished"] == len(reqs)
+          and dec == list(sim.instances["e0"].decisions)
+          and roll["real"] == roll["sim"] and sorted(roll["real"])
+          == ["free", "gold"] and prio == sorted(prio, reverse=True),
+          f"tenants on the card: decisions or rollup differ from the "
+          f"simulator's ({roll}), or priority did not order the queue")
+    print(f"phase 6: two tenants on the card under priority, tiny llama "
+          f"f32: {len(dec)} decisions and the rollup "
+          f"{json.dumps(roll['real'])} == the port simulator's")
+
+
+TINY_ARCHS = ("llama3.1-8b-tiny", "phimini-moe-tiny")
+
+
+def depth_cut_f32(cfg, layers=2):
+    """``cfg`` at its published widths, f32, cut to ``layers`` layers."""
+    return dataclasses.replace(
+        cfg, compute_dtype="float32", n_layers=layers,
+        stages=(dataclasses.replace(cfg.stages[0], n_layers=layers),))
+
+
+def tiny_logits(torch, eng):
+    """Prefill two slots (16 and 11 tokens, bucket 16), then two decode
+    steps: the logits of each call, on the host."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    out = []
+    for slot, n in enumerate((16, 11)):
+        pad = np.zeros((1, 16), np.int32)
+        pad[0, :n] = rng.integers(0, eng.cfg.vocab, n)
+        logits, c1 = eng.model.prefill(eng.params, eng.tensor(pad),
+                                       lengths=eng.tensor([n]))
+        eng._write_slot_from_prefill(slot, c1, n)
+        out.append(logits.cpu().numpy())
+    for _ in range(2):
+        tok = rng.integers(0, eng.cfg.vocab, (2, 1)).astype(np.int32)
+        for slot in range(2):
+            eng.ensure_capacity(slot, int(eng.cache["lengths"][slot]) + 1)
+        logits, eng.cache = eng.model.decode(eng.params, eng.cache,
+                                             eng.tensor(tok))
+        out.append(logits.cpu().numpy())
+    return out
+
+
+def _record_shapes(ops):
+    """Wrap the three kernel entry points to note the head, KV-head and
+    expert counts the model hands them (the wrappers still count their
+    launches); returns (the set of shapes, the restore function)."""
+    seen = set()
+    flash, paged, gmm = ops.flash_attention, ops.paged_attention, ops.moe_gmm
+
+    def rec_flash(q, k, *a, **kw):
+        seen.add(("flash_attention", q.shape[-2], k.shape[-2]))
+        return flash(q, k, *a, **kw)
+
+    def rec_paged(q, kp, *a, **kw):
+        seen.add(("paged_attention", q.shape[-2], kp.shape[-2]))
+        return paged(q, kp, *a, **kw)
+
+    def rec_gmm(x, w, *a, **kw):
+        seen.add(("moe_gmm", x.shape[0]))
+        return gmm(x, w, *a, **kw)
+
+    def restore():
+        ops.flash_attention, ops.paged_attention, ops.moe_gmm = \
+            flash, paged, gmm
+    ops.flash_attention, ops.paged_attention, ops.moe_gmm = \
+        rec_flash, rec_paged, rec_gmm
+    return seen, restore
+
+
+def _full_tp_serve(torch, ops, group, arch):
+    """One rank of a full-width bf16 tp = 2 serve of phase 4's 8 requests
+    (each rank draws the seeded weights and keeps its shard)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, max_batch=8, max_len=2048, name="e0", seed=0,
+                        tp=group.size, group=group)
+    torch.cuda.synchronize()
+    row = {"made_s": time.perf_counter() - t0,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "resident_gib": torch.cuda.memory_allocated() / 2**30}
+    reqs = serve_requests(cfg.vocab)
+    row["probe"] = probe_logits(torch, eng, reqs)
+    drv = ServeDriver([eng], DriverCfg(scheduler=serve_scheduler()))
+    drv.runtime.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _record_shapes(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        m = drv.run(reqs, warmup=False)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    row["wall_s"] = time.perf_counter() - t0
+    row["launches"] = ops.launch_counts()
+    row["shapes"] = sorted(seen)
+    row["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    backend = drv.runtime.instances["e0"].backend
+    row["finished"] = m["finished"]
+    row["tokens_ok"] = all(
+        len(backend.out_tokens[r.req_id]) == r.output_len
+        and all(0 <= t < cfg.vocab for t in backend.out_tokens[r.req_id])
+        for r in drv.finished)
+    row["decisions"] = list(drv.runtime.instances["e0"].decisions)
+    row["ttft_p50_ms"] = statistics.median(r.ttft() for r in drv.finished) \
+        * 1e3
+    row["tpot_p50_ms"] = statistics.median(
+        r.tpot() for r in drv.finished if r.tpot() is not None) * 1e3
+    row["n_out"] = sum(r.output_len for r in drv.finished)
+    del eng, drv, backend
+    gc.collect()                # ServeDriver and its runtime form a cycle
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tp2_rank(group, job):
+    """One of phase 6's two ranks on the card: the tiny f32 serves and
+    logits, then the full-width bf16 serves."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServingEngine
+    out = {"backend": group.backend, "device": str(group.device),
+           "tiny": {}, "full": {}}
+    for arch, params in job["tiny"]:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        ops.reset_launch_counts()
+        toks, dec, m, icfg = _tiny_serve(
+            cfg, params, group.device, _tiny_requests(cfg.vocab),
+            max_batch=4, chunk=32, tp=group.size, group=group)
+        launches = ops.launch_counts()
+        eng = ServingEngine(cfg, params, max_batch=2, max_len=128,
+                            tp=group.size, group=group)
+        out["tiny"][arch] = dict(tokens=toks, decisions=dec, icfg=icfg,
+                                 launches=launches,
+                                 logits=tiny_logits(torch, eng))
+    out["cut"] = {}
+    for arch in job["full"]:
+        eng = ServingEngine(depth_cut_f32(get_config(arch)), max_batch=2,
+                            max_len=128, seed=0, tp=group.size, group=group)
+        out["cut"][arch] = tiny_logits(torch, eng)
+        del eng
+        torch.cuda.empty_cache()
+    for arch in job["full"]:
+        out["full"][arch] = _full_tp_serve(torch, ops, group, arch)
+    return out
+
+
+def tp2_on_card(torch, card, probes):
+    """Phase 6 (b) and (c): two ranks of one engine group share the card
+    over gloo (the collectives stage CUDA tensors through the host).  A
+    correctness check of the sharded path: no time here is a TP speed.
+    (b) tiny f32 llama and phimini-moe (expert parallel, E4 -> E2 a rank):
+    tokens == tp = 1 on the card == the CPU's, decisions equal on both
+    ranks and == the port simulator's at tp = 2, prefill and decode logits
+    within 1e-5 of tp = 1.  (c) full-width bf16 llama3.1-8b and
+    phimini-moe (E16 -> E8) serving phase 4's 8 requests: every request
+    finishes, both ranks decide alike, the kernels launch at the rank's
+    shapes (16 query, 4 KV heads; 8 experts), and the prefill argmax
+    agreement with tp = 1 is printed.  Between them, both models at
+    published width in f32 cut to 2 layers: logits within 1e-4 of tp = 1.
+    Returns the launch counts of each tp = 2 path (rank 0's)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClusterCfg, RouterCfg
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import Model
+    from repro_torch.serve import ServingEngine
+    tiny, refs = [], {}
+    for arch in TINY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        tiny.append((arch, params))
+        refs[arch] = dict(
+            card=_tiny_run(torch, arch, params, "cuda")[:2],
+            cpu=_tiny_run(torch, arch, params, "cpu")[:2],
+            logits=tiny_logits(torch, ServingEngine(
+                cfg, params, max_batch=2, max_len=128, device="cuda")))
+    full = [arch for arch, _ in PATHS]
+    cut = {}
+    for arch in full:
+        cut[arch] = tiny_logits(torch, ServingEngine(
+            depth_cut_f32(get_config(arch)), max_batch=2, max_len=128,
+            seed=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(_tp2_rank, TP, {"tiny": tiny, "full": full},
+                      device="cuda", devices=["cuda:0"] * TP,
+                      timeout_s=600)
+    wall = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+              for r in ranks),
+          f"tp = 2 ranks: {[(r['backend'], r['device']) for r in ranks]}")
+    by_path = {}
+
+    def sim_decisions(icfg, reqs):
+        check(icfg.parallelism.tp == TP, f"sim twin at tp "
+                                         f"{icfg.parallelism.tp}")
+        sim = Cluster(ClusterCfg(instances=(icfg,),
+                                 router=RouterCfg("round_robin")))
+        sim.submit_workload([dataclasses.replace(r) for r in reqs])
+        check(sim.run()["finished"] == len(reqs), "sim twin: unfinished")
+        return list(sim.instances["e0"].decisions)
+
+    for arch in TINY_ARCHS:
+        r0, r1 = (r["tiny"][arch] for r in ranks)
+        ref = refs[arch]
+        vocab = get_config(arch).vocab
+        err = max(float(np.abs(g - w).max()) for r in (r0, r1)
+                  for g, w in zip(r["logits"], ref["logits"]))
+        close = all(np.allclose(g, w, rtol=1e-5, atol=1e-5)
+                    for r in (r0, r1)
+                    for g, w in zip(r["logits"], ref["logits"]))
+        must = ["flash_attention", "paged_attention_decode",
+                "paged_attention_extend"] + (["moe_gmm"] if "moe" in arch
+                                             else [])
+        check(r0["tokens"] == r1["tokens"] == ref["card"][0]
+              == ref["cpu"][0]
+              and r0["decisions"] == r1["decisions"] == ref["card"][1]
+              == sim_decisions(r0["icfg"], _tiny_requests(vocab))
+              and close and all(r0["launches"][k] > 0 for k in must),
+              f"tiny {arch} at tp = 2 on the card: tokens, decisions, "
+              f"logits (max err {err:.3g}) or launches "
+              f"{r0['launches']} differ from tp = 1")
+        by_path[f"tp2 {arch}"] = r0["launches"]
+        print(f"phase 6: tiny {arch} f32 at tp = 2 (two ranks on the card, "
+              f"gloo): tokens == tp = 1 on the card == the CPU's, "
+              f"{len(r0['decisions'])} decisions equal on both ranks and "
+              f"== the simulator's at tp = 2, logits max err {err:.3g} "
+              f"(tol 1e-5); launches {json.dumps(r0['launches'])}")
+    for arch in full:
+        # published widths, f32, two layers: the sharded path itself
+        # (expert parallel E16 -> E8 for phimini-moe) against tp = 1, with
+        # no bf16 rounding for the ranks' other summation order to move
+        err = max(float(np.abs(g - w).max()) for r in ranks
+                  for g, w in zip(r["cut"][arch], cut[arch]))
+        check(all(np.allclose(g, w, rtol=TOL["float32"],
+                              atol=TOL["float32"])
+                  for r in ranks for g, w in zip(r["cut"][arch], cut[arch])),
+              f"{arch} f32 cut to 2 layers at tp = 2: logits max err "
+              f"{err:.3g} against tp = 1")
+        print(f"phase 6: {arch} at published widths, f32, 2 layers, tp = 2 "
+              f"on the card: prefill and decode logits max err {err:.3g} "
+              f"against tp = 1 (tol {TOL['float32']})")
+    for arch, path in (("llama3.1-8b", TP2_PATH),
+                       ("phimini-moe", TP2_MOE_PATH)):
+        cfg = get_config(arch)
+        r0, r1 = (r["full"][arch] for r in ranks)
+        H, KV = cfg.n_heads // TP, cfg.n_kv_heads // TP
+        want = {("flash_attention", H, KV), ("paged_attention", H, KV)}
+        if cfg.moe is not None:
+            want.add(("moe_gmm", cfg.moe.n_experts // TP))
+        reqs = serve_requests(cfg.vocab)
+        check(r0["finished"] == r1["finished"] == len(reqs)
+              and r0["tokens_ok"] and r1["tokens_ok"]
+              and r0["decisions"] == r1["decisions"]
+              and set(r0["shapes"]) == set(r1["shapes"]) == want
+              and all(np.isfinite(r["probe"]).all() for r in (r0, r1)),
+              f"{arch} at tp = 2: finished {r0['finished']}/{r1['finished']}"
+              f", decisions equal {r0['decisions'] == r1['decisions']}, "
+              f"shapes {r0['shapes']} (want {sorted(want)})")
+        ref = probes[arch]
+        agree = int((r0["probe"].argmax(-1) == ref.argmax(-1)).sum())
+        diff = float(np.abs(r0["probe"] - ref).max())
+        by_path[path] = r0["launches"]
+        print(f"phase 6 [{card}] {arch} bf16 at tp = 2, two ranks sharing "
+              f"one card (gloo), 8 requests: all finished, decisions equal "
+              f"on both ranks ({len(r0['decisions'])}); kernels launched "
+              f"at {r0['shapes']}; prefill argmax agrees with tp = 1 on "
+              f"{agree} of {ref.shape[0]} prompts (128 tokens, max |logit "
+              f"diff| {diff:.3g}); per rank: resident "
+              f"{r0['resident_gib']:.2f} / {r1['resident_gib']:.2f} GiB, "
+              f"peak while making the shard {r0['init_peak_gib']:.2f} / "
+              f"{r1['init_peak_gib']:.2f} GiB, peak while serving "
+              f"{r0['serve_peak_gib']:.2f} / {r1['serve_peak_gib']:.2f} GiB")
+        print(f"  two ranks sharing one card, not a TP speed: TTFT p50 "
+              f"{r0['ttft_p50_ms']:.1f} ms, TPOT p50 "
+              f"{r0['tpot_p50_ms']:.2f} ms, {r0['n_out'] / r0['wall_s']:.1f}"
+              f" output tok/s over wall {r0['wall_s']:.2f} s; shard made in "
+              f"{r0['made_s']:.1f} s; launches "
+              f"{json.dumps(r0['launches'])}")
+    print(f"phase 6: the two ranks ran {wall:.1f} s (spawn included)")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1153,9 +1623,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         tiny_card_matches_cpu(torch)
         tiny_prefix_and_spec_card_matches_cpu(torch)
-        by_path = {}
+        by_path, probes = {}, {}
         for arch, must in PATHS:
-            by_path[arch] = serve_full(torch, ops, card, arch, must)
+            by_path[arch], probes[arch] = serve_full(torch, ops, card, arch,
+                                                     must)
             gc.collect()          # ServeDriver and its runtime form a cycle
             torch.cuda.empty_cache()
         by_path[SPEC_PATH] = spec_serve_full(torch, ops, card)
@@ -1169,6 +1640,10 @@ def main() -> int:
             torch.cuda.empty_cache()
         by_path.update(fidelity_card(torch, ops, card, traces)[0])
         tiny_decisions_card_equal_sim(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tenants_on_card(torch)
+        by_path.update(tp2_on_card(torch, card, probes))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,7 +11,14 @@ engine the real radix prefix store (the workload then shares prefixes).
 Speculative decoding: ``--spec-k K`` drafts K tokens a step with a draft
 that shares the target's weights (always right: the mechanism, not a
 speed-up), greedy-lossless, or replaying an acceptance trace synthesized
-at ``--alpha``.  ``--tp`` above 1 is not ported yet and raises.
+at ``--alpha``.
+
+``--tp k`` spawns k ranks (``repro_torch.launch.mesh.run_ranks``), each
+running the same driver on its shard of the same seeded weights: NCCL with
+one card a rank (fewer cards than k refuse), gloo with ``--device cpu``.
+The ranks' decisions must agree; rank 0's metrics are printed.  P/D, the
+prefix store and speculative decoding at tp > 1 refuse (ROADMAP queue 1
+item 3).
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from repro_torch.models import Model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
                                SpecDecodeCfg)
-from repro_torch.serve.engine import resolve_device
+from repro_torch.serve.engine import refuse_unported_at_tp, resolve_device
 from repro_torch.workload import ShareGPTConfig, generate
 from repro_torch.workload.acceptance import (AcceptanceConfig,
                                              synthesize_acceptance)
@@ -58,7 +65,38 @@ def main(argv=None):
                          "per-token acceptance rate (default: greedy "
                          "acceptance)")
     args = ap.parse_args(argv)
+    if args.tp < 1:
+        raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    if args.tp == 1:
+        m = serve(args)[0]
+    else:
+        try:
+            refuse_unported_at_tp(args.tp, role="prefill" if args.pd
+                                  else "unified",
+                                  prefix_cache=args.prefix_cache,
+                                  spec=args.spec_k or None)
+        except NotImplementedError as e:
+            raise SystemExit(f"--tp {args.tp}: {e}") from None
+        from repro_torch.launch.mesh import run_ranks, visible_devices
+        kind = torch.device(args.device).type
+        n = visible_devices(kind)
+        if n is not None and n < args.tp:
+            raise SystemExit(f"--tp {args.tp} needs {args.tp} {kind} "
+                             f"devices, one a rank, but {n} are visible")
+        ranks = run_ranks(_serve_rank, args.tp, args, device=args.device)
+        if any(d != ranks[0][1] for _, d in ranks):
+            raise SystemExit(f"--tp {args.tp}: the ranks' decisions differ")
+        m = ranks[0][0]
+    print(json.dumps(m, indent=1, default=float))
 
+
+def _serve_rank(group, args):
+    return serve(args, group)
+
+
+def serve(args, group=None):
+    """Build the engines and serve: (metrics, decisions by instance).
+    ``group``: this rank's engine group at ``--tp`` above 1."""
     cfg = get_config(args.arch)
     reqs = generate(ShareGPTConfig(
         n_requests=args.n, rate=args.rate, vocab=cfg.vocab,
@@ -66,9 +104,11 @@ def main(argv=None):
         max_output=48, share_fraction=0.5 if args.prefix_cache else 0.0))
     kw = dict(max_batch=args.max_batch, max_len=args.max_len,
               prefix_cache=args.prefix_cache, tp=args.tp,
-              device=args.device)
-    # the weights every engine shares (and a default draft with them)
-    dev = resolve_device(args.device)
+              device=args.device if group is None else group.device,
+              group=group)
+    # the weights every engine shares (and a default draft with them);
+    # every rank draws the same full weights and keeps its shard
+    dev = resolve_device(kw["device"])
     params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
                              device=dev,
                              dtype=torch_dtype(cfg.compute_dtype))
@@ -100,7 +140,8 @@ def main(argv=None):
     drv = ServeDriver(engines, DriverCfg(router=args.router,
                                          scheduler=sched), pd_map=pd)
     m = drv.run(reqs)
-    print(json.dumps(m, indent=1, default=float))
+    return m, {n: list(i.decisions)
+               for n, i in drv.runtime.instances.items()}
 
 
 if __name__ == "__main__":

@@ -6,8 +6,17 @@ buffers, run through the grouped expert matmul (``kernels.ops.moe_gmm``:
 the Hopper kernel for CUDA tensors, its plain version for CPU tensors)
 three times (gate, up, down; twice for the GELU path) and scattered back
 with their combine weights.  Capacity overflow is dropped.  The TPU
-mesh constraint ``shard_experts`` is not ported: the port serves on one
-card.
+mesh constraint ``shard_experts`` is not ported: GSPMD's placement hint has
+no meaning under explicit tensor parallelism.
+
+Under tensor parallelism (``group``) the router and the top-k run on every
+rank (the router is replicated), so the capacity and the drops equal tp =
+1's.  With expert parallelism (the rank's params hold E / tp whole
+experts, ``repro_torch.launch.sharding``) a rank dispatches only the
+entries routed to its experts, in the same order and at the same slots as
+tp = 1, and sends the others to the trash bucket; otherwise every rank
+dispatches every entry through its slice of each expert's hidden dim.
+Either way a rank's combine is a partial sum, all-reduced over the group.
 
 The JAX dispatch buffer is ``(E, C + 1, d)`` with an overflow slot per
 expert that dropped entries all write to ``(0, C)``; here it is
@@ -56,7 +65,7 @@ def router_topk(x, w_router, top_k: int):
 
 def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
             gated: bool = True, router_fn=None, positions=None, layer=None,
-            valid=None):
+            valid=None, group=None):
     """x: (T, d). params: router (d,E), w_gate/w_up (E,d,de), w_down (E,de,d).
 
     ``router_fn`` is the injectable routing hook (``repro_torch.moe.hooks``):
@@ -66,10 +75,14 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     the rows that are real workload tokens; invalid rows sort into a trash
     bucket past every expert and go straight to the overflow slot, so they
     take no real token's capacity.  With ``valid=None`` every row routes
-    and competes for capacity (pad tails included), as in JAX.
+    and competes for capacity (pad tails included), as in JAX.  ``group``
+    (an engine group) makes ``params`` one rank's shard; see the module
+    docstring.
     """
     T, d = x.shape
     E = params["router"].shape[-1]
+    E_loc = params["w_down"].shape[0]          # E / tp under expert parallel
+    first = 0 if group is None or E_loc == E else group.rank * E_loc
     if router_fn is None:
         expert_idx, combine_w, aux = router_topk(x, params["router"], top_k)
     else:
@@ -80,33 +93,38 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     C = expert_capacity(T, top_k, E, capacity_factor)
 
     # --- dispatch: sort (token, k) pairs by expert --------------------------
-    flat_e = expert_idx.reshape(-1).long()                  # (T*k,)
-    if valid is None:
+    # (this rank's experts renumbered from 0; the others and invalid rows
+    # into the trash bucket E_loc, past every expert)
+    flat_e = expert_idx.reshape(-1).long() - first          # (T*k,)
+    routed = (flat_e >= 0) & (flat_e < E_loc) if E_loc != E else None
+    if valid is not None:
+        v = valid[:, None].expand(T, top_k).reshape(-1)
+        routed = v if routed is None else routed & v
+    if routed is None:
         sort_e = flat_e
     else:
-        sort_e = torch.where(valid[:, None].expand(T, top_k).reshape(-1),
-                             flat_e, torch.full_like(flat_e, E))
+        sort_e = torch.where(routed, flat_e, torch.full_like(flat_e, E_loc))
     order = torch.argsort(sort_e, stable=True)
     tok_of = order // top_k                                 # token per entry
     e_sorted = flat_e[order]
     s_sorted = sort_e[order]
     # position within expert group = rank - group_start[expert]
     # (scatter_add_, not bincount: bincount syncs the host on the card)
-    counts = torch.zeros((E + 1,), dtype=torch.long, device=x.device) \
+    counts = torch.zeros((E_loc + 1,), dtype=torch.long, device=x.device) \
         .scatter_add_(0, sort_e, torch.ones_like(sort_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * top_k, device=x.device) - starts[s_sorted]
-    keep = (pos_in_e < C) & (s_sorted < E)                  # capacity drop
-    # flat buffer row: expert * C + slot, the overflow row E * C
+    keep = (pos_in_e < C) & (s_sorted < E_loc)              # capacity drop
+    # flat buffer row: expert * C + slot, the overflow row E_loc * C
     dst = torch.where(keep, e_sorted * C + pos_in_e,
-                      torch.full_like(pos_in_e, E * C))
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+                      torch.full_like(pos_in_e, E_loc * C))
+    buf = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=x.device)
     buf[dst] = x[tok_of]
-    hidden_in = buf[:E * C].view(E, C, d)
+    hidden_in = buf[:E_loc * C].view(E_loc, C, d)
 
     # --- grouped expert FFN: three launches of the grouped matmul -----------
     # valid rows per expert buffer; rows >= size come out 0 either way
-    group_sizes = torch.clamp(counts[:E], max=C).to(torch.int32)
+    group_sizes = torch.clamp(counts[:E_loc], max=C).to(torch.int32)
     if gated:
         g = F.silu(ops.moe_gmm(hidden_in, params["w_gate"].to(x.dtype),
                                group_sizes))
@@ -121,7 +139,7 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     # --- combine: gather back and weight ------------------------------------
     # dropped entries read expert 0's row C - 1 (JAX's clamp of slot C)
     src = torch.where(keep, dst, torch.full_like(dst, C - 1))
-    gathered = out_e.reshape(E * C, d)[src]                 # (T*k, d)
+    gathered = out_e.reshape(E_loc * C, d)[src]             # (T*k, d)
     w = (combine_w.reshape(-1)[order] * keep).to(x.dtype)
     contrib = gathered * w[:, None]
     # sorted-order adds onto zeros: with top-2 each row takes exactly two
@@ -129,4 +147,6 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     # atomics (the card); with top_k > 2 it can in the last bit
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device) \
         .index_add_(0, tok_of, contrib)
+    if group is not None:
+        y = group.all_reduce_sum(y)
     return y, aux

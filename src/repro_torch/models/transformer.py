@@ -34,6 +34,14 @@ of every MoE layer; only then do pad-tail rows and unscheduled decode rows
 (the negative-token sentinel) leave MoE dispatch, as in JAX.  ``verify``
 (speculative decoding) is ``extend`` returning every position's logits: on
 the card it runs the same paged extend kernel, at S = k + 1.
+
+Tensor parallelism (``group``, a ``repro_torch.launch.mesh.EngineGroup``):
+the params are one rank's shard (``repro_torch.launch.sharding``), so
+attention runs on the rank's query and KV heads, the pools hold only its KV
+heads, and three collectives complete the layer: an all-reduce after the
+attention output projection, one after the MLP's (or MoE's) down
+projection, and an all-gather of the head's vocab shards, so every rank
+samples from the same full logits.  Without a group none of them runs.
 """
 from __future__ import annotations
 
@@ -50,9 +58,9 @@ from repro_torch.models.layers import gelu_mlp, rmsnorm, rope, swiglu_mlp
 from repro_torch.models.moe import moe_ffn
 
 _NOT_PORTED = {
-    MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 3",
-    ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 3",
-    XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 3",
+    MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 4",
+    ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 4",
+    XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 4",
 }
 
 #: global layers of a local:global interleave attend without a window
@@ -124,11 +132,18 @@ def _init_moe(gen, cfg: ArchConfig, L: int, **kw) -> dict:
 # block forward
 # --------------------------------------------------------------------------
 
+def _all_reduce(x, group):
+    """Sum a row-parallel projection's partial outputs over the group."""
+    return x if group is None else group.all_reduce_sum(x)
+
+
 def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
-               cache, block_table, page_size):
-    """One layer's attention. Returns (out, new_cache)."""
+               cache, block_table, page_size, group=None):
+    """One layer's attention over the heads of ``p`` (all of them, or one
+    rank's shard). Returns (out, new_cache)."""
     B, S, _ = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
+    H, KV = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -181,20 +196,23 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
                                       start=start, window=window)
         new_cache = cache
     out = out.reshape(B, S, H * dh)
-    return out @ p["wo"].to(x.dtype), new_cache
+    return _all_reduce(out @ p["wo"].to(x.dtype), group), new_cache
 
 
-def _mlp(p, x, cfg: ArchConfig):
+def _mlp(p, x, cfg: ArchConfig, group=None):
     if cfg.mlp_gated:
-        return swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
-    return gelu_mlp(x, p["w_in"], p["w_out"])
+        y = swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+    else:
+        y = gelu_mlp(x, p["w_in"], p["w_out"])
+    return _all_reduce(y, group)
 
 
 def _attn_mlp_block(p, x, cfg, **kw):
     h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
                               cfg, **kw)
     x = x + h
-    x = x + _mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    x = x + _mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg,
+                 kw["group"])
     return x, new_cache
 
 
@@ -222,7 +240,8 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
     y, _ = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
                    capacity_factor=cfg.moe.capacity_factor,
                    gated=cfg.mlp_gated, router_fn=routing_hook,
-                   positions=pos_flat, layer=layer_idx, valid=valid)
+                   positions=pos_flat, layer=layer_idx, valid=valid,
+                   group=kw["group"])
     return x + y.reshape(B, S, d), new_cache
 
 
@@ -244,6 +263,9 @@ class Model:
     # assignment step of every MoE layer (forced replay, logit bias or a
     # recording tap); None routes with the learned router
     routing_hook: Optional[Any] = None
+    # the engine group of a tensor-parallel rank (params are then its
+    # shard); None: the whole model on one device
+    group: Optional[Any] = None
 
     def __post_init__(self):
         for st in self.cfg.stages:
@@ -286,8 +308,13 @@ class Model:
         return params["embed"]["tok"].to(dtype)[tokens.long()]
 
     def _head(self, params, x):
-        """Logits over the *padded* vocab; consumers slice [..., :vocab]."""
-        return x @ params["head"]["w"].to(x.dtype)
+        """Logits over the *padded* vocab; consumers slice [..., :vocab].
+        A rank holding a vocab shard gathers the others'."""
+        w = params["head"]["w"]
+        logits = x @ w.to(x.dtype)
+        if w.shape[-1] != self.cfg.padded_vocab:
+            logits = self.group.all_gather_last(logits)
+        return logits
 
     def _window_for_layer(self, li: int, period: int) -> Optional[int]:
         """None = full causal everywhere; global layers of a local:global
@@ -311,7 +338,7 @@ class Model:
                     _layer(cache[f"stage{i}"], li)
                 kw = dict(positions=positions, lengths=lengths, mode=mode,
                           cache=kcache, block_table=block_table,
-                          page_size=self.page_size)
+                          page_size=self.page_size, group=self.group)
                 if st.kind == ATTN_MOE:
                     # MoE layers attend without a window, as in JAX
                     x, nc = _attn_moe_block(
@@ -427,9 +454,17 @@ class Model:
         maxp = -(-max_len // self.page_size)
         return maxp, batch * maxp + batch + 1
 
+    def kv_heads(self) -> int:
+        """KV heads this model's pools hold: all, or a rank's share."""
+        if self.group is None:
+            return self.cfg.n_kv_heads
+        from repro_torch.launch.sharding import kv_heads
+        lo, hi = kv_heads(self.cfg, self.group.rank, self.group.size)
+        return hi - lo
+
     def init_cache(self, batch: int, max_len: int, device=None):
-        """Zeroed paged cache in the compute dtype; every table entry of
-        slot b starts at b's scratch page."""
+        """Zeroed paged cache in the compute dtype over this model's KV
+        heads; every table entry of slot b starts at b's scratch page."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         maxp, n_pages = self.page_geometry(batch, max_len)
@@ -440,7 +475,7 @@ class Model:
                                    device=device),
             "block_table": scratch[:, None].expand(batch, maxp).contiguous()}
         for i, st in enumerate(cfg.stages):
-            shape = (st.n_layers, n_pages, self.page_size, cfg.n_kv_heads,
+            shape = (st.n_layers, n_pages, self.page_size, self.kv_heads(),
                      cfg.d_head)
             cache[f"stage{i}"] = {
                 "k_pages": torch.zeros(shape, dtype=dtype, device=device),

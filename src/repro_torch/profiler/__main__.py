@@ -42,9 +42,14 @@ third, the acceptance trace (``spectrace/1``):
   python -m repro_torch.profiler profile --device cpu-engine \\
       --arch llama3.1-8b-tiny --spec
 
-Not ported yet: measured tensor-parallel grids (``--tp`` above 1 in
-measured mode; ROADMAP queue 1 item 2); asking for them exits with a
-message.
+Measured tensor-parallel grids: ``--tp 1,2`` measures one grid per degree
+into one artifact, as the JAX CLI does; a point at tp = k runs k ranks
+(``repro_torch.launch.mesh.run_ranks``) on k devices of the engine's kind,
+one card a rank over NCCL or k processes on the CPU over gloo.  Fewer
+visible cards than k exit with a message naming both counts.
+
+  python -m repro_torch.profiler profile --device cpu-engine --tp 1,2 \\
+      --arch llama3.1-8b-tiny --out traces/cpu-engine.json
 
 The operator-level profiler (raw ``Trace``) is the ``ops`` subcommand; a
 bare ``python -m repro_torch.profiler --arch ...`` means ``ops``.
@@ -120,21 +125,36 @@ def _cmd_profile(args):
         mode = "measured" if args.device in ("cpu-engine", "local") \
             else "synthetic"
     if mode == "measured":
-        if tps != [1]:
-            raise SystemExit(
-                f"--tp {args.tp}: measured tensor-parallel grids need a "
-                f"sharded engine, not ported yet: ROADMAP queue 1 item 2")
-        from repro_torch.profiler.runtime_profiler import runtime_trace
+        import torch
+
+        from repro_torch.launch.mesh import visible_devices
+        from repro_torch.profiler.runtime_profiler import (runtime_trace,
+                                                           runtime_trace_tp)
         grid = _grid(args)
         engine_device = _engine_device(args, args.device)
-        hwt = runtime_trace(args.arch, device=args.device,
-                            max_batch=args.max_batch, max_len=args.max_len,
-                            reps=args.reps, seed=args.seed,
-                            engine_device=engine_device, **grid)
+        kind = torch.device(engine_device or "cuda").type
+        n = visible_devices(kind)
+        if max(tps) > 1 and n is not None and n < max(tps):
+            raise SystemExit(
+                f"--tp {args.tp}: a measured point at tp={max(tps)} runs "
+                f"{max(tps)} ranks on {max(tps)} {kind} devices, but {n} "
+                f"are visible")
+        kw = dict(device=args.device, max_batch=args.max_batch,
+                  max_len=args.max_len, reps=args.reps, seed=args.seed,
+                  engine_device=engine_device, **grid)
+        hwt, wall = None, 0.0
+        for tp in tps:
+            one = runtime_trace(args.arch, **kw) if tp == 1 \
+                else runtime_trace_tp(args.arch, tp, **kw)
+            wall += one.meta.get("profile_wall_s", 0.0)
+            hwt = one if hwt is None else hwt.merge(one)
+        # merge() keeps the first probe's meta; restate artifact-wide facts
+        hwt.meta["profile_wall_s"] = wall
         hwt.meta.pop("tp", None)
         if args.kernels is not None:
             # hwtrace/3 kernel sub-buckets: per-kernel rows per backend on
-            # the base grid
+            # the base grid (one device; the perf model composes tp
+            # collectives analytically on top)
             from repro_torch.profiler.kernel_profiler import add_kernel_grid
             backends = [b for b in args.kernels.split(",") if b.strip()]
             add_kernel_grid(hwt, args.arch, backends,
@@ -303,8 +323,8 @@ def main(argv=None):
                    help="output path (default traces/<device>.json)")
     p.add_argument("--tp", default="1",
                    help="tensor-parallel degree(s), comma-separated; "
-                        "synthetic mode emits one grid per degree, "
-                        "measured mode takes only 1")
+                        "one grid per degree (measured: tp ranks on tp "
+                        "devices of the engine's kind)")
     p.add_argument("--max-batch", type=int, default=4)
     p.add_argument("--max-len", type=int, default=512)
     p.add_argument("--reps", type=int, default=3)

@@ -88,13 +88,17 @@ def runtime_trace(arch: str, *, device: Optional[str] = None,
                   extend_ctxs: Sequence[int] = (16, 64, 128),
                   extend_suffixes: Sequence[int] = (16, 64, 128),
                   reps: int = 3, seed: int = 0, tp: int = 1,
-                  engine=None, engine_device=None) -> HardwareTrace:
+                  engine=None, engine_device=None,
+                  group=None) -> HardwareTrace:
     """Measure ``arch`` through ``TorchBackend``.
 
     ``engine`` may supply a pre-built ``ServingEngine`` (params reuse);
     otherwise one is made from ``seed`` on ``engine_device`` (None means
-    the card).  ``tp`` > 1 raises until tensor parallelism is ported
-    (ROADMAP queue 1 item 2).  Returns a ``HardwareTrace`` labelled
+    the card).  ``tp`` > 1 probes one rank of a sharded engine (``group``,
+    this rank's engine group; :func:`runtime_trace_tp` spawns the ranks):
+    every point is the slowest rank's time, so the grid prices tp-degree
+    instances, and a ``kv_export`` point is the ranks' parallel copy-out
+    of their own KV heads.  Returns a ``HardwareTrace`` labelled
     ``device`` (default: ``cpu-engine`` on the CPU, ``h100`` on the card)
     with the engine device's spec embedded.
     """
@@ -110,7 +114,7 @@ def runtime_trace(arch: str, *, device: Optional[str] = None,
     t_start = time.time()
     eng = engine or ServingEngine(cfg, max_batch=max_batch, max_len=max_len,
                                   name="probe", seed=seed, tp=tp,
-                                  device=engine_device)
+                                  device=engine_device, group=group)
     spec = device_hw(eng.device)
     icfg = _probe_instance_cfg(arch, max_batch, max_len,
                                chunk=max(extend_suffixes), hw=spec,
@@ -140,7 +144,7 @@ def runtime_trace(arch: str, *, device: Optional[str] = None,
             lat.append(run(req, P - 1, "prefill"))
             t0 = time.perf_counter()
             backend.export_kv(req)      # slot copy-out; also frees the slot
-            exp_lat.append(time.perf_counter() - t0)
+            exp_lat.append(eng.slowest(time.perf_counter() - t0))
             backend._carry_s = 0.0      # export time was measured directly
         trace.add("iter", "prefill", P, P, float(np.median(lat)))
         trace.add("kv_export", "prefill", P, P, float(np.median(exp_lat)))
@@ -191,3 +195,21 @@ def runtime_trace(arch: str, *, device: Optional[str] = None,
     return HardwareTrace.from_trace(
         trace, device=device, spec=spec,
         interconnect=InterconnectSpec.from_hw(spec))
+
+
+def _trace_rank(group, job):
+    arch, kw = job
+    return runtime_trace(arch, tp=group.size, group=group,
+                         engine_device=group.device, **kw)
+
+
+def runtime_trace_tp(arch: str, tp: int, *, engine_device=None,
+                     **kw) -> HardwareTrace:
+    """:func:`runtime_trace` at ``tp`` > 1: ``tp`` ranks on ``tp``
+    devices of ``engine_device``'s kind (None: the card), each measuring
+    its shard; every rank records the same (slowest-rank) latencies, and
+    rank 0's trace is returned."""
+    from repro_torch.launch.mesh import run_ranks
+    kind = torch.device(engine_device or "cuda").type
+    ranks = run_ranks(_trace_rank, tp, (arch, kw), device=kind)
+    return ranks[0]

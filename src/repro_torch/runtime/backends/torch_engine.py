@@ -43,6 +43,15 @@ card), each slot keeps its accepted prefix and the target's bonus token,
 and both KV lengths roll back.  Acceptance is the greedy match, or replayed
 from the engine's ``AcceptanceTrace``; ``stats()["spec_decode"]`` accounts
 it.
+
+Tensor parallelism: every rank of an engine group runs the same driver and
+its own copy of the runtime, and the runtime's decisions depend on the
+iteration latencies it is handed (the hybrid emulation).  Each rank
+measures its own wall time, so ``execute`` hands the runtime the group's
+largest (``ServingEngine.slowest``, an all-reduce MAX, the carried wall
+time included): a TP iteration ends when its slowest rank ends, and
+identical latencies keep the ranks' schedules, allocators and collectives
+in step.  Every rank samples from the same all-gathered logits.
 """
 from __future__ import annotations
 
@@ -232,7 +241,7 @@ class TorchBackend:
             self._prefill_chunk(w)
         self.eng.synchronize()
         self._iterations += 1
-        latency = time.perf_counter() - t0 + self._carry_s
+        latency = self.eng.slowest(time.perf_counter() - t0 + self._carry_s)
         self._carry_s = 0.0
         if self.expert_load is not None:
             self.expert_load.observe(self._routed_pos, now)

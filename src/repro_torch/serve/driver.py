@@ -55,7 +55,9 @@ def engine_instance_cfg(engine: ServingEngine,
     k + 1``) so the KV ledger reserves the verification window.
     ``prefix_cache`` overrides the ``PrefixCacheCfg`` derived from the
     engine's store (e.g. tier capacities shrunk so both backends walk the
-    same spill chain)."""
+    same spill chain).  A tensor-parallel engine's degree becomes the
+    instance's ``parallelism.tp`` and device count, as in the JAX
+    driver, so a simulated twin prices tp = k."""
     model = model_spec_from_arch(engine.cfg)
     scheduler = scheduler or engine_scheduler_cfg(engine.max_batch)
     if scheduler.max_batch_size > engine.max_batch:
@@ -77,8 +79,8 @@ def engine_instance_cfg(engine: ServingEngine,
     return InstanceCfg(
         name=engine.name,
         hw=hw if hw is not None else device_hw(engine.device),
-        model=model, n_devices=1, role=engine.role,
-        parallelism=ParallelismCfg(tp=1), scheduler=scheduler,
+        model=model, n_devices=engine.tp, role=engine.role,
+        parallelism=ParallelismCfg(tp=engine.tp), scheduler=scheduler,
         prefix_cache=prefix_cache,
         moe=moe if moe is not None else MoECfg(),
         spec=spec if spec is not None else SpecCfg(),

@@ -24,8 +24,17 @@ the card, host memory and a spill file).  ``spec=SpecDecodeCfg(...)``
 gives it a nested draft engine with the same slot geometry on the same
 device (and stream), so draft slot i mirrors target slot i; the target
 verifies all proposals in one ``Model.verify`` call (the paged extend
-kernel at S = k + 1).  ``TorchBackend`` drives both.  Tensor parallelism is
-not ported yet; ``tp`` above 1 raises.
+kernel at S = k + 1).  ``TorchBackend`` drives both.
+
+``tp > 1`` makes the engine one rank of a tensor-parallel group (``group``,
+a ``repro_torch.launch.mesh.EngineGroup``; one process a rank): the full
+params come in the JAX layout and each rank keeps its shard
+(``repro_torch.launch.sharding``), its pools hold its KV heads, and the
+model's collectives complete every layer.  The page allocator and the
+block table are the same on every rank because every rank's runtime makes
+the same decisions (``TorchBackend`` hands it the slowest rank's
+latency).  P/D roles, the prefix store and speculative decoding at tp > 1
+are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -231,6 +240,22 @@ class RealRadixCache:
                 pass
 
 
+def refuse_unported_at_tp(tp: int, *, role: str = "unified",
+                          prefix_cache: bool = False, spec=None) -> None:
+    """Raise for the tp > 1 combinations not ported yet (ROADMAP queue 1
+    item 3)."""
+    if tp <= 1:
+        return
+    what = [w for w, on in (("P/D roles", role != "unified"),
+                            ("the prefix store", prefix_cache),
+                            ("speculative decoding", spec is not None))
+            if on]
+    if what:
+        raise NotImplementedError(
+            f"ServingEngine: {' and '.join(what)} at tp={tp} not ported "
+            f"yet (ROADMAP queue 1 item 3)")
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card; a card that is absent raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -248,18 +273,43 @@ class ServingEngine:
     ``repro_torch.convert.params_from_numpy``); when None they are drawn
     on the device from ``seed``.  Matmul weights are cast to the compute
     dtype once, here; the JAX model casts at every call, to the same
-    values.
+    values.  At ``tp > 1`` the engine runs on ``group.device`` and keeps
+    rank ``group.rank``'s shard of the (full) params.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, *, max_batch: int = 8,
                  max_len: int = 512, prefix_cache: bool = False,
                  role: str = "unified", name: str = "engine0", seed: int = 0,
                  tp: int = 1, routing=None,
-                 spec: Optional[SpecDecodeCfg] = None, device=None):
-        if int(tp) != 1:
-            raise NotImplementedError(
-                f"ServingEngine: tp={tp} is not ported yet (ROADMAP queue "
-                f"1 item 2)")
+                 spec: Optional[SpecDecodeCfg] = None, device=None,
+                 group=None):
+        tp = int(tp)
+        if tp < 1:
+            raise ValueError(f"ServingEngine: tp must be >= 1, got {tp}")
+        if tp > 1:
+            if group is None:
+                raise ValueError(
+                    f"ServingEngine: tp={tp} needs an engine group, one "
+                    f"process a rank: launch the ranks with python -m "
+                    f"repro_torch.launch.serve --tp {tp}, or "
+                    f"repro_torch.launch.mesh.run_ranks, and pass each "
+                    f"its group=")
+            if group.size != tp:
+                raise ValueError(f"ServingEngine: tp={tp} but the engine "
+                                 f"group has {group.size} ranks")
+            refuse_unported_at_tp(tp, role=role, prefix_cache=prefix_cache,
+                                  spec=spec)
+            if device is not None:
+                d = resolve_device(device)
+                if d.type != group.device.type or d.index not in (
+                        None, group.device.index):
+                    raise ValueError(f"ServingEngine: device {device} is "
+                                     f"not rank {group.rank}'s "
+                                     f"{group.device}")
+            device = group.device
+        elif group is not None and group.size != 1:
+            raise ValueError(f"ServingEngine: tp=1 in a {group.size}-rank "
+                             f"engine group")
         if spec is not None:
             if routing is not None:
                 raise ValueError(
@@ -279,7 +329,8 @@ class ServingEngine:
         self.cfg = cfg
         self.name = name
         self.role = role
-        self.tp = 1
+        self.tp = tp
+        self.group = group if tp > 1 else None
         self.page_size = 64
         self.routing_trace = None
         hook = None
@@ -297,12 +348,21 @@ class ServingEngine:
                         f"has {moe_layer_count(cfg)}")
                 self.routing_trace = routing
                 hook = make_replay_hook(routing)
-        self.model = Model(cfg, page_size=self.page_size, routing_hook=hook)
+        self.model = Model(cfg, page_size=self.page_size, routing_hook=hook,
+                           group=self.group)
         dtype = torch_dtype(cfg.compute_dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen, device=self.device, dtype=dtype)
+        if self.group is not None:
+            from repro_torch.launch.sharding import shard_params
+            params = shard_params(params, self.group.rank, tp, cfg=cfg)
         self.params = cast_params(params, dtype, self.device)
+        del params
+        if self.group is not None and self.device.type == "cuda":
+            # the full params drawn here are garbage now: give their
+            # memory back to the card (another rank may share it)
+            torch.cuda.empty_cache()
         self.max_batch = max_batch
         self.max_len = max_len
         self.cache = self.model.init_cache(max_batch, max_len,
@@ -343,6 +403,11 @@ class ServingEngine:
         """Wait for the device, so a wall-clock time covers its work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def slowest(self, seconds: float) -> float:
+        """A wall time measured on this rank -> the group's largest (the
+        time itself at tp = 1)."""
+        return seconds if self.group is None else self.group.slowest(seconds)
 
     def warmup(self, buckets=(16, 32, 64, 128, 256)):
         """Run prefill (and, with a prefix store, extend) at every bucket

@@ -27,7 +27,9 @@ def temperature(logits: torch.Tensor, vocab: int, generator: torch.Generator,
                 temp: float = 1.0) -> torch.Tensor:
     """Sample each position from ``softmax(logits / temp)`` over the real
     vocab with an explicit ``generator`` (on the logits' device).  Returns
-    (B, S) int32."""
+    (B, S) int32.  The ranks of a tensor-parallel engine hold the same
+    gathered logits, so generators seeded alike draw the same tokens on
+    every rank."""
     scaled = logits[..., :vocab].float() / max(temp, 1e-4)
     probs = torch.softmax(scaled, dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])

@@ -63,17 +63,18 @@ def test_engine_needs_cuda_unless_told_cpu(monkeypatch):
 
 @pytest.mark.parametrize("what", ["prefix_cache", "tp", "spec"])
 def test_engine_refuses_unported_options(what):
-    """``tp`` above 1 is still not ported and raises; the prefix store and
-    speculative decoding are ported: ``prefix_cache=True`` builds an engine
-    with a ``RealRadixCache``, and a bad ``SpecDecodeCfg`` raises the JAX
-    engine's ``ValueError``."""
+    """``tp`` above 1 needs an engine group (one process a rank) and
+    raises ``ValueError`` without one; the prefix store and speculative
+    decoding are ported: ``prefix_cache=True`` builds an engine with a
+    ``RealRadixCache``, and a bad ``SpecDecodeCfg`` raises the JAX engine's
+    ``ValueError``."""
     from repro_torch.configs import get_config
     from repro_torch.serve import (RealRadixCache, ServingEngine,
                                    SpecDecodeCfg)
     cfg = get_config("llama3.1-8b-tiny")
     kw = dict(device="cpu", max_batch=2, max_len=64)
     if what == "tp":
-        with pytest.raises(NotImplementedError, match="tp=2"):
+        with pytest.raises(ValueError, match="tp=2 needs an engine group"):
             ServingEngine(cfg, tp=2, **kw)
     elif what == "prefix_cache":
         eng = ServingEngine(cfg, prefix_cache=True, **kw)

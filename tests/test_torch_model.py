@@ -136,7 +136,7 @@ def test_prefill_extend_decode_logits_match_jax(arch, layers):
 
 
 def test_unported_stages_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         Model(get_config("zamba2-1.2b-tiny"))
     with pytest.raises(NotImplementedError, match="codebook"):
         Model(get_config("musicgen-large-tiny"))

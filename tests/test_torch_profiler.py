@@ -125,17 +125,28 @@ def test_cli_synthetic_routing_equals_jax(tmp_path):
     assert outs["repro_torch"] == outs["repro"]
 
 
-@pytest.mark.parametrize("args,item", [
-    (["profile", "--device", "cpu-engine", "--engine-device", "cpu",
-      "--tp", "2"], "item 2"),
-    (["profile", "--device", "cpu-engine", "--tp", "4"], "item 2"),
-    (["profile", "--device", "cpu-engine", "--engine-device", "cpu",
-      "--tp", "1,2"], "item 2"),
+@pytest.mark.parametrize("module,args,want", [
+    ("profiler", ["profile", "--device", "h100", "--mode", "measured",
+                  "--tp", "1,2"], "too few cards"),
+    ("profiler", ["profile", "--device", "cpu-engine", "--engine-device",
+                  "cpu", "--tp", "0"], ">= 1"),
+    ("launch.serve", ["--device", "cpu", "--tp", "2", "--prefix-cache"],
+     "item 3"),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, args, item):
-    res = _cli("repro_torch", args, tmp_path)
+def test_cli_refuses_what_is_not_ported(tmp_path, module, args, want):
+    """A measured ``--tp`` past the visible cards refuses, naming both
+    counts; ``--tp 0`` refuses; the prefix store (like P/D and spec
+    decoding) at tp > 1 refuses, naming its ROADMAP item.  Nothing is
+    written."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m", f"repro_torch.{module}",
+                          *args], capture_output=True, text=True,
+                         timeout=300, cwd=tmp_path, env=env)
     assert res.returncode != 0
-    assert item in res.stderr
+    if want == "too few cards":
+        want = (f"tp=2 runs 2 ranks on 2 cuda devices, but "
+                f"{torch.cuda.device_count()} are visible")
+    assert want in res.stderr
     assert not list(tmp_path.iterdir())
 
 
