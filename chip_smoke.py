@@ -18,14 +18,18 @@ result line:
    shapes and at groups of 1 to 9 query heads per kv-head with decode
    splits and windows, paged extend at speculative verify's shape, B8 S5
    from ragged starts 1..2043 and from page edges, the grouped matmul's
-   gate/up and down at every capacity C of 1 to 40, and phase 6's
-   per-rank shapes at tp = 2: H16 KV4 and 8 experts); every kernel must
-   also give bitwise the same result on a second launch;
+   gate/up and down at every capacity C of 1 to 40, phase 6's
+   per-rank shapes at tp = 2: H16 KV4 and 8 experts, and phase 7's
+   zamba2-1.2b shapes, one query head per kv-head at head dim 64: flash
+   at S 16 and 256, paged decode at B8 H32 KV32 over the ragged lengths,
+   paged extend of 256 from start 293 across page edges); every kernel
+   must also give bitwise the same result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
    and down, each at a 256-token chunk and at decode; paged extend also at
-   the verify shape), with the decode kernel's pages per split and split
+   the verify shape; the three attention kernels also at zamba2-1.2b's
+   H32 KV32 dh64), with the decode kernel's pages per split and split
    count, and the host's time to issue one call of each kernel's wrapper
    (the serves are host-bound);
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
@@ -80,7 +84,20 @@ result line:
    alike, the kernels launched at the rank's shapes (16 query and 4 KV
    heads, 8 experts: phases 2 and 3 hold and time them there), with the
    prefill argmax agreement with tp = 1 and each rank's memory printed;
-7. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+7. the recurrent and hybrid families: zamba2-1.2b at full width (38
+   layers, d_model 2048, bf16, seeded random weights, batch 8, max_len
+   2048, chunked prefill of 256) serves 8 requests with prompts of
+   128-1024 tokens and 64 output tokens each, every request finishing,
+   flash, paged decode and paged extend launched at H32 KV32 dh64 (its
+   shared attention), with TPOT p50, tokens/s and peak memory printed;
+   the same model at published widths in f32 cut to one superblock,
+   served twice on the card from the same weights, through the kernels
+   and through their plain versions, must make the same decisions and
+   emit the same tokens (the largest prefill-logit difference printed);
+   xlstm-125m at full width (12 layers, d_model 768, bf16, whole-prompt
+   prefill: it has no extend) serves 8 requests of at most 512 prompt
+   tokens, every request finishing, and launches no kernel of the repo;
+8. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -199,6 +216,8 @@ def flash_cases():
         yield 1, S, 32, 8, 128, (S,), None
     for S in (16, 64, 256):                       # a rank's heads at tp = 2
         yield 1, S, 32 // TP, 8 // TP, 128, (S - S // 4 - 1,), None
+    for S, n in ((256, 256), (256, 219), (16, 16)):  # zamba2: G = 1, dh 64
+        yield 1, S, 32, 32, 64, (n,), None
 
 
 #: the verify shape's starts (no page edge) and a batch on page edges
@@ -238,6 +257,13 @@ def paged_cases():
     yield (8, None, 32 // TP, 8 // TP, 128, 64, 32, None,
            (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
     yield 1, 256, 32 // TP, 8 // TP, 128, 64, 32, (293,), (293 + 200,), None
+    # zamba2-1.2b's shared attention (H32 KV32 dh64, G = 1): decode over
+    # the ragged lengths above, and a 256-token chunk from a mid-page start
+    # across page edges, full and with a short real tail
+    yield (8, None, 32, 32, 64, 64, 32, None,
+           (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
+    yield 1, 256, 32, 32, 64, 64, 32, (293,), (293 + 256,), None
+    yield 1, 256, 32, 32, 64, 64, 32, (293,), (293 + 200,), None
 
 
 def gmm_cases():
@@ -438,9 +464,9 @@ def timings(torch, ops, dev):
     def paged_library(q4, kp, vp, table, lengths, start):
         """Gather the pages, then SDPA under the paged mask."""
         B, Sq = q4.shape[:2]
-        kv = kp.shape[-2]
-        kg = kp[table.reshape(-1).long()].reshape(B, maxp * ps, kv, dh)
-        vg = vp[table.reshape(-1).long()].reshape(B, maxp * ps, kv, dh)
+        kv, d = kp.shape[-2:]
+        kg = kp[table.reshape(-1).long()].reshape(B, maxp * ps, kv, d)
+        vg = vp[table.reshape(-1).long()].reshape(B, maxp * ps, kv, d)
         qpos = start.long()[:, None] + torch.arange(Sq, device=dev)
         kvpos = torch.arange(maxp * ps, device=dev)
         mask = (kvpos[None, None] <= qpos[..., None]) & \
@@ -615,6 +641,56 @@ def timings(torch, ops, dev):
                 shape=f"E{E2} C{C} d{d} f{f} bf16, {active} experts active, "
                       f"{rows} rows",
                 bound=bound(nbytes, 2 * rows * d * f))
+    # zamba2-1.2b's shared attention (phase 7's serve): H32 KV32 dh64, one
+    # query head per kv-head; the same chunk, decode and extend shapes as
+    # llama's rows, their own generator; launches from the zamba2 serve
+    gen = torch.Generator(device=dev).manual_seed(3)
+    Hz = KVz = 32
+    dz, S = 64, 256
+    q = _rand(torch, gen, (1, S, Hz, dz), bf, dev)
+    k = _rand(torch, gen, (1, S, KVz, dz), bf, dev)
+    v = _rand(torch, gen, (1, S, KVz, dz), bf, dev)
+    lt = torch.tensor([S], dtype=torch.int32, device=dev)
+    pairs = S * (S + 1) // 2
+    nbytes = 2 * q.numel() * 2 + (k.numel() + v.numel()) * 2 + 4
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["flash_attention_zamba"] = measure(
+        lambda: ops.flash_attention(q, k, v, lt),
+        lambda: ops.flash_attention_plain(q, k, v, lt),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        kernel="flash_attention", path=ZAMBA_PATH,
+        shape=f"B1 S{S} H{Hz} KV{KVz} dh{dz} bf16",
+        bound=bound(nbytes, 4 * pairs * Hz * dz))
+    kpz = _rand(torch, gen, (P, ps, KVz, dz), bf, dev)
+    vpz = _rand(torch, gen, (P, ps, KVz, dz), bf, dev)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = _rand(torch, gen, (B, Hz, dz), bf, dev)
+    nbytes = kv_rows * KVz * dz * 2 * 2 + 2 * qd.numel() * 2 \
+        + table.numel() * 4 + B * 4
+    out["paged_attention_decode_zamba"] = measure(
+        lambda: ops.paged_attention(qd, kpz, vpz, table, lt, page_size=ps),
+        lambda: ops.paged_attention_plain(qd, kpz, vpz, table, lt,
+                                          page_size=ps),
+        lambda: paged_library(qd[:, None], kpz, vpz, table, lt, lt - 1),
+        kernel="paged_attention_decode", path=ZAMBA_PATH,
+        shape=f"B{B} H{Hz} KV{KVz} dh{dz} ps{ps} len{lens} bf16",
+        bound=bound(nbytes, 4 * kv_rows * Hz * dz))
+    start = 293
+    qe = _rand(torch, gen, (1, S, Hz, dz), bf, dev)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    lt = st + S
+    pairs = sum(start + s + 1 for s in range(S))
+    nbytes = (start + S) * KVz * dz * 2 * 2 + 2 * qe.numel() * 2 \
+        + maxp * 4 + 8
+    out["paged_attention_extend_zamba"] = measure(
+        lambda: ops.paged_attention(qe, kpz, vpz, table[:1], lt,
+                                    page_size=ps, start=st),
+        lambda: ops.paged_attention_plain(qe, kpz, vpz, table[:1], lt,
+                                          page_size=ps, start=st),
+        lambda: paged_library(qe, kpz, vpz, table[:1], lt, st),
+        kernel="paged_attention_extend", path=ZAMBA_PATH,
+        shape=f"B1 S{S} start{start} H{Hz} KV{KVz} dh{dz} ps{ps} bf16",
+        bound=bound(nbytes, 4 * pairs * Hz * dz))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
           "time to issue one kernel call (us)")
     for name, t in out.items():
@@ -1603,6 +1679,198 @@ def tp2_on_card(torch, card, probes):
     return by_path
 
 
+# ---------------------------------------------------------------- phase 7
+ZAMBA_PATH = "zamba2-1.2b"
+XLSTM_PATH = "xlstm-125m"
+#: what zamba2-1.2b's shared attention hands the kernels: (kernel, query
+#: heads, KV heads), at head dim 64
+ZAMBA_SHAPES = {("flash_attention", 32, 32), ("paged_attention", 32, 32)}
+
+
+def recurrent_requests(vocab, lo, hi, out=64, n=8, seed=0, rate=10.0):
+    """``n`` requests with prompts of ``lo``..``hi`` tokens and ``out``
+    output tokens each, Poisson arrivals at ``rate`` a second (all at 0
+    when ``rate`` is None)."""
+    import numpy as np
+    from repro_torch.workload.sharegpt import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, n)
+    gaps = rng.exponential(1.0 / (rate or 1.0), n)
+    t = np.concatenate([[0.0], np.cumsum(gaps[1:])]) if rate else \
+        np.zeros(n)
+    return [Request(req_id=i, arrival=float(t[i]),
+                    prompt_tokens=rng.integers(0, vocab, int(lens[i]))
+                    .tolist(), output_len=out) for i in range(n)]
+
+
+def recurrent_serve_setup(torch, arch):
+    """A full-width recurrent model on the card behind a warmed-up
+    ServeDriver, and the 8 requests it serves: (cfg, engine, driver,
+    requests).  zamba2-1.2b: 38 layers, d_model 2048, max_len 2048,
+    chunked prefill of 256, prompts of 128-1024 tokens; xlstm-125m: 12
+    layers, d_model 768, max_len 1024, whole prompts (no extend), prompts
+    of 16-512 tokens.  Both bf16 with seeded random weights made on the
+    card, batch 8, 64 output tokens a request."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import engine_scheduler_cfg
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    cfg = get_config(arch)
+    if arch == ZAMBA_PATH:
+        check(cfg.n_layers == 38 and cfg.d_model == 2048
+              and cfg.d_head == 64, "zamba2-1.2b: not full width")
+        max_len, sched, lo, hi = 2048, serve_scheduler(), 128, 1024
+    else:
+        check(cfg.n_layers == 12 and cfg.d_model == 768,
+              "xlstm-125m: not full width")
+        max_len, sched, lo, hi = 1024, engine_scheduler_cfg(8), 16, 512
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, max_batch=8, max_len=max_len, name="e0", seed=0)
+    torch.cuda.synchronize()
+    print(f"phase 7: {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, bf16, seeded random weights) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    reqs = recurrent_requests(cfg.vocab, lo, hi)
+    drv = ServeDriver([eng], DriverCfg(scheduler=sched))
+    drv.runtime.warmup()
+    return cfg, eng, drv, reqs
+
+
+def serve_recurrent(torch, ops, card, arch):
+    """Serve a recurrent model's 8 requests at full width: every request
+    finishes with its tokens; zamba2-1.2b launches flash, paged decode and
+    paged extend at H32 KV32 dh64, xlstm-125m no kernel of the repo.
+    Returns the serve's launch counts."""
+    cfg, eng, drv, reqs = recurrent_serve_setup(torch, arch)
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _record_shapes(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        m = drv.run(reqs, warmup=False)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(m["finished"] == len(reqs),
+          f"{arch}: finished {m['finished']} of {len(reqs)}")
+    backend = drv.runtime.instances["e0"].backend
+    for r in drv.finished:
+        toks = backend.out_tokens[r.req_id]
+        check(len(toks) == r.output_len
+              and all(0 <= t < cfg.vocab for t in toks),
+              f"{arch} request {r.req_id}: {len(toks)} tokens of "
+              f"{r.output_len}")
+    if arch == ZAMBA_PATH:
+        for name in ("flash_attention", "paged_attention_decode",
+                     "paged_attention_extend"):
+            check(launches[name] > 0,
+                  f"{name} was not launched while serving {arch}")
+        check(seen == ZAMBA_SHAPES, f"{arch}: the kernels saw {seen}")
+    else:
+        check(not any(launches.values()) and not seen,
+              f"{arch} launched {launches}")
+    ttft = statistics.median(r.ttft() for r in drv.finished)
+    tpot = statistics.median(r.tpot() for r in drv.finished
+                             if r.tpot() is not None)
+    n_out = sum(r.output_len for r in drv.finished)
+    print(f"serve [{card}] {cfg.name} 8 requests (prompts "
+          f"{min(r.prompt_len for r in drv.finished)}-"
+          f"{max(r.prompt_len for r in drv.finished)}, 64 output tokens "
+          f"each, batch 8, "
+          f"{'chunk 256' if arch == ZAMBA_PATH else 'whole prompts'}): "
+          f"TTFT p50 {ttft * 1e3:.1f} ms, TPOT p50 {tpot * 1e3:.2f} ms, "
+          f"{n_out / wall:.1f} output tok/s over wall {wall:.2f} s, peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if arch == ZAMBA_PATH:
+        print(f"launches while serving {cfg.name}: {json.dumps(launches)}; "
+              f"shapes {sorted(seen)} at head dim {cfg.d_head}")
+    else:
+        print(f"{cfg.name} launches no kernel of the repo (its mLSTM and "
+              f"sLSTM run as PyTorch operations): {json.dumps(launches)}")
+    del eng, drv, backend
+    gc.collect()                # ServeDriver and its runtime form a cycle
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def plain_attention(ops):
+    """Route the model's attention to the plain versions on the card: the
+    wrappers never do that themselves (a CUDA tensor launches its kernel
+    or raises)."""
+    flash, paged = ops.flash_attention, ops.paged_attention
+    ops.flash_attention = ops.flash_attention_plain
+    ops.paged_attention = ops.paged_attention_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.paged_attention = flash, paged
+
+
+def zamba_f32_probe(torch, ops, card):
+    """zamba2-1.2b at its published widths, f32, cut to one superblock,
+    served on the card twice from the same weights: through the kernels
+    and through their plain versions.  Every arrival at 0, so the
+    decisions (and the chunks whose pad tails enter the state) do not
+    depend on latencies: the decisions and tokens must be equal; the
+    largest difference of the two routes' prefill logits is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    cfg = depth_cut_f32(get_config(ZAMBA_PATH), layers=1)
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    reqs = recurrent_requests(cfg.vocab, 128, 1024, out=16, rate=None)
+
+    def serve():
+        eng = ServingEngine(cfg, params, max_batch=8, max_len=2048,
+                            name="e0")
+        drv = ServeDriver([eng], DriverCfg(scheduler=serve_scheduler()))
+        ops.reset_launch_counts()
+        m = drv.run([dataclasses.replace(r) for r in reqs], warmup=False)
+        inst = drv.runtime.instances["e0"]
+        out = (m["finished"], dict(inst.backend.out_tokens),
+               list(inst.decisions), ops.launch_counts(),
+               probe_logits(torch, eng, reqs))
+        del eng, drv, inst
+        gc.collect()
+        return out
+    kern = serve()
+    with plain_attention(ops):
+        plain = serve()
+    check(kern[0] == plain[0] == len(reqs),
+          f"zamba2 f32 probe: finished {kern[0]} / {plain[0]}")
+    check(all(kern[3][n] > 0 for n in ("flash_attention",
+                                       "paged_attention_decode",
+                                       "paged_attention_extend"))
+          and not any(plain[3].values()),
+          f"zamba2 f32 probe: launches {kern[3]} / {plain[3]}")
+    check(kern[2] == plain[2] and kern[1] == plain[1],
+          "zamba2 f32 probe: the kernels' decisions or tokens differ from "
+          "the plain versions'")
+    err = float(abs(kern[4] - plain[4]).max())
+    n_tok = sum(len(t) for t in kern[1].values())
+    print(f"phase 7 [{card}]: zamba2-1.2b at published widths, f32, one "
+          f"superblock: kernels == plain versions on the card in "
+          f"{len(kern[2])} decisions and {n_tok} tokens; prefill logits "
+          f"(B8 S128) differ by at most {err:.3g}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def recurrent_on_card(torch, ops, card):
+    """Phase 7: the recurrent and hybrid families (launch counts by
+    path)."""
+    t0 = time.perf_counter()
+    by_path = {ZAMBA_PATH: serve_recurrent(torch, ops, card, ZAMBA_PATH)}
+    zamba_f32_probe(torch, ops, card)
+    by_path[XLSTM_PATH] = serve_recurrent(torch, ops, card, XLSTM_PATH)
+    print(f"phase 7: ran {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1644,6 +1912,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         tenants_on_card(torch)
         by_path.update(tp2_on_card(torch, card, probes))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(recurrent_on_card(torch, ops, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -4,8 +4,17 @@ The JAX package's ``Model.init`` (``repro/models/transformer.py``) gives a
 nested dict: ``embed.tok``, ``stage{i}`` stacked ``[n_layers, ...]`` with
 ``attn.{wq,wk,wv,wo[,bq,bk,bv][,q_norm,k_norm]}``,
 ``mlp.{w_gate,w_up,w_down | w_in,w_out}`` and ``norm1``/``norm2``,
-``final_norm``, and ``head.w`` over ``padded_vocab``.  The port keeps that
-layout, so conversion only turns each leaf into a tensor.  The caller hands
+``final_norm``, and ``head.w`` over ``padded_vocab``.  The recurrent
+stages add ``stage{i}.{norm, mamba}`` (``MAMBA2``: ``mamba.{w_zx, w_bc,
+w_dt, dt_bias, conv_w, conv_b, A_log, D, norm_scale, w_out}``),
+``stage{i}.inner.{norm, mamba}`` stacked ``[n_layers, 6, ...]``
+(``ZAMBA_SUPER``) with the top-level ``shared_attn.{norm1, attn, norm2,
+mlp}`` (unstacked), and ``stage{i}.{mlstm, slstm}`` (``XLSTM_PAIR``:
+``mlstm.{norm_in, w_up, conv_w, conv_b, w_q, w_k, w_v, w_i, w_f, f_bias,
+norm_h, w_down}``, ``slstm.{norm_in, w_gates, r_gates, b_gates, norm_h,
+w_up, w_down}``).  The port keeps that layout, so conversion only turns
+each leaf into a tensor of the same dtype (the JAX params are f32, and
+``ServingEngine`` casts what the forward pass casts).  The caller hands
 the tree over as numpy arrays (``jax.tree_util.tree_map(np.asarray,
 params)``); nothing here imports JAX.
 """

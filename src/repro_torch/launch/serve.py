@@ -19,6 +19,13 @@ one card a rank (fewer cards than k refuse), gloo with ``--device cpu``.
 The ranks' decisions must agree; rank 0's metrics are printed.  P/D, the
 prefix store and speculative decoding at tp > 1 refuse (ROADMAP queue 1
 item 3).
+
+The recurrent and hybrid families serve too (``--arch zamba2-1.2b``,
+``--arch xlstm-125m``; their ``-tiny`` variants with ``--device cpu``);
+with them the prefix store, speculative decoding and ``--tp`` above 1
+refuse (ROADMAP queue 1 item 7).  xLSTM has no cached prefill, so under
+``--chunked-prefill`` a prompt longer than one chunk (64) raises, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -32,7 +39,9 @@ from repro_torch.models import Model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
                                SpecDecodeCfg)
-from repro_torch.serve.engine import refuse_unported_at_tp, resolve_device
+from repro_torch.serve.engine import (refuse_unported_at_tp,
+                                      refuse_unported_recurrent,
+                                      resolve_device)
 from repro_torch.workload import ShareGPTConfig, generate
 from repro_torch.workload.acceptance import (AcceptanceConfig,
                                              synthesize_acceptance)
@@ -67,6 +76,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {args.tp}")
+    try:
+        refuse_unported_recurrent(get_config(args.arch), tp=args.tp,
+                                  prefix_cache=args.prefix_cache,
+                                  spec=args.spec_k or None)
+    except NotImplementedError as e:
+        raise SystemExit(f"--arch {args.arch}: {e}") from None
     if args.tp == 1:
         m = serve(args)[0]
     else:

@@ -1,7 +1,10 @@
-"""Core layers: RMSNorm, RoPE, gated and plain MLPs.
+"""Core layers: RMSNorm, RoPE, gated and plain MLPs, and the depthwise
+causal convolution of the recurrent blocks.
 
-Each is the same function as its counterpart in ``repro/models/layers.py``;
-attention itself goes through ``repro_torch.kernels.ops``.
+Each is the same function as its counterpart in ``repro/models/layers.py``
+(``causal_conv``: the ``_causal_conv`` of ``repro/models/mamba2.py`` and
+``repro/models/xlstm.py``); attention itself goes through
+``repro_torch.kernels.ops``.
 """
 from __future__ import annotations
 
@@ -47,3 +50,13 @@ def swiglu_mlp(x, w_gate, w_up, w_down):
     g = F.silu(x @ w_gate.to(x.dtype))
     h = g * (x @ w_up.to(x.dtype))
     return h @ w_down.to(x.dtype)
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv1d. x: (B, S, C); w: (k, C); b: (C,)."""
+    k, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i: i + S] * w[i]
+    return out + b

@@ -1,10 +1,12 @@
-"""Decoder-only model over a paged KV cache.
+"""Decoder-only model over a paged KV cache and per-slot recurrent state.
 
 The counterpart of ``repro/models/transformer.py`` for attention + MLP
-stages (``ATTN_MLP``) and attention + MoE stages (``ATTN_MOE``), with the
-same parameter layout (``init``), the same entry points (``prefill``,
-``decode``, ``extend``, ``verify``) and the same paged slot-KV layout
-(``init_cache``, ``page_geometry``):
+stages (``ATTN_MLP``), attention + MoE stages (``ATTN_MOE``), Mamba2
+stages (``MAMBA2``), zamba superblocks (``ZAMBA_SUPER``: six Mamba2 blocks,
+then the one shared attention + MLP block, ``params["shared_attn"]``) and
+xLSTM pairs (``XLSTM_PAIR``), with the same parameter layout (``init``),
+the same entry points (``prefill``, ``decode``, ``extend``, ``verify``)
+and the same paged slot-KV layout (``init_cache``, ``page_geometry``):
 
 * ``prefill`` runs flash attention over a bucketed chunk and returns the
   chunk's K/V contiguously; the engine scatters it into pages.
@@ -25,6 +27,20 @@ never read.  The JAX model
 updates its pools functionally (``.at[].set``); this one writes them in
 place with ``index_put_``, so the cache a call returns shares its pools
 with the cache it was given.
+
+Recurrent stages hold dense per-slot state beside the pools, laid out as
+the JAX package's ``_stage_cache``: ``MAMBA2`` ``{"ssd", "conv"}`` of
+``(L, B, ...)``, ``ZAMBA_SUPER`` ``{"mamba": {"ssd", "conv"} of (L, 6, B,
+...), "attn": pools}`` (each superblock's shared-attention application has
+its own K/V), ``XLSTM_PAIR`` ``{"mlstm": {"C", "n", "m", "conv"}, "slstm":
+{"h", "c", "n", "m"}}`` of ``(L, B, ...)``.  That state is functional, as
+in JAX: every call returns new state tensors.  ``decode`` leaves the state
+of every row whose token is the sentinel (< 0) exactly as it was, where
+the JAX model advances it by the step on token 0 (the JAX engine's
+full-buffer decode then moves the state of a slot that is mid-prefill).
+``extend`` on an xLSTM stage raises ``NotImplementedError``, as in JAX.
+``attention_caches`` and ``state_leaves`` name the pools and the state
+leaves (with their batch axis) for the engine's slot plumbing.
 
 Attention and the MoE grouped matmul always go through
 ``repro_torch.kernels.ops``: the Hopper kernels for CUDA tensors, their
@@ -53,15 +69,18 @@ import torch
 from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
                                       ZAMBA_SUPER, ArchConfig)
 from repro_torch.kernels import ops
+from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import gelu_mlp, rmsnorm, rope, swiglu_mlp
 from repro_torch.models.moe import moe_ffn
 
-_NOT_PORTED = {
-    MAMBA2: "recurrent stages wait for ROADMAP queue 1 item 4",
-    ZAMBA_SUPER: "hybrid stages wait for ROADMAP queue 1 item 4",
-    XLSTM_PAIR: "recurrent stages wait for ROADMAP queue 1 item 4",
-}
+#: stage kinds that carry per-slot recurrent state
+RECURRENT = (MAMBA2, ZAMBA_SUPER, XLSTM_PAIR)
+#: zamba superblock: Mamba2 blocks before the shared attention block
+ZAMBA_INNER = 6
+#: params the recurrent blocks read in f32 whatever the compute dtype
+_F32_PARAMS = frozenset({"A_log", "dt_bias", "D", "r_gates"})
 
 #: global layers of a local:global interleave attend without a window
 _GLOBAL_WINDOW = 2 ** 30
@@ -74,12 +93,15 @@ def torch_dtype(name: str) -> torch.dtype:
 def cast_params(params: dict, dtype: torch.dtype, device=None) -> dict:
     """Move params to ``device`` and cast every weight the forward pass
     casts to the compute dtype (projections, biases, MLP, embedding, head)
-    once.  Norm scales stay f32: ``rmsnorm`` reads them in f32."""
+    once.  Norm scales stay f32 (``rmsnorm`` reads them in f32), and so do
+    the recurrent blocks' decay, skip and recurrent weights
+    (``_F32_PARAMS``), which JAX reads in f32."""
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         t = torch.as_tensor(tree).to(device)
-        if t.is_floating_point() and not any("norm" in k for k in path):
+        if t.is_floating_point() and path[-1] not in _F32_PARAMS \
+                and not any("norm" in k for k in path):
             t = t.to(dtype)
         return t.contiguous()
     return walk(params, ())
@@ -89,30 +111,51 @@ def cast_params(params: dict, dtype: torch.dtype, device=None) -> dict:
 # per-block init (the layout of repro/models/transformer.py)
 # --------------------------------------------------------------------------
 
-def _init_attn(gen, cfg: ArchConfig, L: int, **kw) -> dict:
+def _init_attn(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    p = {"wq": m.dense_init(gen, d, H * dh, lead=(L,), **kw),
-         "wk": m.dense_init(gen, d, KV * dh, lead=(L,), **kw),
-         "wv": m.dense_init(gen, d, KV * dh, lead=(L,), **kw),
-         "wo": m.dense_init(gen, H * dh, d, lead=(L,), **kw)}
+    p = {"wq": m.dense_init(gen, d, H * dh, lead=lead, **kw),
+         "wk": m.dense_init(gen, d, KV * dh, lead=lead, **kw),
+         "wv": m.dense_init(gen, d, KV * dh, lead=lead, **kw),
+         "wo": m.dense_init(gen, H * dh, d, lead=lead, **kw)}
     if cfg.qkv_bias:
-        p["bq"] = m.zeros((L, H * dh), **kw)
-        p["bk"] = m.zeros((L, KV * dh), **kw)
-        p["bv"] = m.zeros((L, KV * dh), **kw)
+        p["bq"] = m.zeros(lead + (H * dh,), **kw)
+        p["bk"] = m.zeros(lead + (KV * dh,), **kw)
+        p["bv"] = m.zeros(lead + (KV * dh,), **kw)
     if cfg.qk_norm:
-        p["q_norm"] = m.zeros((L, dh), device=kw.get("device"))
-        p["k_norm"] = m.zeros((L, dh), device=kw.get("device"))
+        p["q_norm"] = m.zeros(lead + (dh,), device=kw.get("device"))
+        p["k_norm"] = m.zeros(lead + (dh,), device=kw.get("device"))
     return p
 
 
-def _init_mlp(gen, cfg: ArchConfig, L: int, **kw) -> dict:
+def _init_mlp(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
     d, ff = cfg.d_model, cfg.d_ff
     if cfg.mlp_gated:
-        return {"w_gate": m.dense_init(gen, d, ff, lead=(L,), **kw),
-                "w_up": m.dense_init(gen, d, ff, lead=(L,), **kw),
-                "w_down": m.dense_init(gen, ff, d, lead=(L,), **kw)}
-    return {"w_in": m.dense_init(gen, d, ff, lead=(L,), **kw),
-            "w_out": m.dense_init(gen, ff, d, lead=(L,), **kw)}
+        return {"w_gate": m.dense_init(gen, d, ff, lead=lead, **kw),
+                "w_up": m.dense_init(gen, d, ff, lead=lead, **kw),
+                "w_down": m.dense_init(gen, ff, d, lead=lead, **kw)}
+    return {"w_in": m.dense_init(gen, d, ff, lead=lead, **kw),
+            "w_out": m.dense_init(gen, ff, d, lead=lead, **kw)}
+
+
+def _init_attn_mlp(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
+    dev = kw.get("device")
+    return {"norm1": m.zeros(lead + (cfg.d_model,), device=dev),
+            "attn": _init_attn(gen, cfg, lead, **kw),
+            "norm2": m.zeros(lead + (cfg.d_model,), device=dev),
+            "mlp": _init_mlp(gen, cfg, lead, **kw)}
+
+
+def _init_mamba_layer(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
+    return {"norm": m.zeros(lead + (cfg.d_model,), device=kw.get("device")),
+            "mamba": mb.init_mamba(gen, cfg.d_model, cfg.ssm, lead=lead,
+                                   **kw)}
+
+
+def _init_xlstm_pair(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
+    return {"mlstm": xl.init_mlstm(gen, cfg.d_model, cfg.n_heads, lead=lead,
+                                   **kw),
+            "slstm": xl.init_slstm(gen, cfg.d_model, cfg.n_heads, lead=lead,
+                                   **kw)}
 
 
 def _init_moe(gen, cfg: ArchConfig, L: int, **kw) -> dict:
@@ -245,10 +288,77 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
     return x + y.reshape(B, S, d), new_cache
 
 
+def _keep_rows(new, old, row_valid):
+    """Decode: a row whose token is the sentinel keeps its old state."""
+    if isinstance(new, dict):
+        return {k: _keep_rows(new[k], old[k], row_valid) for k in new}
+    mask = row_valid.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(mask, new, old)
+
+
+def _mamba_block(p, x, cfg, *, mode, cache, row_valid):
+    """Pre-norm residual Mamba2 block; ``cache``: the layer's state (None
+    in prefill).  Returns (x, new state)."""
+    xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if mode == "decode":
+        y, st = mb.mamba_decode(p["mamba"], xn, cfg, cache)
+        st = _keep_rows(st, cache, row_valid)
+    else:
+        y, st = mb.mamba_forward(p["mamba"], xn, cfg, state=cache,
+                                 return_state=True)
+    return x + y, st
+
+
+def _xlstm_block(p, x, cfg, *, mode, cache, row_valid):
+    """An mLSTM block, then an sLSTM block.  Returns (x, new state)."""
+    nh, eps = cfg.n_heads, cfg.norm_eps
+    if mode == "extend":
+        raise NotImplementedError(
+            "xLSTM cached-prefill (extend) is not supported; the serving "
+            "engine uses fresh prefill for xLSTM models")
+    if mode == "decode":
+        x, st_m = xl.mlstm_decode(p["mlstm"], x, nh, eps, cache["mlstm"])
+        x, st_s = xl.slstm_decode(p["slstm"], x, nh, eps, cache["slstm"])
+        return x, _keep_rows({"mlstm": st_m, "slstm": st_s}, cache,
+                             row_valid)
+    x, st_m = xl.mlstm_forward(p["mlstm"], x, nh, eps, return_state=True)
+    x, st_s = xl.slstm_forward(p["slstm"], x, nh, eps, return_state=True)
+    return x, {"mlstm": st_m, "slstm": st_s}
+
+
+def _zamba_super(p, shared, x, cfg, *, cache, row_valid, **kw):
+    """Six Mamba2 blocks, then the shared attention + MLP block over the
+    superblock's own K/V.  Returns (x, {"mamba": state, "attn": K/V})."""
+    states = []
+    for j in range(ZAMBA_INNER):
+        cj = None if cache is None else _layer(cache["mamba"], j)
+        x, st = _mamba_block(_layer(p["inner"], j), x, cfg, mode=kw["mode"],
+                             cache=cj, row_valid=row_valid)
+        states.append(st)
+    x, attn = _attn_mlp_block(shared, x, cfg, window=None,
+                              cache=None if cache is None else cache["attn"],
+                              **kw)
+    return x, {"mamba": _stack(states), "attn": attn}
+
+
 def _layer(tree, li):
     if isinstance(tree, dict):
         return {k: _layer(v, li) for k, v in tree.items()}
     return tree[li]
+
+
+def _stack(trees):
+    """Per-layer trees of tensors -> one tree of tensors stacked on dim 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _lead(tree, lead: tuple):
+    """A tree of per-slot state -> the same with leading stack dims."""
+    if isinstance(tree, dict):
+        return {k: _lead(v, lead) for k, v in tree.items()}
+    return tree.expand(lead + tuple(tree.shape)).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -268,35 +378,45 @@ class Model:
     group: Optional[Any] = None
 
     def __post_init__(self):
-        for st in self.cfg.stages:
-            if st.kind not in (ATTN_MLP, ATTN_MOE):
-                raise NotImplementedError(
-                    f"{self.cfg.name}: {_NOT_PORTED.get(st.kind, st.kind)}")
         if not self.cfg.embed_inputs or self.cfg.n_codebooks:
             raise NotImplementedError(
                 f"{self.cfg.name}: precomputed-embedding inputs and "
                 f"codebook heads are not ported yet")
 
+    @property
+    def recurrent(self) -> bool:
+        """Whether any stage carries per-slot recurrent state."""
+        return any(st.kind in RECURRENT for st in self.cfg.stages)
+
     # ---- init ----
     def init(self, gen: torch.Generator, *, device=None,
              dtype=torch.float32) -> dict:
         """Params in the JAX layout; matmul weights in ``dtype``, norm
-        scales in f32."""
+        scales and ``_F32_PARAMS`` in f32."""
         cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
         params: Dict[str, Any] = {
             "embed": {"tok": m.embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                           **kw)}}
         for i, st in enumerate(cfg.stages):
-            L = st.n_layers
-            params[f"stage{i}"] = {
-                "norm1": m.zeros((L, cfg.d_model), device=device),
-                "attn": _init_attn(gen, cfg, L, **kw),
-                "norm2": m.zeros((L, cfg.d_model), device=device)}
+            lead = (st.n_layers,)
             if st.kind == ATTN_MOE:
-                params[f"stage{i}"]["moe"] = _init_moe(gen, cfg, L, **kw)
+                p = {"norm1": m.zeros(lead + (cfg.d_model,), device=device),
+                     "attn": _init_attn(gen, cfg, lead, **kw),
+                     "norm2": m.zeros(lead + (cfg.d_model,), device=device),
+                     "moe": _init_moe(gen, cfg, st.n_layers, **kw)}
+            elif st.kind == ATTN_MLP:
+                p = _init_attn_mlp(gen, cfg, lead, **kw)
+            elif st.kind == MAMBA2:
+                p = _init_mamba_layer(gen, cfg, lead, **kw)
+            elif st.kind == ZAMBA_SUPER:
+                p = {"inner": _init_mamba_layer(gen, cfg,
+                                                lead + (ZAMBA_INNER,), **kw)}
             else:
-                params[f"stage{i}"]["mlp"] = _init_mlp(gen, cfg, L, **kw)
+                p = _init_xlstm_pair(gen, cfg, lead, **kw)
+            params[f"stage{i}"] = p
+        if any(st.kind == ZAMBA_SUPER for st in cfg.stages):
+            params["shared_attn"] = _init_attn_mlp(gen, cfg, (), **kw)
         params["final_norm"] = m.zeros((cfg.d_model,), device=device)
         params["head"] = {"w": m.dense_init(gen, cfg.d_model,
                                             cfg.padded_vocab, **kw)}
@@ -328,39 +448,51 @@ class Model:
 
     def _run_stages(self, params, x, *, positions, lengths, mode, cache,
                     block_table, row_valid=None):
+        cfg = self.cfg
         new_caches = {}
         moe_off = 0          # model-wide MoE layer index of the stage's 0
-        for i, st in enumerate(self.cfg.stages):
-            sp = params[f"stage{i}"]
+        for i, st in enumerate(cfg.stages):
+            key = f"stage{i}"
+            sp = params[key]
             layer_caches = []
             for li in range(st.n_layers):
-                kcache = None if cache is None else \
-                    _layer(cache[f"stage{i}"], li)
+                p = _layer(sp, li)
+                kcache = None if cache is None else _layer(cache[key], li)
                 kw = dict(positions=positions, lengths=lengths, mode=mode,
                           cache=kcache, block_table=block_table,
                           page_size=self.page_size, group=self.group)
                 if st.kind == ATTN_MOE:
                     # MoE layers attend without a window, as in JAX
                     x, nc = _attn_moe_block(
-                        _layer(sp, li), x, self.cfg, window=None,
-                        layer_idx=moe_off + li,
+                        p, x, cfg, window=None, layer_idx=moe_off + li,
                         routing_hook=self.routing_hook,
                         row_valid=row_valid, **kw)
-                else:
+                elif st.kind == ATTN_MLP:
                     x, nc = _attn_mlp_block(
-                        _layer(sp, li), x, self.cfg,
-                        window=self._window_for_layer(
+                        p, x, cfg, window=self._window_for_layer(
                             li, st.local_global_period), **kw)
+                elif st.kind == MAMBA2:
+                    x, nc = _mamba_block(p, x, cfg, mode=mode, cache=kcache,
+                                         row_valid=row_valid)
+                elif st.kind == ZAMBA_SUPER:
+                    x, nc = _zamba_super(p, params["shared_attn"], x, cfg,
+                                         row_valid=row_valid, **kw)
+                else:
+                    x, nc = _xlstm_block(p, x, cfg, mode=mode, cache=kcache,
+                                         row_valid=row_valid)
                 layer_caches.append(nc)
             if st.kind == ATTN_MOE:
                 moe_off += st.n_layers
-            if mode == "prefill":
-                new_caches[f"stage{i}"] = {
-                    key: torch.stack([c[key] for c in layer_caches])
-                    for key in ("k", "v")}
+            if mode == "prefill" or st.kind in (MAMBA2, XLSTM_PAIR):
+                new_caches[key] = _stack(layer_caches)
+            elif st.kind == ZAMBA_SUPER:
+                # new Mamba state; the pools were written in place
+                new_caches[key] = {
+                    "mamba": _stack([c["mamba"] for c in layer_caches]),
+                    "attn": cache[key]["attn"]}
             else:
                 # the pools were written in place
-                new_caches[f"stage{i}"] = cache[f"stage{i}"]
+                new_caches[key] = cache[key]
         return x, new_caches
 
     # ---- entry points ----
@@ -388,8 +520,9 @@ class Model:
         cache["lengths"] counts tokens *already in* the cache; the new token
         is written at index lengths (then lengths+1 is returned).  A
         negative token is the engine's sentinel for a row that is not
-        scheduled this step; it runs on token 0, and under a routing hook
-        its row takes no MoE capacity and is not recorded."""
+        scheduled this step; it runs on token 0, its recurrent state stays
+        as it was, and under a routing hook its row takes no MoE capacity
+        and is not recorded."""
         row_valid = tokens.reshape(tokens.shape[0], -1)[:, 0] >= 0
         x = self._embed(params, torch.clamp(tokens, min=0))
         lengths = cache["lengths"] + 1       # include current token
@@ -464,7 +597,8 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """Zeroed paged cache in the compute dtype over this model's KV
-        heads; every table entry of slot b starts at b's scratch page."""
+        heads, every table entry of slot b at b's scratch page, and fresh
+        recurrent state for every slot (``_stage_cache``'s layout)."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         maxp, n_pages = self.page_geometry(batch, max_len)
@@ -474,10 +608,74 @@ class Model:
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device),
             "block_table": scratch[:, None].expand(batch, maxp).contiguous()}
+
+        def pools(L):
+            shape = (L, n_pages, self.page_size, self.kv_heads(), cfg.d_head)
+            return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                    "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+        mamba = None if cfg.ssm is None else mb.init_mamba_state(
+            batch, cfg.d_model, cfg.ssm, dtype, device)
         for i, st in enumerate(cfg.stages):
-            shape = (st.n_layers, n_pages, self.page_size, self.kv_heads(),
-                     cfg.d_head)
-            cache[f"stage{i}"] = {
-                "k_pages": torch.zeros(shape, dtype=dtype, device=device),
-                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+            L = st.n_layers
+            if st.kind in (ATTN_MLP, ATTN_MOE):
+                c = pools(L)
+            elif st.kind == MAMBA2:
+                c = _lead(mamba, (L,))
+            elif st.kind == ZAMBA_SUPER:
+                c = {"mamba": _lead(mamba, (L, ZAMBA_INNER)),
+                     "attn": pools(L)}
+            else:
+                c = {"mlstm": _lead(xl.init_mlstm_state(
+                        batch, cfg.d_model, cfg.n_heads, dtype, device),
+                        (L,)),
+                     "slstm": _lead(xl.init_slstm_state(
+                         batch, cfg.d_model, cfg.n_heads, device), (L,))}
+            cache[f"stage{i}"] = c
         return cache
+
+    # ---- the cache's parts, for the engine's slot plumbing ----
+    def attention_caches(self, cache) -> list:
+        """``(stage key, attention cache)`` of every stage that attends, in
+        stage order: the pools ``{"k_pages", "v_pages"}`` of a serving
+        cache, or the ``{"k", "v"}`` a prefill returns."""
+        out = []
+        for i, st in enumerate(self.cfg.stages):
+            key = f"stage{i}"
+            if st.kind in (ATTN_MLP, ATTN_MOE):
+                out.append((key, cache[key]))
+            elif st.kind == ZAMBA_SUPER:
+                out.append((key, cache[key]["attn"]))
+        return out
+
+    def _state_dicts(self, cache):
+        """``(stage key, sub-dict key or None, dict of state leaves, batch
+        axis)`` for every dict of recurrent-state leaves, in stage order."""
+        for i, st in enumerate(self.cfg.stages):
+            key = f"stage{i}"
+            if st.kind == MAMBA2:
+                yield key, None, cache[key], 1
+            elif st.kind == ZAMBA_SUPER:
+                yield key, "mamba", cache[key]["mamba"], 2
+            elif st.kind == XLSTM_PAIR:
+                for blk in ("mlstm", "slstm"):
+                    yield key, blk, cache[key][blk], 1
+
+    def state_leaves(self, cache) -> list:
+        """``(stage key, leaf name, tensor, batch axis)`` of every
+        recurrent-state leaf, in a fixed order; the name is the leaf's
+        dotted path inside its stage, and the batch axis is 2 for a
+        superblock's ``(L, 6, B, ...)``, else 1."""
+        return [(key, n if sub is None else f"{sub}.{n}", t, ax)
+                for key, sub, d, ax in self._state_dicts(cache)
+                for n, t in d.items()]
+
+    def slot_view(self, cache, slot: int) -> dict:
+        """The stage entries of ``cache`` with every state leaf narrowed to
+        ``slot`` (a view, batch 1); the pools pass through whole."""
+        out = {f"stage{i}": cache[f"stage{i}"]
+               for i in range(len(self.cfg.stages))}
+        for key, sub, d, ax in self._state_dicts(cache):
+            view = {n: t.narrow(ax, slot, 1) for n, t in d.items()}
+            out[key] = view if sub is None else {**out[key], sub: view}
+        return out

@@ -151,21 +151,28 @@ def runtime_trace(arch: str, *, device: Optional[str] = None,
 
     # --- chunked prefill (extend) per (suffix, context) ---
     # chunk 2+ runs the engine's extend path, which attends over the
-    # slot's pages — priced separately from fresh prefill
-    for ctx in extend_ctxs:
-        for S in extend_suffixes:
-            if ctx + S >= max_len:
-                continue
-            lat = []
-            for rep in range(reps + 1):
-                req = make_req(ctx + S)
-                run(req, ctx, "prefill")          # chunk 1: fresh
-                dt = run(req, S, "prefill")       # chunk 2: extend
-                backend.release(req)
-                if rep:                           # rep 0 warms up
-                    lat.append(dt)
-            trace.add("extend", "prefill", S, ctx + S,
-                      float(np.median(lat)))
+    # slot's pages — priced separately from fresh prefill.  A model with
+    # no cached-prefill path (xLSTM) gets no extend points, and the perf
+    # model prices its chunks as fresh prefill, as in JAX
+    try:
+        for ctx in extend_ctxs:
+            for S in extend_suffixes:
+                if ctx + S >= max_len:
+                    continue
+                lat = []
+                for rep in range(reps + 1):
+                    req = make_req(ctx + S)
+                    run(req, ctx, "prefill")          # chunk 1: fresh
+                    try:
+                        dt = run(req, S, "prefill")   # chunk 2: extend
+                    finally:
+                        backend.release(req)
+                    if rep:                           # rep 0 warms up
+                        lat.append(dt)
+                trace.add("extend", "prefill", S, ctx + S,
+                          float(np.median(lat)))
+    except NotImplementedError:
+        pass
 
     # --- batched decode per (batch, context) ---
     for ctx in decode_ctxs:

@@ -12,7 +12,10 @@ virtual, advanced by the measured latencies on the runtime's event queue.
 
 Chunked prefill: the first chunk runs the bucketed ``prefill``; later
 chunks ``extend`` a one-row view of the slot.  One full-buffer ``decode``
-serves all scheduled decode slots per iteration.
+serves all scheduled decode slots per iteration.  For a model with
+recurrent stages every unscheduled row of that decode carries the
+sentinel token -1, so the state of a slot that is mid-prefill, or whose
+first token is pending, does not move (the JAX backend advances it).
 
 Trace-driven MoE routing as in the JAX backend: an engine built with
 ``ServingEngine(routing=<trace>)`` replays the trace in every MoE layer,
@@ -203,8 +206,12 @@ class TorchBackend:
             P = 16
             while P <= top and P < eng.max_len:
                 pad = eng.tensor(np.zeros((1, P), np.int32))
-                sub = eng._slot_subcache(0, 16)
-                eng.model.extend(eng.params, sub, pad, eng.tensor([P]))
+                try:
+                    _, sub = eng.model.extend(eng.params,
+                                              eng._slot_subcache(0, 16),
+                                              pad, eng.tensor([P]))
+                except NotImplementedError:
+                    break   # no cached-prefill path (xLSTM), as in JAX
                 eng._write_slot(0, sub, 16)
                 P *= 2
             eng._release_slot(0)
@@ -258,11 +265,15 @@ class TorchBackend:
             slot = self._slot[w.request.req_id]
             eng.ensure_capacity(slot, self._len[slot] + 1)
         hooked = eng.model.routing_hook is not None
-        if hooked:
+        # a recurrent model's decode moves the state of every row it runs
+        # on a real token, so its unscheduled rows take the sentinel too
+        masked = hooked or eng.model.recurrent
+        if masked:
             # mark every slot that is not scheduled (free, or mid-prefill)
             # with the sentinel -1: its row still computes, but is neither
-            # recorded nor given expert capacity.  The engine's buffer keeps
-            # the mid-prefill slots' pending first tokens.
+            # recorded nor given expert capacity, and keeps its recurrent
+            # state.  The engine's buffer keeps the mid-prefill slots'
+            # pending first tokens.
             tokens = tokens.copy()
             scheduled_slots = {self._slot[w.request.req_id]
                                for w in decodes}
@@ -284,13 +295,13 @@ class TorchBackend:
             self._len[slot] += 1
             scheduled.add(slot)
         if scheduled != set(self._len) \
-                or (hooked and len(self._len) < eng.max_batch):
+                or (masked and len(self._len) < eng.max_batch):
             # the full-buffer decode bumped every slot's length; restore
             # the lengths of mid-prefill / unscheduled slots.  Under a
-            # routing hook also zero the free slots every step: the hook's
-            # decode mask knows an empty slot by its position 0, and bumps
-            # left to pile up over decode-only steps would mark phantom
-            # rows valid
+            # routing hook (and for a recurrent model) also zero the free
+            # slots every step: the hook's decode mask knows an empty slot
+            # by its position 0, and bumps left to pile up over decode-only
+            # steps would mark phantom rows valid
             lengths = np.zeros((eng.max_batch,), np.int32)
             for s, n in self._len.items():
                 lengths[s] = n

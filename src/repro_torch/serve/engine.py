@@ -35,6 +35,16 @@ block table are the same on every rank because every rank's runtime makes
 the same decisions (``TorchBackend`` hands it the slowest rank's
 latency).  P/D roles, the prefix store and speculative decoding at tp > 1
 are not ported yet and raise.
+
+A model with recurrent stages (Mamba2, the zamba superblock, xLSTM) keeps
+dense per-slot state beside the pools (``Model.state_leaves``: each leaf
+with its batch axis, 2 for a superblock's ``(L, 6, B, ...)``).  The slot
+plumbing carries it on that axis: a prefill's state is copied into the
+slot, a one-row subcache views it, an ``extend``'s new state is copied
+back, a P/D payload carries the slot's state leaves (batch axis removed)
+beside ``{"k", "v"}``, and a released slot gets fresh state.  The prefix
+store, speculative decoding and tp > 1 refuse such a model
+(``refuse_unported_recurrent``).
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models import Model
-from repro_torch.models.transformer import cast_params, torch_dtype
+from repro_torch.models.transformer import RECURRENT, cast_params, torch_dtype
 
 
 @dataclasses.dataclass
@@ -256,6 +266,26 @@ def refuse_unported_at_tp(tp: int, *, role: str = "unified",
             f"yet (ROADMAP queue 1 item 3)")
 
 
+def refuse_unported_recurrent(cfg: ArchConfig, *, tp: int = 1,
+                              prefix_cache: bool = False,
+                              spec=None) -> None:
+    """Raise for the serving techniques not ported to models with
+    recurrent stages (ROADMAP queue 1 item 7): a prefix hit needs the
+    state at the hit's length, which neither package stores; a rejected
+    draft cannot be rolled back out of a recurrent state; and the tensor
+    parallel shards have no rules for these stages."""
+    if not any(st.kind in RECURRENT for st in cfg.stages):
+        return
+    what = [w for w, on in (("the prefix store", prefix_cache),
+                            ("speculative decoding", spec is not None),
+                            (f"tp={tp}", tp > 1)) if on]
+    if what:
+        raise NotImplementedError(
+            f"ServingEngine: {' and '.join(what)} on {cfg.name}, a model "
+            f"with recurrent stages, not ported yet (ROADMAP queue 1 "
+            f"item 7)")
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the card; a card that is absent raises."""
     dev = torch.device("cuda" if device is None else device)
@@ -286,6 +316,8 @@ class ServingEngine:
         tp = int(tp)
         if tp < 1:
             raise ValueError(f"ServingEngine: tp must be >= 1, got {tp}")
+        refuse_unported_recurrent(cfg, tp=tp, prefix_cache=prefix_cache,
+                                  spec=spec)
         if tp > 1:
             if group is None:
                 raise ValueError(
@@ -367,6 +399,9 @@ class ServingEngine:
         self.max_len = max_len
         self.cache = self.model.init_cache(max_batch, max_len,
                                            device=self.device)
+        # one slot's fresh recurrent state, given back to a released slot
+        self._fresh = [t.select(ax, 0).clone() for _, _, t, ax
+                       in self.model.state_leaves(self.cache)]
         # page allocator: a free list over the shared pool, a host mirror
         # of the device block table, and per-slot allocation counts.  Past
         # the allocatable pages come one scratch page per slot, then the
@@ -414,7 +449,8 @@ class ServingEngine:
         and one decode, so the first measured iteration pays no one-time
         cost (library handles, the kernels' build and load).  Extend and
         decode writes land on the scratch pages of free slots and their
-        returned caches are dropped."""
+        returned caches are dropped; the decode runs every row on the
+        sentinel token, so no slot's recurrent state moves."""
         for P in buckets:
             if P >= self.max_len:
                 continue
@@ -424,7 +460,7 @@ class ServingEngine:
                 self.model.extend(self.params, self._slot_subcache(0, 16),
                                   pad, self.tensor([P]))
         self.model.decode(self.params, self.cache,
-                          self.tensor(self._tokens_buf))
+                          self.tensor(np.full_like(self._tokens_buf, -1)))
         self.synchronize()
 
     # ---- paged-KV allocator ----
@@ -461,84 +497,102 @@ class ServingEngine:
             self.slot_free.append(slot)
         self._set_length(slot, 0)
         self._free_pages(slot)
+        for (_, _, t, ax), fresh in zip(
+                self.model.state_leaves(self.cache), self._fresh):
+            t.select(ax, slot).copy_(fresh)
+
+    def _copy_state(self, slot: int, src):
+        """Copy a (B=1) cache's recurrent state into ``slot``."""
+        for (_, _, t, ax), (_, _, one, _) in zip(
+                self.model.state_leaves(self.cache),
+                self.model.state_leaves(src)):
+            t.narrow(ax, slot, 1).copy_(one)
 
     def _write_slot_from_prefill(self, slot: int, cache1, n: int):
-        """Scatter a (B=1) prefill cache through ``slot``'s table row;
-        pad-tail positions past the table go to the last page."""
-        P = cache1["stage0"]["k"].shape[2]
+        """Scatter a (B=1) prefill cache's K/V through ``slot``'s table row
+        (pad-tail positions past the table go to the last page) and copy
+        its recurrent state into the slot."""
+        chunks = self.model.attention_caches(cache1)
+        P = chunks[0][1]["k"].shape[2] if chunks else n
         self.ensure_capacity(slot, min(P, self.max_len))
-        row = self.cache["block_table"][slot].long()
-        pos = torch.arange(P, device=self.device)
-        pidx = pos // self.page_size
-        page = row[torch.clamp(pidx, max=self._maxp - 1)]
-        page = torch.where(pidx < self._maxp, page,
-                           torch.full_like(page, self._scratch))
-        off = pos % self.page_size
-        for key, stage in self.cache.items():
-            if key in ("lengths", "block_table"):
-                continue
-            stage["k_pages"][:, page, off] = cache1[key]["k"][:, 0]
-            stage["v_pages"][:, page, off] = cache1[key]["v"][:, 0]
+        if chunks:
+            row = self.cache["block_table"][slot].long()
+            pos = torch.arange(P, device=self.device)
+            pidx = pos // self.page_size
+            page = row[torch.clamp(pidx, max=self._maxp - 1)]
+            page = torch.where(pidx < self._maxp, page,
+                               torch.full_like(page, self._scratch))
+            off = pos % self.page_size
+            for (_, pools), (_, kv) in zip(
+                    self.model.attention_caches(self.cache), chunks):
+                pools["k_pages"][:, page, off] = kv["k"][:, 0]
+                pools["v_pages"][:, page, off] = kv["v"][:, 0]
+        self._copy_state(slot, cache1)
         self._set_length(slot, n)
 
     def _slot_subcache(self, slot: int, length: int):
-        """A (B=1) view of one slot: the shared pools and a one-row table,
-        with the given length.  ``extend`` on it writes the slot's pages."""
+        """A (B=1) view of one slot: the shared pools, a one-row table, the
+        slot's recurrent state (views), and the given length.  ``extend``
+        on it writes the slot's pages and returns its new state."""
         sub = {"lengths": self.tensor([length]),
                "block_table": self.cache["block_table"][slot: slot + 1]}
-        for key, stage in self.cache.items():
-            if key not in ("lengths", "block_table"):
-                sub[key] = stage
+        sub.update(self.model.slot_view(self.cache, slot))
         return sub
 
     def _write_slot(self, slot: int, sub_cache, n: int):
-        """Adopt an ``extend`` on a subcache: its writes are already in
-        the shared pools, so only the slot's length changes."""
+        """Adopt an ``extend`` on a subcache: its K/V writes are already in
+        the shared pools; its new recurrent state is copied into the
+        slot, and the slot's length changes."""
+        self._copy_state(slot, sub_cache)
         self._set_length(slot, n)
 
     # ---- slot KV copy-out / restore (P/D handoff) ----
     def _export_slot(self, slot: int, length: int,
                      to_host: bool = True) -> dict:
         """Copy a slot's KV out in the JAX package's contiguous layout:
-        per stage ``{"k", "v"}`` of ``(layers, blen, KV, dh)`` with ``blen``
-        the bucketed length (capped at ``max_len``), gathered through the
-        slot's table row.  Rows past the pages in use come from the slot's
-        scratch page (finite, never read back).  ``to_host=True`` copies
-        the payload to host memory."""
+        per attending stage ``{"k", "v"}`` of ``(layers, blen, KV, dh)``
+        with ``blen`` the bucketed length (capped at ``max_len``), gathered
+        through the slot's table row, and beside them the slot's recurrent
+        state leaves under ``Model.state_leaves``' names, batch axis
+        removed.  Rows past the pages in use come from the slot's scratch
+        page (finite, never read back).  ``to_host=True`` copies the
+        payload to host memory."""
         blen = min(_bucket(length), self.max_len)
         ps = self.page_size
         npg = min(-(-blen // ps), self._maxp)
         pages = self.cache["block_table"][slot, :npg].long()
         out = {}
-        for key, stage in self.cache.items():
-            if key in ("lengths", "block_table"):
-                continue
+        for key, pools in self.model.attention_caches(self.cache):
             kv = {}
             for name in ("k", "v"):
-                pool = stage[f"{name}_pages"][:, pages]
+                pool = pools[f"{name}_pages"][:, pages]
                 t = pool.reshape((pool.shape[0], npg * ps)
                                  + pool.shape[3:])[:, :blen].contiguous()
                 kv[name] = t.cpu() if to_host else t
             out[key] = kv
+        for key, name, t, ax in self.model.state_leaves(self.cache):
+            # a copy, also on the CPU: the slot's state moves on
+            out.setdefault(key, {})[name] = t.select(ax, slot).to(
+                "cpu" if to_host else t.device, copy=True)
         out["_length"] = length
         out["_length_bucket"] = blen
         return out
 
     def _restore_slot(self, slot: int, kv: dict, length: int):
         """Scatter an ``_export_slot`` payload through ``slot``'s freshly
-        allocated table row and set its length.  Pages are allocated for
-        ``length`` tokens; payload rows past them land on the slot's own
-        scratch page."""
+        allocated table row, copy its state leaves into the slot and set
+        its length.  Pages are allocated for ``length`` tokens; payload
+        rows past them land on the slot's own scratch page."""
         blen = kv["_length_bucket"]
         self.ensure_capacity(slot, length)
         row = self.cache["block_table"][slot].long()
         pos = torch.arange(blen, device=self.device)
         page = row[pos // self.page_size]
         off = pos % self.page_size
-        for key, stage in self.cache.items():
-            if key in ("lengths", "block_table"):
-                continue
+        for key, pools in self.model.attention_caches(self.cache):
             for name in ("k", "v"):
-                stage[f"{name}_pages"][:, page, off] = \
+                pools[f"{name}_pages"][:, page, off] = \
                     kv[key][name].to(self.device)
+        for key, name, t, ax in self.model.state_leaves(self.cache):
+            t.select(ax, slot).copy_(kv[key][name])
         self._set_length(slot, length)

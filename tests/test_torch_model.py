@@ -136,10 +136,27 @@ def test_prefill_extend_decode_logits_match_jax(arch, layers):
 
 
 def test_unported_stages_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Model(get_config("zamba2-1.2b-tiny"))
     with pytest.raises(NotImplementedError, match="codebook"):
         Model(get_config("musicgen-large-tiny"))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b-tiny", "xlstm-125m-tiny"])
+def test_recurrent_models_build_and_prefill(arch):
+    """The recurrent and hybrid families build from their configs and run
+    one prefill on the CPU, in the config's bf16 and in f32, to finite
+    logits and a cache holding their recurrent state."""
+    from repro_torch.models.transformer import cast_params, torch_dtype
+    for cfg in (get_config(arch),
+                dataclasses.replace(get_config(arch),
+                                    compute_dtype="float32")):
+        m = Model(cfg)
+        params = cast_params(m.init(torch.Generator().manual_seed(0)),
+                             torch_dtype(cfg.compute_dtype))
+        logits, cache = m.prefill(params,
+                                  torch.arange(20, dtype=torch.int32)[None])
+        assert tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits.float()).all())
+        assert m.state_leaves(cache)
 
 
 def test_writes_past_the_table_land_on_scratch():

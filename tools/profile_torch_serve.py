@@ -1,10 +1,12 @@
 """Where the time goes when the PyTorch port serves on one card.
 
-    python3 tools/profile_torch_serve.py [--arch llama3.1-8b|phimini-moe]
+    python3 tools/profile_torch_serve.py [--arch llama3.1-8b|phimini-moe|
+                                          zamba2-1.2b|xlstm-125m]
 
 Builds a serve of ``chip_smoke.py`` (full-width ``--arch``, llama3.1-8b by
-default, bf16, seeded random weights, 8 requests, chunked prefill of 256,
-batch 8), runs it once without the profiler and once under
+default, bf16, seeded random weights, 8 requests, batch 8: chunked prefill
+of 256 as phase 4 serves, or for the recurrent families phase 7's serve),
+runs it once without the profiler and once under
 ``torch.profiler``, and prints:
 the wall time of each run, the device's busy and idle share of the
 profiled run, device time by kernel class (the port's attention kernels,
@@ -47,7 +49,8 @@ def _kernel_class(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.1-8b",
-                    choices=("llama3.1-8b", "phimini-moe"))
+                    choices=("llama3.1-8b", "phimini-moe", "zamba2-1.2b",
+                             "xlstm-125m"))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -57,8 +60,11 @@ def main(argv=None) -> int:
     import chip_smoke
     torch.backends.cuda.matmul.allow_tf32 = False
     card = chip_smoke.card_and_setup(torch)
+    setup = chip_smoke.recurrent_serve_setup \
+        if args.arch in (chip_smoke.ZAMBA_PATH, chip_smoke.XLSTM_PATH) \
+        else chip_smoke.full_serve_setup
 
-    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch, args.arch)
+    _, eng, drv, reqs = setup(torch, args.arch)
     t0 = time.perf_counter()
     m = drv.run(reqs, warmup=False)
     torch.cuda.synchronize()
@@ -68,7 +74,7 @@ def main(argv=None) -> int:
     gc.collect()             # ServeDriver and its runtime form a cycle
     torch.cuda.empty_cache()
 
-    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch, args.arch)
+    _, eng, drv, reqs = setup(torch, args.arch)
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
