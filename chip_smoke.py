@@ -19,7 +19,8 @@ result line:
    splits and windows, paged extend at speculative verify's shape, B8 S5
    from ragged starts 1..2043 and from page edges, the grouped matmul's
    gate/up and down at every capacity C of 1 to 40, phase 6's
-   per-rank shapes at tp = 2: H16 KV4 and 8 experts, and phase 7's
+   per-rank shapes at tp = 2: H16 KV4 (verify's B8 S5 too) and 8
+   experts, and phase 7's
    zamba2-1.2b shapes, one query head per kv-head at head dim 64: flash
    at S 16 and 256, paged decode at B8 H32 KV32 over the ragged lengths,
    paged extend of 256 from start 293 across page edges); every kernel
@@ -28,7 +29,8 @@ result line:
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
    and down, each at a 256-token chunk and at decode; paged extend also at
-   the verify shape; the three attention kernels also at zamba2-1.2b's
+   the verify shape, and at a rank's verify, B8 S5 H16 KV4, for phase 6's
+   tp = 2 spec serve; the three attention kernels also at zamba2-1.2b's
    H32 KV32 dh64), with the decode kernel's pages per split and split
    count, and the host's time to issue one call of each kernel's wrapper
    (the serves are host-bound);
@@ -78,12 +80,23 @@ result line:
    path, no time of it a TP speed): tiny f32 llama and phimini-moe (expert
    parallel, E4 -> E2 a rank) at tp = 2 emit tp = 1's tokens on the card
    and the CPU, decide alike on both ranks and as the port simulator at
-   tp = 2, and give tp = 1's prefill and decode logits within 1e-5; then
+   tp = 2, and give tp = 1's prefill and decode logits within 1e-5; tiny
+   f32 llama at tp = 2 under P/D (rank r of the prefill engine handing off
+   to rank r of the decode engine), with the prefix store walking device
+   -> host -> SSD -> device (a spill directory a rank), and speculating
+   (k = 3, an unrelated draft replaying an acceptance trace) equals tp =
+   1 on the card in tokens, decisions, handoff bytes, KV-tier counters and
+   ``spec_decode``, and decides as the simulator at tp = 2; then
    full-width bf16 llama3.1-8b and phimini-moe (E16 -> E8) at tp = 2 serve
-   phase 4's 8 requests, every request finishing, both ranks deciding
-   alike, the kernels launched at the rank's shapes (16 query and 4 KV
-   heads, 8 experts: phases 2 and 3 hold and time them there), with the
-   prefill argmax agreement with tp = 1 and each rank's memory printed;
+   phase 4's 8 requests, and llama3.1-8b serves them under P/D (two shards
+   a rank; the handoffs carry tp = 1's payload bytes) and speculating at
+   k = 4 (a tp = 1 draft holding the full weights on each rank, acceptance
+   replayed at alpha 0.6, every arrival at 0; the accepted lengths equal
+   the simulator's at tp = 2), every request finishing, both ranks
+   deciding alike, the kernels launched at the rank's shapes (16 query
+   and 4 KV heads, 8 experts: phases 2 and 3 hold and time them there;
+   the draft at all 32 and 8), with the prefill argmax agreement with
+   tp = 1 and each rank's memory and times printed;
 7. the recurrent and hybrid families: zamba2-1.2b at full width (38
    layers, d_model 2048, bf16, seeded random weights, batch 8, max_len
    2048, chunked prefill of 256) serves 8 requests with prompts of
@@ -130,6 +143,8 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TP = 2
 TP2_PATH = "tp2 llama3.1-8b"
 TP2_MOE_PATH = "tp2 phimini-moe"
+TP2_PD_PATH = "tp2 PD(D) llama3.1-8b"
+TP2_SPEC_PATH = "tp2 spec llama3.1-8b"
 
 
 class SmokeFailure(RuntimeError):
@@ -257,6 +272,9 @@ def paged_cases():
     yield (8, None, 32 // TP, 8 // TP, 128, 64, 32, None,
            (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
     yield 1, 256, 32 // TP, 8 // TP, 128, 64, 32, (293,), (293 + 200,), None
+    # and the rank's verify at k = 4 (phase 6's tp = 2 spec serve)
+    yield (8, 5, 32 // TP, 8 // TP, 128, 64, 32, VERIFY_STARTS,
+           tuple(st + 5 for st in VERIFY_STARTS), None)
     # zamba2-1.2b's shared attention (H32 KV32 dh64, G = 1): decode over
     # the ragged lengths above, and a 256-token chunk from a mid-page start
     # across page edges, full and with a short real tail
@@ -641,6 +659,26 @@ def timings(torch, ops, dev):
                 shape=f"E{E2} C{C} d{d} f{f} bf16, {active} experts active, "
                       f"{rows} rows",
                 bound=bound(nbytes, 2 * rows * d * f))
+    # verify at the rank's heads (phase 6's tp = 2 spec serve): B8 S5 from
+    # the verify row's ragged starts, on the rank's pools (drawn last, so
+    # the rank's rows above keep their draws)
+    S = 5
+    st = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    lt = st + S
+    qv2 = _rand(torch, gen, (B, S, H2, dh), bf, dev)
+    pairs = sum(s0 + s + 1 for s0 in VERIFY_STARTS for s in range(S))
+    nbytes = sum(s0 + S for s0 in VERIFY_STARTS) * KV2 * dh * 2 * 2 \
+        + 2 * qv2.numel() * 2 + table.numel() * 4 + 2 * B * 4
+    out["paged_attention_verify_tp2"] = measure(
+        lambda: ops.paged_attention(qv2, kp2, vp2, table, lt, page_size=ps,
+                                    start=st),
+        lambda: ops.paged_attention_plain(qv2, kp2, vp2, table, lt,
+                                          page_size=ps, start=st),
+        lambda: paged_library(qv2, kp2, vp2, table, lt, st),
+        kernel="paged_attention_extend", path=TP2_SPEC_PATH,
+        shape=f"B{B} S{S} starts{VERIFY_STARTS} H{H2} KV{KV2} dh{dh} "
+              f"ps{ps} bf16",
+        bound=bound(nbytes, 4 * pairs * H2 * dh))
     # zamba2-1.2b's shared attention (phase 7's serve): H32 KV32 dh64, one
     # query head per kv-head; the same chunk, decode and extend shapes as
     # llama's rows, their own generator; launches from the zamba2 serve
@@ -1458,23 +1496,160 @@ def _record_shapes(ops):
     return seen, restore
 
 
-def _full_tp_serve(torch, ops, group, arch):
-    """One rank of a full-width bf16 tp = 2 serve of phase 4's 8 requests
-    (each rank draws the seeded weights and keeps its shard)."""
+#: phase 6's tiny f32 serving techniques at tp = 2 (``_tiny_technique``)
+TINY_TECHNIQUES = ("pd", "prefix", "spec")
+TINY_TRACE = "chip-smoke-tiny-alpha0.6"
+#: the KV-tier counters held to tp = 1 (``tier_move_s`` is wall time)
+KV_COUNTERS = ("residency_blocks", "hit_tokens", "restored_tokens",
+               "restore_events", "tier_moves", "store_residency")
+
+
+def _tiny_acceptance(cfg):
+    from repro_torch.workload.acceptance import (AcceptanceConfig,
+                                                 synthesize_acceptance)
+    return synthesize_acceptance(
+        AcceptanceConfig(alpha=0.6, k=3, period=64, seed=5), model=cfg.name)
+
+
+def _three_tiers(instances):
+    """Three device blocks and one host block, spilling on to the SSD, so
+    the shared-prefix workload's entries walk device -> host -> SSD ->
+    device; counted in blocks, so tp = 1 and tp = 2 walk alike."""
+    for inst in instances:
+        inst.cache.capacity_blocks = 3
+        inst.cache.cfg = dataclasses.replace(inst.cache.cfg, ssd_spill=True)
+        inst.mem.host.capacity = inst.mem.bytes_per_block
+
+
+def _tiny_technique(cfg, params, draft, dev, technique, **engine_kw):
+    """Tiny f32 llama serving one technique on ``dev`` (``engine_kw``: tp
+    and group): "pd", a prefill and a decode engine sharing the weights,
+    at batches of one (the decisions then do not depend on when the
+    handoffs land); "prefix", the prefix store on the two-phase
+    shared-prefix workload through ``_three_tiers``; "spec", k = 3 with
+    an unrelated draft (``draft``: its params) replaying one acceptance
+    trace.  Every arrival at 0 (the prefix workload's phases far apart).
+    Returns what phase 6 holds tp = 2 to tp = 1 and the simulator on."""
+    from repro_torch.core.config import SchedulerCfg
+    from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
+                                   SpecDecodeCfg)
+    kw = dict(max_batch=2, max_len=256, device=dev, **engine_kw)
+    sched = dict(max_batch_size=2, max_batch_tokens=64,
+                 chunked_prefill=True, prefill_chunk=16)
+    reqs, pd_map = _tiny_requests(cfg.vocab), None
+    if technique == "pd":
+        engines = [ServingEngine(cfg, params, name="p0", role="prefill",
+                                 **kw),
+                   ServingEngine(cfg, params, name="d0", role="decode",
+                                 **kw)]
+        pd_map, sched["max_batch_size"] = {"p0": ("d0",)}, 1
+    elif technique == "prefix":
+        engines = [ServingEngine(cfg, params, name="e0", prefix_cache=True,
+                                 **kw)]
+        reqs = _grouped_requests(cfg.vocab)
+    else:
+        engines = [ServingEngine(cfg, params, name="e0", **kw,
+                                 spec=SpecDecodeCfg(
+                                     draft=cfg, k=3, draft_params=draft,
+                                     acceptance=_tiny_acceptance(cfg)))]
+    drv = ServeDriver(engines, DriverCfg(scheduler=SchedulerCfg(**sched)),
+                      pd_map=pd_map)
+    if technique == "prefix":
+        _three_tiers(drv.runtime.instances.values())
+    m = drv.run([dataclasses.replace(r) for r in reqs], warmup=False)
+    check(m["finished"] == len(reqs),
+          f"tiny {technique} on {dev}: finished {m['finished']} of "
+          f"{len(reqs)}")
+    insts = drv.runtime.instances
+    stats = m["instances"]
+    return dict(
+        tokens={n: dict(i.backend.out_tokens) for n, i in insts.items()},
+        decisions={n: list(i.decisions) for n, i in insts.items()},
+        icfgs=[i.cfg for i in insts.values()], pd_map=pd_map,
+        network_bytes=m.get("network_bytes"),
+        kv_tiers={n: s["kv_tiers"] for n, s in stats.items()
+                  if "kv_tiers" in s},
+        spec_decode={n: s["spec_decode"] for n, s in stats.items()
+                     if "spec_decode" in s},
+        ssd_dir=engines[0].radix._ssd_dir if technique == "prefix"
+        else None)
+
+
+def _tiny_technique_sim(cfg, technique, row):
+    """The port simulator at the row's tp on the same workload: its
+    decisions by instance (spec replays the same acceptance trace)."""
+    from repro_torch.core import SpecCfg
+    from repro_torch.profiler import model_spec_from_arch
+    from repro_torch.spec import register_acceptance
+    icfgs = row["icfgs"]
+    if technique == "spec":
+        register_acceptance(TINY_TRACE, _tiny_acceptance(cfg))
+        icfgs = [dataclasses.replace(i, spec=SpecCfg(
+            enabled=True, k=3, acceptance_trace=TINY_TRACE,
+            draft=model_spec_from_arch(cfg))) for i in icfgs]
+    reqs = _grouped_requests(cfg.vocab) if technique == "prefix" \
+        else _tiny_requests(cfg.vocab)
+    return _sim_decisions(icfgs, reqs, row["pd_map"],
+                          tiers=technique == "prefix")[1]
+
+
+def _full_tp_serve(torch, ops, group, arch, technique):
+    """One rank of a full-width bf16 tp = 2 serve of phase 4's 8 requests:
+    "unified" (each rank draws the seeded weights and keeps its shard),
+    "pd" (a prefill and a decode engine, each drawing the seeded weights
+    and keeping its shard: two shards a rank), or "spec" (k = 4, a draft
+    sharing the target's weights, acceptance replayed at alpha 0.6, every
+    arrival at 0; the draft is a tp = 1 engine holding the full weights
+    on the rank, the target's shard cut from them)."""
     from repro_torch.configs import get_config
-    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    from repro_torch.models import Model
+    from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
+                                   SpecDecodeCfg)
+    from repro_torch.workload.acceptance import (AcceptanceConfig,
+                                                 synthesize_acceptance)
+    import torch.distributed as dist
     cfg = get_config(arch)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = ServingEngine(cfg, max_batch=8, max_len=2048, name="e0", seed=0,
-                        tp=group.size, group=group)
-    torch.cuda.synchronize()
-    row = {"made_s": time.perf_counter() - t0,
-           "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "resident_gib": torch.cuda.memory_allocated() / 2**30}
     reqs = serve_requests(cfg.vocab)
-    row["probe"] = probe_logits(torch, eng, reqs)
-    drv = ServeDriver([eng], DriverCfg(scheduler=serve_scheduler()))
+    kw = dict(max_batch=8, max_len=2048, seed=0, tp=group.size, group=group)
+    pd_map = {"p0": ("d0",)} if technique == "pd" else None
+    if technique == "spec":
+        for r in reqs:
+            r.arrival = 0.0
+
+    def build():
+        if technique == "pd":
+            return [ServingEngine(cfg, name="p0", role="prefill", **kw),
+                    ServingEngine(cfg, name="d0", role="decode", **kw)]
+        if technique == "unified":
+            return [ServingEngine(cfg, name="e0", **kw)]
+        params = Model(cfg).init(
+            torch.Generator(device=group.device).manual_seed(0),
+            device=group.device, dtype=torch.bfloat16)
+        trace = synthesize_acceptance(AcceptanceConfig(alpha=0.6, k=SPEC_K),
+                                      model=cfg.name)
+        return [ServingEngine(cfg, params, name="e0", **kw,
+                              spec=SpecDecodeCfg(draft=cfg, k=SPEC_K,
+                                                 acceptance=trace,
+                                                 draft_params=params))]
+
+    # the ranks build in turn: a seeded draw of the full weights (its f32
+    # temporaries included) holds about twice a shard until the engine
+    # frees it, too much for both ranks at once on one card
+    for turn in range(group.size):
+        if turn == group.rank:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engines = build()
+            torch.cuda.synchronize()
+            row = {"made_s": time.perf_counter() - t0,
+                   "init_peak_gib": torch.cuda.max_memory_allocated()
+                   / 2**30,
+                   "resident_gib": torch.cuda.memory_allocated() / 2**30}
+        dist.barrier()
+    if technique == "unified":
+        row["probe"] = probe_logits(torch, engines[0], reqs)
+    drv = ServeDriver(engines, DriverCfg(scheduler=serve_scheduler()),
+                      pd_map=pd_map)
     drv.runtime.warmup()
     torch.cuda.reset_peak_memory_stats()
     seen, restore = _record_shapes(ops)
@@ -1489,33 +1664,50 @@ def _full_tp_serve(torch, ops, group, arch):
     row["launches"] = ops.launch_counts()
     row["shapes"] = sorted(seen)
     row["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    backend = drv.runtime.instances["e0"].backend
+    insts = drv.runtime.instances
+    out = {rid: toks for i in insts.values()
+           for rid, toks in i.backend.out_tokens.items()}
     row["finished"] = m["finished"]
+    row["prompt_lens"] = [r.prompt_len for r in drv.finished]
     row["tokens_ok"] = all(
-        len(backend.out_tokens[r.req_id]) == r.output_len
-        and all(0 <= t < cfg.vocab for t in backend.out_tokens[r.req_id])
+        len(out[r.req_id]) == r.output_len
+        and all(0 <= t < cfg.vocab for t in out[r.req_id])
         for r in drv.finished)
-    row["decisions"] = list(drv.runtime.instances["e0"].decisions)
+    row["decisions"] = {n: list(i.decisions) for n, i in insts.items()}
+    row["icfgs"] = [i.cfg for i in insts.values()]
+    row["network_bytes"] = m.get("network_bytes")
+    row["spec_decode"] = m["instances"][engines[0].name].get("spec_decode")
     row["ttft_p50_ms"] = statistics.median(r.ttft() for r in drv.finished) \
         * 1e3
     row["tpot_p50_ms"] = statistics.median(
         r.tpot() for r in drv.finished if r.tpot() is not None) * 1e3
     row["n_out"] = sum(r.output_len for r in drv.finished)
-    del eng, drv, backend
+    del engines, drv, insts, m
     gc.collect()                # ServeDriver and its runtime form a cycle
     torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 2**30,
+          f"rank {group.rank}: {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB still allocated after the {technique} {arch} serve")
     return row
+
+
+#: phase 6's full-width tp = 2 serves: (by-path key, arch, technique)
+FULL_TP = ((TP2_PATH, "llama3.1-8b", "unified"),
+           (TP2_MOE_PATH, "phimini-moe", "unified"),
+           (TP2_PD_PATH, "llama3.1-8b", "pd"),
+           (TP2_SPEC_PATH, "llama3.1-8b", "spec"))
 
 
 def _tp2_rank(group, job):
     """One of phase 6's two ranks on the card: the tiny f32 serves and
-    logits, then the full-width bf16 serves."""
+    logits, the tiny serving techniques, then the full-width bf16
+    serves."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.serve import ServingEngine
     out = {"backend": group.backend, "device": str(group.device),
-           "tiny": {}, "full": {}}
+           "tiny": {}, "tech": {}, "full": {}}
     for arch, params in job["tiny"]:
         cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
         ops.reset_launch_counts()
@@ -1528,16 +1720,208 @@ def _tp2_rank(group, job):
         out["tiny"][arch] = dict(tokens=toks, decisions=dec, icfg=icfg,
                                  launches=launches,
                                  logits=tiny_logits(torch, eng))
+    cfg = dataclasses.replace(get_config(TINY_ARCHS[0]),
+                              compute_dtype="float32")
+    for technique in TINY_TECHNIQUES:
+        ops.reset_launch_counts()
+        row = _tiny_technique(cfg, job["tiny"][0][1], job["draft"],
+                              group.device, technique, tp=group.size,
+                              group=group)
+        row["launches"] = ops.launch_counts()
+        out["tech"][technique] = row
     out["cut"] = {}
-    for arch in job["full"]:
+    for arch in job["cut"]:
         eng = ServingEngine(depth_cut_f32(get_config(arch)), max_batch=2,
                             max_len=128, seed=0, tp=group.size, group=group)
         out["cut"][arch] = tiny_logits(torch, eng)
         del eng
         torch.cuda.empty_cache()
-    for arch in job["full"]:
-        out["full"][arch] = _full_tp_serve(torch, ops, group, arch)
+    for path, arch, technique in FULL_TP:
+        out["full"][path] = _full_tp_serve(torch, ops, group, arch,
+                                           technique)
     return out
+
+
+def _tiny_techniques_check(ranks, refs, cfg, by_path):
+    """Phase 6 (b'): each tiny technique at tp = 2 against tp = 1 on the
+    card and the port simulator at tp = 2."""
+    must = ("flash_attention", "paged_attention_decode",
+            "paged_attention_extend")
+    for technique in TINY_TECHNIQUES:
+        r0, r1 = (r["tech"][technique] for r in ranks)
+        ref = refs[technique]
+        sim = _tiny_technique_sim(cfg, technique, r0)
+        check(r0["tokens"] == r1["tokens"] == ref["tokens"]
+              and r0["decisions"] == r1["decisions"] == ref["decisions"]
+              == sim
+              and all(r0["launches"][k] > 0 for k in must)
+              and all(i.parallelism.tp == TP for i in r0["icfgs"]),
+              f"tiny {technique} at tp = 2 on the card: tokens, decisions "
+              f"(== tp = 1 {r0['decisions'] == ref['decisions']}, == sim "
+              f"{r0['decisions'] == sim}) or launches {r0['launches']} "
+              f"differ")
+        what = ""
+        if technique == "pd":
+            nb = (r0["network_bytes"], r1["network_bytes"],
+                  ref["network_bytes"])
+            check(nb[0] == nb[1] == nb[2] and nb[2]["d0<->p0"] > 0,
+                  f"tiny P/D at tp = 2: handoff bytes {nb} (ranks, tp = 1)")
+            what = f"handoff bytes {nb[0]['d0<->p0']:.0f} == tp = 1's"
+        elif technique == "prefix":
+            kv = [r["kv_tiers"]["e0"] for r in (r0, r1, ref)]
+            blocks = [{p: t["blocks"] for p, t in k["transfers"].items()}
+                      for k in kv]
+            half = [{p: t["bytes"] * (2 if i < 2 else 1)
+                     for p, t in k["transfers"].items()}
+                    for i, k in enumerate(kv)]
+            check(all(kv[0][c] == kv[1][c] == kv[2][c] for c in KV_COUNTERS)
+                  and blocks[0] == blocks[1] == blocks[2]
+                  and half[0] == half[1] == half[2]
+                  and {"device->host", "host->ssd", "ssd->device"}
+                  <= set(blocks[0]) and kv[0]["restore_events"] > 0
+                  and kv[0]["tier_move_s"] == kv[1]["tier_move_s"]
+                  and r0["ssd_dir"] and r1["ssd_dir"]
+                  and r0["ssd_dir"] != r1["ssd_dir"],
+                  f"tiny prefix store at tp = 2: KV-tier counters "
+                  f"{[{c: k[c] for c in KV_COUNTERS} for k in kv]}, "
+                  f"transfers {blocks}, spill dirs "
+                  f"{r0['ssd_dir']} / {r1['ssd_dir']}")
+            what = (f"KV-tier counters == tp = 1's, transfers {blocks[0]} "
+                    f"(a rank's half of tp = 1's bytes), "
+                    f"{kv[0]['restored_tokens']} tokens restored, a spill "
+                    f"directory a rank")
+        else:
+            sd = [{k: (v if k != "step_timeline" else
+                       [e[1:] for e in v])
+                   for k, v in r["spec_decode"]["e0"].items()}
+                  for r in (r0, r1, ref)]
+            check(sd[0] == sd[1] == sd[2] and sd[0]["steps"] > 0,
+                  f"tiny spec at tp = 2: spec_decode differs from tp = 1")
+            what = (f"spec_decode == tp = 1's ({sd[0]['steps']} steps, "
+                    f"acceptance rate {sd[0]['acceptance_rate']:.3f})")
+        by_path[f"tp2 {technique} {TINY_ARCHS[0]}"] = r0["launches"]
+        print(f"phase 6: tiny llama f32 {technique} at tp = 2 (two ranks on "
+              f"the card): tokens and decisions == tp = 1 on the card == the "
+              f"simulator's at tp = 2 on both ranks; {what}; launches "
+              f"{json.dumps(r0['launches'])}")
+
+
+def _sim_decisions(icfgs, reqs, pd_map=None, tiers=False):
+    """The port simulator at the InstanceCfgs' tp (2) on ``reqs``, its
+    prefix caches held to ``_three_tiers`` when ``tiers``: (its metrics,
+    its decisions by instance)."""
+    from repro_torch.core import ClusterCfg, RouterCfg
+    from repro_torch.core.cluster import Cluster
+    check(all(i.parallelism.tp == TP for i in icfgs),
+          f"sim twin at tp {[i.parallelism.tp for i in icfgs]}")
+    sim = Cluster(ClusterCfg(instances=tuple(icfgs),
+                             router=RouterCfg("round_robin"),
+                             pd_map=pd_map))
+    if tiers:
+        _three_tiers(sim.instances.values())
+    sim.submit_workload([dataclasses.replace(r) for r in reqs])
+    sm = sim.run()
+    check(sm["finished"] == len(reqs), "sim twin: unfinished")
+    return sm, {n: list(i.decisions) for n, i in sim.instances.items()}
+
+
+def _full_tp_check(card, path, arch, technique, r0, r1, probes):
+    """Phase 6 (c): one full-width tp = 2 serve's two rank rows.  Every
+    request finishes with tokens in the vocab, both ranks decide alike,
+    the kernels launch at the rank's shapes (and, speculating, the tp = 1
+    draft's); unified: the prefill argmax agreement with tp = 1; P/D: the
+    handoff bytes equal tp = 1's payloads; spec: the per-step accepted
+    lengths equal the simulator's at tp = 2.  Prints each rank's memory
+    and times, two ranks sharing one card (not a TP speed)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import SpecCfg
+    from repro_torch.profiler import model_spec_from_arch
+    from repro_torch.serve.engine import _bucket
+    from repro_torch.spec import register_acceptance
+    from repro_torch.workload.acceptance import (AcceptanceConfig,
+                                                 synthesize_acceptance)
+    cfg = get_config(arch)
+    H, KV = cfg.n_heads // TP, cfg.n_kv_heads // TP
+    want = {("flash_attention", H, KV), ("paged_attention", H, KV)}
+    if cfg.moe is not None:
+        want.add(("moe_gmm", cfg.moe.n_experts // TP))
+    if technique == "spec":         # the tp = 1 draft: every head
+        want |= {("flash_attention", cfg.n_heads, cfg.n_kv_heads),
+                 ("paged_attention", cfg.n_heads, cfg.n_kv_heads)}
+    reqs = serve_requests(cfg.vocab)
+    n_dec = sum(len(d) for d in r0["decisions"].values())
+    check(r0["finished"] == r1["finished"] == len(reqs)
+          and r0["tokens_ok"] and r1["tokens_ok"]
+          and r0["decisions"] == r1["decisions"]
+          and set(r0["shapes"]) == set(r1["shapes"]) == want,
+          f"{path} at tp = 2: finished {r0['finished']}/{r1['finished']}, "
+          f"decisions equal {r0['decisions'] == r1['decisions']}, shapes "
+          f"{r0['shapes']} (want {sorted(want)})")
+    if technique == "unified":
+        check(all(np.isfinite(r["probe"]).all() for r in (r0, r1)),
+              f"{path}: probe logits not finite")
+        ref = probes[arch]
+        agree = int((r0["probe"].argmax(-1) == ref.argmax(-1)).sum())
+        diff = float(np.abs(r0["probe"] - ref).max())
+        what = (f"prefill argmax agrees with tp = 1 on {agree} of "
+                f"{ref.shape[0]} prompts (128 tokens, max |logit diff| "
+                f"{diff:.3g})")
+    elif technique == "pd":
+        # the group's bytes: tp = 1's bucketed payload of each prompt
+        per_row = 2 * sum(st.n_layers for st in cfg.stages) \
+            * cfg.n_kv_heads * cfg.d_head * 2
+        want_b = sum(per_row * _bucket(n) for n in r0["prompt_lens"])
+        nb = (r0["network_bytes"], r1["network_bytes"])
+        check(nb[0] == nb[1] and nb[0]["d0<->p0"] == want_b,
+              f"{path}: handoff bytes {nb}, want {want_b} (tp = 1's "
+              f"payloads)")
+        what = (f"{nb[0]['d0<->p0']:.0f} handoff bytes on both ranks == tp "
+                f"= 1's payloads")
+    else:
+        name = f"chip-smoke-tp2-{cfg.name}"
+        register_acceptance(name, synthesize_acceptance(
+            AcceptanceConfig(alpha=0.6, k=SPEC_K), model=cfg.name))
+        icfgs = [dataclasses.replace(i, spec=SpecCfg(
+            enabled=True, k=SPEC_K, acceptance_trace=name,
+            draft=model_spec_from_arch(cfg))) for i in r0["icfgs"]]
+        sm, sdec = _sim_decisions(icfgs, [dataclasses.replace(
+            r, arrival=0.0) for r in reqs])
+        sd = (r0["spec_decode"], r1["spec_decode"],
+              sm["instances"]["e0"]["spec_decode"])
+        steps = [[(p, a) for _, p, a in s["step_timeline"]] for s in sd]
+        verify_calls = sum(any(w[1] == "decode" for w in it)
+                           for it in r0["decisions"]["e0"])
+        layers = sum(st.n_layers for st in cfg.stages)
+        check(steps[0] == steps[1] == steps[2] and len(steps[0]) > 0
+              and sd[0]["accepted_hist"] == sd[2]["accepted_hist"]
+              and r0["decisions"] == sdec
+              and r0["launches"]["paged_attention_extend"]
+              >= verify_calls * layers > 0,
+              f"{path}: the ranks' accepted lengths or decisions differ "
+              f"from each other or the simulator's at tp = 2, or fewer "
+              f"extend launches than {verify_calls} verify calls need")
+        what = (f"per-step accepted lengths == the simulator's at tp = 2 "
+                f"({len(steps[0])} steps, mean accepted "
+                f"{sd[0]['mean_accepted_len']:.3f}); {verify_calls} verify "
+                f"calls = {verify_calls * layers} paged extend "
+                f"launches at B8 S<=5 H{H} KV{KV}")
+    print(f"phase 6 [{card}] {path} bf16, two ranks sharing one card "
+          f"(gloo), 8 requests: all finished, {n_dec} decisions equal on "
+          f"both ranks; kernels launched at {r0['shapes']}; {what}; per "
+          f"rank: resident {r0['resident_gib']:.2f} / "
+          f"{r1['resident_gib']:.2f} GiB, peak while making the engines "
+          f"{r0['init_peak_gib']:.2f} / {r1['init_peak_gib']:.2f} GiB, peak "
+          f"while serving {r0['serve_peak_gib']:.2f} / "
+          f"{r1['serve_peak_gib']:.2f} GiB")
+    print(f"  two ranks sharing one card, not a TP speed: TTFT p50 "
+          f"{r0['ttft_p50_ms']:.1f} / {r1['ttft_p50_ms']:.1f} ms, TPOT p50 "
+          f"{r0['tpot_p50_ms']:.2f} / {r1['tpot_p50_ms']:.2f} ms, "
+          f"{r0['n_out'] / r0['wall_s']:.1f} / "
+          f"{r1['n_out'] / r1['wall_s']:.1f} output tok/s over wall "
+          f"{r0['wall_s']:.2f} / {r1['wall_s']:.2f} s (rank 0 / 1); engines "
+          f"made in {r0['made_s']:.1f} s; launches "
+          f"{json.dumps(r0['launches'])}")
 
 
 def tp2_on_card(torch, card, probes):
@@ -1547,17 +1931,22 @@ def tp2_on_card(torch, card, probes):
     (b) tiny f32 llama and phimini-moe (expert parallel, E4 -> E2 a rank):
     tokens == tp = 1 on the card == the CPU's, decisions equal on both
     ranks and == the port simulator's at tp = 2, prefill and decode logits
-    within 1e-5 of tp = 1.  (c) full-width bf16 llama3.1-8b and
-    phimini-moe (E16 -> E8) serving phase 4's 8 requests: every request
+    within 1e-5 of tp = 1; then tiny f32 llama under P/D, with the prefix
+    store walking device -> host -> SSD -> device, and speculating:
+    tokens, decisions, handoff bytes, KV-tier counters and
+    ``spec_decode`` == tp = 1 on the card, decisions == the simulator's
+    at tp = 2.  (c) full-width bf16 llama3.1-8b and phimini-moe (E16 ->
+    E8) serving phase 4's 8 requests, and llama3.1-8b under P/D (two
+    shards a rank) and speculating at k = 4 (a tp = 1 draft a rank, its
+    accepted lengths == the simulator's at tp = 2): every request
     finishes, both ranks decide alike, the kernels launch at the rank's
-    shapes (16 query, 4 KV heads; 8 experts), and the prefill argmax
-    agreement with tp = 1 is printed.  Between them, both models at
-    published width in f32 cut to 2 layers: logits within 1e-4 of tp = 1.
-    Returns the launch counts of each tp = 2 path (rank 0's)."""
+    shapes (16 query, 4 KV heads; 8 experts; the draft at the full 32 and
+    8), and the prefill argmax agreement with tp = 1 is printed.  Between
+    them, both models at published width in f32 cut to 2 layers: logits
+    within 1e-4 of tp = 1.  Returns the launch counts of each tp = 2 path
+    (rank 0's)."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.core import ClusterCfg, RouterCfg
-    from repro_torch.core.cluster import Cluster
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import Model
     from repro_torch.serve import ServingEngine
@@ -1571,16 +1960,22 @@ def tp2_on_card(torch, card, probes):
             cpu=_tiny_run(torch, arch, params, "cpu")[:2],
             logits=tiny_logits(torch, ServingEngine(
                 cfg, params, max_batch=2, max_len=128, device="cuda")))
-    full = [arch for arch, _ in PATHS]
+    llama = dataclasses.replace(get_config(TINY_ARCHS[0]),
+                                compute_dtype="float32")
+    draft = Model(llama).init(torch.Generator().manual_seed(7))
+    tech_refs = {t: _tiny_technique(llama, tiny[0][1], draft, "cuda", t)
+                 for t in TINY_TECHNIQUES}
+    cut_archs = [arch for _, arch, t in FULL_TP if t == "unified"]
     cut = {}
-    for arch in full:
+    for arch in cut_archs:
         cut[arch] = tiny_logits(torch, ServingEngine(
             depth_cut_f32(get_config(arch)), max_batch=2, max_len=128,
             seed=0))
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = run_ranks(_tp2_rank, TP, {"tiny": tiny, "full": full},
+    ranks = run_ranks(_tp2_rank, TP, {"tiny": tiny, "draft": draft,
+                                      "cut": cut_archs},
                       device="cuda", devices=["cuda:0"] * TP,
                       timeout_s=600)
     wall = time.perf_counter() - t0
@@ -1588,16 +1983,6 @@ def tp2_on_card(torch, card, probes):
               for r in ranks),
           f"tp = 2 ranks: {[(r['backend'], r['device']) for r in ranks]}")
     by_path = {}
-
-    def sim_decisions(icfg, reqs):
-        check(icfg.parallelism.tp == TP, f"sim twin at tp "
-                                         f"{icfg.parallelism.tp}")
-        sim = Cluster(ClusterCfg(instances=(icfg,),
-                                 router=RouterCfg("round_robin")))
-        sim.submit_workload([dataclasses.replace(r) for r in reqs])
-        check(sim.run()["finished"] == len(reqs), "sim twin: unfinished")
-        return list(sim.instances["e0"].decisions)
-
     for arch in TINY_ARCHS:
         r0, r1 = (r["tiny"][arch] for r in ranks)
         ref = refs[arch]
@@ -1613,7 +1998,8 @@ def tp2_on_card(torch, card, probes):
         check(r0["tokens"] == r1["tokens"] == ref["card"][0]
               == ref["cpu"][0]
               and r0["decisions"] == r1["decisions"] == ref["card"][1]
-              == sim_decisions(r0["icfg"], _tiny_requests(vocab))
+              == _sim_decisions([r0["icfg"]],
+                                _tiny_requests(vocab))[1]["e0"]
               and close and all(r0["launches"][k] > 0 for k in must),
               f"tiny {arch} at tp = 2 on the card: tokens, decisions, "
               f"logits (max err {err:.3g}) or launches "
@@ -1624,7 +2010,8 @@ def tp2_on_card(torch, card, probes):
               f"{len(r0['decisions'])} decisions equal on both ranks and "
               f"== the simulator's at tp = 2, logits max err {err:.3g} "
               f"(tol 1e-5); launches {json.dumps(r0['launches'])}")
-    for arch in full:
+    _tiny_techniques_check(ranks, tech_refs, llama, by_path)
+    for arch in cut_archs:
         # published widths, f32, two layers: the sharded path itself
         # (expert parallel E16 -> E8 for phimini-moe) against tp = 1, with
         # no bf16 rounding for the ranks' other summation order to move
@@ -1638,43 +2025,10 @@ def tp2_on_card(torch, card, probes):
         print(f"phase 6: {arch} at published widths, f32, 2 layers, tp = 2 "
               f"on the card: prefill and decode logits max err {err:.3g} "
               f"against tp = 1 (tol {TOL['float32']})")
-    for arch, path in (("llama3.1-8b", TP2_PATH),
-                       ("phimini-moe", TP2_MOE_PATH)):
-        cfg = get_config(arch)
-        r0, r1 = (r["full"][arch] for r in ranks)
-        H, KV = cfg.n_heads // TP, cfg.n_kv_heads // TP
-        want = {("flash_attention", H, KV), ("paged_attention", H, KV)}
-        if cfg.moe is not None:
-            want.add(("moe_gmm", cfg.moe.n_experts // TP))
-        reqs = serve_requests(cfg.vocab)
-        check(r0["finished"] == r1["finished"] == len(reqs)
-              and r0["tokens_ok"] and r1["tokens_ok"]
-              and r0["decisions"] == r1["decisions"]
-              and set(r0["shapes"]) == set(r1["shapes"]) == want
-              and all(np.isfinite(r["probe"]).all() for r in (r0, r1)),
-              f"{arch} at tp = 2: finished {r0['finished']}/{r1['finished']}"
-              f", decisions equal {r0['decisions'] == r1['decisions']}, "
-              f"shapes {r0['shapes']} (want {sorted(want)})")
-        ref = probes[arch]
-        agree = int((r0["probe"].argmax(-1) == ref.argmax(-1)).sum())
-        diff = float(np.abs(r0["probe"] - ref).max())
+    for path, arch, technique in FULL_TP:
+        r0, r1 = (r["full"][path] for r in ranks)
         by_path[path] = r0["launches"]
-        print(f"phase 6 [{card}] {arch} bf16 at tp = 2, two ranks sharing "
-              f"one card (gloo), 8 requests: all finished, decisions equal "
-              f"on both ranks ({len(r0['decisions'])}); kernels launched "
-              f"at {r0['shapes']}; prefill argmax agrees with tp = 1 on "
-              f"{agree} of {ref.shape[0]} prompts (128 tokens, max |logit "
-              f"diff| {diff:.3g}); per rank: resident "
-              f"{r0['resident_gib']:.2f} / {r1['resident_gib']:.2f} GiB, "
-              f"peak while making the shard {r0['init_peak_gib']:.2f} / "
-              f"{r1['init_peak_gib']:.2f} GiB, peak while serving "
-              f"{r0['serve_peak_gib']:.2f} / {r1['serve_peak_gib']:.2f} GiB")
-        print(f"  two ranks sharing one card, not a TP speed: TTFT p50 "
-              f"{r0['ttft_p50_ms']:.1f} ms, TPOT p50 "
-              f"{r0['tpot_p50_ms']:.2f} ms, {r0['n_out'] / r0['wall_s']:.1f}"
-              f" output tok/s over wall {r0['wall_s']:.2f} s; shard made in "
-              f"{r0['made_s']:.1f} s; launches "
-              f"{json.dumps(r0['launches'])}")
+        _full_tp_check(card, path, arch, technique, r0, r1, probes)
     print(f"phase 6: the two ranks ran {wall:.1f} s (spawn included)")
     return by_path
 

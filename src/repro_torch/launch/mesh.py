@@ -4,10 +4,12 @@ The counterpart of ``make_engine_mesh`` (``repro/launch/mesh.py``).  JAX
 gets tensor parallelism from GSPMD under one controller over a (1, tp)
 mesh; the port runs one process per rank and makes the collectives
 explicit over ``torch.distributed``.  An :class:`EngineGroup` is one rank's
-view of its group: rank, world size, its device, and the three
-collectives the model needs (all-reduce sum, all-reduce max, all-gather
-on the last dim).  The tp = 1 engine has no group and calls none of them,
-so it launches exactly what it launched before tensor parallelism.
+view of its group: rank, world size, its device, the three collectives
+the model needs (all-reduce sum, all-reduce max, all-gather on the last
+dim), and the engine's bookkeeping over the ranks (the slowest rank's
+time, a count summed over the ranks, a guard that the ranks agree).  The
+tp = 1 engine has no group and calls none of them, so it launches exactly
+what it launched before tensor parallelism.
 
 Backends: gloo on the CPU; NCCL with one rank per card (rank r on
 ``cuda:r``).  Fewer visible cards than tp raises.  Several ranks on one
@@ -71,13 +73,38 @@ class EngineGroup:
         dist.all_gather(parts, x)
         return torch.cat(parts, dim=-1)
 
+    def _host_side(self):
+        """Where a small bookkeeping tensor lives for a collective: the
+        card under NCCL, the host under gloo."""
+        return self.device if self.backend == "nccl" else "cpu"
+
     def slowest(self, seconds: float) -> float:
         """The largest of the ranks' ``seconds``: a tensor-parallel step
         ends when its slowest rank ends, and every rank must hand the
         runtime the same latency, or their schedules part."""
-        dev = self.device if self.backend == "nccl" else "cpu"
-        t = torch.tensor([seconds], dtype=torch.float64, device=dev)
+        t = torch.tensor([seconds], dtype=torch.float64,
+                         device=self._host_side())
         return float(self.all_reduce_max(t).item())
+
+    def total(self, value: int) -> int:
+        """The sum of the ranks' ``value`` (an integer count), the same on
+        every rank."""
+        t = torch.tensor([value], dtype=torch.int64,
+                         device=self._host_side())
+        return int(self.all_reduce_sum(t).item())
+
+    def check_equal(self, values, what: str) -> None:
+        """Raise on every rank unless every rank holds the same integer
+        ``values`` (one fixed-length vector a rank): a guard before the
+        ranks part, which would otherwise hang the next collective."""
+        t = torch.as_tensor(list(values), dtype=torch.int64).to(
+            self._host_side())
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t)
+        if any(not torch.equal(p, parts[0]) for p in parts[1:]):
+            raise RuntimeError(
+                f"engine group: the ranks' {what} differ: "
+                f"{[p.tolist() for p in parts]}")
 
 
 def make_engine_group(tp: int, rank: int, *, init_method: str,

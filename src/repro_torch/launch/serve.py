@@ -16,9 +16,13 @@ at ``--alpha``.
 ``--tp k`` spawns k ranks (``repro_torch.launch.mesh.run_ranks``), each
 running the same driver on its shard of the same seeded weights: NCCL with
 one card a rank (fewer cards than k refuse), gloo with ``--device cpu``.
-The ranks' decisions must agree; rank 0's metrics are printed.  P/D, the
-prefix store and speculative decoding at tp > 1 refuse (ROADMAP queue 1
-item 3).
+The ranks' decisions must agree; rank 0's metrics are printed.  ``--pd``,
+``--prefix-cache`` and ``--spec-k`` combine with it: every engine of the
+serve has the one ``--tp``, and rank r of the prefill engine hands off to
+rank r of the decode engine.  Without a draft each engine draws the seeded
+weights itself and keeps only its shard, so no full copy outlives its
+construction; with one the full weights are the draft's (a tp = 1 engine
+on every rank) and the target cuts its shard from them.
 
 The recurrent and hybrid families serve too (``--arch zamba2-1.2b``,
 ``--arch xlstm-125m``; their ``-tiny`` variants with ``--device cpu``);
@@ -39,8 +43,7 @@ from repro_torch.models import Model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
                                SpecDecodeCfg)
-from repro_torch.serve.engine import (refuse_unported_at_tp,
-                                      refuse_unported_recurrent,
+from repro_torch.serve.engine import (refuse_unported_recurrent,
                                       resolve_device)
 from repro_torch.workload import ShareGPTConfig, generate
 from repro_torch.workload.acceptance import (AcceptanceConfig,
@@ -85,13 +88,6 @@ def main(argv=None):
     if args.tp == 1:
         m = serve(args)[0]
     else:
-        try:
-            refuse_unported_at_tp(args.tp, role="prefill" if args.pd
-                                  else "unified",
-                                  prefix_cache=args.prefix_cache,
-                                  spec=args.spec_k or None)
-        except NotImplementedError as e:
-            raise SystemExit(f"--tp {args.tp}: {e}") from None
         from repro_torch.launch.mesh import run_ranks, visible_devices
         kind = torch.device(args.device).type
         n = visible_devices(kind)
@@ -122,11 +118,15 @@ def serve(args, group=None):
               device=args.device if group is None else group.device,
               group=group)
     # the weights every engine shares (and a default draft with them);
-    # every rank draws the same full weights and keeps its shard
-    dev = resolve_device(kw["device"])
-    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
-                             device=dev,
-                             dtype=torch_dtype(cfg.compute_dtype))
+    # at tp > 1 without a draft each engine draws them from the same seed
+    # and keeps its shard (None), so the full draw is freed before the
+    # engine's pools are allocated
+    params = None
+    if group is None or args.spec_k > 0:
+        dev = resolve_device(kw["device"])
+        params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 device=dev,
+                                 dtype=torch_dtype(cfg.compute_dtype))
     spec = None
     if args.spec_k > 0:
         acceptance = None

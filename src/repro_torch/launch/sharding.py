@@ -71,6 +71,18 @@ def kv_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
     return lo // G, (hi - 1) // G + 1
 
 
+def owned_kv_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
+    """The KV heads ``[lo, hi)`` that ``rank`` owns: those of
+    :func:`kv_heads` that no lower rank holds, so that over the ranks every
+    KV head is owned once (a head held by several ranks, where the KV heads
+    do not divide tp, belongs to the lowest).  Counting a payload's bytes
+    by owned heads gives the group the tp = 1 payload's size."""
+    lo, hi = kv_heads(cfg, rank, tp)
+    if rank > 0:
+        lo = max(lo, kv_heads(cfg, rank - 1, tp)[1])
+    return lo, max(lo, hi)
+
+
 def experts_parallel(cfg: ArchConfig, tp: int) -> bool:
     """Expert parallelism when the experts divide tp (the JAX rule)."""
     return cfg.moe is not None and cfg.moe.n_experts % tp == 0

@@ -54,7 +54,14 @@ measures its own wall time, so ``execute`` hands the runtime the group's
 largest (``ServingEngine.slowest``, an all-reduce MAX, the carried wall
 time included): a TP iteration ends when its slowest rank ends, and
 identical latencies keep the ranks' schedules, allocators and collectives
-in step.  Every rank samples from the same all-gathered logits.
+in step.  Every rank samples from the same all-gathered logits.  Under
+P/D a rank exports and imports its own KV heads, and the handoff carries
+the group's bytes (``ServingEngine.handoff_nbytes``), so the network
+delay, and with it the decode admission, is the same on every rank.  The
+prefix store's counts (restored tokens, store residency) count tokens and
+entries, the same on every rank; a tier move's time is the slowest
+rank's.  A speculative step checks that the ranks accepted alike (one
+all-gather of the accepted lengths) and raises if they did not.
 """
 from __future__ import annotations
 
@@ -382,6 +389,7 @@ class TorchBackend:
         matched = accept_length(drafts, target)
 
         # 4. acceptance and rollback per scheduled slot
+        acc = np.full((eng.max_batch,), -1, np.int64)
         for w in decodes:
             req = w.request
             slot = self._slot[req.req_id]
@@ -395,6 +403,7 @@ class TorchBackend:
             # a slot near its output budget verified only k_eff positions
             # (the target's later rows are padding), so clamp first
             accepted = min(accepted, k_eff[slot])
+            acc[slot] = accepted
             if recorder is not None:
                 recorder.observe(pos, min(int(matched[slot]), k_eff[slot]))
             if self.spec_tracker is not None:
@@ -421,6 +430,12 @@ class TorchBackend:
                               req=req.req_id, tenant=req.tenant,
                               payload={"accepted": int(accepted),
                                        "proposed": int(k_eff[slot])})
+
+        if eng.group is not None:
+            # acceptance is a function of the gathered logits and the
+            # replicated draft, so every rank accepts alike; ranks that
+            # parted would hang the next collective, so check each step
+            eng.group.check_equal(acc, "accepted lengths")
 
         # 5. authoritative lengths on both caches: verify bumped the
         # scheduled slots to the full window, the draft decodes every row;
@@ -547,7 +562,7 @@ class TorchBackend:
         self.eng.synchronize()    # the move's copies, not their enqueue
         dt = time.perf_counter() - t0
         self._carry_s += dt
-        self._tier_move_s += dt
+        self._tier_move_s += self.eng.slowest(dt)
         self._tier_moves += 1
 
     def kv_tier_stats(self) -> dict:
@@ -587,9 +602,7 @@ class TorchBackend:
         length = self._len[slot]
         kv = self.eng._export_slot(slot, length)
         first = int(self.eng._tokens_buf[slot, 0])
-        nbytes = float(sum(t.nbytes for key, layer in kv.items()
-                           if not key.startswith("_")
-                           for t in layer.values()))
+        nbytes = self.eng.handoff_nbytes(kv)
         self.release(req)
         self._carry_s += time.perf_counter() - t0
         return KvHandoff(nbytes=nbytes,

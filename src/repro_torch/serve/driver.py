@@ -4,7 +4,8 @@ The port of ``repro/serve/driver.py``: N ``ServingEngine`` instances
 become runtime instances with ``TorchBackend`` execution on the copied
 ``ServingRuntime``, so routing, scheduling and virtual time are the same
 code the JAX driver runs and a difference between the two drivers is a
-difference in the engine.
+difference in the engine.  A ``pd_map`` pairing engines of different
+tensor-parallel degrees raises (``refuse_pd_across_tp``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch.core.request import SimRequest
 from repro_torch.profiler import model_spec_from_arch
 from repro_torch.runtime.backends.torch_engine import TorchBackend
 from repro_torch.runtime.cluster import ServingRuntime
-from repro_torch.serve.engine import ServingEngine
+from repro_torch.serve.engine import ServingEngine, refuse_pd_across_tp
 from repro_torch.workload.sharegpt import Request
 
 
@@ -104,6 +105,10 @@ class ServeDriver:
                  recorder=None):
         self.cfg = cfg
         self.engines = {e.name: e for e in engines}
+        for src, dsts in (pd_map or {}).items():
+            for dst in dsts:
+                if src in self.engines and dst in self.engines:
+                    refuse_pd_across_tp(self.engines[src], self.engines[dst])
         ccfg = ClusterCfg(
             instances=tuple(engine_instance_cfg(e, cfg.scheduler)
                             for e in engines),

@@ -33,8 +33,17 @@ params come in the JAX layout and each rank keeps its shard
 model's collectives complete every layer.  The page allocator and the
 block table are the same on every rank because every rank's runtime makes
 the same decisions (``TorchBackend`` hands it the slowest rank's
-latency).  P/D roles, the prefix store and speculative decoding at tp > 1
-are not ported yet and raise.
+latency).  Every engine of a process shares the one default process
+group, so several engines (a P/D pair, several instances) run their
+collectives in the order the deterministic driver calls them, the same on
+every rank.  At tp > 1 the slot export holds the rank's KV heads: under
+P/D rank r of the prefill engine hands off to rank r of the decode engine
+(engines of different tp refuse, ``refuse_pd_across_tp``), and the
+handoff's bytes are the group's (``handoff_nbytes``).  Each rank's prefix
+store keeps its own heads' payload under the same token key, moved
+between tiers by the same runtime decisions on every rank.  The draft of
+speculative decoding is a tp = 1 engine on the rank's device, replicated
+on every rank and never given the group, as in JAX.
 
 A model with recurrent stages (Mamba2, the zamba superblock, xLSTM) keeps
 dense per-slot state beside the pools (``Model.state_leaves``: each leaf
@@ -126,7 +135,9 @@ class RealRadixCache:
     class is mechanism only.  Moves are entry-granular: demoting one radix
     block demotes every stored entry containing it (payloads are
     whole-prefix slices, not per-block pages).  A spill that fails
-    raises."""
+    raises.  Each store makes its own spill directory, so the ranks of a
+    tensor-parallel engine (one process a rank, each storing its own KV
+    heads under the same keys) never write one path."""
 
     def __init__(self, block: int = 16, max_entries: int = 64,
                  device=None):
@@ -250,20 +261,16 @@ class RealRadixCache:
                 pass
 
 
-def refuse_unported_at_tp(tp: int, *, role: str = "unified",
-                          prefix_cache: bool = False, spec=None) -> None:
-    """Raise for the tp > 1 combinations not ported yet (ROADMAP queue 1
-    item 3)."""
-    if tp <= 1:
-        return
-    what = [w for w, on in (("P/D roles", role != "unified"),
-                            ("the prefix store", prefix_cache),
-                            ("speculative decoding", spec is not None))
-            if on]
-    if what:
+def refuse_pd_across_tp(prefill, decode) -> None:
+    """Raise for a P/D pair whose engines run at different tp (ROADMAP
+    queue 1 item 3): rank r of a prefill group hands its own KV heads to
+    rank r of the decode group, so both groups must cut the heads alike.
+    The JAX package allows it, its payload holding every head."""
+    if prefill.tp != decode.tp:
         raise NotImplementedError(
-            f"ServingEngine: {' and '.join(what)} at tp={tp} not ported "
-            f"yet (ROADMAP queue 1 item 3)")
+            f"ServeDriver: P/D from {prefill.name!r} at tp={prefill.tp} to "
+            f"{decode.name!r} at tp={decode.tp}: P/D between engines of "
+            f"different tp not ported yet (ROADMAP queue 1 item 3)")
 
 
 def refuse_unported_recurrent(cfg: ArchConfig, *, tp: int = 1,
@@ -329,8 +336,6 @@ class ServingEngine:
             if group.size != tp:
                 raise ValueError(f"ServingEngine: tp={tp} but the engine "
                                  f"group has {group.size} ranks")
-            refuse_unported_at_tp(tp, role=role, prefix_cache=prefix_cache,
-                                  spec=spec)
             if device is not None:
                 d = resolve_device(device)
                 if d.type != group.device.type or d.index not in (
@@ -443,6 +448,23 @@ class ServingEngine:
         """A wall time measured on this rank -> the group's largest (the
         time itself at tp = 1)."""
         return seconds if self.group is None else self.group.slowest(seconds)
+
+    def handoff_nbytes(self, payload: dict) -> float:
+        """The bytes of an ``_export_slot`` payload over the whole group:
+        the payload's own at tp = 1; at tp > 1 each rank counts the KV
+        heads it owns (``launch.sharding.owned_kv_heads``: a head that
+        several ranks hold counts once), summed over the ranks with one
+        all-reduce.  The same on every rank, and the size of the payload
+        tp = 1 ships."""
+        local = int(_payload_nbytes(payload))
+        if self.group is None:
+            return float(local)
+        from repro_torch.launch.sharding import kv_heads, owned_kv_heads
+        rank, tp = self.group.rank, self.group.size
+        lo, hi = kv_heads(self.cfg, rank, tp)
+        olo, ohi = owned_kv_heads(self.cfg, rank, tp)
+        # at tp > 1 the payload is K/V only (a recurrent model refuses)
+        return float(self.group.total(local // (hi - lo) * (ohi - olo)))
 
     def warmup(self, buckets=(16, 32, 64, 128, 256)):
         """Run prefill (and, with a prefix store, extend) at every bucket

@@ -125,22 +125,40 @@ def test_cli_synthetic_routing_equals_jax(tmp_path):
     assert outs["repro_torch"] == outs["repro"]
 
 
+# rank 0's view of a two-rank engine group: building the engines and the
+# refusal run no collective, so no other rank is needed
+_PD_ACROSS_TP = """
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import EngineGroup
+from repro_torch.serve import ServeDriver, ServingEngine
+cfg = get_config("llama3.1-8b-tiny")
+group = EngineGroup(rank=0, size=2, device=torch.device("cpu"),
+                    backend="gloo")
+p0 = ServingEngine(cfg, max_batch=2, max_len=128, name="p0",
+                   role="prefill", device="cpu", tp=2, group=group)
+d0 = ServingEngine(cfg, max_batch=2, max_len=128, name="d0",
+                   role="decode", device="cpu")
+ServeDriver([p0, d0], pd_map={"p0": ("d0",)})
+"""
+
+
 @pytest.mark.parametrize("module,args,want", [
     ("profiler", ["profile", "--device", "h100", "--mode", "measured",
                   "--tp", "1,2"], "too few cards"),
     ("profiler", ["profile", "--device", "cpu-engine", "--engine-device",
                   "cpu", "--tp", "0"], ">= 1"),
-    ("launch.serve", ["--device", "cpu", "--tp", "2", "--prefix-cache"],
-     "item 3"),
+    (None, ["-c", _PD_ACROSS_TP], "item 3"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, module, args, want):
     """A measured ``--tp`` past the visible cards refuses, naming both
-    counts; ``--tp 0`` refuses; the prefix store (like P/D and spec
-    decoding) at tp > 1 refuses, naming its ROADMAP item.  Nothing is
-    written."""
+    counts; ``--tp 0`` refuses; P/D between engines of different tp
+    refuses through ``ServeDriver`` (the serve CLI has one ``--tp``),
+    naming its ROADMAP item.  Nothing is written."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-m", f"repro_torch.{module}",
-                          *args], capture_output=True, text=True,
+    cmd = ["-m", f"repro_torch.{module}"] if module else []
+    res = subprocess.run([sys.executable, *cmd, *args],
+                         capture_output=True, text=True,
                          timeout=300, cwd=tmp_path, env=env)
     assert res.returncode != 0
     if want == "too few cards":
