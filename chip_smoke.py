@@ -7,10 +7,11 @@ result line:
 
 1. the card: name and power limit, torch and CUDA versions, compute
    capability (9.0 required); TF32 off; the kernels built from
-   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, and the count of
-   tensor-core (``HGMMA``) instructions in each library, which must not be
-   0 for flash attention, paged attention and the grouped matmul (their
-   bf16 prefill, extend and matmul kernels);
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (the flash
+   backward too), and the count of tensor-core (``HGMMA``) instructions in
+   each library, which must not be 0 for flash attention, paged attention
+   and the grouped matmul (their bf16 prefill, extend and matmul kernels;
+   the flash backward runs on FMAs);
 2. each kernel against its plain PyTorch version on the card, in f32 and
    bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and
    ``tests/test_kernels.py`` and on the main paths' own shapes (flash at
@@ -23,17 +24,23 @@ result line:
    experts, and phase 7's
    zamba2-1.2b shapes, one query head per kv-head at head dim 64: flash
    at S 16 and 256, paged decode at B8 H32 KV32 over the ragged lengths,
-   paged extend of 256 from start 293 across page edges); every kernel
-   must also give bitwise the same result on a second launch;
+   paged extend of 256 from start 293 across page edges); the flash
+   forward's log-sum-exp and the flash backward's dq, dk, dv at
+   demo-110m's heads (S 128 and 1024), llama3.1-8b's (S 1024),
+   musicgen-large's (G = 1), a window, ragged lengths, S 100, head dims
+   16 and 32; every kernel must also give bitwise the same result on a
+   second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
    and down, each at a 256-token chunk and at decode; paged extend also at
    the verify shape, and at a rank's verify, B8 S5 H16 KV4, for phase 6's
    tp = 2 spec serve; the three attention kernels also at zamba2-1.2b's
-   H32 KV32 dh64), with the decode kernel's pages per split and split
-   count, and the host's time to issue one call of each kernel's wrapper
-   (the serves are host-bound);
+   H32 KV32 dh64; the flash backward at demo-110m's training step, B8
+   S1024 H12 KV4 dh64, and at llama3.1-8b's, B2 S1024 H32 KV8 dh128,
+   beside autograd through SDPA), with the decode kernel's pages per split
+   and split count, and the host's time to issue one call of each kernel's
+   wrapper (the serves are host-bound);
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
@@ -110,7 +117,20 @@ result line:
    xlstm-125m at full width (12 layers, d_model 768, bf16, whole-prompt
    prefill: it has no extend) serves 8 requests of at most 512 prompt
    tokens, every request finishing, and launches no kernel of the repo;
-8. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+8. training: tiny f32 llama and musicgen (on embeddings) take 3 AdamW
+   steps with remat and 2 microbatches on the card and on the CPU, equal
+   within the stated tolerance, and tiny musicgen's prefill, extend and
+   decode logits on embeddings too; demo-110m at full width (12 layers,
+   d_model 768, vocab 16384, bf16 compute, f32 params) trains 40 steps at
+   B8 S1024 through ``repro_torch.launch.train``'s function, checkpointing
+   at step 20, its loss falling, flash and its backward launched once a
+   layer a step; a run resumed from step 20's checkpoint ends where the
+   uninterrupted run does; llama3.1-8b cut to 2 layers (B2 S1024) and
+   musicgen-large cut to 4 (B4 S1024, bf16 embeddings) take 3 steps at
+   published widths with remat (the forward launched twice a layer a
+   step), every gradient leaf nonzero, with step times and peak memory;
+   MoE training on the card refuses by name;
+9. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -122,6 +142,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -186,6 +207,7 @@ def card_and_setup(torch):
                     print(f"  ptxas {name}: {line.strip()}")
     hgmma = hgmma_counts(paths)
     print(f"HGMMA instructions (cuobjdump -sass): {json.dumps(hgmma)}")
+    # the flash backward is an FMA kernel (tensor cores are later work)
     for name in ("flash_attention", "paged_attention", "moe_gmm"):
         check(hgmma[name] > 0, f"{name}: no HGMMA instruction in its "
                                f"library, the bf16 kernel is not on wgmma")
@@ -303,6 +325,84 @@ def gmm_cases():
             yield 16 // TP, C, d, f, None
 
 
+def flash_bwd_cases():
+    # (B, S, H, KV, dh, lengths, window): demo-110m's heads (G = 3) at S
+    # 128 and its training length 1024, llama3.1-8b's (G = 4) at 1024,
+    # musicgen-large's (G = 1), a window shorter than S, ragged lengths
+    # (dout zero past a length), S not a multiple of the tiles (100), and
+    # head dims 16 and 32
+    yield 2, 128, 12, 4, 64, None, None
+    yield 2, 1024, 12, 4, 64, None, None
+    yield 1, 1024, 32, 8, 128, None, None
+    yield 2, 256, 32, 32, 64, None, None
+    yield 2, 512, 12, 4, 64, None, 100
+    yield 3, 256, 12, 4, 64, (256, 131, 17), 64
+    yield 2, 100, 8, 2, 16, (100, 57), None
+    yield 2, 160, 8, 4, 32, None, 33
+
+
+def flash_bwd_vs_plain(torch, ops, dev, worst):
+    """The forward's lse and the backward kernel's dq, dk, dv against
+    their plain versions on the same inputs (the kernel's own out and
+    lse), and two launches of each giving the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    print("phase 2: flash backward (dq, dk, dv) and the forward's lse vs "
+          "their plain versions (max abs err | tolerance, as above; rows "
+          "an engine reads: lse and dout past a length are not compared "
+          "and zero)")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for B, S, H, KV, dh, lengths, window in flash_bwd_cases():
+            q = _rand(torch, gen, (B, S, H, dh), dtype, dev)
+            k = _rand(torch, gen, (B, S, KV, dh), dtype, dev)
+            v = _rand(torch, gen, (B, S, KV, dh), dtype, dev)
+            do = _rand(torch, gen, (B, S, H, dh), dtype, dev)
+            n = [S] * B if lengths is None else list(lengths)
+            for b in range(B):
+                do[b, n[b]:] = 0
+            lt = torch.tensor(n, dtype=torch.int32, device=dev)
+            out, lse = ops.flash_attention(q, k, v, lt, window,
+                                           return_lse=True)
+            out2, lse2 = ops.flash_attention(q, k, v, lt, window,
+                                             return_lse=True)
+            _, plse = ops.flash_attention_plain(q, k, v, lt, window,
+                                                return_lse=True)
+            got = ops.flash_attention_bwd(q, k, v, out, lse, do, lt, window)
+            again = ops.flash_attention_bwd(q, k, v, out, lse, do, lt,
+                                            window)
+            torch.cuda.synchronize()
+            tag = f"({dn}, B{B} S{S} H{H} KV{KV} dh{dh}, window={window})"
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"flash_attention with lse {tag}: two launches differ")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {tag}: two launches differ")
+            ok, err_lse = True, 0.0
+            for b in range(B):
+                o, e = _close(torch, lse[b, :, :n[b]], plse[b, :, :n[b]],
+                              dn)
+                ok, err_lse = ok and o, max(err_lse, e)
+            check(ok, f"flash_attention lse disagrees with its plain "
+                      f"version {tag}: {err_lse}")
+            want = ops.flash_attention_bwd_plain(q, k, v, out, lse, do, lt,
+                                                 window)
+            errs = []
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                o, e = _close(torch, g, w, dn)
+                errs.append(e)
+                check(o, f"flash_attention_bwd {name} disagrees with its "
+                         f"plain version {tag}: {e}")
+            worst["flash_attention"] = max(worst["flash_attention"],
+                                           err_lse)
+            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                               *errs)
+            print(f"  flash_bwd {dn} B{B} S{S} H{H} KV{KV} dh{dh} "
+                  f"len{tuple(n)} win{window}: dq {errs[0]:.3g} dk "
+                  f"{errs[1]:.3g} dv {errs[2]:.3g}, lse {err_lse:.3g} | "
+                  f"{TOL[dn]}")
+            del q, k, v, do, out, lse, got, again, want
+        torch.cuda.empty_cache()
+
+
 def kernels_vs_plain(torch, ops, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {k: 0.0 for k in ops.KERNELS}
@@ -401,6 +501,7 @@ def kernels_vs_plain(torch, ops, dev):
             check(ok and zeros, f"moe_gmm disagrees with its plain version "
                                 f"({dn}, E{E} C{C} d{d} f{f}): {err}, "
                                 f"rows past a group 0: {zeros}")
+    flash_bwd_vs_plain(torch, ops, dev, worst)
     return worst
 
 
@@ -729,6 +830,7 @@ def timings(torch, ops, dev):
         kernel="paged_attention_extend", path=ZAMBA_PATH,
         shape=f"B1 S{S} start{start} H{Hz} KV{KVz} dh{dz} ps{ps} bf16",
         bound=bound(nbytes, 4 * pairs * Hz * dz))
+    out.update(flash_bwd_timings(torch, ops, dev, measure))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
           "time to issue one kernel call (us)")
     for name, t in out.items():
@@ -739,6 +841,61 @@ def timings(torch, ops, dev):
               f"bound {t['bound'][0]:.4f} ({t['bound'][1]}); host "
               f"{t['host_us']:.1f} us a call")
     return out
+
+
+#: the training phase's paths (launch counts by path)
+TRAIN_PATH = "train demo-110m"
+TRAIN_LLAMA_PATH = "train llama3.1-8b (2 layers)"
+TRAIN_MUSICGEN_PATH = "train musicgen-large (4 layers)"
+
+
+def flash_bwd_timings(torch, ops, dev, measure):
+    """The flash backward at demo-110m's training step (B8 S1024 H12 KV4
+    dh64) and llama3.1-8b's (B2 S1024 H32 KV8 dh128), bf16, beside its
+    plain version and autograd through SDPA with K/V expanded to every
+    query head (the library call; the port never makes it).
+
+    The bound: bytes of q, k, v, out, dout (bf16), lse (f32), dq, dk, dv
+    (bf16), each once, over 3.35 TB/s, against the FA-2 backward's five
+    products per visible (query, key) pair (S = QK^T recomputed, dP =
+    dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K), 2 * dh FLOPs each,
+    over the bf16 tensor-core peak: 10 * dh * B * H * S (S + 1) / 2
+    (causal, full lengths).  The kernel does 14 * dh a pair (S and dP in
+    both of its passes) on FMAs, far from that bound."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    rows = {}
+    for name, B, S, H, KV, dh, path in (
+            ("flash_attention_bwd", 8, 1024, 12, 4, 64, TRAIN_PATH),
+            ("flash_attention_bwd_llama", 2, 1024, 32, 8, 128,
+             TRAIN_LLAMA_PATH)):
+        q = _rand(torch, gen, (B, S, H, dh), bf, dev)
+        k = _rand(torch, gen, (B, S, KV, dh), bf, dev)
+        v = _rand(torch, gen, (B, S, KV, dh), bf, dev)
+        do = _rand(torch, gen, (B, S, H, dh), bf, dev)
+        lt = torch.full((B,), S, dtype=torch.int32, device=dev)
+        out, lse = ops.flash_attention(q, k, v, lt, return_lse=True)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        ref = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(H // KV, dim=1),
+            vt.repeat_interleave(H // KV, dim=1), is_causal=True)
+        dot = do.transpose(1, 2)
+        pairs = S * (S + 1) // 2
+        # read q, k, v, out, dout; write dq, dk, dv (bf16); read lse (f32)
+        nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * 2 \
+            + lse.numel() * 4
+        rows[name] = measure(
+            lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, lt),
+            lambda: ops.flash_attention_bwd_plain(q, k, v, out, lse, do, lt),
+            lambda: torch.autograd.grad(ref, (qt, kt, vt), dot,
+                                        retain_graph=True),
+            kernel="flash_attention_bwd", path=path,
+            shape=f"B{B} S{S} H{H} KV{KV} dh{dh} bf16",
+            bound=bound(nbytes, 10 * dh * B * H * pairs))
+        del q, k, v, do, out, lse, qt, kt, vt, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2225,6 +2382,333 @@ def recurrent_on_card(torch, ops, card):
     return by_path
 
 
+# ---------------------------------------------------------------- phase 8
+#: tiny f32 training, card against CPU: losses rtol 1e-4; params rtol 1e-3,
+#: atol 1e-4 (three AdamW steps over sums in other orders), except entries
+#: whose gradient sits within a few of Adam's eps (1e-8) of zero, which
+#: move by up to ~lr a step whatever their last bits: at most one, or 1 in
+#: 1000, a leaf, held to 2 * lr * steps
+TINY_TRAIN_LR = 1e-2
+TINY_TRAIN_STEPS = 3
+#: resume against the uninterrupted run (the same seeded data and
+#: schedule): losses rtol 1e-5, params as above
+RESUME_RTOL = 1e-5
+
+
+def _params_close(got, want, lr, steps, rtol=1e-3, atol=1e-4):
+    """(ok, max abs difference) of two lists of param tensors under the
+    tiny-training rule above."""
+    worst, ok = 0.0, True
+    for a, b in zip(got, want):
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        d = (a - b).abs()
+        off = d > atol + rtol * b.abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        ok = ok and int(off.sum()) <= max(1, a.numel() // 1000) \
+            and bool((d <= 2 * lr * steps).all())
+    return ok, worst
+
+
+def _tiny_batches(cfg, B=4, S=32, n=TINY_TRAIN_STEPS, seed=12):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if cfg.embed_inputs:
+            inputs = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        else:
+            inputs = rng.standard_normal((B, S, cfg.d_model)).astype(
+                np.float32)
+        shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+        labels = rng.integers(0, cfg.vocab, shape).astype(np.int32)
+        out.append({"inputs": torch.from_numpy(inputs),
+                    "labels": torch.from_numpy(labels)})
+    return out
+
+
+def _tiny_train(torch, cfg, params_cpu, batches, dev):
+    """Three AdamW steps at ``microbatches=2`` with remat on: (losses,
+    the final param leaves)."""
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, TrainState, TrainStepConfig,
+                                   make_train_step)
+    from repro_torch.train.tree import leaves, map_tree
+    model = Model(cfg, remat=True)
+    opt = AdamW(lr=TINY_TRAIN_LR)
+    params = map_tree(lambda t: t.detach().to(dev).clone(), params_cpu)
+    state = TrainState(params, opt.init(params))
+    step = make_train_step(model, opt, TrainStepConfig(microbatches=2))
+    losses = []
+    for b in batches:
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss_total"]))
+    return losses, leaves(state.params)
+
+
+def _musicgen_tiny_logits(torch, cfg, params_cpu, dev):
+    """Tiny musicgen on embeddings: a prefill (two rows, one ragged), then
+    a paged extend of the same embeddings from empty slots and two decode
+    steps; every call's logits on the host."""
+    import numpy as np
+    from repro_torch.models import Model
+    from repro_torch.train.tree import map_tree
+    rng = np.random.default_rng(13)
+    m = Model(cfg, page_size=16)
+    params = map_tree(lambda t: t.detach().to(dev), params_cpu)
+    B, S, max_len = 2, 24, 64
+    emb = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    n = torch.tensor([24, 13], dtype=torch.int32, device=dev)
+    out = []
+    with torch.no_grad():
+        logits, _ = m.prefill(params, emb, lengths=n)
+        out.append(logits)
+        cache = m.init_cache(B, max_len, device=dev)
+        maxp, _ = m.page_geometry(B, max_len)
+        cache["block_table"] = torch.arange(
+            B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+        logits, cache = m.extend(params, cache, emb, n)
+        out.append(logits)
+        for _ in range(2):
+            e1 = torch.from_numpy(rng.standard_normal(
+                (B, 1, cfg.d_model)).astype(np.float32)).to(dev)
+            logits, cache = m.decode(params, cache, e1)
+            out.append(logits)
+    return [x.cpu() for x in out]
+
+
+def tiny_training_card_matches_cpu(torch, dev):
+    """(a): tiny f32 llama and musicgen train on the card as on the CPU;
+    tiny musicgen's prefill, extend and decode on embeddings too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    for arch in ("llama3.1-8b-tiny", "musicgen-large-tiny"):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        batches = _tiny_batches(cfg)
+        lc, pc = _tiny_train(torch, cfg, params, batches, dev)
+        lg, pg = _tiny_train(torch, cfg, params, batches,
+                             torch.device("cpu"))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lg))
+        ok, perr = _params_close(pc, pg, TINY_TRAIN_LR, TINY_TRAIN_STEPS)
+        print(f"phase 8: tiny {arch} f32, {TINY_TRAIN_STEPS} AdamW steps, "
+              f"microbatches 2, remat on: card == CPU, losses "
+              f"{[round(x, 5) for x in lc]} (max rel err {loss_err:.2g} | "
+              f"1e-4), params max abs err {perr:.3g} (rtol 1e-3, atol 1e-4 "
+              f"but Adam's ill-conditioned entries)")
+        check(loss_err <= 1e-4 and ok,
+              f"tiny {arch} training: card differs from the CPU (losses "
+              f"{lc} vs {lg}, params max err {perr})")
+        if arch.startswith("musicgen"):
+            got = _musicgen_tiny_logits(torch, cfg, params, dev)
+            want = _musicgen_tiny_logits(torch, cfg, params,
+                                         torch.device("cpu"))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                      for a, b in zip(got, want)),
+                  f"tiny musicgen logits on embeddings: card differs from "
+                  f"the CPU ({err})")
+            print(f"phase 8: tiny musicgen f32 on embeddings (prefill, "
+                  f"paged extend, 2 decodes; logits {tuple(got[0].shape)}): "
+                  f"card == CPU, max abs err {err:.3g} (tol 1e-4)")
+
+
+def demo_training(torch, ops, card):
+    """(b): demo-110m at full width through the trainer's function, 40
+    steps at B8 S1024 checkpointing at 20, then a resume from step 20's
+    checkpoint to 40 against the uninterrupted run.  Returns the first
+    run's launch counts."""
+    from repro_torch.launch import train as trainer
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.tree import leaves
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    a, b = root / "a", root / "b"
+    cfg = trainer.DEMO_110M
+    steps, B, S = 40, 8, 1024
+    kw = dict(steps=steps, batch=B, seq=S, ckpt_every=20, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = trainer.train(cfg.name, ckpt_dir=str(a),
+                        log=lambda m: print(f"  {m}"), **kw)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = run["losses"]
+    L = cfg.n_layers
+    check(counts["flash_attention"] == L * steps
+          and counts["flash_attention_bwd"] == L * steps,
+          f"demo-110m training launched flash {counts['flash_attention']} "
+          f"and its backward {counts['flash_attention_bwd']} times; "
+          f"{L} layers x {steps} steps = {L * steps} each")
+    check(all(x == x for x in losses) and losses[-1] < losses[0],
+          f"demo-110m: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    step_s = statistics.median(run["step_s"][1:])
+    print(f"phase 8 [{card}] {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, H{cfg.n_heads} KV{cfg.n_kv_heads} dh{cfg.d_head}, "
+          f"vocab {cfg.vocab}, bf16 compute, f32 params), B{B} S{S}, "
+          f"{steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+          f"time p50 {step_s * 1e3:.1f} ms (first step {run['step_s'][0]:.2f}"
+          f" s), {B * S / step_s:.0f} tokens/s, peak memory {peak:.2f} GiB, "
+          f"{wall:.1f} s with 2 checkpoints; launches "
+          f"{json.dumps(counts)}")
+    b.mkdir(parents=True)
+    shutil.copytree(a / "step_0000000020", b / "step_0000000020")
+    res = trainer.train(cfg.name, ckpt_dir=str(b), resume=True,
+                        log=lambda m: None, **kw)
+    check(res["start"] == 20 and len(res["losses"]) == steps - 20,
+          f"demo-110m resume started at {res['start']}")
+    loss_err = max(abs(x - y) / abs(y) for x, y in
+                   zip(res["losses"], losses[20:]))
+    full = ckpt.restore(str(a), steps, res["state"])
+    ok, perr = _params_close(leaves(res["state"].params),
+                             leaves(full.params), 3e-3, 20)
+    bitwise = all(torch.equal(x.detach(), y.detach()) for x, y in
+                  zip(leaves(res["state"]), leaves(full)))
+    print(f"phase 8: {cfg.name} resumed from step 20 to {steps}: final loss "
+          f"{res['losses'][-1]:.6f} vs {losses[-1]:.6f} uninterrupted, "
+          f"losses max rel diff {loss_err:.3g} (tol {RESUME_RTOL}), params "
+          f"max abs diff {perr:.3g}; bitwise equal: {bitwise}")
+    check(loss_err <= RESUME_RTOL and ok,
+          f"demo-110m: the resumed run ends elsewhere ({loss_err}, {perr})")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def _depth_cut(cfg, layers):
+    return dataclasses.replace(
+        cfg, n_layers=layers,
+        stages=(dataclasses.replace(cfg.stages[0], n_layers=layers),))
+
+
+def full_width_training(torch, ops, card, arch, layers, B, S, steps=3):
+    """(c) and (d): ``arch`` at published widths cut to ``layers``, bf16
+    compute, f32 params and moments, remat on, ``steps`` AdamW steps on
+    seeded data (token ids, or bf16 embeddings for musicgen).  Returns the
+    run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, init_state, make_train_step)
+    from repro_torch.train.tree import leaves
+    from repro_torch.workload.datasets import DataConfig, token_batches
+    dev = torch.device("cuda")
+    cfg = _depth_cut(get_config(arch), layers)
+    model = Model(cfg, remat=True)
+    opt = AdamW(lr=3e-4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_state(model, opt, gen, device=dev)
+    n_params = sum(p.numel() for p in leaves(state.params))
+    step_fn = make_train_step(model, opt)
+    data = token_batches(DataConfig(vocab=cfg.vocab, batch=B, seq_len=S,
+                                    seed=0)) if cfg.embed_inputs else None
+    ops.reset_launch_counts()
+    losses, times, nonzero = [], [], None
+    for i in range(steps):
+        if data is not None:
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(data).items()}
+        else:
+            batch = {"inputs": torch.randn((B, S, cfg.d_model), generator=gen,
+                                           device=dev).to(torch.bfloat16),
+                     "labels": torch.randint(0, cfg.vocab,
+                                             (B, S, cfg.n_codebooks),
+                                             generator=gen, device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        if i == 0:   # the first moments are (1 - b1) * the clipped grads
+            nonzero = [bool(mu.any()) for mu in leaves(state.opt.mu)]
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch} training: a loss is not finite ({losses})")
+    check(all(nonzero), f"{arch} training: {nonzero.count(False)} gradient "
+                        f"leaves are all zero")
+    check(counts["flash_attention"] == 2 * layers * steps
+          and counts["flash_attention_bwd"] == layers * steps,
+          f"{arch} training launched flash {counts['flash_attention']} and "
+          f"its backward {counts['flash_attention_bwd']} times; want "
+          f"{2 * layers * steps} (remat recomputes the forward) and "
+          f"{layers * steps}")
+    reckon = n_params * 16 / 2 ** 30
+    print(f"phase 8 [{card}] {arch} at published widths cut to {layers} "
+          f"layers ({n_params / 1e9:.3f} B params), bf16 compute, f32 params "
+          f"and moments, remat on, B{B} S{S}, {steps} steps: losses "
+          f"{[round(x, 4) for x in losses]}, every gradient leaf nonzero; "
+          f"step times {[round(t, 3) for t in times]} s; peak memory "
+          f"{peak:.2f} GiB (params, grads and two moments: {reckon:.2f} "
+          f"GiB); launches {json.dumps(counts)}")
+    if not cfg.embed_inputs:
+        ln_v = math.log(cfg.vocab)
+        check(abs(losses[0] - ln_v) < 1.0,
+              f"{arch}: step 0's loss {losses[0]} is not near ln "
+              f"{cfg.vocab} = {ln_v:.3f}")
+        print(f"  step 0's loss {losses[0]:.4f} against ln {cfg.vocab} = "
+              f"{ln_v:.4f} (unit-variance logits add ~0.4)")
+    del state, step_fn, model
+    return counts
+
+
+def moe_training_refuses_on_card(torch, ops):
+    """(e): MoE training on the card raises by name in ``ops.moe_gmm``
+    (no backward kernel yet); nothing falls back to the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.tree import leaves
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("phimini-moe-tiny"),
+                              compute_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    batch = {k: v.to(dev) for k, v in _tiny_batches(cfg, n=1)[0].items()}
+    ops.reset_launch_counts()
+    try:
+        total, _ = model.loss_fn(params, batch)
+        total.backward()
+    except NotImplementedError as e:
+        check("grouped-matmul backward" in str(e),
+              f"MoE training refused with another message: {e}")
+        print(f"phase 8: phimini-moe-tiny training on the card refuses: "
+              f"NotImplementedError({str(e)[:90]}...)")
+    else:
+        raise SmokeFailure("MoE training on the card did not refuse")
+    check(ops.launch_counts()["moe_gmm"] == 0,
+          "moe_gmm launched while refusing MoE training")
+
+
+def training_on_card(torch, ops, card):
+    """Phase 8; returns the launch counts by training path."""
+    t0 = time.perf_counter()
+    tiny_training_card_matches_cpu(torch, torch.device("cuda"))
+    by_path = {TRAIN_PATH: demo_training(torch, ops, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path[TRAIN_LLAMA_PATH] = full_width_training(
+        torch, ops, card, "llama3.1-8b", 2, 2, 1024)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path[TRAIN_MUSICGEN_PATH] = full_width_training(
+        torch, ops, card, "musicgen-large", 4, 4, 1024)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_training_refuses_on_card(torch, ops)
+    print(f"phase 8: ran {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2269,6 +2753,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(recurrent_on_card(torch, ops, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(training_on_card(torch, ops, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2280,9 +2767,14 @@ def main() -> int:
         # the path its row names (the verify shape: the spec serve)
         path = t.get("path") or next(a for a, must in PATHS
                                      if kernel in must)
+        row = {}
+        if not replaces.startswith("src/repro/kernels/"):
+            # the flash backward: the JAX package trains through plain JAX
+            row["replaces_note"] = ("the JAX package's custom VJP in plain "
+                                    "JAX, not a Pallas kernel")
         rows.append({"name": name, "kernel": kernel, "shape": t["shape"],
                      "route": "cuda", "source": source,
-                     "replaces": replaces,
+                     "replaces": replaces, **row,
                      "launches": by_path[path][kernel],
                      "launches_by_path": {a: n[kernel]
                                           for a, n in by_path.items()},

@@ -16,7 +16,11 @@ w_up, w_down}``).  The port keeps that layout, so conversion only turns
 each leaf into a tensor of the same dtype (the JAX params are f32, and
 ``ServingEngine`` casts what the forward pass casts).  The caller hands
 the tree over as numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)``); nothing here imports JAX.
+params)``); nothing here imports JAX.  A JAX ``Model(fuse_qkv=True)``'s
+``attn.wqkv`` (``(H + 2 KV) * dh`` wide) carries across unchanged, and the
+port's ``Model(fuse_qkv=True)`` splits it the same way.  Training state
+(``train_state_from_numpy``) carries across the same way: params, AdamW's
+step and its two moment trees.
 """
 from __future__ import annotations
 
@@ -30,3 +34,18 @@ def params_from_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree))      # a writable copy
+
+
+def train_state_from_numpy(params, mu, nu, step):
+    """A JAX ``TrainState`` as numpy arrays (``params``, ``opt.mu``,
+    ``opt.nu``, ``opt.step``) -> the port's ``TrainState``, on the CPU:
+    the float params require grad, the moments and the () int32 step do
+    not."""
+    from repro_torch.train import TrainState
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.tree import map_tree
+    p = map_tree(lambda t: t.requires_grad_(t.is_floating_point()),
+                 params_from_numpy(params))
+    return TrainState(p, AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32),
+        mu=params_from_numpy(mu), nu=params_from_numpy(nu)))

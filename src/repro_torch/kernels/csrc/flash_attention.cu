@@ -12,6 +12,11 @@
 // against k/v (B,S,KV,dh) of kv-head h // G, masks kv < lengths[b],
 // kv <= q and q - kv < window, a -1e30 sentinel for masked scores and a
 // division by max(l, 1e-20); rows past a length are unspecified but finite.
+// With a non-null ``lse`` each kernel also writes the row's log-sum-exp,
+// (B, H, S) f32 in natural-log units of the scaled scores, m + log(max(l,
+// 1e-20)) as src/repro/models/flash.py's _fwd_scan gives it: what the
+// backward (flash_attention_bwd.cu) recomputes P from.  The serve passes
+// null and its launches do exactly what they did before.
 //
 // What bounds it on an H100: at serving prefill lengths the work is
 // 4 * S^2 / 2 * H * dh FLOPs against (2*S*H + 2*S*KV) * dh elements of
@@ -47,8 +52,8 @@ template <int DH, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ lengths,
-                 T* __restrict__ out, int S, int H, int KV, int window,
-                 float scale) {
+                 T* __restrict__ out, float* __restrict__ lse, int S, int H,
+                 int KV, int window, float scale) {
   __shared__ float ks[kTile * DH];
   __shared__ float vs[kTile * DH];
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -74,19 +79,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     attend_tile<DH>(st, ks, vs, j0, kv_end, q_pos, length, window, lane);
     __syncthreads();
   }
-  if (q_pos < S)
+  if (q_pos < S) {
     write_row<DH, T>(st, out + ((int64_t(b) * S + q_pos) * H + h) * DH, lane);
+    if (lse && lane == 0)
+      lse[(int64_t(b) * H + h) * S + q_pos] =
+          st.m + logf(fmaxf(st.l, 1e-20f));
+  }
 }
 
 template <int DH, typename T>
 static void launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, int B, int S, int H, int KV,
-                   int window, float scale, cudaStream_t stream) {
+                   const int* lengths, void* out, float* lse, int B, int S,
+                   int H, int KV, int window, float scale,
+                   cudaStream_t stream) {
   dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_fwd_kernel<DH, T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out), S, H, KV,
-      window, scale);
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), lse, S, H,
+      KV, window, scale);
 }
 
 
@@ -98,8 +108,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const int* __restrict__ lengths,
-                       __nv_bfloat16* __restrict__ out, int S, int H,
-                       int KV, int window, float scale_log2) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int S, int H, int KV,
+                       int window, float scale_log2) {
   using namespace repro_hopper;
   using L = TcLayout<DH>;
   extern __shared__ uint8_t smem_raw[];
@@ -182,6 +193,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   float inv0, inv1;
   tc_row_scales(rows, inv0, inv1);
+  if (lse && (l & 3) == 0) {
+    // m and l are in log2 units (the scale folded into log2(e)): the
+    // natural-log lse is (m2 + log2(max(l, 1e-20))) * ln 2
+    const float ln2 = 0.6931471805599453f;
+    if (qp0 < S)
+      lse[(int64_t(b) * H + h) * S + qp0] =
+          (rows.m0 + log2f(fmaxf(rows.l0, 1e-20f))) * ln2;
+    if (qp1 < S)
+      lse[(int64_t(b) * H + h) * S + qp1] =
+          (rows.m1 + log2f(fmaxf(rows.l1, 1e-20f))) * ln2;
+  }
 #pragma unroll
   for (int i = 0; i < DH / 2; i += 2) {
     const int qp = (i & 2) ? qp1 : qp0;
@@ -196,8 +218,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int DH>
 static int launch_tc(const void* q, const void* k, const void* v,
-                     const int* lengths, void* out, int B, int S, int H,
-                     int KV, int window, float scale, cudaStream_t stream) {
+                     const int* lengths, void* out, float* lse, int B, int S,
+                     int H, int KV, int window, float scale,
+                     cudaStream_t stream) {
   using L = TcLayout<DH>;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
@@ -220,7 +243,7 @@ static int launch_tc(const void* q, const void* k, const void* v,
   dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
   flash_fwd_wgmma_kernel<DH><<<grid, kTcThreads, L::SMEM, stream>>>(
       maps[0], maps[1], maps[2], lengths,
-      static_cast<__nv_bfloat16*>(out), S, H, KV, window,
+      static_cast<__nv_bfloat16*>(out), lse, S, H, KV, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -228,34 +251,36 @@ static int launch_tc(const void* q, const void* k, const void* v,
 }  // namespace repro_attn
 
 // dtype: 0 = float32 (FMA kernel), 1 = bfloat16 (tensor-core kernel).
+// ``lse``: null, or a (B, H, S) f32 output for the rows' log-sum-exp.
 // Returns a cudaError_t: the launch's own, or cudaErrorInvalidValue for a
 // head dim, dtype or shape it lacks.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* lengths,
-                                   void* out, int B, int S, int H, int KV,
-                                   int dh, int window, float scale,
-                                   int dtype, void* stream) {
+                                   void* out, float* lse, int B, int S,
+                                   int H, int KV, int dh, int window,
+                                   float scale, int dtype, void* stream) {
   using namespace repro_attn;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+#define REPRO_FLASH_F32(D)                                                  \
+  case D:                                                                   \
+    launch<D, float>(q, k, v, lengths, out, lse, B, S, H, KV, window,       \
+                     scale, st);                                            \
+    break;
     switch (dh) {
-      case 16: launch<16, float>(q, k, v, lengths, out, B, S, H, KV, window,
-                                 scale, st); break;
-      case 32: launch<32, float>(q, k, v, lengths, out, B, S, H, KV, window,
-                                 scale, st); break;
-      case 64: launch<64, float>(q, k, v, lengths, out, B, S, H, KV, window,
-                                 scale, st); break;
-      case 128: launch<128, float>(q, k, v, lengths, out, B, S, H, KV,
-                                   window, scale, st); break;
+      REPRO_FLASH_F32(16) REPRO_FLASH_F32(32) REPRO_FLASH_F32(64)
+      REPRO_FLASH_F32(128)
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef REPRO_FLASH_F32
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype != 1 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FLASH_TC(D)                                                   \
   case D:                                                                   \
-    return launch_tc<D>(q, k, v, lengths, out, B, S, H, KV, window, scale, st);
+    return launch_tc<D>(q, k, v, lengths, out, lse, B, S, H, KV, window,  \
+                        scale, st);
   switch (dh) {
     REPRO_FLASH_TC(16) REPRO_FLASH_TC(32) REPRO_FLASH_TC(64)
     REPRO_FLASH_TC(128)

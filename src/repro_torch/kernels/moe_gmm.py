@@ -72,6 +72,14 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
         return moe_gmm_plain(x, w, group_sizes)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm: no kernel for {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        # the kernel has no backward: its output would carry no grad_fn
+        # and the expert weights would silently get no gradient
+        raise NotImplementedError(
+            "moe_gmm: training through the grouped expert matmul on the "
+            "card needs its backward kernel, not ported yet (ROADMAP.md "
+            "queue 1: the grouped-matmul backward kernel for MoE training "
+            "on the card); MoE trains on the CPU through the plain version")
     _check(x, w, group_sizes)
     fn = _lib()
     E, C, d = x.shape

@@ -1,9 +1,11 @@
 """The port's kernel entry points and its kernel registry.
 
-``flash_attention``, ``paged_attention`` and ``moe_gmm`` are the kernel
-wrappers: on a CUDA tensor each launches its hand-written Hopper kernel or
-raises, on a CPU tensor each runs its plain PyTorch version.  ``KERNELS`` names every
-kernel with its source and the TPU kernel it replaces, and
+``flash_attention``, ``flash_attention_bwd``, ``paged_attention`` and
+``moe_gmm`` are the kernel wrappers: on a CUDA tensor each launches its
+hand-written Hopper kernel or raises, on a CPU tensor each runs its plain
+PyTorch version.  ``KERNELS`` names every kernel with its source and what
+it replaces in the JAX package (a Pallas TPU kernel, except the flash
+backward, whose counterpart is the plain-JAX custom VJP), and
 ``launch_counts`` / ``reset_launch_counts`` read and clear the counters
 the wrappers bump at each launch.
 """
@@ -15,16 +17,23 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 
-#: name -> (CUDA source in the repo, the TPU kernel it replaces)
+#: name -> (CUDA source in the repo, what it replaces: the TPU kernel, or
+#: for the flash backward the JAX package's custom VJP, which is not a
+#: Pallas kernel: the JAX package trains through plain JAX)
 KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:81"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/flash.py:91"),
     "paged_attention_decode": (
         "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:32"),
@@ -52,6 +61,7 @@ def reset_launch_counts() -> None:
             c[k] = 0
 
 
-__all__ = ["KERNELS", "flash_attention", "flash_attention_plain",
+__all__ = ["KERNELS", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
            "launch_counts", "moe_gmm", "moe_gmm_plain", "paged_attention",
            "paged_attention_plain", "reset_launch_counts"]

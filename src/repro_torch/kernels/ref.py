@@ -9,28 +9,85 @@ import torch
 NO_WINDOW = 1 << 30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, lengths=None,
-                        window=None):
-    """q: (B,S,H,dh); k/v: (B,S,KV,dh) -> (B,S,H,dh)."""
-    B, S, H, dh = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    qr = q.reshape(B, S, KV, G, dh).float() * dh ** -0.5
-    s = torch.einsum("bqkgd,bjkd->bkgqj", qr, k.float())
-    pos = torch.arange(S, device=q.device)
+def _flash_mask(S, device, *, causal=True, lengths=None, window=None, B=1):
+    """(B, S, S) visibility of (query, key), the JAX package's masks."""
+    pos = torch.arange(S, device=device)
     q_pos, kv_pos = pos[:, None], pos[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
     if causal:
         mask = mask & (q_pos >= kv_pos)
     if window is not None:
         mask = mask & (q_pos - kv_pos < window)
     mask = mask[None].expand(B, S, S)
     if lengths is not None:
-        mask = mask & (kv_pos[None] < lengths.to(q.device)[:, None, None])
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+        mask = mask & (kv_pos[None] < lengths.to(device)[:, None, None])
+    return mask
+
+
+def _flash_scores(q, k, *, causal=True, lengths=None, window=None):
+    """Scaled scores (B, KV, G, S, S) in f32 under the -1e30 sentinel."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    qr = q.reshape(B, S, KV, H // KV, dh).float() * dh ** -0.5
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qr, k.float())
+    mask = _flash_mask(S, q.device, causal=causal, lengths=lengths,
+                       window=window, B=B)
+    return torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, lengths=None,
+                        window=None):
+    """q: (B,S,H,dh); k/v: (B,S,KV,dh) -> (B,S,H,dh)."""
+    B, S, H, dh = q.shape
+    s = _flash_scores(q, k, causal=causal, lengths=lengths, window=window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
     return o.reshape(B, S, H, dh).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, lengths=None, window=None):
+    """Causal flash forward with its log-sum-exp: ``(out, lse)``, ``out``
+    as ``flash_attention_ref`` and ``lse`` (B, H, S) f32 in natural-log
+    units of the scaled scores, ``m + log(max(l, 1e-20))`` as
+    ``repro/models/flash.py``'s ``_fwd_scan`` gives it (its (B, KV, G, S),
+    head h = kv-head * G + g)."""
+    B, S, H, dh = q.shape
+    s = _flash_scores(q, k, lengths=lengths, window=window)
+    m = s.amax(dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = torch.clamp(e.sum(dim=-1), min=1e-20)
+    o = torch.einsum("bkgqj,bjkd->bqkgd", e / l[..., None], v.float())
+    lse = (m + torch.log(l)).reshape(B, H, S)
+    return o.reshape(B, S, H, dh).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, lengths=None,
+                            window=None):
+    """The FlashAttention-2 backward of ``repro/models/flash.py``'s
+    ``_flash_bwd``, step by step: ``(dq, dk, dv)`` in the inputs' dtypes
+    from the forward's ``out`` and ``lse`` (B, H, S).  Sums in f32; P is
+    rounded to dout's dtype for dV, dS to q's dtype for dQ and dK, and
+    ``q * scale`` to q's dtype, where the JAX function rounds them."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = dh ** -0.5
+    qr = (q * scale).reshape(B, S, KV, G, dh)
+    do = dout.reshape(B, S, KV, G, dh)
+    ob = out.reshape(B, S, KV, G, dh)
+    delta = torch.einsum("bskgd,bskgd->bkgs", do.float(), ob.float())
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qr.float(), k.float())
+    mask = _flash_mask(S, q.device, lengths=lengths, window=window, B=B)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
+    p = torch.exp(s - lse.reshape(B, KV, G, S)[..., None])
+    dv = torch.einsum("bkgqj,bqkgd->bjkd", p.to(do.dtype).float(),
+                      do.float())
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", do.float(), v.float())
+    ds = (p * (dp - delta[..., None])).to(q.dtype).float()
+    dq = torch.einsum("bkgqj,bjkd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqj,bqkgd->bjkd", ds, qr.float())
+    return (dq.reshape(B, S, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_table, lengths, *,

@@ -23,6 +23,29 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (out * (1.0 + scale.float())).to(dtype)
 
 
+class _CotangentDtype(torch.autograd.Function):
+    """Identity whose backward casts the cotangent to the input's dtype.
+    The JAX package's ``_bf16_ct_boundary`` also wraps both in an XLA
+    optimization barrier, which keeps XLA from hoisting the norm's f32
+    convert across the TP all-reduce; eager PyTorch has no such rewrite to
+    stop, so only the cast is kept."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.to(ctx.dtype)
+
+
+def rmsnorm_ct16(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
+    """``rmsnorm`` with a compute-dtype cotangent boundary at its input
+    (``repro/models/layers.py``'s ``rmsnorm_ct16``)."""
+    return rmsnorm(_CotangentDtype.apply(x), scale, eps)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
     """Rotary embedding with the half-split rotation.
 

@@ -51,6 +51,22 @@ of every MoE layer; only then do pad-tail rows and unscheduled decode rows
 (speculative decoding) is ``extend`` returning every position's logits: on
 the card it runs the same paged extend kernel, at S = k + 1.
 
+Training (``forward``, ``loss_fn``) runs every stage in ``mode ==
+"train"``: no cache, attention through ``repro_torch.models.flash`` (the
+flash kernel and its backward kernel on the card, with autograd between
+them), each layer under ``torch.utils.checkpoint`` when ``remat`` (JAX's
+``jax.checkpoint`` with ``nothing_saveable``), the MoE layers' aux loss
+summed over layers.  Params stay f32 and every weight is cast per call
+(``w.to(x.dtype)``), so gradients reach the f32 leaves; ``fuse_qkv`` and
+``norm_ct16`` are the JAX model's options of the same names.  MoE training
+on the card raises in ``ops.moe_gmm`` (its kernel has no backward yet).
+
+Models on precomputed embeddings with codebook heads (musicgen,
+``embed_inputs=False``, ``n_codebooks``) have no ``embed`` table: every
+entry point takes ``(B, S, d)`` embeddings, cast to the compute dtype, and
+the head gives ``(B, S, n_codebooks, padded_vocab)``.  A decode on
+embeddings has no negative-token sentinel, so no row is held back.
+
 Tensor parallelism (``group``, a ``repro_torch.launch.mesh.EngineGroup``):
 the params are one rank's shard (``repro_torch.launch.sharding``), so
 attention runs on the rank's query and KV heads, the pools hold only its KV
@@ -72,7 +88,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
 from repro_torch.models import xlstm as xl
-from repro_torch.models.layers import gelu_mlp, rmsnorm, rope, swiglu_mlp
+from repro_torch.models.flash import flash_attention
+from repro_torch.models.layers import (gelu_mlp, rmsnorm, rmsnorm_ct16, rope,
+                                       swiglu_mlp)
 from repro_torch.models.moe import moe_ffn
 
 #: stage kinds that carry per-slot recurrent state
@@ -111,12 +129,19 @@ def cast_params(params: dict, dtype: torch.dtype, device=None) -> dict:
 # per-block init (the layout of repro/models/transformer.py)
 # --------------------------------------------------------------------------
 
-def _init_attn(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
+def _init_attn(gen, cfg: ArchConfig, lead: tuple, fuse_qkv=False,
+               **kw) -> dict:
     d, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    p = {"wq": m.dense_init(gen, d, H * dh, lead=lead, **kw),
-         "wk": m.dense_init(gen, d, KV * dh, lead=lead, **kw),
-         "wv": m.dense_init(gen, d, KV * dh, lead=lead, **kw),
-         "wo": m.dense_init(gen, H * dh, d, lead=lead, **kw)}
+    if fuse_qkv:
+        # one (H + 2 KV) * dh projection, split after the matmul
+        p = {"wqkv": m.dense_init(gen, d, (H + 2 * KV) * dh, lead=lead,
+                                  **kw),
+             "wo": m.dense_init(gen, H * dh, d, lead=lead, **kw)}
+    else:
+        p = {"wq": m.dense_init(gen, d, H * dh, lead=lead, **kw),
+             "wk": m.dense_init(gen, d, KV * dh, lead=lead, **kw),
+             "wv": m.dense_init(gen, d, KV * dh, lead=lead, **kw),
+             "wo": m.dense_init(gen, H * dh, d, lead=lead, **kw)}
     if cfg.qkv_bias:
         p["bq"] = m.zeros(lead + (H * dh,), **kw)
         p["bk"] = m.zeros(lead + (KV * dh,), **kw)
@@ -137,10 +162,11 @@ def _init_mlp(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
             "w_out": m.dense_init(gen, ff, d, lead=lead, **kw)}
 
 
-def _init_attn_mlp(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
+def _init_attn_mlp(gen, cfg: ArchConfig, lead: tuple, fuse_qkv=False,
+                   **kw) -> dict:
     dev = kw.get("device")
     return {"norm1": m.zeros(lead + (cfg.d_model,), device=dev),
-            "attn": _init_attn(gen, cfg, lead, **kw),
+            "attn": _init_attn(gen, cfg, lead, fuse_qkv, **kw),
             "norm2": m.zeros(lead + (cfg.d_model,), device=dev),
             "mlp": _init_mlp(gen, cfg, lead, **kw)}
 
@@ -186,10 +212,15 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
     rank's shard). Returns (out, new_cache)."""
     B, S, _ = x.shape
     dh = cfg.d_head
-    H, KV = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    if "wqkv" in p:
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        q, k, v = torch.split(x @ p["wqkv"].to(x.dtype),
+                              [H * dh, KV * dh, KV * dh], dim=-1)
+    else:
+        H, KV = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+        q = x @ p["wq"].to(x.dtype)
+        k = x @ p["wk"].to(x.dtype)
+        v = x @ p["wv"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -203,7 +234,10 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "prefill":
+    if mode == "train":
+        out = flash_attention(q, k, v, lengths, window)
+        new_cache = None
+    elif mode == "prefill":
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), lengths, window)
         new_cache = {"k": k.to(torch_dtype(cfg.compute_dtype)),
@@ -250,17 +284,18 @@ def _mlp(p, x, cfg: ArchConfig, group=None):
     return _all_reduce(y, group)
 
 
-def _attn_mlp_block(p, x, cfg, **kw):
-    h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
+def _attn_mlp_block(p, x, cfg, norm_fn=rmsnorm, **kw):
+    h, new_cache = _attention(p["attn"], norm_fn(x, p["norm1"], cfg.norm_eps),
                               cfg, **kw)
     x = x + h
-    x = x + _mlp(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg,
+    x = x + _mlp(p["mlp"], norm_fn(x, p["norm2"], cfg.norm_eps), cfg,
                  kw["group"])
     return x, new_cache
 
 
 def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
                     **kw):
+    """Returns (x, new_cache, the layer's MoE aux loss)."""
     h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
                               cfg, **kw)
     x = x + h
@@ -280,16 +315,19 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
                 valid = valid & row_valid[:, None].expand(B, S).reshape(-1)
         elif lengths is not None:
             valid = (positions < lengths[:, None]).reshape(B * S)
-    y, _ = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
-                   capacity_factor=cfg.moe.capacity_factor,
-                   gated=cfg.mlp_gated, router_fn=routing_hook,
-                   positions=pos_flat, layer=layer_idx, valid=valid,
-                   group=kw["group"])
-    return x + y.reshape(B, S, d), new_cache
+    y, aux = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
+                     capacity_factor=cfg.moe.capacity_factor,
+                     gated=cfg.mlp_gated, router_fn=routing_hook,
+                     positions=pos_flat, layer=layer_idx, valid=valid,
+                     group=kw["group"])
+    return x + y.reshape(B, S, d), new_cache, aux
 
 
 def _keep_rows(new, old, row_valid):
-    """Decode: a row whose token is the sentinel keeps its old state."""
+    """Decode: a row whose token is the sentinel keeps its old state (no
+    sentinel on embeddings: ``row_valid`` None keeps every new row)."""
+    if row_valid is None:
+        return new
     if isinstance(new, dict):
         return {k: _keep_rows(new[k], old[k], row_valid) for k in new}
     mask = row_valid.reshape((-1,) + (1,) * (new.dim() - 1))
@@ -298,8 +336,10 @@ def _keep_rows(new, old, row_valid):
 
 def _mamba_block(p, x, cfg, *, mode, cache, row_valid):
     """Pre-norm residual Mamba2 block; ``cache``: the layer's state (None
-    in prefill).  Returns (x, new state)."""
+    in prefill and training).  Returns (x, new state; None in training)."""
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
+    if mode == "train":
+        return x + mb.mamba_forward(p["mamba"], xn, cfg), None
     if mode == "decode":
         y, st = mb.mamba_decode(p["mamba"], xn, cfg, cache)
         st = _keep_rows(st, cache, row_valid)
@@ -321,6 +361,9 @@ def _xlstm_block(p, x, cfg, *, mode, cache, row_valid):
         x, st_s = xl.slstm_decode(p["slstm"], x, nh, eps, cache["slstm"])
         return x, _keep_rows({"mlstm": st_m, "slstm": st_s}, cache,
                              row_valid)
+    if mode == "train":
+        x = xl.mlstm_forward(p["mlstm"], x, nh, eps)
+        return xl.slstm_forward(p["slstm"], x, nh, eps), None
     x, st_m = xl.mlstm_forward(p["mlstm"], x, nh, eps, return_state=True)
     x, st_s = xl.slstm_forward(p["slstm"], x, nh, eps, return_state=True)
     return x, {"mlstm": st_m, "slstm": st_s}
@@ -338,6 +381,8 @@ def _zamba_super(p, shared, x, cfg, *, cache, row_valid, **kw):
     x, attn = _attn_mlp_block(shared, x, cfg, window=None,
                               cache=None if cache is None else cache["attn"],
                               **kw)
+    if kw["mode"] == "train":
+        return x, None
     return x, {"mamba": _stack(states), "attn": attn}
 
 
@@ -376,12 +421,14 @@ class Model:
     # the engine group of a tensor-parallel rank (params are then its
     # shard); None: the whole model on one device
     group: Optional[Any] = None
-
-    def __post_init__(self):
-        if not self.cfg.embed_inputs or self.cfg.n_codebooks:
-            raise NotImplementedError(
-                f"{self.cfg.name}: precomputed-embedding inputs and "
-                f"codebook heads are not ported yet")
+    # training only: recompute each layer in the backward (JAX's
+    # jax.checkpoint(nothing_saveable)); the JAX model's default
+    remat: bool = True
+    # one fused QKV projection ``attn.wqkv`` in the attention stages
+    fuse_qkv: bool = False
+    # the attention + MLP blocks' norms cast their input's cotangent to
+    # the compute dtype (``layers.rmsnorm_ct16``)
+    norm_ct16: bool = False
 
     @property
     def recurrent(self) -> bool:
@@ -395,18 +442,19 @@ class Model:
         scales and ``_F32_PARAMS`` in f32."""
         cfg = self.cfg
         kw = dict(dtype=dtype, device=device)
-        params: Dict[str, Any] = {
-            "embed": {"tok": m.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                          **kw)}}
+        params: Dict[str, Any] = {}
+        if cfg.embed_inputs:
+            params["embed"] = {"tok": m.embed_init(gen, cfg.padded_vocab,
+                                                   cfg.d_model, **kw)}
         for i, st in enumerate(cfg.stages):
             lead = (st.n_layers,)
             if st.kind == ATTN_MOE:
                 p = {"norm1": m.zeros(lead + (cfg.d_model,), device=device),
-                     "attn": _init_attn(gen, cfg, lead, **kw),
+                     "attn": _init_attn(gen, cfg, lead, self.fuse_qkv, **kw),
                      "norm2": m.zeros(lead + (cfg.d_model,), device=device),
                      "moe": _init_moe(gen, cfg, st.n_layers, **kw)}
             elif st.kind == ATTN_MLP:
-                p = _init_attn_mlp(gen, cfg, lead, **kw)
+                p = _init_attn_mlp(gen, cfg, lead, self.fuse_qkv, **kw)
             elif st.kind == MAMBA2:
                 p = _init_mamba_layer(gen, cfg, lead, **kw)
             elif st.kind == ZAMBA_SUPER:
@@ -418,22 +466,34 @@ class Model:
         if any(st.kind == ZAMBA_SUPER for st in cfg.stages):
             params["shared_attn"] = _init_attn_mlp(gen, cfg, (), **kw)
         params["final_norm"] = m.zeros((cfg.d_model,), device=device)
-        params["head"] = {"w": m.dense_init(gen, cfg.d_model,
-                                            cfg.padded_vocab, **kw)}
+        params["head"] = {"w": m.dense_init(
+            gen, cfg.d_model, self._n_heads_out() * cfg.padded_vocab, **kw)}
         return params
 
     # ---- embedding / head ----
+    def _n_heads_out(self) -> int:
+        return max(1, self.cfg.n_codebooks or 1)
+
     def _embed(self, params, tokens):
+        """Token ids through the table, or precomputed ``(B, S, d)``
+        embeddings (``embed_inputs=False``), in the compute dtype."""
         dtype = torch_dtype(self.cfg.compute_dtype)
+        if not self.cfg.embed_inputs:
+            return tokens.to(dtype)
         return params["embed"]["tok"].to(dtype)[tokens.long()]
 
     def _head(self, params, x):
-        """Logits over the *padded* vocab; consumers slice [..., :vocab].
-        A rank holding a vocab shard gathers the others'."""
+        """Logits over the *padded* vocab; consumers slice [..., :vocab];
+        ``(B, S, n_codebooks, padded_vocab)`` with codebook heads.  A rank
+        holding a vocab shard gathers the others'."""
+        cfg = self.cfg
         w = params["head"]["w"]
         logits = x @ w.to(x.dtype)
-        if w.shape[-1] != self.cfg.padded_vocab:
+        if w.shape[-1] != self._n_heads_out() * cfg.padded_vocab:
             logits = self.group.all_gather_last(logits)
+        if cfg.n_codebooks:
+            B, S, _ = logits.shape
+            logits = logits.reshape(B, S, cfg.n_codebooks, cfg.padded_vocab)
         return logits
 
     def _window_for_layer(self, li: int, period: int) -> Optional[int]:
@@ -446,11 +506,44 @@ class Model:
             return _GLOBAL_WINDOW
         return cfg.sliding_window
 
+    def _layer(self, st, li, moe_layer, p, x, kcache, shared, row_valid,
+               **kw):
+        """One layer of stage ``st``: (x, its new cache or state, its MoE
+        aux loss or None)."""
+        cfg = self.cfg
+        kw["cache"] = kcache
+        if st.kind == ATTN_MOE:
+            # MoE layers attend without a window, as in JAX
+            return _attn_moe_block(p, x, cfg, window=None,
+                                   layer_idx=moe_layer,
+                                   routing_hook=self.routing_hook,
+                                   row_valid=row_valid, **kw)
+        if st.kind == ATTN_MLP:
+            x, nc = _attn_mlp_block(
+                p, x, cfg, window=self._window_for_layer(
+                    li, st.local_global_period),
+                norm_fn=rmsnorm_ct16 if self.norm_ct16 else rmsnorm, **kw)
+        elif st.kind == MAMBA2:
+            x, nc = _mamba_block(p, x, cfg, mode=kw["mode"], cache=kcache,
+                                 row_valid=row_valid)
+        elif st.kind == ZAMBA_SUPER:
+            x, nc = _zamba_super(p, shared, x, cfg, row_valid=row_valid,
+                                 **kw)
+        else:
+            x, nc = _xlstm_block(p, x, cfg, mode=kw["mode"], cache=kcache,
+                                 row_valid=row_valid)
+        return x, nc, None
+
     def _run_stages(self, params, x, *, positions, lengths, mode, cache,
                     block_table, row_valid=None):
+        """Every stage in order: (x, the new caches by stage key, the MoE
+        layers' aux loss summed, f32).  In training each layer runs under
+        ``torch.utils.checkpoint`` when ``remat``, and no cache is kept."""
         cfg = self.cfg
         new_caches = {}
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         moe_off = 0          # model-wide MoE layer index of the stage's 0
+        remat = mode == "train" and self.remat
         for i, st in enumerate(cfg.stages):
             key = f"stage{i}"
             sp = params[key]
@@ -458,31 +551,23 @@ class Model:
             for li in range(st.n_layers):
                 p = _layer(sp, li)
                 kcache = None if cache is None else _layer(cache[key], li)
+                args = (st, li, moe_off + li, p, x, kcache,
+                        params.get("shared_attn"), row_valid)
                 kw = dict(positions=positions, lengths=lengths, mode=mode,
-                          cache=kcache, block_table=block_table,
-                          page_size=self.page_size, group=self.group)
-                if st.kind == ATTN_MOE:
-                    # MoE layers attend without a window, as in JAX
-                    x, nc = _attn_moe_block(
-                        p, x, cfg, window=None, layer_idx=moe_off + li,
-                        routing_hook=self.routing_hook,
-                        row_valid=row_valid, **kw)
-                elif st.kind == ATTN_MLP:
-                    x, nc = _attn_mlp_block(
-                        p, x, cfg, window=self._window_for_layer(
-                            li, st.local_global_period), **kw)
-                elif st.kind == MAMBA2:
-                    x, nc = _mamba_block(p, x, cfg, mode=mode, cache=kcache,
-                                         row_valid=row_valid)
-                elif st.kind == ZAMBA_SUPER:
-                    x, nc = _zamba_super(p, params["shared_attn"], x, cfg,
-                                         row_valid=row_valid, **kw)
+                          block_table=block_table, page_size=self.page_size,
+                          group=self.group)
+                if remat:
+                    x, nc, aux = torch.utils.checkpoint.checkpoint(
+                        self._layer, *args, use_reentrant=False, **kw)
                 else:
-                    x, nc = _xlstm_block(p, x, cfg, mode=mode, cache=kcache,
-                                         row_valid=row_valid)
+                    x, nc, aux = self._layer(*args, **kw)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 layer_caches.append(nc)
             if st.kind == ATTN_MOE:
                 moe_off += st.n_layers
+            if mode == "train":
+                continue
             if mode == "prefill" or st.kind in (MAMBA2, XLSTM_PAIR):
                 new_caches[key] = _stack(layer_caches)
             elif st.kind == ZAMBA_SUPER:
@@ -493,21 +578,55 @@ class Model:
             else:
                 # the pools were written in place
                 new_caches[key] = cache[key]
-        return x, new_caches
+        return x, new_caches, aux_total
 
     # ---- entry points ----
+    def forward(self, params, inputs, *, lengths=None):
+        """Training/scoring forward. inputs: (B,S) ids or (B,S,d)
+        embeddings.  Returns (logits over the padded vocab, the MoE aux
+        loss summed over layers, f32)."""
+        x = self._embed(params, inputs)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x, _, aux = self._run_stages(params, x, positions=positions,
+                                     lengths=lengths, mode="train",
+                                     cache=None, block_table=None)
+        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._head(params, x), aux
+
+    def loss_fn(self, params, batch):
+        """batch: {inputs, labels, (weights)} -> (total, metrics): the
+        mean NLL over the padded vocab (averaged over codebook heads),
+        weighted, plus 0.01 times the MoE aux loss."""
+        labels = batch["labels"]
+        logits, aux = self.forward(params, batch["inputs"])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        if self.cfg.n_codebooks:
+            nll = nll.mean(dim=-1)          # average over codebook heads
+        weights = batch.get("weights")
+        if weights is None:
+            weights = torch.ones(nll.shape, dtype=torch.float32,
+                                 device=nll.device)
+        weights = weights.float()
+        loss = (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+        total = loss + 0.01 * aux
+        return total, {"loss": loss, "aux_loss": aux,
+                       "tokens": weights.sum()}
+
     def prefill(self, params, tokens, *, lengths=None):
-        """Returns (logits_last, cache). tokens: (B,S); the cache holds the
-        chunk's K/V contiguously, ``(L, B, S, KV, dh)`` per stage."""
+        """Returns (logits_last, cache). tokens: (B,S) ids or (B,S,d)
+        embeddings; the cache holds the chunk's K/V contiguously, ``(L, B,
+        S, KV, dh)`` per stage."""
         x = self._embed(params, tokens)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32,
                                  device=x.device)
-        x, caches = self._run_stages(params, x, positions=positions,
-                                     lengths=lengths, mode="prefill",
-                                     cache=None, block_table=None)
+        x, caches, _ = self._run_stages(params, x, positions=positions,
+                                        lengths=lengths, mode="prefill",
+                                        cache=None, block_table=None)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         idx = torch.clamp(lengths.long() - 1, min=0)
         x_last = x[torch.arange(B, device=x.device), idx][:, None]
@@ -515,23 +634,26 @@ class Model:
         return self._head(params, x_last), caches
 
     def decode(self, params, cache, tokens):
-        """One decode step. tokens: (B,1) ids.
+        """One decode step. tokens: (B,1) ids or (B,1,d) embeddings.
 
         cache["lengths"] counts tokens *already in* the cache; the new token
         is written at index lengths (then lengths+1 is returned).  A
-        negative token is the engine's sentinel for a row that is not
+        negative token id is the engine's sentinel for a row that is not
         scheduled this step; it runs on token 0, its recurrent state stays
         as it was, and under a routing hook its row takes no MoE capacity
-        and is not recorded."""
-        row_valid = tokens.reshape(tokens.shape[0], -1)[:, 0] >= 0
-        x = self._embed(params, torch.clamp(tokens, min=0))
+        and is not recorded.  Embeddings have no sentinel."""
+        row_valid = None
+        if not tokens.is_floating_point():
+            row_valid = tokens.reshape(tokens.shape[0], -1)[:, 0] >= 0
+            tokens = torch.clamp(tokens, min=0)
+        x = self._embed(params, tokens)
         lengths = cache["lengths"] + 1       # include current token
         positions = (lengths - 1)[:, None]
         block_table = cache["block_table"]
-        x, stages = self._run_stages(params, x, positions=positions,
-                                     lengths=lengths, mode="decode",
-                                     cache=cache, block_table=block_table,
-                                     row_valid=row_valid)
+        x, stages, _ = self._run_stages(params, x, positions=positions,
+                                        lengths=lengths, mode="decode",
+                                        cache=cache, block_table=block_table,
+                                        row_valid=row_valid)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         new_cache = {"lengths": lengths, "block_table": block_table,
                      **stages}
@@ -550,9 +672,9 @@ class Model:
         positions = start[:, None].long() + \
             torch.arange(S, device=x.device)[None, :]
         block_table = cache["block_table"]
-        x, stages = self._run_stages(params, x, positions=positions,
-                                     lengths=lengths, mode="extend",
-                                     cache=cache, block_table=block_table)
+        x, stages, _ = self._run_stages(params, x, positions=positions,
+                                        lengths=lengths, mode="extend",
+                                        cache=cache, block_table=block_table)
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         new_cache = {"lengths": lengths, "block_table": block_table,
                      **stages}

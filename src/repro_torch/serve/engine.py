@@ -323,6 +323,12 @@ class ServingEngine:
         tp = int(tp)
         if tp < 1:
             raise ValueError(f"ServingEngine: tp must be >= 1, got {tp}")
+        if not cfg.embed_inputs or cfg.n_codebooks:
+            raise NotImplementedError(
+                f"ServingEngine: {cfg.name} reads precomputed embeddings "
+                f"and has codebook heads; the serving engine takes token "
+                f"ids only, as the JAX one does (ROADMAP.md, \"After the "
+                f"port\": serving musicgen-large)")
         refuse_unported_recurrent(cfg, tp=tp, prefix_cache=prefix_cache,
                                   spec=spec)
         if tp > 1:

@@ -16,6 +16,12 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+#: the training modules, which the checks below must reach
+TRAINING_MODULES = ("repro_torch.models.flash", "repro_torch.train.optimizer",
+                    "repro_torch.train.train_step",
+                    "repro_torch.train.checkpoint", "repro_torch.train.tree",
+                    "repro_torch.launch.train",
+                    "repro_torch.workload.datasets")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -31,20 +37,26 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(json.dumps({{"n": len(names), "bad": bad}}))
+print(json.dumps({{"n": len(names), "names": names, "bad": bad}}))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] > 30
+    assert set(TRAINING_MODULES) <= set(res["names"])
     assert res["bad"] == []
 
 
 def test_port_sources_name_no_jax():
     pat = re.compile(r"import jax|from jax|\brepro\.")
+    sources = sorted(PORT.rglob("*.py"))
+    rel = {str(p.relative_to(PORT)) for p in sources}
+    for mod in TRAINING_MODULES:        # the training modules are covered
+        assert mod.replace("repro_torch.", "").replace(".", "/") + ".py" \
+            in rel, mod
     hits = [f"{p.relative_to(ROOT)}:{i}"
-            for p in sorted(PORT.rglob("*.py"))
+            for p in sources
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pat.search(line)]
     assert hits == []

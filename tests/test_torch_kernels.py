@@ -413,12 +413,14 @@ def test_profiler_classifies_every_port_kernel():
     spec.loader.exec_module(prof)
     want = {"flash_attention": "flash_attention (port)",
             "paged_attention": "paged_attention (port)",
-            "moe_gmm": "moe_gmm (port)"}
+            "moe_gmm": "moe_gmm (port)",
+            "flash_attention_bwd": "flash_attention_bwd (port)"}
     symbols = _kernel_symbols()
     names = {n for n, _ in symbols}
     assert {"flash_fwd_kernel", "flash_fwd_wgmma_kernel", "paged_fwd_kernel",
             "paged_decode_split_kernel", "paged_extend_wgmma_kernel",
-            "gmm_kernel", "gmm_wgmma_kernel"} <= names
+            "gmm_kernel", "gmm_wgmma_kernel", "flash_bwd_delta_kernel",
+            "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"} <= names
     for name, src in symbols:
         ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"
         for shown in (f"void {ns}::{name}<128>(int const*, float*)",

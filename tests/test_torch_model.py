@@ -7,7 +7,8 @@ its contiguous cache; the port runs its paged cache through a permuted
 block table of 16-token pages.  Prefill, extend and decode logits must
 agree in f32 within 2e-5, for dense and for MoE stages (the MoE layers run
 the grouped matmul's plain version; every row routes, pad tails included,
-as in JAX without a routing hook).
+as in JAX without a routing hook), and for musicgen on precomputed
+embeddings with its codebook heads (no negative-token sentinel there).
 """
 import dataclasses
 
@@ -32,7 +33,8 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 ARCHS = [("llama3.1-8b-tiny", None), ("qwen3-8b-tiny", None),
          ("qwen1.5-32b-tiny", None), ("gemma3-27b-tiny", None),
          ("gemma3-27b-tiny", 2), ("starcoder2-7b-tiny", None),
-         ("phimini-moe-tiny", None), ("granite-moe-1b-a400m-tiny", None)]
+         ("phimini-moe-tiny", None), ("granite-moe-1b-a400m-tiny", None),
+         ("musicgen-large-tiny", None)]
 # granite runs at its published routing (32 experts top-8) and head dim 64
 # over the tiny widths: top-k > 2 adds more than two expert outputs per row
 _WIDTHS = {"granite-moe-1b-a400m-tiny": dict(d_head=64, n_experts=32,
@@ -60,6 +62,14 @@ def _noisy(tree, rng, path=()):
         return (tree + 0.1 * rng.standard_normal(tree.shape)
                 ).astype(tree.dtype)
     return tree
+
+
+def _inputs(cfg, rng, B, S):
+    """Token ids, or (B, S, d) f32 embeddings for a model that reads
+    precomputed embeddings."""
+    if cfg.embed_inputs:
+        return rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    return rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
 
 
 def _write_prefill(cache, c1, table, ps, S):
@@ -90,7 +100,7 @@ def test_prefill_extend_decode_logits_match_jax(arch, layers):
 
     B, S, max_len = 2, 32, 96
     lengths = np.array([13, 20], np.int32)
-    tokens = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    tokens = _inputs(jcfg, rng, B, S)
 
     # prefill
     lj, cj = jm.prefill(jp, jnp.asarray(tokens), lengths=jnp.asarray(lengths))
@@ -117,7 +127,7 @@ def test_prefill_extend_decode_logits_match_jax(arch, layers):
     # extend: a chunk crossing a page, one row with a pad tail
     S2 = 16
     n_new = np.array([16, 9], np.int32)
-    tok2 = rng.integers(0, jcfg.vocab, (B, S2)).astype(np.int32)
+    tok2 = _inputs(jcfg, rng, B, S2)
     lj, big = jm.extend(jp, big, jnp.asarray(tok2), jnp.asarray(n_new))
     lt, paged = tm.extend(tp, paged, torch.from_numpy(tok2),
                           torch.from_numpy(n_new))
@@ -127,17 +137,21 @@ def test_prefill_extend_decode_logits_match_jax(arch, layers):
 
     # decode: three steps, the second with row 1 unscheduled (sentinel)
     for step in range(3):
-        tok = rng.integers(0, jcfg.vocab, (B, 1)).astype(np.int32)
-        if step == 1:
+        tok = _inputs(jcfg, rng, B, 1)
+        if step == 1 and jcfg.embed_inputs:
             tok[1, 0] = -1
         lj, big = jm.decode(jp, big, jnp.asarray(tok))
         lt, paged = tm.decode(tp, paged, torch.from_numpy(tok))
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
 
 
-def test_unported_stages_raise():
-    with pytest.raises(NotImplementedError, match="codebook"):
-        Model(get_config("musicgen-large-tiny"))
+def test_serving_engine_refuses_musicgen():
+    """The Model runs musicgen (above); the serving engine, like the JAX
+    one, takes token ids only and refuses it by name."""
+    from repro_torch.serve import ServingEngine
+    with pytest.raises(NotImplementedError, match="serving musicgen-large"):
+        ServingEngine(get_config("musicgen-large-tiny"), device="cpu",
+                      max_batch=2, max_len=64)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b-tiny", "xlstm-125m-tiny"])

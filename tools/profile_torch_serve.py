@@ -33,7 +33,10 @@ PORT_CLASSES = (("flash_fwd_kernel", "flash_attention (port)"),
                 ("paged_decode_split_kernel", "paged_attention (port)"),
                 ("paged_extend_wgmma_kernel", "paged_attention (port)"),
                 ("gmm_kernel", "moe_gmm (port)"),
-                ("gmm_wgmma_kernel", "moe_gmm (port)"))
+                ("gmm_wgmma_kernel", "moe_gmm (port)"),
+                ("flash_bwd_delta_kernel", "flash_attention_bwd (port)"),
+                ("flash_bwd_dkdv_kernel", "flash_attention_bwd (port)"),
+                ("flash_bwd_dq_kernel", "flash_attention_bwd (port)"))
 
 
 def _kernel_class(name: str) -> str:
