@@ -9,9 +9,8 @@ result line:
    capability (9.0 required); TF32 off; the kernels built from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (the flash
    backward too), and the count of tensor-core (``HGMMA``) instructions in
-   each library, which must not be 0 for flash attention, paged attention
-   and the grouped matmul (their bf16 prefill, extend and matmul kernels;
-   the flash backward runs on FMAs);
+   each library, which must not be 0 for any of them (their bf16 prefill,
+   backward, extend and matmul kernels);
 2. each kernel against its plain PyTorch version on the card, in f32 and
    bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and
    ``tests/test_kernels.py`` and on the main paths' own shapes (flash at
@@ -28,8 +27,9 @@ result line:
    forward's log-sum-exp and the flash backward's dq, dk, dv at
    demo-110m's heads (S 128 and 1024), llama3.1-8b's (S 1024),
    musicgen-large's (G = 1), a window, ragged lengths, S 100, head dims
-   16 and 32; every kernel must also give bitwise the same result on a
-   second launch;
+   16 and 32, and the edges of the 64-row tiles (S 65 and 129, a window
+   of 64, G = 3 at head dim 16); every kernel must also give bitwise the
+   same result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
@@ -207,8 +207,8 @@ def card_and_setup(torch):
                     print(f"  ptxas {name}: {line.strip()}")
     hgmma = hgmma_counts(paths)
     print(f"HGMMA instructions (cuobjdump -sass): {json.dumps(hgmma)}")
-    # the flash backward is an FMA kernel (tensor cores are later work)
-    for name in ("flash_attention", "paged_attention", "moe_gmm"):
+    for name in ("flash_attention", "flash_attention_bwd", "paged_attention",
+                 "moe_gmm"):
         check(hgmma[name] > 0, f"{name}: no HGMMA instruction in its "
                                f"library, the bf16 kernel is not on wgmma")
     return card
@@ -339,6 +339,13 @@ def flash_bwd_cases():
     yield 3, 256, 12, 4, 64, (256, 131, 17), 64
     yield 2, 100, 8, 2, 16, (100, 57), None
     yield 2, 160, 8, 4, 32, None, 33
+    # the edges of the bf16 kernels' 64-row tiles: S = 65 and 129 (one row
+    # into the next tile; a length of 100), a window of exactly 64, and
+    # G = 3 at dh 16 with a length on a tile edge
+    yield 2, 65, 12, 4, 64, None, None
+    yield 1, 129, 32, 8, 128, (100,), None
+    yield 2, 256, 8, 2, 32, (256, 190), 64
+    yield 2, 129, 6, 2, 16, (129, 64), None
 
 
 def flash_bwd_vs_plain(torch, ops, dev, worst):
@@ -860,8 +867,10 @@ def flash_bwd_timings(torch, ops, dev, measure):
     products per visible (query, key) pair (S = QK^T recomputed, dP =
     dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K), 2 * dh FLOPs each,
     over the bf16 tensor-core peak: 10 * dh * B * H * S (S + 1) / 2
-    (causal, full lengths).  The kernel does 14 * dh a pair (S and dP in
-    both of its passes) on FMAs, far from that bound."""
+    (causal, full lengths).  The bf16 kernel runs two passes on wgmma fed
+    by TMA (dK/dV per 64-key tile, dQ per 64-row query tile, no atomics),
+    14 * dh FLOPs a pair (S and dP in both passes): its floor is 1.4x the
+    bound."""
     gen = torch.Generator(device=dev).manual_seed(3)
     bf = torch.bfloat16
     rows = {}

@@ -1,6 +1,7 @@
-// Shared device code of the two tensor-core attention kernels (bf16 flash
-// prefill and bf16 paged extend): the block's tile sizes and shared-memory
-// layout, and warpgroup 0's step over one K/V tile.
+// Shared device code of the tensor-core attention kernels (bf16 flash
+// prefill, its backward and bf16 paged extend): the block's tile sizes and
+// shared-memory layout, TMA loads of 64-row tiles, the two products they
+// are built from, and warpgroup 0's forward step over one K/V tile.
 //
 // A block computes 64 query rows (wgmma's M) against K/V tiles of 64 keys
 // that a producer warp loads by TMA into a 2-stage ring.  Shared-memory
@@ -35,9 +36,94 @@ struct TcLayout {
   static constexpr int SMEM = Q_BYTES + kTcStages * STAGE + 64 + 1024;
 };
 
+static_assert(kTcRows == kTcKeys, "every tile below has 64 rows");
+
+// The TMA descriptor of a (B, S, heads, DH) bf16 tensor read in tiles of
+// 64 rows of one head: dims {dh, heads, S, B}, box CHUNK x 1 x 64 x 1.
+// Returns a cudaError_t.
+template <int DH>
+inline int tc_head_map(CUtensorMap* map, const void* base, int B, int S,
+                       int heads) {
+  using L = TcLayout<DH>;
+  const uint64_t dims[4] = {uint64_t(DH), uint64_t(heads), uint64_t(S),
+                            uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(DH) * 2, uint64_t(heads) * DH * 2,
+                               uint64_t(S) * heads * DH * 2};
+  const uint32_t box[4] = {uint32_t(L::CHUNK), 1, uint32_t(kTcRows), 1};
+  return repro_hopper::make_tensor_map(map, base, 4, dims, strides, box,
+                                       L::SW);
+}
+
+// Load rows row0 .. row0 + 63 of ``head`` of sequence b (a tc_head_map
+// tensor; rows past S load as zero) into the tile at dst, completing on
+// ``bar``: NC chunks, each 64 rows of SW bytes.
+template <int DH>
+__device__ __forceinline__ void tc_load_tile(uint8_t* dst,
+                                             const CUtensorMap* map,
+                                             uint64_t* bar, int head,
+                                             int row0, int b) {
+  using L = TcLayout<DH>;
+#pragma unroll
+  for (int c = 0; c < L::NC; ++c)
+    repro_hopper::tma_load_4d(dst + c * kTcRows * L::SW, map, bar,
+                              c * L::CHUNK, head, row0, b);
+}
+
+// wgmma descriptors of k16 step kk of a 64-row tile of dh: read K-major
+// (the step is 16 columns of dh: 32 bytes into a chunk's rows) or
+// MN-major (the step is 16 rows; LBO = one chunk of dh, 64 rows away).
+template <int DH>
+__device__ __forceinline__ uint64_t tc_kmajor(const uint8_t* tile, int kk) {
+  using L = TcLayout<DH>;
+  const int off = (kk * 16 / L::CHUNK) * kTcRows * L::SW +
+                  (kk * 16 % L::CHUNK) * 2;
+  return repro_hopper::smem_desc(tile + off, 16, 8 * L::SW, L::LAYOUT);
+}
+template <int DH>
+__device__ __forceinline__ uint64_t tc_mnmajor(const uint8_t* tile,
+                                               int kk) {
+  using L = TcLayout<DH>;
+  return repro_hopper::smem_desc(tile + kk * 16 * L::SW, kTcRows * L::SW,
+                                 8 * L::SW, L::LAYOUT);
+}
+
+// Issue acc (64 x 64) += A B^T for two 64-row tiles of dh (both K-major).
+template <int DH>
+__device__ __forceinline__ void tc_abt(float (&acc)[32], const uint8_t* a,
+                                       const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    repro_hopper::wgmma_ss<64, 0, 0>(acc, tc_kmajor<DH>(a, kk),
+                                     tc_kmajor<DH>(b, kk));
+}
+
+// Issue acc (64 x dh) += A B for A (64 x 64) in registers, four k16 steps
+// of bf16 pairs (pack_bf16 of a 64 x 64 accumulator), and B a 64-row tile
+// of dh read MN-major.
+template <int DH>
+__device__ __forceinline__ void tc_ab(float (&acc)[DH / 2],
+                                      const uint32_t (&a)[4][4],
+                                      const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    repro_hopper::wgmma_rs<DH, 1>(acc, a[kk], tc_mnmajor<DH>(b, kk));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A 64 x 64 accumulator as the register A operand of tc_ab: k16 step kk
+// takes columns 16kk..16kk+15, i.e. accumulators 8kk..8kk+7, in pairs,
+// rounded to bf16.
+__device__ __forceinline__ void tc_pack(const float (&acc)[32],
+                                        uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = pack_bf16(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
 }
 
 // The online-softmax state of a thread's two rows (scores in log2 units).
@@ -68,21 +154,12 @@ __device__ __forceinline__ void tc_attend_tile(TcRows<DH>& r,
                                                float scale_log2, int l,
                                                Keep keep) {
   using namespace repro_hopper;
-  using L = TcLayout<DH>;
   float sc[kTcKeys / 2];
 #pragma unroll
   for (int i = 0; i < kTcKeys / 2; ++i) sc[i] = 0.f;
   fence_regs(sc);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    // k16 step kk: chunk kk*16 / CHUNK, 32 bytes per step into the row
-    const int off = (kk * 16 / L::CHUNK) * 64 * L::SW +
-                    (kk * 16 % L::CHUNK) * 2;
-    const uint64_t dq = smem_desc(qs + off, 16, 8 * L::SW, L::LAYOUT);
-    const uint64_t dk = smem_desc(ks + off, 16, 8 * L::SW, L::LAYOUT);
-    wgmma_ss<kTcKeys, 0, 0>(sc, dq, dk);
-  }
+  tc_abt<DH>(sc, qs, ks);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -117,28 +194,17 @@ __device__ __forceinline__ void tc_attend_tile(TcRows<DH>& r,
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) r.o[i] *= (i & 2) ? c1 : c0;
 
-  // P as the register A operand: k16 step kk takes score columns
-  // 16kk..16kk+15, i.e. accumulators 8kk..8kk+7, in pairs
-  uint32_t pa[kTcKeys / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kTcKeys / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+  // P as the register A operand, V read MN-major
+  uint32_t pa[4][4];
+  tc_pack(sc, pa);
   fence_regs(r.o);
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-    // V MN-major: 16 key rows per step; chunks of dh kTcKeys rows apart
-    const uint64_t dv = smem_desc(vs + kk * 16 * L::SW, kTcKeys * L::SW,
-                                  8 * L::SW, L::LAYOUT);
-    wgmma_rs<DH, 1>(r.o, pa[kk], dv);
-  }
+  tc_ab<DH>(r.o, pa, vs);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(r.o);
 #pragma unroll
-  for (int kk = 0; kk < kTcKeys / 16; ++kk) fence_regs(pa[kk]);
+  for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
 }
 
 // 1 / max(l, 1e-20) of the two rows, once their four lanes' sums are added.

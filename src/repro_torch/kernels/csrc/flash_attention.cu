@@ -146,24 +146,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (tid >= 128) {                               // ---- producer
     if (tid != 128) return;
     mbar_expect_tx(qbar, L::Q_BYTES);
-#pragma unroll
-    for (int c = 0; c < L::NC; ++c)
-      tma_load_4d(qs + c * kTcRows * L::SW, &qmap, qbar, c * L::CHUNK, h,
-                  q_lo, b);
+    tc_load_tile<DH>(qs, &qmap, qbar, h, q_lo, b);
     for (int t = 0; t < n_tiles; ++t) {
       const int s = t % kTcStages;
       if (t >= kTcStages) mbar_wait(&empty[s], ((t / kTcStages) + 1) & 1);
       uint8_t* ks = smem + L::Q_BYTES + s * L::STAGE;
-      uint8_t* vs = ks + L::KV_BYTES;
       const int j0 = kv_begin + t * kTcKeys;
       mbar_expect_tx(&full[s], L::STAGE);
-#pragma unroll
-      for (int c = 0; c < L::NC; ++c) {
-        tma_load_4d(ks + c * kTcKeys * L::SW, &kmap, &full[s], c * L::CHUNK,
-                    kvh, j0, b);
-        tma_load_4d(vs + c * kTcKeys * L::SW, &vmap, &full[s], c * L::CHUNK,
-                    kvh, j0, b);
-      }
+      tc_load_tile<DH>(ks, &kmap, &full[s], kvh, j0, b);
+      tc_load_tile<DH>(ks + L::KV_BYTES, &vmap, &full[s], kvh, j0, b);
     }
     return;
   }
@@ -225,17 +216,8 @@ static int launch_tc(const void* q, const void* k, const void* v,
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   const int heads[3] = {H, KV, KV};
-  const uint32_t rows[3] = {kTcRows, kTcKeys, kTcKeys};
   for (int m = 0; m < 3; ++m) {
-    // (B, S, heads, dh): dims {dh, heads, S, B}; box CHUNK x 1 x rows x 1
-    const uint64_t dims[4] = {uint64_t(DH), uint64_t(heads[m]), uint64_t(S),
-                              uint64_t(B)};
-    const uint64_t strides[3] = {uint64_t(DH) * 2,
-                                 uint64_t(heads[m]) * DH * 2,
-                                 uint64_t(S) * heads[m] * DH * 2};
-    const uint32_t box[4] = {uint32_t(L::CHUNK), 1, rows[m], 1};
-    const int err = repro_hopper::make_tensor_map(&maps[m], bases[m], 4, dims,
-                                                  strides, box, L::SW);
+    const int err = tc_head_map<DH>(&maps[m], bases[m], B, S, heads[m]);
     if (err) return err;
   }
   int err = repro_hopper::allow_smem<flash_fwd_wgmma_kernel<DH>>(L::SMEM);

@@ -198,6 +198,11 @@ CARD_CASES = [
     (1, 100, 8, 2, 32, None, None),             # S not a tile multiple
     (2, 96, 4, 4, 16, (96, 41), 30),            # G = 1, ragged, window
     (1, 256, 32, 8, 128, (200,), 64),           # llama3.1-8b's heads
+    # the edges of the bf16 kernels' 64-row tiles
+    (2, 65, 12, 4, 64, None, None),             # S = 65
+    (1, 129, 32, 8, 128, (100,), None),         # S = 129, ragged
+    (2, 256, 8, 2, 32, (256, 190), 64),         # a window of exactly 64
+    (2, 129, 6, 2, 16, (129, 64), None),        # G = 3 at dh 16
 ]
 
 

@@ -420,7 +420,9 @@ def test_profiler_classifies_every_port_kernel():
     assert {"flash_fwd_kernel", "flash_fwd_wgmma_kernel", "paged_fwd_kernel",
             "paged_decode_split_kernel", "paged_extend_wgmma_kernel",
             "gmm_kernel", "gmm_wgmma_kernel", "flash_bwd_delta_kernel",
-            "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"} <= names
+            "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+            "flash_bwd_dkdv_wgmma_kernel",
+            "flash_bwd_dq_wgmma_kernel"} <= names
     for name, src in symbols:
         ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"
         for shown in (f"void {ns}::{name}<128>(int const*, float*)",

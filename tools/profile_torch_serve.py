@@ -36,7 +36,9 @@ PORT_CLASSES = (("flash_fwd_kernel", "flash_attention (port)"),
                 ("gmm_wgmma_kernel", "moe_gmm (port)"),
                 ("flash_bwd_delta_kernel", "flash_attention_bwd (port)"),
                 ("flash_bwd_dkdv_kernel", "flash_attention_bwd (port)"),
-                ("flash_bwd_dq_kernel", "flash_attention_bwd (port)"))
+                ("flash_bwd_dq_kernel", "flash_attention_bwd (port)"),
+                ("flash_bwd_dkdv_wgmma_kernel", "flash_attention_bwd (port)"),
+                ("flash_bwd_dq_wgmma_kernel", "flash_attention_bwd (port)"))
 
 
 def _kernel_class(name: str) -> str:
