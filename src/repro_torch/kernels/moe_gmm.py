@@ -1,14 +1,17 @@
-"""Grouped expert matmul: the CUDA kernel's wrapper, its plain version, and
-its launch counter.
+"""Grouped expert matmul and its backward: the CUDA kernels' wrappers, their
+plain versions, and their launch counters.
 
-Replaces ``repro/kernels/moe_gmm.py`` (``moe_gmm_pallas``).  ``moe_gmm``
-launches ``csrc/moe_gmm.cu`` for CUDA tensors and runs the plain version
+``moe_gmm`` replaces ``repro/kernels/moe_gmm.py`` (``moe_gmm_pallas``);
+``moe_gmm_bwd`` replaces XLA's autodiff of the JAX package's einsum branch
+(``repro/models/moe.py:125-137``), which is not a Pallas kernel.  Each
+launches ``csrc/moe_gmm.cu`` for CUDA tensors and runs its plain version
 for CPU tensors; anything else, or a CUDA call the kernel does not take,
-raises.  There is no fallback from the kernel to the plain version.  The
-dtype picks the kernel: bf16 the tensor-core one, f32 the FMA one; each
-chooses its own tiles (the TPU wrapper's ``bc`` has no counterpart), and
-both read ``group_sizes`` from device memory, so a call costs no host
-sync.
+raises.  There is no fallback from a kernel to its plain version.  The
+dtype picks the kernels: bf16 the tensor-core ones, f32 the FMA ones; they
+choose their own tiles (the TPU wrapper's ``bc`` has no counterpart), and
+read ``group_sizes`` from device memory, so a call costs no host sync.
+Neither wrapper is differentiable: ``repro_torch.models.moe.
+grouped_matmul`` puts the pair behind a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -17,10 +20,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import moe_gmm_ref
+from repro_torch.kernels.ref import moe_gmm_bwd_ref, moe_gmm_ref
 
-#: launches of the CUDA kernel since the last reset (see ``ops``)
-LAUNCHES = {"moe_gmm": 0}
+#: launches of the CUDA kernels since the last reset (see ``ops``)
+LAUNCHES = {"moe_gmm": 0, "moe_gmm_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -29,12 +32,15 @@ def moe_gmm_plain(x, w, group_sizes):
     return moe_gmm_ref(x, w, group_sizes)
 
 
-def _lib():
-    lib = build.load("moe_gmm")
-    fn = lib.moe_gmm_fwd
+def moe_gmm_bwd_plain(x, w, group_sizes, dy):
+    return moe_gmm_bwd_ref(x, w, group_sizes, dy)
+
+
+def _lib(name="moe_gmm_fwd", n_ptrs=4):
+    fn = getattr(build.load("moe_gmm"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p] * n_ptrs + [i] * 5 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -57,11 +63,15 @@ def _check(x, w, group_sizes):
         if t.device != x.device:
             raise ValueError(f"moe_gmm: {name} on {t.device}, x on "
                              f"{x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"moe_gmm: {name} must be contiguous and "
-                             f"16-byte aligned")
+        _check_layout(name, t)
     if E > 65535:
         raise ValueError(f"moe_gmm: {E} experts, the grid takes 65535")
+
+
+def _check_layout(name, t):
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"moe_gmm: {name} must be contiguous and 16-byte "
+                         f"aligned")
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,
@@ -73,13 +83,12 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm: no kernel for {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        # the kernel has no backward: its output would carry no grad_fn
-        # and the expert weights would silently get no gradient
-        raise NotImplementedError(
-            "moe_gmm: training through the grouped expert matmul on the "
-            "card needs its backward kernel, not ported yet (ROADMAP.md "
-            "queue 1: the grouped-matmul backward kernel for MoE training "
-            "on the card); MoE trains on the CPU through the plain version")
+        # the wrapper is not differentiable: its output would carry no
+        # grad_fn and the expert weights would silently get no gradient
+        raise RuntimeError(
+            "moe_gmm: the kernel wrapper takes no part in autograd; train "
+            "through repro_torch.models.moe.grouped_matmul, whose backward "
+            "is ops.moe_gmm_bwd")
     _check(x, w, group_sizes)
     fn = _lib()
     E, C, d = x.shape
@@ -95,3 +104,36 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
                                f"{err}")
         LAUNCHES["moe_gmm"] += 1
     return out
+
+
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+                dy: torch.Tensor):
+    """The backward of ``moe_gmm`` given dy: (E,C,f): (dx (E,C,d), dw
+    (E,d,f)) in x's dtype, summed in f32 in one fixed order (no atomics:
+    two launches give the same bits).  dx's rows ``c >= group_sizes[e]``
+    are 0, and those rows of x and dy take no part whatever they hold."""
+    if x.device.type == "cpu":
+        return moe_gmm_bwd_plain(x, w, group_sizes, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm_bwd: no kernel for {x.device}")
+    _check(x, w, group_sizes)
+    E, C, d = x.shape
+    f = w.shape[2]
+    if dy.shape != (E, C, f) or dy.dtype != x.dtype \
+            or dy.device != x.device:
+        raise ValueError(f"moe_gmm_bwd: dy must be ({E}, {C}, {f}) "
+                         f"{x.dtype} on {x.device}; got {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}")
+    _check_layout("dy", dy)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    fn = _lib("moe_gmm_bwd", 6)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), E, C, d, f,
+                 _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"moe_gmm_bwd kernel launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES["moe_gmm_bwd"] += 1
+    return dx, dw

@@ -1,11 +1,12 @@
 """The port's kernel entry points and its kernel registry.
 
-``flash_attention``, ``flash_attention_bwd``, ``paged_attention`` and
-``moe_gmm`` are the kernel wrappers: on a CUDA tensor each launches its
-hand-written Hopper kernel or raises, on a CPU tensor each runs its plain
-PyTorch version.  ``KERNELS`` names every kernel with its source and what
-it replaces in the JAX package (a Pallas TPU kernel, except the flash
-backward, whose counterpart is the plain-JAX custom VJP), and
+``flash_attention``, ``flash_attention_bwd``, ``paged_attention``,
+``moe_gmm`` and ``moe_gmm_bwd`` are the kernel wrappers: on a CUDA tensor
+each launches its hand-written Hopper kernel or raises, on a CPU tensor
+each runs its plain PyTorch version.  ``KERNELS`` names every kernel with
+its source and what it replaces in the JAX package (a Pallas TPU kernel,
+except the two backwards: the flash one's counterpart is the plain-JAX
+custom VJP, the grouped matmul's XLA's autodiff of an einsum), and
 ``launch_counts`` / ``reset_launch_counts`` read and clear the counters
 the wrappers bump at each launch.
 """
@@ -20,13 +21,15 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_bwd,
+                                         moe_gmm_bwd_plain, moe_gmm_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 
 #: name -> (CUDA source in the repo, what it replaces: the TPU kernel, or
-#: for the flash backward the JAX package's custom VJP, which is not a
-#: Pallas kernel: the JAX package trains through plain JAX)
+#: for the two backwards what the JAX package trains through instead, plain
+#: JAX (the flash custom VJP; XLA's autodiff of the MoE einsums), not a
+#: Pallas kernel)
 KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -43,6 +46,9 @@ KERNELS = {
     "moe_gmm": (
         "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "src/repro/kernels/moe_gmm.py:39"),
+    "moe_gmm_bwd": (
+        "src/repro_torch/kernels/csrc/moe_gmm.cu",
+        "src/repro/models/moe.py:125"),
 }
 
 _COUNTERS = (_flash.LAUNCHES, _paged.LAUNCHES, _gmm.LAUNCHES)
@@ -63,5 +69,6 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain",
-           "launch_counts", "moe_gmm", "moe_gmm_plain", "paged_attention",
+           "launch_counts", "moe_gmm", "moe_gmm_bwd", "moe_gmm_bwd_plain",
+           "moe_gmm_plain", "paged_attention",
            "paged_attention_plain", "reset_launch_counts"]

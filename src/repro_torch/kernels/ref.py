@@ -130,3 +130,17 @@ def moe_gmm_ref(x, w, group_sizes):
     mask = torch.arange(C, device=x.device)[None, :] \
         < group_sizes.to(x.device)[:, None]
     return (out * mask[..., None]).to(x.dtype)
+
+
+def moe_gmm_bwd_ref(x, w, group_sizes, dy):
+    """Backward of ``moe_gmm_ref`` given dy (E,C,f): (dx (E,C,d), dw
+    (E,d,f)) in x's dtype, f32 sums.  Rows ``c >= group_sizes[e]`` of x and
+    dy take no part, whatever they hold, and those rows of dx are 0."""
+    C = x.shape[1]
+    live = (torch.arange(C, device=x.device)[None, :]
+            < group_sizes.to(x.device)[:, None])[..., None]
+    dym = torch.where(live, dy.float(), 0.0)
+    xm = torch.where(live, x.float(), 0.0)
+    dx = torch.einsum("ecf,edf->ecd", dym, w.float())
+    dw = torch.einsum("ecd,ecf->edf", xm, dym)
+    return dx.to(x.dtype), dw.to(x.dtype)

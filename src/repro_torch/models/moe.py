@@ -5,7 +5,11 @@ branch: tokens are sorted by expert id, packed into per-expert capacity
 buffers, run through the grouped expert matmul (``kernels.ops.moe_gmm``:
 the Hopper kernel for CUDA tensors, its plain version for CPU tensors)
 three times (gate, up, down; twice for the GELU path) and scattered back
-with their combine weights.  Capacity overflow is dropped.  The TPU
+with their combine weights.  Capacity overflow is dropped.  In training
+the three products go through ``grouped_matmul``, an autograd Function
+whose backward is ``kernels.ops.moe_gmm_bwd`` (the Hopper kernel on the
+card, its plain version on the CPU): the JAX package differentiates its
+einsum branch with XLA's autodiff instead.  The TPU
 mesh constraint ``shard_experts`` is not ported: GSPMD's placement hint has
 no meaning under explicit tensor parallelism.
 
@@ -32,6 +36,29 @@ import torch.nn.functional as F
 
 from repro_torch.core.expert import expert_capacity
 from repro_torch.kernels import ops
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return ops.moe_gmm(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dx, dw = ops.moe_gmm_bwd(x, w, group_sizes, dy.contiguous())
+        return dx, dw, None
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """``ops.moe_gmm`` with a gradient when one is needed: x (E,C,d), w
+    (E,d,f) -> (E,C,f); ``group_sizes`` gets none.  Without one (the
+    serve, ``no_grad``) it is the plain ``ops.moe_gmm`` call."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(x, w, group_sizes)
+    return ops.moe_gmm(x, w, group_sizes)
 
 
 def normalize_topk(probs: torch.Tensor, top_k: int):
@@ -123,18 +150,20 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     hidden_in = buf[:E_loc * C].view(E_loc, C, d)
 
     # --- grouped expert FFN: three launches of the grouped matmul -----------
-    # valid rows per expert buffer; rows >= size come out 0 either way
+    # valid rows per expert buffer; rows >= size come out 0 either way.  The
+    # casts stay outside the Function, so dw reaches f32 params through them
     group_sizes = torch.clamp(counts[:E_loc], max=C).to(torch.int32)
     if gated:
-        g = F.silu(ops.moe_gmm(hidden_in, params["w_gate"].to(x.dtype),
-                               group_sizes))
-        u = ops.moe_gmm(hidden_in, params["w_up"].to(x.dtype), group_sizes)
+        g = F.silu(grouped_matmul(hidden_in, params["w_gate"].to(x.dtype),
+                                  group_sizes))
+        u = grouped_matmul(hidden_in, params["w_up"].to(x.dtype),
+                           group_sizes)
         h = g * u
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(ops.moe_gmm(hidden_in, params["w_up"].to(x.dtype),
-                               group_sizes), approximate="tanh")
-    out_e = ops.moe_gmm(h, params["w_down"].to(x.dtype), group_sizes)
+        h = F.gelu(grouped_matmul(hidden_in, params["w_up"].to(x.dtype),
+                                  group_sizes), approximate="tanh")
+    out_e = grouped_matmul(h, params["w_down"].to(x.dtype), group_sizes)
 
     # --- combine: gather back and weight ------------------------------------
     # dropped entries read expert 0's row C - 1 (JAX's clamp of slot C)

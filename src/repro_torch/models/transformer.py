@@ -58,8 +58,10 @@ them), each layer under ``torch.utils.checkpoint`` when ``remat`` (JAX's
 ``jax.checkpoint`` with ``nothing_saveable``), the MoE layers' aux loss
 summed over layers.  Params stay f32 and every weight is cast per call
 (``w.to(x.dtype)``), so gradients reach the f32 leaves; ``fuse_qkv`` and
-``norm_ct16`` are the JAX model's options of the same names.  MoE training
-on the card raises in ``ops.moe_gmm`` (its kernel has no backward yet).
+``norm_ct16`` are the JAX model's options of the same names.  The MoE
+layers train through ``repro_torch.models.moe.grouped_matmul``: the grouped
+matmul kernel forward and its backward kernel on the card (autograd
+between them), their plain versions on the CPU.
 
 Models on precomputed embeddings with codebook heads (musicgen,
 ``embed_inputs=False``, ``n_codebooks``) have no ``embed`` table: every

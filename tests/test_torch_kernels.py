@@ -422,12 +422,17 @@ def test_profiler_classifies_every_port_kernel():
             "gmm_kernel", "gmm_wgmma_kernel", "flash_bwd_delta_kernel",
             "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
             "flash_bwd_dkdv_wgmma_kernel",
-            "flash_bwd_dq_wgmma_kernel"} <= names
+            "flash_bwd_dq_wgmma_kernel", "gmm_dw_kernel",
+            "gmm_dw_wgmma_kernel"} <= names
     for name, src in symbols:
         ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"
+        # the grouped matmul backward's dw kernels have their own class
+        # (its dx runs the forward's kernels)
+        cls = "moe_gmm_bwd (port)" if name.startswith("gmm_dw") \
+            else want[src]
         for shown in (f"void {ns}::{name}<128>(int const*, float*)",
                       f"_ZN{len(ns)}{ns}{len(name)}{name}ILi128EEEvPKiPf"):
-            assert prof._kernel_class(shown) == want[src], shown
+            assert prof._kernel_class(shown) == cls, shown
     assert prof._kernel_class(
         "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64"
     ) == "matmul (cuBLAS)"

@@ -308,11 +308,14 @@ def _data(cfg, n, B=4, S=16, seed=10):
     return [_batch(cfg, rng, B, S) for _ in range(n)]
 
 
+@pytest.mark.parametrize("arch", ["llama3.1-8b-tiny", "phimini-moe-tiny"])
 @pytest.mark.parametrize("step_cfg", [
     dict(), dict(microbatches=2), dict(grad_compress=True)],
     ids=["plain", "microbatches2", "grad_compress"])
-def test_train_step_three_steps_match_jax(step_cfg):
-    jm, tm, np_params = _pair("llama3.1-8b-tiny")
+def test_train_step_three_steps_match_jax(step_cfg, arch):
+    """Three steps; phimini-moe's expert FFN trains through the grouped
+    matmul's autograd Function (its plain forward and backward here)."""
+    jm, tm, np_params = _pair(arch)
     jstep = jax.jit(jax_make_step(jm, JaxAdamW(lr=1e-2),
                                   JaxStepCfg(**step_cfg)))
     tstep = make_train_step(tm, AdamW(lr=1e-2), TrainStepConfig(**step_cfg))
@@ -473,14 +476,18 @@ def test_trainer_needs_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_moe_training_on_cuda_refuses_by_name():
-    """The grouped matmul has no backward kernel: a CUDA call that needs a
-    gradient raises (no output without a grad_fn, no plain fallback)."""
+    """The kernel wrapper ``ops.moe_gmm`` is not differentiable: a direct
+    CUDA call that needs a gradient raises, naming the differentiable entry
+    (no output without a grad_fn, no plain fallback); MoE trains through
+    ``models.moe.grouped_matmul``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.kernels import ops
     with FakeTensorMode():
         x = torch.empty(4, 8, 32, device="cuda", requires_grad=True)
         w = torch.empty(4, 32, 16, device="cuda")
         gs = torch.zeros(4, dtype=torch.int32, device="cuda")
-        with pytest.raises(NotImplementedError, match="grouped-matmul "
-                                                      "backward"):
+        with pytest.raises(RuntimeError, match="models.moe.grouped_matmul"):
             ops.moe_gmm(x, w, gs)
+        with pytest.raises(RuntimeError, match="ops.moe_gmm_bwd"):
+            ops.moe_gmm(x.detach(), w.requires_grad_(), gs)
+    assert ops.launch_counts()["moe_gmm"] == 0

@@ -26,8 +26,13 @@ ROOT = Path(__file__).resolve().parents[1]
 
 #: (kernel name in csrc/*.cu, class): the kernels of both dtypes; a name
 #: is matched as a substring, so demangled ("void repro_gmm::gmm_kernel<...>
-#: (...)") and mangled symbols both fall into their class
-PORT_CLASSES = (("flash_fwd_kernel", "flash_attention (port)"),
+#: (...)") and mangled symbols both fall into their class.  The grouped
+#: matmul backward's dx runs the forward's kernels (their WT template
+#: argument, the last, true) and stays in the forward's class; its dw
+#: kernels have a class of their own
+PORT_CLASSES = (("gmm_dw_wgmma_kernel", "moe_gmm_bwd (port)"),
+                ("gmm_dw_kernel", "moe_gmm_bwd (port)"),
+                ("flash_fwd_kernel", "flash_attention (port)"),
                 ("flash_fwd_wgmma_kernel", "flash_attention (port)"),
                 ("paged_fwd_kernel", "paged_attention (port)"),
                 ("paged_decode_split_kernel", "paged_attention (port)"),
