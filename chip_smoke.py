@@ -33,9 +33,12 @@ result line:
    at a serve chunk (E16 C40 d4096 f960), phimini-moe's training shapes
    (E16 C320, gate/up and down), granite-moe-3b's (E40 C512 d1536 f512)
    and awkward ones (C past a 64-row stage, widths off 8), group sizes 0,
-   1, 63, 64, 65 and C mixed across experts, NaN in x's and dy's rows past
-   each group (they must take no part), dx's rows there exactly 0; every
-   kernel must also give bitwise the same result on a second launch;
+   1, 63, 64, 65 and C mixed across experts; for the persistent grid one
+   expert of 1024 rows (fewer tiles than SMs), four empty groups (dw
+   exactly 0) and groups of 127, 128, 129 at C 320; NaN in x's and dy's
+   rows past each group (they must take no part), dx's rows there exactly
+   0; every kernel must also give bitwise the same result on a second
+   launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
@@ -47,9 +50,10 @@ result line:
    beside autograd through SDPA; the grouped matmul and its backward at
    phimini-moe's training step, E16 C320 from a seeded top-2 routing of
    2048 tokens, gate/up and down, the backward beside autograd through
-   ``torch.bmm`` times the row mask), with the decode kernel's pages per
-   split and split count, and the host's time to issue one call of each
-   kernel's wrapper (the serves are host-bound);
+   ``torch.bmm`` times the row mask and with its device time split
+   between its dx and dw kernels by a profiled call), with the decode
+   kernel's pages per split and split count, and the host's time to issue
+   one call of each kernel's wrapper (the serves are host-bound);
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
@@ -339,37 +343,44 @@ def gmm_cases():
 
 
 def gmm_bwd_cases():
-    # (E, C, d, f): a K stage of 64 rows and one row past it, partial d
-    # and f tiles, widths off 8 (no TMA), a serve chunk, phimini-moe's
-    # training step (C = 320, gate/up and down), granite-moe-3b's (E40,
-    # top-8: C = 512)
-    yield 6, 65, 64, 128
-    yield 3, 130, 72, 200
-    yield 2, 9, 20, 13
-    yield 16, 40, 4096, 960
-    yield 16, 320, 4096, 960
-    yield 16, 320, 960, 4096
-    yield 40, 512, 1536, 512
+    # (E, C, d, f, group sizes or None for gmm_bwd_vs_plain's pattern): a K
+    # stage of 64 rows and one row past it, partial d and f tiles, widths
+    # off 8 (no TMA), a serve chunk, phimini-moe's training step (C = 320,
+    # gate/up and down), granite-moe-3b's (E40, top-8: C = 512); for the
+    # persistent grid one expert of 1024 rows (fewer tiles than SMs),
+    # every group 0 (every tile skipped, dw all zero) and groups at the
+    # edges of the 128-row tiles
+    yield 6, 65, 64, 128, None
+    yield 3, 130, 72, 200, None
+    yield 2, 9, 20, 13, None
+    yield 16, 40, 4096, 960, None
+    yield 16, 320, 4096, 960, None
+    yield 16, 320, 960, 4096, None
+    yield 40, 512, 1536, 512, None
+    yield 1, 1024, 256, 384, (1024,)
+    yield 4, 64, 128, 192, (0, 0, 0, 0)
+    yield 3, 320, 256, 192, (127, 128, 129)
 
 
 def gmm_bwd_vs_plain(torch, ops, dev, worst):
     """The grouped matmul's backward kernels against their plain version:
-    group sizes C, 0, 1, 63, 64 and 65 on the first experts (clipped to C),
-    random after; NaN in x's and dy's rows past each group, which must
-    take no part; dx's rows there exactly 0; two launches the same bits."""
+    a case's own group sizes, or C, 0, 1, 63, 64 and 65 on the first
+    experts (clipped to C) and random after; NaN in x's and dy's rows past
+    each group, which must take no part; dx's rows there exactly 0, and dw
+    exactly 0 where every group is empty; two launches the same bits."""
     gen = torch.Generator(device=dev).manual_seed(4)
     print("phase 2: grouped matmul backward (dx, dw) vs its plain version "
           "(max abs err | tolerance, as above; rows past a group NaN in x "
           "and dy)")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for E, C, d, f in gmm_bwd_cases():
+        for E, C, d, f, sizes in gmm_bwd_cases():
             x = _rand(torch, gen, (E, C, d), dtype, dev)
             w = (torch.randn((E, d, f), generator=gen, device=dev)
                  * d ** -0.5).to(dtype)
             dy = _rand(torch, gen, (E, C, f), dtype, dev)
             g = torch.randint(0, C + 1, (E,), generator=gen, device=dev)
-            for e, n in enumerate((C, 0, 1, 63, 64, 65)[:E]):
+            for e, n in enumerate(sizes or (C, 0, 1, 63, 64, 65)[:E]):
                 g[e] = min(n, C)
             g = g.to(torch.int32)
             past = torch.arange(C, device=dev)[None, :] >= g[:, None]
@@ -390,6 +401,9 @@ def gmm_bwd_vs_plain(torch, ops, dev, worst):
                           f"version {tag}: {err}")
             zeros = not bool(got[0][past].any())
             check(zeros, f"moe_gmm_bwd {tag}: dx rows past a group not 0")
+            if sizes is not None and not any(sizes):
+                check(not bool(got[1].any()),
+                      f"moe_gmm_bwd {tag}: dw of empty groups not 0")
             worst["moe_gmm_bwd"] = max(worst["moe_gmm_bwd"], *errs)
             print(f"  moe_gmm_bwd {dn} E{E} C{C} d{d} f{f} groups"
                   f"{g.tolist() if E <= 8 else int(g.sum())}: dx "
@@ -922,7 +936,9 @@ def timings(torch, ops, dev):
               f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f} "
               f"(kernel / library {t['ms'] / t['library_ms']:.2f}), "
               f"bound {t['bound'][0]:.4f} ({t['bound'][1]}); host "
-              f"{t['host_us']:.1f} us a call")
+              f"{t['host_us']:.1f} us a call"
+              + ("; device dx {dx:.4f}, dw {dw:.4f}".format(**t["split_ms"])
+                 if "split_ms" in t else ""))
     return out
 
 
@@ -984,6 +1000,21 @@ def flash_bwd_timings(torch, ops, dev, measure):
     return rows
 
 
+def gmm_bwd_split(torch, fn):
+    """The device ms of the backward's dx kernel and of its dw kernel per
+    call, from 5 calls under ``torch.profiler`` (``tools/gmm_bwd_time.py``'s
+    split, by kernel name)."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        import gmm_bwd_time
+    finally:
+        sys.path.remove(str(ROOT / "tools"))
+    got = gmm_bwd_time.split(torch, fn, 5)
+    check(got["dx"]["launches"] and got["dw"]["launches"],
+          f"moe_gmm_bwd: no dx or dw kernel in a profiled call: {got}")
+    return {part: got[part]["ms"] for part in ("dx", "dw")}
+
+
 # ---------------------------------------------------------------- phase 4
 def gmm_train_timings(torch, ops, dev, measure):
     """The grouped matmul and its backward at phimini-moe's training step
@@ -1030,7 +1061,9 @@ def gmm_train_timings(torch, ops, dev, measure):
             lambda: torch.autograd.grad(ref, (xl, wl), dy,
                                         retain_graph=True),
             kernel="moe_gmm_bwd", path=TRAIN_MOE_PATH, shape=shape,
-            bound=bound(nbytes, 4 * rows * d * f))
+            bound=bound(nbytes, 4 * rows * d * f),
+            split_ms=gmm_bwd_split(torch,
+                                   lambda: ops.moe_gmm_bwd(x, w, gs, dy)))
         del x, w, dy, xl, wl, ref
         torch.cuda.empty_cache()
     return out
@@ -2926,6 +2959,8 @@ def main() -> int:
         row = {}
         if kernel in REPLACES_NOTE:
             row["replaces_note"] = REPLACES_NOTE[kernel]
+        if "split_ms" in t:
+            row["split_ms"] = t["split_ms"]
         rows.append({"name": name, "kernel": kernel, "shape": t["shape"],
                      "route": "cuda", "source": source,
                      "replaces": replaces, **row,

@@ -50,23 +50,18 @@
 // (B2 S1024: 2048 tokens top-2 over 16 experts, capacity 320, ~256 live
 // rows an expert): bytes.  dx of gate/up reads the 126 MB of weights and
 // writes 42 MB, 0.052 ms at 3.35 TB/s against 0.033 ms for its 32 GFLOP
-// at 989 TFLOP/s; dw writes the 126 MB weight gradient, ~0.050 ms.  What the
-// design does about it: each product reads its weights or writes its weight
-// gradient once per tile of the other dimension, in fixed order, from a
-// TMA ring, and stops at the group's size.
-//   dx: the forward's kernels with the weight read the other way (template
-//       flag WT): dx[e]^T (d x C) = w[e] (d x f) . dy[e]^T, so w is a
-//       K-major A operand (two 64 x 64 TMA boxes a stage), dy the K-major B
-//       operand x is in the forward; N tiles past the group write zeros and
-//       the epilogue zeroes rows past it, which is dx's row contract.
-//   dw: gmm_dw_wgmma_kernel, one block per (64 rows of d, 128 columns of f,
-//       expert): A = x[e]^T and B = dy[e] are both MN-major (transpose bits
-//       set), 64 capacity rows a stage, two wgmma N = 64 a k16 step; the K
-//       loop stops after ceil(size / 64) stages, an expert of size 0 writes
-//       zeros and loads nothing, and the last stage's rows past the size are
-//       zeroed in shared memory in both operands before its products.  f32:
-//       gmm_dw_kernel, the same blocking on FMAs.
+// at 989 TFLOP/s; dw writes the 126 MB weight gradient, ~0.050 ms.  The
+// bf16 design: two persistent kernels, one block an SM, each walking
+// 128 x 128 output tiles with two consumer warpgroups on wgmma fed by one
+// TMA producer warp through a ring that runs across tiles, and epilogues
+// through shared memory and TMA stores (see gmm_dx_wgmma_kernel and
+// gmm_dw_wgmma_kernel below).  Tiles that share an operand run next to
+// each other, so each weight slab (dx) and each x tile (dw) comes from
+// device memory about once.  f32: the forward's FMA kernel with the
+// weight read transposed (template flag WT) for dx, gmm_dw_kernel for dw.
 // No atomics: every output element is summed by one block in one order.
+#include <algorithm>
+
 #include "hopper.cuh"
 
 namespace repro_gmm {
@@ -339,9 +334,8 @@ constexpr int kTcA = kTcBK * kTcBM * 2;   // weight bytes per stage (16 KB)
 
 template <int BN>
 struct TcLayout {
-  // stage s at s * kStage: the weight tile (16 KB: kTcBK rows of 64 M, or
-  // under WT two chunks of 64 M rows x 64 K, 128-byte rows each), then the
-  // x tile as two chunks of BN rows x 64 K
+  // stage s at s * kStage: the weight tile (16 KB: kTcBK rows of 64 M,
+  // 128-byte rows), then the x tile as two chunks of BN rows x 64 K
   static constexpr int kB = 2 * BN * 128;
   static constexpr int kStage = kTcA + kB;          // a multiple of 1024
   static constexpr int kSmem = kTcStages * kStage + 2 * kTcStages * 8 + 1024;
@@ -353,11 +347,9 @@ __device__ __forceinline__ int swz128(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
 }
 
-// out[e] (C x M) = x[e] (C x K) . W[e] (K x M), computed transposed as
-// above.  The forward: K = d, M = f, w[e] stored (K, M), an MN-major A.
-// WT (the backward's dx, x = dy): K = f, M = d, w[e] stored (M, K) and read
-// as a K-major A.
-template <int BN, bool TMA, bool WT>
+// out[e] (C x M) = x[e] (C x K) . w[e] (K x M), computed transposed as
+// above: K = d, M = f, w[e] stored (K, M), an MN-major A.
+template <int BN, bool TMA>
 __global__ void __launch_bounds__(kTcThreads)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                  const __grid_constant__ CUtensorMap xmap,
@@ -409,12 +401,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       const int k0 = t * kTcBK;
       if constexpr (TMA) {
         mbar_expect_tx(&full[s], L::kStage);
-        if constexpr (WT) {
-          tma_load_3d(a, &wmap, &full[s], k0, m0, e);
-          tma_load_3d(a + kTcBM * 128, &wmap, &full[s], k0 + 64, m0, e);
-        } else {
-          tma_load_3d(a, &wmap, &full[s], m0, k0, e);
-        }
+        tma_load_3d(a, &wmap, &full[s], m0, k0, e);
         tma_load_3d(b, &xmap, &full[s], k0, n0, e);
         tma_load_3d(b + BN * 128, &xmap, &full[s], k0 + 64, n0, e);
       } else {
@@ -422,18 +409,10 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
         const __nv_bfloat16* we = w + int64_t(e) * K * M;
         const __nv_bfloat16* xe = x + int64_t(e) * C * K;
         for (int i = pt; i < kTcBK * kTcBM; i += 128) {
-          if constexpr (WT) {
-            const int r = i / kTcBK, kd = i % kTcBK;
-            const int m = m0 + r, k = k0 + kd;
-            *reinterpret_cast<__nv_bfloat16*>(
-                a + (kd / 64) * kTcBM * 128 + swz128(r, kd % 64)) =
-                m < M && k < K ? we[int64_t(m) * K + k] : zero;
-          } else {
-            const int r = i / kTcBM, col = i % kTcBM;
-            const int k = k0 + r, m = m0 + col;
-            *reinterpret_cast<__nv_bfloat16*>(a + swz128(r, col)) =
-                k < K && m < M ? we[int64_t(k) * M + m] : zero;
-          }
+          const int r = i / kTcBM, col = i % kTcBM;
+          const int k = k0 + r, m = m0 + col;
+          *reinterpret_cast<__nv_bfloat16*>(a + swz128(r, col)) =
+              k < K && m < M ? we[int64_t(k) * M + m] : zero;
         }
         for (int i = pt; i < BN * kTcBK; i += 128) {
           const int n = i / kTcBK, kd = i % kTcBK;
@@ -463,15 +442,12 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
     for (int kk = 0; kk < kTcBK / 16; ++kk) {
       // A: MN-major, 16 rows of K further per step (one 64-wide chunk of
-      // M); under WT K-major, 32 bytes further into the 128-byte rows, the
-      // next chunk every 4 steps.  B: K-major, as the WT A.
-      const uint64_t da =
-          WT ? smem_desc(a + (kk / 4) * kTcBM * 128 + (kk % 4) * 32, 16,
-                         1024, 1)
-             : smem_desc(a + kk * 16 * 128, kTcA, 1024, 1);
+      // M).  B: K-major, 32 bytes further into the 128-byte rows, the next
+      // chunk every 4 steps.
+      const uint64_t da = smem_desc(a + kk * 16 * 128, kTcA, 1024, 1);
       const uint64_t db = smem_desc(b + (kk / 4) * BN * 128 + (kk % 4) * 32,
                                     16, 1024, 1);
-      wgmma_ss<BN, WT ? 0 : 1, 0>(acc, da, db);
+      wgmma_ss<BN, 1, 0>(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -492,15 +468,15 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
-template <int BN, bool TMA, bool WT>
+template <int BN, bool TMA>
 static int launch_tc(const CUtensorMap& wmap, const CUtensorMap& xmap,
                      const void* x, const void* w, const int* gs, void* out,
                      int E, int C, int K, int M, cudaStream_t stream) {
   using L = TcLayout<BN>;
-  int err = repro_hopper::allow_smem<gmm_wgmma_kernel<BN, TMA, WT>>(L::kSmem);
+  int err = repro_hopper::allow_smem<gmm_wgmma_kernel<BN, TMA>>(L::kSmem);
   if (err) return err;
   dim3 grid((M + kTcBM - 1) / kTcBM, (C + BN - 1) / BN, E);
-  gmm_wgmma_kernel<BN, TMA, WT><<<grid, kTcThreads, L::kSmem, stream>>>(
+  gmm_wgmma_kernel<BN, TMA><<<grid, kTcThreads, L::kSmem, stream>>>(
       wmap, xmap, static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), gs,
       static_cast<__nv_bfloat16*>(out), C, K, M);
@@ -508,14 +484,14 @@ static int launch_tc(const CUtensorMap& wmap, const CUtensorMap& xmap,
 }
 
 // N tile: C rounded up to 8, or 64 (one wgmma N) with C in several tiles
-template <bool TMA, bool WT>
+template <bool TMA>
 static int dispatch_tc(const CUtensorMap& wmap, const CUtensorMap& xmap,
                        const void* x, const void* w, const int* gs,
                        void* out, int E, int C, int K, int M, int bn,
                        cudaStream_t st) {
 #define REPRO_GMM_TC(N)                                                     \
   case N:                                                                   \
-    return launch_tc<N, TMA, WT>(wmap, xmap, x, w, gs, out, E, C, K, M, st);
+    return launch_tc<N, TMA>(wmap, xmap, x, w, gs, out, E, C, K, M, st);
   switch (bn) {
     REPRO_GMM_TC(8) REPRO_GMM_TC(16) REPRO_GMM_TC(24) REPRO_GMM_TC(32)
     REPRO_GMM_TC(40) REPRO_GMM_TC(48) REPRO_GMM_TC(56) REPRO_GMM_TC(64)
@@ -539,210 +515,554 @@ static int map_3d(CUtensorMap* map, const void* base, int E, int rows,
   return repro_hopper::make_tensor_map(map, base, 3, dims, strides, box, 128);
 }
 
-// out (E, C, M) = x (E, C, K) . W, W as gmm_wgmma_kernel says
-template <bool WT>
+// out (E, C, M) = x (E, C, K) . w (E, K, M)
 static int run_tc(const void* x, const void* w, const int* gs, void* out,
                   int E, int C, int K, int M, cudaStream_t st) {
   const int bn = C > 64 ? 64 : (C + 7) / 8 * 8;
   CUtensorMap wmap{}, xmap{};
   if (!tma_widths(K, M))
-    return dispatch_tc<false, WT>(wmap, xmap, x, w, gs, out, E, C, K, M, bn,
-                                  st);
-  // w: (E, K, M) in boxes of 64 M x 128 K rows, or under WT (E, M, K) in
-  // boxes of 64 K x 64 M rows; x (E, C, K) in boxes of 64 K x bn rows
-  int err = WT ? map_3d(&wmap, w, E, M, K, 64, kTcBM)
-               : map_3d(&wmap, w, E, K, M, kTcBM, kTcBK);
+    return dispatch_tc<false>(wmap, xmap, x, w, gs, out, E, C, K, M, bn, st);
+  // w: (E, K, M) in boxes of 64 M x 128 K rows; x (E, C, K) in boxes of
+  // 64 K x bn rows
+  int err = map_3d(&wmap, w, E, K, M, kTcBM, kTcBK);
   if (!err) err = map_3d(&xmap, x, E, C, K, 64, bn);
   if (err) return err;
-  return dispatch_tc<true, WT>(wmap, xmap, x, w, gs, out, E, C, K, M, bn, st);
+  return dispatch_tc<true>(wmap, xmap, x, w, gs, out, E, C, K, M, bn, st);
 }
 
-// ------------------------------------- bf16 backward: dw on tensor cores
+// ----------------------------- bf16 backward: persistent dx and dw kernels
+//
+// Both kernels: one block an SM, 384 threads: warpgroups 0 and 1 consume,
+// each 64 rows of a 128-row output tile on wgmma; warpgroup 2 produces
+// (one thread issues TMA loads, or all 128 load masked elements when a
+// width is not a multiple of 8).  A block walks tiles blockIdx.x,
+// + gridDim.x, ...; its ring of 64-K-element stages runs on one iteration
+// count over all of its tiles, so the producer fills the next tile's
+// stages while the consumers finish the last one's epilogue.  A consumer
+// keeps one commit group of products in flight and hands a stage back when
+// the next stage's products are issued.  Epilogue: the f32 accumulators
+// become bf16 in the warpgroup's staging tile (chunks of 64 columns x 64
+// rows, 128-byte swizzle), then one TMA store a chunk, clipped at the
+// tensor's bounds (element stores without TMA); the staging tile is
+// written again only after those stores have read it.
+//
+// What holds them on an H100 at phimini-moe's training shape (measured
+// with knock-out builds, PERF.md): dx streams its stages through L2 at
+// L2's rate (each weight tile feeds the 2-3 C tiles of its expert, each
+// dy tile the expert's d tiles), so it takes a 128 x 256 tile, which reads
+// a quarter less than 128 x 128 for the same output, wherever that still
+// leaves two tiles an SM (dx_width).  dw's K loops are short (ceil(size /
+// 64) stages), so it overlaps each tile's epilogue with the next tile's
+// first products, and its 126 MB of output share the memory with the
+// loads.
 
-constexpr int kDwBM = 64;    // rows of d a block (wgmma's M)
-constexpr int kDwBN = 128;   // columns of f a block: two wgmma N = 64
-constexpr int kDwBK = 64;    // capacity rows a stage
-constexpr int kDwStages = 4;
-constexpr int kDwA = kDwBK * kDwBM * 2;                  // 8 KB
-constexpr int kDwB = kDwBK * kDwBN * 2;                  // 16 KB, 2 chunks
-constexpr int kDwStage = kDwA + kDwB;                    // 24 KB
-constexpr int kDwSmem = kDwStages * kDwStage + 2 * kDwStages * 8 + 1024;
+constexpr int kBwBK = 64;         // K elements a stage (128-byte rows)
+constexpr int kBwThreads = 384;
+constexpr int kBwChunk = 64 * 64 * 2;             // 8 KB: 64 rows x 128 B
 
-// dw[e] (d x f) = x[e]^T . dy[e] over rows c < size.  A stage holds rows
-// k0 .. k0 + 63 of x[e] (64 columns of d, 128-byte rows: A read MN-major)
-// and of dy[e] (two chunks of 64 columns of f: B read MN-major).
+// A stage: A (128 rows) and B (BN rows or columns), 64 K elements each;
+// each consumer warpgroup stages 64 x BN outputs.
+template <int BN>
+struct BwLayout {
+  static constexpr int kOpA = 128 * kBwBK * 2;    // 16 KB
+  static constexpr int kStage = kOpA + BN * kBwBK * 2;
+  static constexpr int kStages = BN == 128 ? 5 : 3;  // what fits beside
+                                                     // the staging tiles
+  static constexpr int kStaging = 64 * BN * 2;
+  static constexpr int kSmem =
+      kStages * kStage + 2 * kStaging + 2 * kStages * 8 + 1024;
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
+
+__device__ __forceinline__ int clamp_size(const int* gs, int e, int C) {
+  return min(max(gs[e], 0), C);
+}
+
+// Set up the ring's barriers: ``full`` completes when a stage has landed
+// (one arrival with its TMA bytes, or the 128 loading threads), ``empty``
+// when the 256 consumer threads are done with it.
 template <bool TMA>
-__global__ void __launch_bounds__(kTcThreads)
+__device__ __forceinline__ void bw_init(uint64_t* full, uint64_t* empty,
+                                        int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      repro_hopper::mbar_init(&full[s], TMA ? 1 : 128);
+      repro_hopper::mbar_init(&empty[s], 256);
+    }
+    repro_hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// Registers (dw holds two accumulator sets): the producer warpgroup keeps
+// 40 a thread, the consumers take 232 (128 x 40 + 256 x 232 <= 65,536).
+// Every thread of a warpgroup runs its side's call.
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+// Stage k0 .. k0 + 63 of rows r0 .. r0 + rows - 1 of an (E, R, K) tensor,
+// K-major (``rows`` rows of 128 bytes at dst), by the producer warpgroup's
+// 128 threads with masked element loads: rows at or past ``rlim`` and
+// columns past K load as zero.
+__device__ __forceinline__ void load_kmajor(uint8_t* dst,
+                                            const __nv_bfloat16* src, int e,
+                                            int R, int K, int r0, int rows,
+                                            int rlim, int k0, int pt) {
+  const __nv_bfloat16* base = src + int64_t(e) * R * K;
+  for (int i = pt; i < rows * kBwBK; i += 128) {
+    const int r = i / kBwBK, k = k0 + i % kBwBK;
+    *reinterpret_cast<__nv_bfloat16*>(dst + swz128(r, i % kBwBK)) =
+        r0 + r < rlim && k < K ? base[int64_t(r0 + r) * K + k]
+                               : __float2bfloat16(0.f);
+  }
+}
+
+// The same for an MN-major stage: rows k0 .. k0 + 63 (capacity rows, live
+// below ``size``) of columns c0 .. c0 + 127 of an (E, C, N) tensor, as two
+// chunks of 64 columns.
+__device__ __forceinline__ void load_mnmajor(uint8_t* dst,
+                                             const __nv_bfloat16* src, int e,
+                                             int C, int N, int size, int c0,
+                                             int k0, int pt) {
+  const __nv_bfloat16* base = src + int64_t(e) * C * N;
+  for (int i = pt; i < kBwBK * 128; i += 128) {
+    const int r = i / 128, col = i % 128, k = k0 + r;
+    *reinterpret_cast<__nv_bfloat16*>(dst + (col / 64) * kBwChunk +
+                                      swz128(r, col % 64)) =
+        k < size && c0 + col < N ? base[int64_t(k) * N + c0 + col]
+                                 : __float2bfloat16(0.f);
+  }
+}
+
+// Warpgroup wg's 64 x BN share of a tile, first row row0 and column col0
+// of out[e] (an (E, R, N) tensor; map omap, boxes of 64 x 64), from its
+// accumulators through its staging tile st: rows at or past ``live`` are 0
+// by a select, so nothing of a row past a group (NaN included) gets
+// through.  t: the thread's index in the warpgroup.
+template <int BN, bool TMA>
+__device__ __forceinline__ void bw_store(const float (&acc)[BN / 2],
+                                         uint8_t* st, const CUtensorMap* omap,
+                                         __nv_bfloat16* out, int e, int row0,
+                                         int col0, int R, int N, int live,
+                                         int wg, int t) {
+  using namespace repro_hopper;
+  if (TMA && t == 0) bulk_wait_read<0>();     // the last stores have read st
+  named_barrier(2 + wg, 128);
+  // accumulator i of thread (warp wq, lane l): row wq*16 + l/4 (+8 for
+  // i & 2), column (i / 4) * 8 + (l % 4) * 2 + (i & 1)
+  const int wq = t / 32, l = t % 32;
+#pragma unroll
+  for (int i = 0; i < BN / 2; i += 2) {
+    const int r = wq * 16 + (l >> 2) + ((i & 2) ? 8 : 0);
+    const int c = (i >> 2) * 8 + (l & 3) * 2;
+    const bool keep = row0 + r < live;
+    *reinterpret_cast<__nv_bfloat162*>(st + (c >> 6) * kBwChunk +
+                                       swz128(r, c & 63)) =
+        __floats2bfloat162_rn(keep ? acc[i] : 0.f, keep ? acc[i + 1] : 0.f);
+  }
+  if constexpr (TMA) {
+    fence_proxy_async();
+    named_barrier(2 + wg, 128);
+    if (t == 0) {
+      for (int j = 0; j < BN / 64; ++j)
+        if (row0 < R && col0 + 64 * j < N)
+          tma_store_3d(omap, st + j * kBwChunk, col0 + 64 * j, row0, e);
+      bulk_commit();
+    }
+  } else {
+    named_barrier(2 + wg, 128);
+#pragma unroll 1
+    for (int i = t; i < 64 * BN; i += 128) {
+      const int r = i / BN, c = i % BN;
+      if (row0 + r < R && col0 + c < N)
+        out[(int64_t(e) * R + row0 + r) * N + col0 + c] =
+            *reinterpret_cast<const __nv_bfloat16*>(
+                st + (c >> 6) * kBwChunk + swz128(r, c & 63));
+    }
+  }
+}
+
+// dx's tiles: 128 rows of C (m) x BN columns of d (n) of one expert.
+// The list holds first every live tile (m * 128 below the expert's size),
+// expert by expert, each expert's (n, m) with m fastest, so tiles next to
+// each other share a weight slab in L2; then every other tile (its rows
+// all past the size: zeros, no load).  A thread asks for its tiles in
+// rising order, so the cursor over experts only moves forward.
+struct DxTile {
+  int e, m, n, size;
+  bool live;
+};
+
+struct DxWalk {
+  const int* gs;
+  int E, C, MT, NT;
+  int e = 0, base = 0, pass = 0;   // expert e's tiles of this pass: base..
+
+  __device__ DxWalk(const int* g, int E_, int C_, int MT_, int NT_)
+      : gs(g), E(E_), C(C_), MT(MT_), NT(NT_) {}
+
+  __device__ int live_m(int x) const {
+    return (clamp_size(gs, x, C) + 127) / 128;
+  }
+
+  __device__ DxTile at(int t) {
+    for (;;) {
+      if (e == E) {
+        if (pass) __trap();        // t past the list: a fault in the caller
+        e = 0;
+        pass = 1;
+      }
+      const int L = live_m(e);
+      const int n = (pass ? MT - L : L) * NT;
+      if (t < base + n) break;
+      base += n;
+      ++e;
+    }
+    const int L = live_m(e);
+    const int per = pass ? MT - L : L;
+    const int r = t - base;
+    return DxTile{e, (pass ? L : 0) + r % per, r / per, clamp_size(gs, e, C),
+                  pass == 0};
+  }
+};
+
+// dx[e] (C x d) = (dy[e] . mask) (C x f) . w[e]^T: M = rows of C, N = d,
+// K = f, both operands K-major.  A stage: dy rows c0 .. c0 + 127 (the A of
+// both warpgroups, 64 rows each) and w rows n0 .. n0 + BN - 1 (B), 64 f
+// columns each, 128-byte rows.  A row of dx depends on the same row of dy
+// only, so dy's rows past the size (NaN included) reach only rows that the
+// epilogue's select sets to 0; a warpgroup whose 64 rows all lie past the
+// size issues no product.
+template <int BN, bool TMA>
+__global__ void __launch_bounds__(kBwThreads, 1)
+gmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap ymap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const __nv_bfloat16* __restrict__ dy,
+                    const __nv_bfloat16* __restrict__ w,
+                    const int* __restrict__ group_sizes,
+                    __nv_bfloat16* __restrict__ dx, int E, int C, int d,
+                    int f) {
+  using namespace repro_hopper;
+  using L = BwLayout<BN>;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* staging = ring + S * L::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * L::kStaging);
+  uint64_t* empty = full + S;
+  const int MT = (C + 127) / 128;
+  const int NT = (d + BN - 1) / BN;
+  const int tiles = E * MT * NT;
+  const int nk = (f + kBwBK - 1) / kBwBK;
+  const int tid = threadIdx.x;
+  bw_init<TMA>(full, empty, S);
+  DxWalk walk(group_sizes, E, C, MT, NT);
+  uint32_t it = 0;                 // the ring's iteration, over all tiles
+
+  if (tid >= 256) {                               // ---- producer
+    const int pt = tid - 256;
+    if (TMA && pt != 0) return;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const DxTile T = walk.at(t);
+      if (!T.live) continue;
+      const int c0 = T.m * 128, n0 = T.n * BN;
+      for (int k = 0; k < nk; ++k, ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(&empty[s], ((it / S) + 1) & 1);
+        uint8_t* a = ring + s * L::kStage;
+        uint8_t* b = a + L::kOpA;
+        const int k0 = k * kBwBK;
+        if constexpr (TMA) {
+          mbar_expect_tx(&full[s], L::kStage);
+          tma_load_3d(a, &ymap, &full[s], k0, c0, T.e);
+          tma_load_3d(b, &wmap, &full[s], k0, n0, T.e);
+        } else {
+          load_kmajor(a, dy, T.e, C, f, c0, 128, T.size, k0, pt);
+          load_kmajor(b, w, T.e, d, f, n0, BN, d, k0, pt);
+          fence_proxy_async();
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroups 0 and 1, 64 rows each of every tile
+  const int wg = tid / 128, t128 = tid % 128;
+  uint8_t* st = staging + wg * L::kStaging;
+  float acc[BN / 2];
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const DxTile T = walk.at(t);
+    const int row0 = T.m * 128 + 64 * wg;
+    const int n0 = T.n * BN;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    if (T.live) {
+      const bool busy = row0 < T.size;
+      int prev = -1;
+      for (int k = 0; k < nk; ++k, ++it) {
+        const int s = it % S;
+        mbar_wait(&full[s], (it / S) & 1);
+        if (busy) {
+          const uint8_t* a = ring + s * L::kStage + wg * 64 * 128;
+          const uint8_t* b = ring + s * L::kStage + L::kOpA;
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBwBK / 16; ++kk)  // 32 bytes into the rows
+            wgmma_ss<BN, 0, 0>(acc, smem_desc(a + kk * 32, 16, 1024, 1),
+                               smem_desc(b + kk * 32, 16, 1024, 1));
+          wgmma_commit();
+          wgmma_wait<1>();         // the last stage's products are done
+          fence_regs(acc);
+        }
+        if (prev >= 0) mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[prev]);
+    }
+    bw_store<BN, TMA>(acc, st, &omap, dx, T.e, row0, n0, C, d, T.size, wg,
+                      t128);
+  }
+  if (TMA && t128 == 0) bulk_wait<0>();
+}
+
+// dw[e] (d x f) = x[e]^T (d x C) . (dy[e] . mask) (C x f): M = d, N = f,
+// K = the capacity rows, both operands MN-major.  Tiles: 128 of d (m) x
+// 128 of f (n) of one expert, (e, m, n) with n fastest, so tiles next to
+// each other share x's tile in L2.  A stage: rows k0 .. k0 + 63 of x (two
+// chunks of 64 d columns, one a warpgroup) and of dy (two chunks of 64 f
+// columns, B of both); the K loop stops after ceil(size / 64) stages, and
+// an idle expert's tiles load nothing and store zeros.  The last stage's
+// rows past the size (TMA loads them from inside the buffer, any data) are
+// zeroed in both operands in shared memory by both warpgroups, made
+// visible to the tensor cores, and joined by a barrier of all 256
+// consumer threads before either warpgroup issues a product: zeroing one
+// operand would let 0 x NaN through.  A tile's sums are copied aside when
+// its K loop ends, and its epilogue runs once the next tile's first
+// products are issued, so the tensor cores have work through most of it.
+template <bool TMA>
+__global__ void __launch_bounds__(kBwThreads, 1)
 gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap ymap,
+                    const __grid_constant__ CUtensorMap omap,
                     const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ dy,
                     const int* __restrict__ group_sizes,
-                    __nv_bfloat16* __restrict__ dw, int C, int d, int f) {
+                    __nv_bfloat16* __restrict__ dw, int E, int C, int d,
+                    int f) {
   using namespace repro_hopper;
+  using L = BwLayout<128>;
+  constexpr int S = L::kStages;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDwStages * kDwStage);
-  uint64_t* empty = full + kDwStages;
-
-  const int m0 = blockIdx.x * kDwBM;
-  const int n0 = blockIdx.y * kDwBN;
-  const int e = blockIdx.z;
-  const int size = min(max(group_sizes[e], 0), C);
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* staging = ring + S * L::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + 2 * L::kStaging);
+  uint64_t* empty = full + S;
+  const int MT = (d + 127) / 128;
+  const int NT = (f + 127) / 128;
+  const int tiles = E * MT * NT;
   const int tid = threadIdx.x;
-  __nv_bfloat16* dwe = dw + int64_t(e) * d * f;
+  bw_init<TMA>(full, empty, S);
+  uint32_t it = 0;                 // the ring's iteration, over all tiles
 
-  if (size == 0) {             // an idle expert: zeros, nothing loaded
-    for (int i = tid; i < kDwBM * kDwBN; i += kTcThreads) {
-      const int m = m0 + i / kDwBN, n = n0 + i % kDwBN;
-      if (m < d && n < f)
-        dwe[int64_t(m) * f + n] = __float2bfloat16(0.f);
-    }
-    return;
-  }
-  const int nk = (size + kDwBK - 1) / kDwBK;
-
-  if (tid == 0) {
-    for (int s = 0; s < kDwStages; ++s) {
-      mbar_init(&full[s], TMA ? 1 : 128);
-      mbar_init(&empty[s], 128);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (tid >= 128) {                               // ---- producer
-    const int pt = tid - 128;
+  if (tid >= 256) {                               // ---- producer
+    producer_regs();
+    const int pt = tid - 256;
     if (TMA && pt != 0) return;
-    for (int t = 0; t < nk; ++t) {
-      const int s = t % kDwStages;
-      if (t >= kDwStages) mbar_wait(&empty[s], ((t / kDwStages) + 1) & 1);
-      uint8_t* a = smem + s * kDwStage;
-      uint8_t* b = a + kDwA;
-      const int k0 = t * kDwBK;
-      if constexpr (TMA) {
-        mbar_expect_tx(&full[s], kDwStage);
-        tma_load_3d(a, &xmap, &full[s], m0, k0, e);
-        tma_load_3d(b, &ymap, &full[s], n0, k0, e);
-        tma_load_3d(b + kDwBK * 128, &ymap, &full[s], n0 + 64, k0, e);
-      } else {
-        // masked element loads: rows past the size load as zero here
-        const __nv_bfloat16 zero = __float2bfloat16(0.f);
-        const __nv_bfloat16* xe = x + int64_t(e) * C * d;
-        const __nv_bfloat16* ye = dy + int64_t(e) * C * f;
-        for (int i = pt; i < kDwBK * kDwBM; i += 128) {
-          const int r = i / kDwBM, col = i % kDwBM;
-          const int c = k0 + r, m = m0 + col;
-          *reinterpret_cast<__nv_bfloat16*>(a + swz128(r, col)) =
-              c < size && m < d ? xe[int64_t(c) * d + m] : zero;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int e = t / (MT * NT), r = t % (MT * NT);
+      const int m0 = (r / NT) * 128, n0 = (r % NT) * 128;
+      const int size = clamp_size(group_sizes, e, C);
+      const int nk = (size + kBwBK - 1) / kBwBK;
+      for (int k = 0; k < nk; ++k, ++it) {
+        const int s = it % S;
+        if (it >= S) mbar_wait(&empty[s], ((it / S) + 1) & 1);
+        uint8_t* a = ring + s * L::kStage;
+        uint8_t* b = a + L::kOpA;
+        const int k0 = k * kBwBK;
+        if constexpr (TMA) {
+          mbar_expect_tx(&full[s], L::kStage);
+          tma_load_3d(a, &xmap, &full[s], m0, k0, e);
+          tma_load_3d(a + kBwChunk, &xmap, &full[s], m0 + 64, k0, e);
+          tma_load_3d(b, &ymap, &full[s], n0, k0, e);
+          tma_load_3d(b + kBwChunk, &ymap, &full[s], n0 + 64, k0, e);
+        } else {
+          // masked element loads: rows past the size load as zero here
+          load_mnmajor(a, x, e, C, d, size, m0, k0, pt);
+          load_mnmajor(b, dy, e, C, f, size, n0, k0, pt);
+          fence_proxy_async();
+          mbar_arrive(&full[s]);
         }
-        for (int i = pt; i < kDwBK * kDwBN; i += 128) {
-          const int r = i / kDwBN, col = i % kDwBN;
-          const int c = k0 + r, n = n0 + col;
-          *reinterpret_cast<__nv_bfloat16*>(
-              b + (col / 64) * kDwBK * 128 + swz128(r, col % 64)) =
-              c < size && n < f ? ye[int64_t(c) * f + n] : zero;
-        }
-        fence_proxy_async();
-        mbar_arrive(&full[s]);
       }
     }
     return;
   }
 
-  // ---- consumer: warpgroup 0
-  float acc0[32], acc1[32];
+  // ---- consumers: warpgroups 0 and 1, 64 rows of d each of every tile
+  consumer_regs();
+  const int wg = tid / 128, t128 = tid % 128;
+  uint8_t* st = staging + wg * L::kStaging;
+  float acc[64], done[64];         // this tile's sums; the last tile's
+  bool owed = false;               // the last tile's epilogue, and where
+  int oe = 0, om0 = 0, on0 = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int e = t / (MT * NT), r = t % (MT * NT);
+    const int m0 = (r / NT) * 128, n0 = (r % NT) * 128;
+    const int size = clamp_size(group_sizes, e, C);
+    const int nk = (size + kBwBK - 1) / kBwBK;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = 0.f;
-  for (int t = 0; t < nk; ++t) {
-    const int s = t % kDwStages;
-    mbar_wait(&full[s], (t / kDwStages) & 1);
-    uint8_t* a = smem + s * kDwStage;
-    uint8_t* b = a + kDwA;
-    const int live = size - t * kDwBK;
-    if (TMA && live < kDwBK) {
-      // the last stage: TMA loaded rows live .. 63 (inside the buffer, any
-      // data); zero them in both operands, then make the writes visible to
-      // the tensor cores before any thread of the warpgroup issues wgmma
-      const uint4 z = make_uint4(0, 0, 0, 0);
-      const int n16 = (kDwBK - live) * 8;          // 16-byte units a chunk
-      for (int i = tid; i < 3 * n16; i += 128) {
-        const int chunk = i / n16, j = i % n16;
-        uint8_t* base = chunk == 0 ? a : b + (chunk - 1) * kDwBK * 128;
-        reinterpret_cast<uint4*>(base + live * 128)[j] = z;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int k = 0; k < nk; ++k, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      uint8_t* a = ring + s * L::kStage;
+      uint8_t* b = a + L::kOpA;
+      const int live = size - k * kBwBK;
+      if (TMA && live < kBwBK) {
+        // rows live .. 63 of the stage's four chunks (x's two, dy's two)
+        const uint4 z = make_uint4(0, 0, 0, 0);
+        const int n16 = (kBwBK - live) * 8;         // 16-byte units a chunk
+        for (int i = tid; i < 4 * n16; i += 256)
+          reinterpret_cast<uint4*>(a + (i / n16) * kBwChunk +
+                                   live * 128)[i % n16] = z;
+        fence_proxy_async();
+        named_barrier(1, 256);
       }
-      fence_proxy_async();
-      asm volatile("bar.sync 1, 128;\n" ::: "memory");
-    }
-    fence_regs(acc0);
-    fence_regs(acc1);
-    wgmma_fence();
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDwBK / 16; ++kk) {
-      // all MN-major: 16 rows of C further per k16 step
-      const uint64_t da = smem_desc(a + kk * 16 * 128, kDwBK * 128, 1024, 1);
-      const uint64_t db0 = smem_desc(b + kk * 16 * 128, kDwBK * 128, 1024, 1);
-      const uint64_t db1 = smem_desc(b + kDwBK * 128 + kk * 16 * 128,
-                                     kDwBK * 128, 1024, 1);
-      wgmma_ss<64, 1, 1>(acc0, da, db0);
-      wgmma_ss<64, 1, 1>(acc1, da, db1);
+      for (int kk = 0; kk < kBwBK / 16; ++kk)       // 16 rows further a step
+        wgmma_ss<128, 1, 1>(
+            acc, smem_desc(a + wg * kBwChunk + kk * 16 * 128, kBwChunk, 1024,
+                           1),
+            smem_desc(b + kk * 16 * 128, kBwChunk, 1024, 1));
+      wgmma_commit();
+      if (owed) {                  // while the first stage's products run
+        bw_store<128, TMA>(done, st, &omap, dw, oe, om0 + 64 * wg, on0, d, f,
+                           d, wg, t128);
+        owed = false;
+      }
+      wgmma_wait<1>();             // the last stage's products are done
+      fence_regs(acc);
+      if (prev >= 0) mbar_arrive(&empty[prev]);
+      prev = s;
     }
-    wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(acc0);
-    fence_regs(acc1);
-    mbar_arrive(&empty[s]);
-  }
-
-  // accumulator i of thread (warp wq, lane l): d row wq*16 + l/4 (+8 for
-  // i & 2), f column (i / 4) * 8 + (l % 4) * 2 + (i & 1) of its 64-chunk
-  const int wq = tid / 32, l = tid % 32;
-  const bool pairs = (f & 1) == 0;
-  auto store = [&](const float (&acc)[32], int n1) {
+    fence_regs(acc);
+    if (nk > 0) mbar_arrive(&empty[prev]);
+    if (owed)                      // an idle expert's tile ran no product
+      bw_store<128, TMA>(done, st, &omap, dw, oe, om0 + 64 * wg, on0, d, f, d,
+                         wg, t128);
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int m = m0 + wq * 16 + (l >> 2) + ((i & 2) ? 8 : 0);
-      const int n = n1 + (i >> 2) * 8 + (l & 3) * 2;
-      if (m >= d || n >= f) continue;
-      __nv_bfloat16* p = dwe + int64_t(m) * f + n;
-      if (pairs) {             // n even, f even: a 4-byte aligned pair
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(acc[i], acc[i + 1]);
-      } else {
-        p[0] = __float2bfloat16(acc[i]);
-        if (n + 1 < f) p[1] = __float2bfloat16(acc[i + 1]);
-      }
-    }
-  };
-  store(acc0, n0);
-  store(acc1, n0 + 64);
+    for (int i = 0; i < 64; ++i) done[i] = acc[i];
+    owed = true;
+    oe = e;
+    om0 = m0;
+    on0 = n0;
+  }
+  if (owed)
+    bw_store<128, TMA>(done, st, &omap, dw, oe, om0 + 64 * wg, on0, d, f, d,
+                       wg, t128);
+  if (TMA && t128 == 0) bulk_wait<0>();
 }
 
-template <bool TMA>
-static int launch_dw_tc(const CUtensorMap& xmap, const CUtensorMap& ymap,
-                        const void* x, const void* dy, const int* gs,
-                        void* dw, int E, int C, int d, int f,
-                        cudaStream_t stream) {
-  int err = repro_hopper::allow_smem<gmm_dw_wgmma_kernel<TMA>>(kDwSmem);
+// The card's SM count, asked once per device.
+static int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && counts[dev] > 0) return counts[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) counts[dev] = n;
+  return n;
+}
+
+// dx's tile width (with TMA): 256 where that still gives at least two
+// tiles an SM, else 128.
+static int dx_width(int E, int C, int d, int sms) {
+  const int64_t tiles256 =
+      int64_t(E) * ((C + 127) / 128) * ((d + 255) / 256);
+  return tiles256 >= 2 * int64_t(sms) ? 256 : 128;
+}
+
+template <int BN, bool TMA>
+static int launch_dx(const void* dy, const void* w, const int* gs, void* dx,
+                     int E, int C, int d, int f, int sms, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  using L = BwLayout<BN>;
+  CUtensorMap ymap{}, wmap{}, omap{};
+  if constexpr (TMA) {
+    // dy (E, C, f) in boxes of 64 f x 128 rows, w (E, d, f) of 64 f x BN
+    // rows; dx (E, C, d) stored in boxes of 64 d x 64 rows
+    int err = map_3d(&ymap, dy, E, C, f, 64, 128);
+    if (!err) err = map_3d(&wmap, w, E, d, f, 64, BN);
+    if (!err) err = map_3d(&omap, dx, E, C, d, 64, 64);
+    if (err) return err;
+  }
+  const int64_t tiles = int64_t(E) * ((C + 127) / 128) * ((d + BN - 1) / BN);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int err = repro_hopper::allow_smem<gmm_dx_wgmma_kernel<BN, TMA>>(L::kSmem);
   if (err) return err;
-  dim3 grid((d + kDwBM - 1) / kDwBM, (f + kDwBN - 1) / kDwBN, E);
-  gmm_dw_wgmma_kernel<TMA><<<grid, kTcThreads, kDwSmem, stream>>>(
-      xmap, ymap, static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dy), gs,
-      static_cast<__nv_bfloat16*>(dw), C, d, f);
+  gmm_dx_wgmma_kernel<BN, TMA>
+      <<<int(std::min<int64_t>(tiles, sms)), kBwThreads, L::kSmem, st>>>(
+          ymap, wmap, omap, static_cast<const bf*>(dy),
+          static_cast<const bf*>(w), gs, static_cast<bf*>(dx), E, C, d, f);
   return static_cast<int>(cudaGetLastError());
 }
 
-static int run_dw_tc(const void* x, const void* dy, const int* gs, void* dw,
-                     int E, int C, int d, int f, cudaStream_t st) {
-  CUtensorMap xmap{}, ymap{};
-  if (!tma_widths(d, f))
-    return launch_dw_tc<false>(xmap, ymap, x, dy, gs, dw, E, C, d, f, st);
-  // x (E, C, d) in boxes of 64 d x 64 rows, dy (E, C, f) of 64 f x 64 rows
-  int err = map_3d(&xmap, x, E, C, d, kDwBM, kDwBK);
-  if (!err) err = map_3d(&ymap, dy, E, C, f, 64, kDwBK);
+template <bool TMA>
+static int launch_dw(const void* x, const void* dy, const int* gs, void* dw,
+                     int E, int C, int d, int f, int sms, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  using L = BwLayout<128>;
+  CUtensorMap xmap{}, ymap{}, omap{};
+  if constexpr (TMA) {
+    // x (E, C, d) and dy (E, C, f) in boxes of 64 columns x 64 rows; dw
+    // (E, d, f) stored in boxes of 64 f x 64 rows
+    int err = map_3d(&xmap, x, E, C, d, 64, kBwBK);
+    if (!err) err = map_3d(&ymap, dy, E, C, f, 64, kBwBK);
+    if (!err) err = map_3d(&omap, dw, E, d, f, 64, 64);
+    if (err) return err;
+  }
+  const int64_t tiles = int64_t(E) * ((d + 127) / 128) * ((f + 127) / 128);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int err = repro_hopper::allow_smem<gmm_dw_wgmma_kernel<TMA>>(L::kSmem);
   if (err) return err;
-  return launch_dw_tc<true>(xmap, ymap, x, dy, gs, dw, E, C, d, f, st);
+  gmm_dw_wgmma_kernel<TMA>
+      <<<int(std::min<int64_t>(tiles, sms)), kBwThreads, L::kSmem, st>>>(
+          xmap, ymap, omap, static_cast<const bf*>(x),
+          static_cast<const bf*>(dy), gs, static_cast<bf*>(dw), E, C, d, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Both products of the bf16 backward, dx then dw, as two persistent
+// launches on ``st``.
+static int launch_bw(const void* x, const void* w, const int* gs,
+                     const void* dy, void* dx, void* dw, int E, int C, int d,
+                     int f, cudaStream_t st) {
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!tma_widths(d, f)) {
+    const int err = launch_dx<128, false>(dy, w, gs, dx, E, C, d, f, sms, st);
+    return err ? err : launch_dw<false>(x, dy, gs, dw, E, C, d, f, sms, st);
+  }
+  const int err =
+      dx_width(E, C, d, sms) == 256
+          ? launch_dx<256, true>(dy, w, gs, dx, E, C, d, f, sms, st)
+          : launch_dx<128, true>(dy, w, gs, dx, E, C, d, f, sms, st);
+  return err ? err : launch_dw<true>(x, dy, gs, dw, E, C, d, f, sms, st);
 }
 
 }  // namespace repro_gmm
@@ -762,7 +1082,7 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w,
   if (dtype == 0)
     return dispatch<float, false>(x, w, group_sizes, out, E, C, d, f, st);
   if (dtype == 1)
-    return run_tc<false>(x, w, group_sizes, out, E, C, d, f, st);
+    return run_tc(x, w, group_sizes, out, E, C, d, f, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -777,18 +1097,16 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w,
                            void* stream) {
   using namespace repro_gmm;
   if (E <= 0 || C <= 0 || f <= 0 || d <= 0 || E > 65535 ||
-      (C + 15) / 16 > 65535 || (f + kDwBN - 1) / kDwBN > 65535)
+      (C + 15) / 16 > 65535 || (f + kDwF32Tile - 1) / kDwF32Tile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
   if (dtype == 0) {
-    err = dispatch<float, true>(dy, w, group_sizes, dx, E, C, f, d, st);
+    const int err =
+        dispatch<float, true>(dy, w, group_sizes, dx, E, C, f, d, st);
     return err ? err
                : launch_dw_f32(x, dy, group_sizes, dw, E, C, d, f, st);
   }
-  if (dtype == 1) {
-    err = run_tc<true>(dy, w, group_sizes, dx, E, C, f, d, st);
-    return err ? err : run_dw_tc(x, dy, group_sizes, dw, E, C, d, f, st);
-  }
+  if (dtype == 1)
+    return launch_bw(x, w, group_sizes, dy, dx, dw, E, C, d, f, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

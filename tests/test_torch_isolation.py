@@ -25,15 +25,18 @@ TRAINING_MODULES = ("repro_torch.models.flash", "repro_torch.train.optimizer",
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    """The port, chip_smoke.py and the backward timing tool it imports."""
     code = f"""
 import importlib, json, pkgutil, sys
-sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
+sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r},
+                {str(ROOT / 'tools')!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import gmm_bwd_time
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

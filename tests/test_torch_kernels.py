@@ -423,12 +423,12 @@ def test_profiler_classifies_every_port_kernel():
             "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
             "flash_bwd_dkdv_wgmma_kernel",
             "flash_bwd_dq_wgmma_kernel", "gmm_dw_kernel",
-            "gmm_dw_wgmma_kernel"} <= names
+            "gmm_dx_wgmma_kernel", "gmm_dw_wgmma_kernel"} <= names
     for name, src in symbols:
         ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"
-        # the grouped matmul backward's dw kernels have their own class
-        # (its dx runs the forward's kernels)
-        cls = "moe_gmm_bwd (port)" if name.startswith("gmm_dw") \
+        # the grouped matmul backward's kernels have their own class (its
+        # f32 dx runs the forward's FMA kernel)
+        cls = "moe_gmm_bwd (port)" if name.startswith(("gmm_dx", "gmm_dw")) \
             else want[src]
         for shown in (f"void {ns}::{name}<128>(int const*, float*)",
                       f"_ZN{len(ns)}{ns}{len(name)}{name}ILi128EEEvPKiPf"):
@@ -438,3 +438,25 @@ def test_profiler_classifies_every_port_kernel():
     ) == "matmul (cuBLAS)"
     assert prof._kernel_class("void at::native::vectorized_elementwise_"
                               "kernel<4, ...>") == "other"
+
+
+def test_gmm_bwd_time_splits_by_kernel_name():
+    """``tools/gmm_bwd_time.py`` (and phase 3 through it) splits a profiled
+    backward into dx and dw by kernel name, for this file's kernels and
+    for the earlier build whose dx ran on the forward's kernel."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "gmm_bwd_time.py"
+    spec = importlib.util.spec_from_file_location("gmm_bwd_time", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    names = {n for n, _ in _kernel_symbols()}
+    assert {"gmm_dx_wgmma_kernel", "gmm_dw_wgmma_kernel"} <= names
+    for name, part in (("gmm_dx_wgmma_kernel", "dx"),
+                       ("gmm_wgmma_kernel", "dx"),
+                       ("gmm_dw_wgmma_kernel", "dw")):
+        for shown in (f"void repro_gmm::{name}<128, true>(int const*)",
+                      f"_ZN9repro_gmm{len(name)}{name}ILi128ELb1EEEvPKi"):
+            assert tool.kernel_part(shown) == part, shown
+    assert tool.kernel_part("void at::native::vectorized_elementwise_"
+                            "kernel<4, ...>") == "other"

@@ -249,6 +249,14 @@ CUDA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (3, 130, 72, 200, (130, 129, 0)),            # partial d and f tiles
     (2, 9, 20, 13, (9, 4)),                      # widths off 8: no TMA
     (16, 320, 4096, 960, None),                  # phimini-moe training
+    # the persistent grid: granite-moe-3b's training shape (E40 top-8,
+    # C = 512); one expert of 1024 rows, fewer tiles than SMs; every group
+    # 0 (every tile skipped, dw all zero); groups at the edges of the
+    # 128-row tiles
+    (40, 512, 1536, 512, None),
+    (1, 1024, 256, 384, (1024,)),
+    (4, 64, 128, 192, (0, 0, 0, 0)),
+    (3, 320, 256, 192, (127, 128, 129)),
 ])
 def test_bwd_kernel_matches_plain(sm90, dtype, E, C, d, f, gs):
     rng = np.random.default_rng(21)
@@ -273,3 +281,5 @@ def test_bwd_kernel_matches_plain(sm90, dtype, E, C, d, f, gs):
         assert bool(((a - b).abs() <= tol + tol * b.abs()).all())
     past = torch.arange(C, device=sm90)[None, :] >= gt[:, None]
     assert not got[0][past].any()
+    if not any(gs):                              # no row: dw exactly 0
+        assert not got[1].any()

@@ -25,12 +25,14 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 #: (kernel name in csrc/*.cu, class): the kernels of both dtypes; a name
-#: is matched as a substring, so demangled ("void repro_gmm::gmm_kernel<...>
-#: (...)") and mangled symbols both fall into their class.  The grouped
-#: matmul backward's dx runs the forward's kernels (their WT template
-#: argument, the last, true) and stays in the forward's class; its dw
-#: kernels have a class of their own
-PORT_CLASSES = (("gmm_dw_wgmma_kernel", "moe_gmm_bwd (port)"),
+#: is matched as a substring, in this order, so demangled ("void
+#: repro_gmm::gmm_kernel<...>(...)") and mangled symbols both fall into
+#: their class.  The grouped matmul backward's bf16 kernels (dx and dw)
+#: have names of their own and the backward's class; its f32 dx runs the
+#: forward's FMA kernel (``gmm_kernel`` with its WT template argument, the
+#: last, true) and falls into the forward's class
+PORT_CLASSES = (("gmm_dx_wgmma_kernel", "moe_gmm_bwd (port)"),
+                ("gmm_dw_wgmma_kernel", "moe_gmm_bwd (port)"),
                 ("gmm_dw_kernel", "moe_gmm_bwd (port)"),
                 ("flash_fwd_kernel", "flash_attention (port)"),
                 ("flash_fwd_wgmma_kernel", "flash_attention (port)"),
