@@ -106,17 +106,24 @@ result line:
    -> host -> SSD -> device (a spill directory a rank), and speculating
    (k = 3, an unrelated draft replaying an acceptance trace) equals tp =
    1 on the card in tokens, decisions, handoff bytes, KV-tier counters and
-   ``spec_decode``, and decides as the simulator at tp = 2; then
-   full-width bf16 llama3.1-8b and phimini-moe (E16 -> E8) at tp = 2 serve
-   phase 4's 8 requests, and llama3.1-8b serves them under P/D (two shards
-   a rank; the handoffs carry tp = 1's payload bytes) and speculating at
-   k = 4 (a tp = 1 draft holding the full weights on each rank, acceptance
-   replayed at alpha 0.6, every arrival at 0; the accepted lengths equal
-   the simulator's at tp = 2), every request finishing, both ranks
-   deciding alike, the kernels launched at the rank's shapes (16 query
-   and 4 KV heads, 8 experts: phases 2 and 3 hold and time them there;
-   the draft at all 32 and 8), with the prefill argmax agreement with
-   tp = 1 and each rank's memory and times printed;
+   ``spec_decode``, and decides as the simulator at tp = 2; so does tiny
+   f32 llama under P/D between engines of different tp, 2 -> 1 (the
+   prefill group all-gathers every KV head) and 1 -> 2 (each decode rank
+   takes its own heads), the tp = 1 engine replicated on both ranks, in
+   tokens, decisions and handoff bytes, deciding as the simulator at the
+   engines' tp; then full-width bf16 llama3.1-8b and phimini-moe (E16 ->
+   E8) at tp = 2 serve phase 4's 8 requests, and llama3.1-8b serves them
+   under P/D (two shards a rank; the handoffs carry tp = 1's payload
+   bytes), speculating at k = 4 (a tp = 1 draft holding the full weights
+   on each rank, acceptance replayed at alpha 0.6, every arrival at 0;
+   the accepted lengths equal the simulator's at tp = 2), and under P/D
+   2 -> 1 and 1 -> 2 (a replica and a shard a rank, cut from one draw;
+   tp = 1's handoff bytes; both ranks emit the same tokens), every
+   request finishing, both ranks deciding alike, the kernels launched at
+   the rank's shapes (16 query and 4 KV heads, 8 experts: phases 2 and 3
+   hold and time them there; the draft and a replica at all 32 and 8),
+   with the prefill argmax agreement with tp = 1 and each rank's memory
+   and times printed;
 7. the recurrent and hybrid families: zamba2-1.2b at full width (38
    layers, d_model 2048, bf16, seeded random weights, batch 8, max_len
    2048, chunked prefill of 256) serves 8 requests with prompts of
@@ -183,6 +190,20 @@ TP2_PATH = "tp2 llama3.1-8b"
 TP2_MOE_PATH = "tp2 phimini-moe"
 TP2_PD_PATH = "tp2 PD(D) llama3.1-8b"
 TP2_SPEC_PATH = "tp2 spec llama3.1-8b"
+TP2_PD21_PATH = "tp 2->1 PD(D) llama3.1-8b"
+TP2_PD12_PATH = "tp 1->2 PD(D) llama3.1-8b"
+#: phase 6's P/D techniques -> the (prefill, decode) engines' tp; the tp =
+#: 1 engine of a pair of different tp is replicated on both ranks
+PD_TP = {"pd": (TP, TP), "pd-2to1": (TP, 1), "pd-1to2": (1, TP)}
+
+
+def ranks_kw(group, tp):
+    """An engine's tp arguments on a rank: one of ``group`` at tp > 1,
+    replicated with ``group`` as its handle at tp = 1 (nothing off the
+    ranks, ``group`` None)."""
+    if group is None:
+        return {}
+    return dict(tp=tp, group=group) if tp > 1 else dict(replicas=group)
 
 
 class SmokeFailure(RuntimeError):
@@ -1823,8 +1844,9 @@ def _record_shapes(ops):
     return seen, restore
 
 
-#: phase 6's tiny f32 serving techniques at tp = 2 (``_tiny_technique``)
-TINY_TECHNIQUES = ("pd", "prefix", "spec")
+#: phase 6's tiny f32 serving techniques at tp = 2 (``_tiny_technique``),
+#: P/D also between engines of different tp
+TINY_TECHNIQUES = ("pd", "prefix", "spec", "pd-2to1", "pd-1to2")
 TINY_TRACE = "chip-smoke-tiny-alpha0.6"
 #: the KV-tier counters held to tp = 1 (``tier_move_s`` is wall time)
 KV_COUNTERS = ("residency_blocks", "hit_tokens", "restored_tokens",
@@ -1848,11 +1870,12 @@ def _three_tiers(instances):
         inst.mem.host.capacity = inst.mem.bytes_per_block
 
 
-def _tiny_technique(cfg, params, draft, dev, technique, **engine_kw):
-    """Tiny f32 llama serving one technique on ``dev`` (``engine_kw``: tp
-    and group): "pd", a prefill and a decode engine sharing the weights,
-    at batches of one (the decisions then do not depend on when the
-    handoffs land); "prefix", the prefix store on the two-phase
+def _tiny_technique(cfg, params, draft, dev, technique, group=None):
+    """Tiny f32 llama serving one technique on ``dev`` (``group``: the
+    rank's engine group, or None for tp = 1): "pd", a prefill and a
+    decode engine sharing the weights, at batches of one (the decisions
+    then do not depend on when the handoffs land), at the tp of
+    ``PD_TP`` on the ranks; "prefix", the prefix store on the two-phase
     shared-prefix workload through ``_three_tiers``; "spec", k = 3 with
     an unrelated draft (``draft``: its params) replaying one acceptance
     trace.  Every arrival at 0 (the prefix workload's phases far apart).
@@ -1860,22 +1883,24 @@ def _tiny_technique(cfg, params, draft, dev, technique, **engine_kw):
     from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
                                    SpecDecodeCfg)
-    kw = dict(max_batch=2, max_len=256, device=dev, **engine_kw)
+    kw = dict(max_batch=2, max_len=256, device=dev)
     sched = dict(max_batch_size=2, max_batch_tokens=64,
                  chunked_prefill=True, prefill_chunk=16)
     reqs, pd_map = _tiny_requests(cfg.vocab), None
-    if technique == "pd":
+    if technique in PD_TP:
+        ptp, dtp = PD_TP[technique]
         engines = [ServingEngine(cfg, params, name="p0", role="prefill",
-                                 **kw),
+                                 **kw, **ranks_kw(group, ptp)),
                    ServingEngine(cfg, params, name="d0", role="decode",
-                                 **kw)]
+                                 **kw, **ranks_kw(group, dtp))]
         pd_map, sched["max_batch_size"] = {"p0": ("d0",)}, 1
     elif technique == "prefix":
         engines = [ServingEngine(cfg, params, name="e0", prefix_cache=True,
-                                 **kw)]
+                                 **kw, **ranks_kw(group, TP))]
         reqs = _grouped_requests(cfg.vocab)
     else:
         engines = [ServingEngine(cfg, params, name="e0", **kw,
+                                 **ranks_kw(group, TP),
                                  spec=SpecDecodeCfg(
                                      draft=cfg, k=3, draft_params=draft,
                                      acceptance=_tiny_acceptance(cfg)))]
@@ -1924,10 +1949,13 @@ def _full_tp_serve(torch, ops, group, arch, technique):
     """One rank of a full-width bf16 tp = 2 serve of phase 4's 8 requests:
     "unified" (each rank draws the seeded weights and keeps its shard),
     "pd" (a prefill and a decode engine, each drawing the seeded weights
-    and keeping its shard: two shards a rank), or "spec" (k = 4, a draft
+    and keeping its shard: two shards a rank), "spec" (k = 4, a draft
     sharing the target's weights, acceptance replayed at alpha 0.6, every
     arrival at 0; the draft is a tp = 1 engine holding the full weights
-    on the rank, the target's shard cut from them)."""
+    on the rank, the target's shard cut from them), or "pd-2to1" /
+    "pd-1to2" (P/D between a tp = 2 engine and a tp = 1 engine replicated
+    on both ranks: the rank draws the seeded weights once, the replica
+    holds them and the shard is cut from them)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
@@ -1938,7 +1966,7 @@ def _full_tp_serve(torch, ops, group, arch, technique):
     cfg = get_config(arch)
     reqs = serve_requests(cfg.vocab)
     kw = dict(max_batch=8, max_len=2048, seed=0, tp=group.size, group=group)
-    pd_map = {"p0": ("d0",)} if technique == "pd" else None
+    pd_map = {"p0": ("d0",)} if technique in PD_TP else None
     if technique == "spec":
         for r in reqs:
             r.arrival = 0.0
@@ -1952,6 +1980,13 @@ def _full_tp_serve(torch, ops, group, arch, technique):
         params = Model(cfg).init(
             torch.Generator(device=group.device).manual_seed(0),
             device=group.device, dtype=torch.bfloat16)
+        if technique in PD_TP:
+            return [ServingEngine(cfg, params, name=name, role=role,
+                                  max_batch=8, max_len=2048,
+                                  **ranks_kw(group, tp))
+                    for name, role, tp in zip(("p0", "d0"),
+                                              ("prefill", "decode"),
+                                              PD_TP[technique])]
         trace = synthesize_acceptance(AcceptanceConfig(alpha=0.6, k=SPEC_K),
                                       model=cfg.name)
         return [ServingEngine(cfg, params, name="e0", **kw,
@@ -1967,6 +2002,7 @@ def _full_tp_serve(torch, ops, group, arch, technique):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             engines = build()
+            torch.cuda.empty_cache()    # the draw's temporaries
             torch.cuda.synchronize()
             row = {"made_s": time.perf_counter() - t0,
                    "init_peak_gib": torch.cuda.max_memory_allocated()
@@ -1975,6 +2011,11 @@ def _full_tp_serve(torch, ops, group, arch, technique):
         dist.barrier()
     if technique == "unified":
         row["probe"] = probe_logits(torch, engines[0], reqs)
+    elif technique in PD_TP and technique != "pd":
+        # the tp = 2 engine's prefill, and the replica's (tp = 1's draw)
+        row["probe"], row["replica_probe"] = (
+            probe_logits(torch, e, reqs)
+            for e in sorted(engines, key=lambda e: -e.tp))
     drv = ServeDriver(engines, DriverCfg(scheduler=serve_scheduler()),
                       pd_map=pd_map)
     drv.runtime.warmup()
@@ -2000,6 +2041,7 @@ def _full_tp_serve(torch, ops, group, arch, technique):
         len(out[r.req_id]) == r.output_len
         and all(0 <= t < cfg.vocab for t in out[r.req_id])
         for r in drv.finished)
+    row["tokens"] = out
     row["decisions"] = {n: list(i.decisions) for n, i in insts.items()}
     row["icfgs"] = [i.cfg for i in insts.values()]
     row["network_bytes"] = m.get("network_bytes")
@@ -2022,7 +2064,9 @@ def _full_tp_serve(torch, ops, group, arch, technique):
 FULL_TP = ((TP2_PATH, "llama3.1-8b", "unified"),
            (TP2_MOE_PATH, "phimini-moe", "unified"),
            (TP2_PD_PATH, "llama3.1-8b", "pd"),
-           (TP2_SPEC_PATH, "llama3.1-8b", "spec"))
+           (TP2_SPEC_PATH, "llama3.1-8b", "spec"),
+           (TP2_PD21_PATH, "llama3.1-8b", "pd-2to1"),
+           (TP2_PD12_PATH, "llama3.1-8b", "pd-1to2"))
 
 
 def _tp2_rank(group, job):
@@ -2052,8 +2096,7 @@ def _tp2_rank(group, job):
     for technique in TINY_TECHNIQUES:
         ops.reset_launch_counts()
         row = _tiny_technique(cfg, job["tiny"][0][1], job["draft"],
-                              group.device, technique, tp=group.size,
-                              group=group)
+                              group.device, technique, group=group)
         row["launches"] = ops.launch_counts()
         out["tech"][technique] = row
     out["cut"] = {}
@@ -2070,29 +2113,32 @@ def _tp2_rank(group, job):
 
 
 def _tiny_techniques_check(ranks, refs, cfg, by_path):
-    """Phase 6 (b'): each tiny technique at tp = 2 against tp = 1 on the
-    card and the port simulator at tp = 2."""
+    """Phase 6 (b'): each tiny technique on the ranks against tp = 1 on
+    the card and the port simulator at the engines' tp (a P/D pair of
+    different tp: tp 2 -> 1 and 1 -> 2, the tp = 1 engine replicated)."""
     must = ("flash_attention", "paged_attention_decode",
             "paged_attention_extend")
     for technique in TINY_TECHNIQUES:
         r0, r1 = (r["tech"][technique] for r in ranks)
         ref = refs[technique]
         sim = _tiny_technique_sim(cfg, technique, r0)
+        tps = dict(zip(("p0", "d0"), PD_TP.get(technique, (TP, TP))))
         check(r0["tokens"] == r1["tokens"] == ref["tokens"]
               and r0["decisions"] == r1["decisions"] == ref["decisions"]
               == sim
               and all(r0["launches"][k] > 0 for k in must)
-              and all(i.parallelism.tp == TP for i in r0["icfgs"]),
-              f"tiny {technique} at tp = 2 on the card: tokens, decisions "
+              and all(i.parallelism.tp == tps.get(i.name, TP)
+                      for i in r0["icfgs"]),
+              f"tiny {technique} on the ranks on the card: tokens, decisions "
               f"(== tp = 1 {r0['decisions'] == ref['decisions']}, == sim "
               f"{r0['decisions'] == sim}) or launches {r0['launches']} "
               f"differ")
         what = ""
-        if technique == "pd":
+        if technique in PD_TP:
             nb = (r0["network_bytes"], r1["network_bytes"],
                   ref["network_bytes"])
             check(nb[0] == nb[1] == nb[2] and nb[2]["d0<->p0"] > 0,
-                  f"tiny P/D at tp = 2: handoff bytes {nb} (ranks, tp = 1)")
+                  f"tiny {technique}: handoff bytes {nb} (ranks, tp = 1)")
             what = f"handoff bytes {nb[0]['d0<->p0']:.0f} == tp = 1's"
         elif technique == "prefix":
             kv = [r["kv_tiers"]["e0"] for r in (r0, r1, ref)]
@@ -2127,19 +2173,22 @@ def _tiny_techniques_check(ranks, refs, cfg, by_path):
             what = (f"spec_decode == tp = 1's ({sd[0]['steps']} steps, "
                     f"acceptance rate {sd[0]['acceptance_rate']:.3f})")
         by_path[f"tp2 {technique} {TINY_ARCHS[0]}"] = r0["launches"]
-        print(f"phase 6: tiny llama f32 {technique} at tp = 2 (two ranks on "
+        at = f"tp {tps['p0']} -> {tps['d0']}" \
+            if tps["p0"] != tps["d0"] else f"tp = {TP}"
+        print(f"phase 6: tiny llama f32 {technique} at {at} (two ranks on "
               f"the card): tokens and decisions == tp = 1 on the card == the "
-              f"simulator's at tp = 2 on both ranks; {what}; launches "
+              f"simulator's at {at} on both ranks; {what}; launches "
               f"{json.dumps(r0['launches'])}")
 
 
 def _sim_decisions(icfgs, reqs, pd_map=None, tiers=False):
-    """The port simulator at the InstanceCfgs' tp (2) on ``reqs``, its
-    prefix caches held to ``_three_tiers`` when ``tiers``: (its metrics,
-    its decisions by instance)."""
+    """The port simulator at the InstanceCfgs' tp (2, or 1 for the tp = 1
+    engine of a P/D pair of different tp) on ``reqs``, its prefix caches
+    held to ``_three_tiers`` when ``tiers``: (its metrics, its decisions
+    by instance)."""
     from repro_torch.core import ClusterCfg, RouterCfg
     from repro_torch.core.cluster import Cluster
-    check(all(i.parallelism.tp == TP for i in icfgs),
+    check(TP in {i.parallelism.tp for i in icfgs} <= {1, TP},
           f"sim twin at tp {[i.parallelism.tp for i in icfgs]}")
     sim = Cluster(ClusterCfg(instances=tuple(icfgs),
                              router=RouterCfg("round_robin"),
@@ -2156,10 +2205,14 @@ def _full_tp_check(card, path, arch, technique, r0, r1, probes):
     """Phase 6 (c): one full-width tp = 2 serve's two rank rows.  Every
     request finishes with tokens in the vocab, both ranks decide alike,
     the kernels launch at the rank's shapes (and, speculating, the tp = 1
-    draft's); unified: the prefill argmax agreement with tp = 1; P/D: the
-    handoff bytes equal tp = 1's payloads; spec: the per-step accepted
-    lengths equal the simulator's at tp = 2.  Prints each rank's memory
-    and times, two ranks sharing one card (not a TP speed)."""
+    draft's; a P/D pair of different tp: the prefill side's and the
+    decode side's, the replica at every head); unified: the prefill argmax
+    agreement with tp = 1; P/D: the handoff bytes equal tp = 1's payloads
+    (across tp also: both ranks emit the same tokens, and the argmax
+    agreement of the tp = 2 engine's prefill and the replica's with tp =
+    1); spec: the per-step accepted lengths equal the simulator's at tp =
+    2.  Prints each rank's memory and times, two ranks sharing one card
+    (not a TP speed)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import SpecCfg
@@ -2170,7 +2223,12 @@ def _full_tp_check(card, path, arch, technique, r0, r1, probes):
                                                  synthesize_acceptance)
     cfg = get_config(arch)
     H, KV = cfg.n_heads // TP, cfg.n_kv_heads // TP
-    want = {("flash_attention", H, KV), ("paged_attention", H, KV)}
+
+    def heads(tp):
+        return cfg.n_heads // tp, cfg.n_kv_heads // tp
+    ptp, dtp = PD_TP.get(technique, (TP, TP))
+    want = {("flash_attention", *heads(ptp)), ("paged_attention", *heads(ptp)),
+            ("paged_attention", *heads(dtp))}
     if cfg.moe is not None:
         want.add(("moe_gmm", cfg.moe.n_experts // TP))
     if technique == "spec":         # the tp = 1 draft: every head
@@ -2185,16 +2243,24 @@ def _full_tp_check(card, path, arch, technique, r0, r1, probes):
           f"{path} at tp = 2: finished {r0['finished']}/{r1['finished']}, "
           f"decisions equal {r0['decisions'] == r1['decisions']}, shapes "
           f"{r0['shapes']} (want {sorted(want)})")
-    if technique == "unified":
-        check(all(np.isfinite(r["probe"]).all() for r in (r0, r1)),
+    def agreement(key):
+        check(all(np.isfinite(r[key]).all() for r in (r0, r1)),
               f"{path}: probe logits not finite")
         ref = probes[arch]
-        agree = int((r0["probe"].argmax(-1) == ref.argmax(-1)).sum())
-        diff = float(np.abs(r0["probe"] - ref).max())
-        what = (f"prefill argmax agrees with tp = 1 on {agree} of "
-                f"{ref.shape[0]} prompts (128 tokens, max |logit diff| "
-                f"{diff:.3g})")
-    elif technique == "pd":
+        agree = int((r0[key].argmax(-1) == ref.argmax(-1)).sum())
+        diff = float(np.abs(r0[key] - ref).max())
+        return (f"agrees with tp = 1 on {agree} of {ref.shape[0]} prompts "
+                f"(128 tokens, max |logit diff| {diff:.3g})")
+    what = ""
+    if technique == "unified":
+        what = f"prefill argmax {agreement('probe')}"
+    elif technique in PD_TP and technique != "pd":
+        check(r0["tokens"] == r1["tokens"],
+              f"{path}: the ranks emitted different tokens")
+        what = (f"both ranks emit the same tokens; the tp = 2 engine's "
+                f"prefill argmax {agreement('probe')}, the replica's "
+                f"{agreement('replica_probe')}; ")
+    if technique in PD_TP:
         # the group's bytes: tp = 1's bucketed payload of each prompt
         per_row = 2 * sum(st.n_layers for st in cfg.stages) \
             * cfg.n_kv_heads * cfg.d_head * 2
@@ -2203,9 +2269,9 @@ def _full_tp_check(card, path, arch, technique, r0, r1, probes):
         check(nb[0] == nb[1] and nb[0]["d0<->p0"] == want_b,
               f"{path}: handoff bytes {nb}, want {want_b} (tp = 1's "
               f"payloads)")
-        what = (f"{nb[0]['d0<->p0']:.0f} handoff bytes on both ranks == tp "
-                f"= 1's payloads")
-    else:
+        what += (f"{nb[0]['d0<->p0']:.0f} handoff bytes on both ranks == "
+                 f"tp = 1's payloads")
+    elif technique == "spec":
         name = f"chip-smoke-tp2-{cfg.name}"
         register_acceptance(name, synthesize_acceptance(
             AcceptanceConfig(alpha=0.6, k=SPEC_K), model=cfg.name))
@@ -2233,9 +2299,12 @@ def _full_tp_check(card, path, arch, technique, r0, r1, probes):
                 f"{sd[0]['mean_accepted_len']:.3f}); {verify_calls} verify "
                 f"calls = {verify_calls * layers} paged extend "
                 f"launches at B8 S<=5 H{H} KV{KV}")
+    replicated = ", the tp = 1 engine replicated on both" \
+        if ptp != dtp else ""
     print(f"phase 6 [{card}] {path} bf16, two ranks sharing one card "
-          f"(gloo), 8 requests: all finished, {n_dec} decisions equal on "
-          f"both ranks; kernels launched at {r0['shapes']}; {what}; per "
+          f"(gloo{replicated}), 8 requests: all finished, {n_dec} "
+          f"decisions equal on both ranks; kernels launched at "
+          f"{r0['shapes']}; {what}; per "
           f"rank: resident {r0['resident_gib']:.2f} / "
           f"{r1['resident_gib']:.2f} GiB, peak while making the engines "
           f"{r0['init_peak_gib']:.2f} / {r1['init_peak_gib']:.2f} GiB, peak "
@@ -2259,16 +2328,20 @@ def tp2_on_card(torch, card, probes):
     tokens == tp = 1 on the card == the CPU's, decisions equal on both
     ranks and == the port simulator's at tp = 2, prefill and decode logits
     within 1e-5 of tp = 1; then tiny f32 llama under P/D, with the prefix
-    store walking device -> host -> SSD -> device, and speculating:
-    tokens, decisions, handoff bytes, KV-tier counters and
-    ``spec_decode`` == tp = 1 on the card, decisions == the simulator's
-    at tp = 2.  (c) full-width bf16 llama3.1-8b and phimini-moe (E16 ->
-    E8) serving phase 4's 8 requests, and llama3.1-8b under P/D (two
-    shards a rank) and speculating at k = 4 (a tp = 1 draft a rank, its
-    accepted lengths == the simulator's at tp = 2): every request
-    finishes, both ranks decide alike, the kernels launch at the rank's
-    shapes (16 query, 4 KV heads; 8 experts; the draft at the full 32 and
-    8), and the prefill argmax agreement with tp = 1 is printed.  Between
+    store walking device -> host -> SSD -> device, speculating, and
+    under P/D between engines of different tp (2 -> 1 and 1 -> 2, the tp
+    = 1 engine replicated on both ranks): tokens, decisions, handoff
+    bytes, KV-tier counters and ``spec_decode`` == tp = 1 on the card,
+    decisions == the simulator's at the engines' tp.  (c) full-width
+    bf16 llama3.1-8b and phimini-moe (E16 -> E8) serving phase 4's 8
+    requests, and llama3.1-8b under P/D (two shards a rank), speculating
+    at k = 4 (a tp = 1 draft a rank, its accepted lengths == the
+    simulator's at tp = 2), and under P/D 2 -> 1 and 1 -> 2 (a replica
+    and a shard a rank, from one draw; the handoffs carry tp = 1's
+    bytes, both ranks emit the same tokens): every request finishes,
+    both ranks decide alike, the kernels launch at the rank's shapes (16
+    query, 4 KV heads; 8 experts; the draft and a replica at the full 32
+    and 8), and the prefill argmax agreement with tp = 1 is printed.  Between
     them, both models at published width in f32 cut to 2 layers: logits
     within 1e-4 of tp = 1.  Returns the launch counts of each tp = 2 path
     (rank 0's)."""
@@ -2290,8 +2363,10 @@ def tp2_on_card(torch, card, probes):
     llama = dataclasses.replace(get_config(TINY_ARCHS[0]),
                                 compute_dtype="float32")
     draft = Model(llama).init(torch.Generator().manual_seed(7))
+    # tp = 1 on the card; a P/D pair of different tp is the P/D serve there
     tech_refs = {t: _tiny_technique(llama, tiny[0][1], draft, "cuda", t)
-                 for t in TINY_TECHNIQUES}
+                 for t in TINY_TECHNIQUES if t not in ("pd-2to1", "pd-1to2")}
+    tech_refs["pd-2to1"] = tech_refs["pd-1to2"] = tech_refs["pd"]
     cut_archs = [arch for _, arch, t in FULL_TP if t == "unified"]
     cut = {}
     for arch in cut_archs:

@@ -7,9 +7,14 @@ explicit over ``torch.distributed``.  An :class:`EngineGroup` is one rank's
 view of its group: rank, world size, its device, the three collectives
 the model needs (all-reduce sum, all-reduce max, all-gather on the last
 dim), and the engine's bookkeeping over the ranks (the slowest rank's
-time, a count summed over the ranks, a guard that the ranks agree).  The
-tp = 1 engine has no group and calls none of them, so it launches exactly
-what it launched before tensor parallelism.
+time, a count summed over the ranks, a guard that the ranks agree, and a
+gather of a P/D payload's KV heads).  A tp = 1 engine alone has no group
+and calls none of them, so it launches exactly what it launched before
+tensor parallelism.  A tp = 1 engine served beside a tp > 1 one (a P/D
+pair of different tp) runs replicated on every rank and takes the group
+as its replica handle (``ServingEngine(replicas=group)``): it calls only
+the bookkeeping (``slowest``, ``check_equal``), never the model's
+collectives.
 
 Backends: gloo on the CPU; NCCL with one rank per card (rank r on
 ``cuda:r``).  Fewer visible cards than tp raises.  Several ranks on one
@@ -72,6 +77,16 @@ class EngineGroup:
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x)
         return torch.cat(parts, dim=-1)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Concatenate every rank's ``x`` (the same shape on every rank)
+        along ``dim``, in rank order: on the card under NCCL, on the host
+        under gloo (``x`` is copied there first, and the result stays
+        there)."""
+        x = x.to(self._host_side()).contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts, dim=dim)
 
     def _host_side(self):
         """Where a small bookkeeping tensor lives for a collective: the

@@ -22,7 +22,10 @@ serve has the one ``--tp``, and rank r of the prefill engine hands off to
 rank r of the decode engine.  Without a draft each engine draws the seeded
 weights itself and keeps only its shard, so no full copy outlives its
 construction; with one the full weights are the draft's (a tp = 1 engine
-on every rank) and the target cuts its shard from them.
+on every rank) and the target cuts its shard from them.  The JAX CLI has
+one ``--tp``, and so has this one: a P/D pair of different tp is built
+through ``ServeDriver``, its tp = 1 engine replicated on every rank with
+the rank's group as its handle (``ServingEngine(tp=1, replicas=group)``).
 
 The recurrent and hybrid families serve too (``--arch zamba2-1.2b``,
 ``--arch xlstm-125m``; their ``-tiny`` variants with ``--device cpu``);

@@ -83,6 +83,27 @@ def owned_kv_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
     return lo, max(lo, hi)
 
 
+def gather_kv_heads(parts, cfg: ArchConfig, tp: int) -> torch.Tensor:
+    """The full ``(layers, blen, KV, dh)`` payload from every rank's
+    ``(layers, blen, KV_r, dh)`` one (``parts``, in rank order): each
+    rank's owned heads (:func:`owned_kv_heads`), concatenated, so a head
+    that several ranks hold appears once."""
+    out = []
+    for rank, part in enumerate(parts):
+        lo, _ = kv_heads(cfg, rank, tp)
+        olo, ohi = owned_kv_heads(cfg, rank, tp)
+        out.append(part.narrow(2, olo - lo, ohi - olo))
+    return torch.cat(out, dim=2)
+
+
+def take_kv_heads(full: torch.Tensor, cfg: ArchConfig, rank: int,
+                  tp: int) -> torch.Tensor:
+    """``rank``'s heads (:func:`kv_heads`: every head it reads, a shared
+    one included) of a full ``(layers, blen, KV, dh)`` payload; a view."""
+    lo, hi = kv_heads(cfg, rank, tp)
+    return full.narrow(2, lo, hi - lo)
+
+
 def experts_parallel(cfg: ArchConfig, tp: int) -> bool:
     """Expert parallelism when the experts divide tp (the JAX rule)."""
     return cfg.moe is not None and cfg.moe.n_experts % tp == 0

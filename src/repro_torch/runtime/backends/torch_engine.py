@@ -29,7 +29,8 @@ P/D disaggregation as in the JAX backend: ``export_kv`` copies a prefill
 slot's KV out (``ServingEngine._export_slot``, to host memory), frees the
 slot and charges its wall time to the next iteration through ``_carry_s``;
 ``import_kv`` restores the payload into a free decode slot with the first
-token the prefill emitted pending.
+token the prefill emitted pending (``_restore_slot``, which takes the
+engine's own KV heads out of a payload of every head).
 
 The prefix store as in the JAX backend: a runtime prefix hit matches the
 engine's ``RealRadixCache`` (``on_prefix_hit``), and the request's first
@@ -55,13 +56,20 @@ largest (``ServingEngine.slowest``, an all-reduce MAX, the carried wall
 time included): a TP iteration ends when its slowest rank ends, and
 identical latencies keep the ranks' schedules, allocators and collectives
 in step.  Every rank samples from the same all-gathered logits.  Under
-P/D a rank exports and imports its own KV heads, and the handoff carries
-the group's bytes (``ServingEngine.handoff_nbytes``), so the network
-delay, and with it the decode admission, is the same on every rank.  The
-prefix store's counts (restored tokens, store residency) count tokens and
-entries, the same on every rank; a tier move's time is the slowest
-rank's.  A speculative step checks that the ranks accepted alike (one
-all-gather of the accepted lengths) and raises if they did not.
+P/D between engines of the same tp a rank exports and imports its own KV
+heads.  Between engines of different tp (``pd_tp``: each P/D target's tp,
+from the driver; the runtime names the target in ``req.decode_instance``
+before it calls ``export_kv``) the export holds every head: a prefill
+group all-gathers them, and a tp = 1 engine on every rank, replicated,
+holds them all.  The handoff carries the tp = 1 payload's bytes
+(``ServingEngine.handoff_nbytes``), so the network delay, and with it the
+decode admission, is the same on every rank.  A replicated tp = 1 engine
+hands the runtime the slowest rank's latency too, through its replica
+handle.  The prefix store's counts (restored tokens, store residency)
+count tokens and entries, the same on every rank; a tier move's time is
+the slowest rank's.  A speculative step checks that the ranks accepted
+alike (one all-gather of the accepted lengths) and raises if they did
+not.
 """
 from __future__ import annotations
 
@@ -83,9 +91,11 @@ from repro_torch.runtime.scheduler import ScheduledWork
 class TorchBackend:
     name = "torch"
 
-    def __init__(self, engine, cfg: InstanceCfg):
+    def __init__(self, engine, cfg: InstanceCfg,
+                 pd_tp: Optional[Dict[str, int]] = None):
         self.eng = engine
         self.cfg = cfg
+        self._pd_tp = dict(pd_tp or {})      # P/D target -> its tp
         self.memory = MemoryModel(cfg)
         self._slot: Dict[int, int] = {}      # req_id -> engine slot
         self._len: Dict[int, int] = {}       # slot   -> tokens held in KV
@@ -431,11 +441,12 @@ class TorchBackend:
                               payload={"accepted": int(accepted),
                                        "proposed": int(k_eff[slot])})
 
-        if eng.group is not None:
-            # acceptance is a function of the gathered logits and the
-            # replicated draft, so every rank accepts alike; ranks that
-            # parted would hang the next collective, so check each step
-            eng.group.check_equal(acc, "accepted lengths")
+        if eng.ranks is not None:
+            # acceptance is a function of the gathered logits (or of a
+            # replica's own) and the replicated draft, so every rank
+            # accepts alike; ranks that parted would hang the next
+            # collective, so check each step
+            eng.ranks.check_equal(acc, "accepted lengths")
 
         # 5. authoritative lengths on both caches: verify bumped the
         # scheduled slots to the full window, the draft decodes every row;
@@ -600,7 +611,8 @@ class TorchBackend:
         t0 = time.perf_counter()
         slot = self._slot[req.req_id]
         length = self._len[slot]
-        kv = self.eng._export_slot(slot, length)
+        tp = self._pd_tp.get(req.decode_instance, self.eng.tp)
+        kv = self.eng._export_slot(slot, length, all_heads=tp != self.eng.tp)
         first = int(self.eng._tokens_buf[slot, 0])
         nbytes = self.eng.handoff_nbytes(kv)
         self.release(req)

@@ -4,8 +4,12 @@ The port of ``repro/serve/driver.py``: N ``ServingEngine`` instances
 become runtime instances with ``TorchBackend`` execution on the copied
 ``ServingRuntime``, so routing, scheduling and virtual time are the same
 code the JAX driver runs and a difference between the two drivers is a
-difference in the engine.  A ``pd_map`` pairing engines of different
-tensor-parallel degrees raises (``refuse_pd_across_tp``).
+difference in the engine.  A ``pd_map`` may pair engines of different
+tensor-parallel degrees: the tp = 1 engine of such a pair runs replicated
+on every rank and must be built with its replica handle
+(``ServingEngine(replicas=group)``), and each backend learns its P/D
+targets' tp, so a prefill group gathers every KV head for a decode engine
+of another tp.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from repro_torch.core.request import SimRequest
 from repro_torch.profiler import model_spec_from_arch
 from repro_torch.runtime.backends.torch_engine import TorchBackend
 from repro_torch.runtime.cluster import ServingRuntime
-from repro_torch.serve.engine import ServingEngine, refuse_pd_across_tp
+from repro_torch.serve.engine import ServingEngine
 from repro_torch.workload.sharegpt import Request
 
 
@@ -98,6 +102,25 @@ class DriverCfg:
     scheduler: Optional[SchedulerCfg] = None
 
 
+def check_pd_replicas(prefill: ServingEngine,
+                      decode: ServingEngine) -> None:
+    """Raise for a P/D pair of different tp whose tp = 1 engine has no
+    replica handle over the other's ranks: that engine runs on every rank,
+    and without the handle its wall times differ by rank, the ranks'
+    schedules part and the next collective hangs."""
+    if prefill.tp == decode.tp:
+        return
+    one, other = (prefill, decode) if prefill.tp == 1 else (decode, prefill)
+    # a tp = 1 engine's ranks are its replica handle
+    if one.tp == 1 and (one.ranks is None or one.ranks.size != other.tp):
+        raise ValueError(
+            f"ServeDriver: P/D from {prefill.name!r} at tp={prefill.tp} to "
+            f"{decode.name!r} at tp={decode.tp}: the tp = 1 engine "
+            f"{one.name!r} runs on every rank of {other.name!r}'s "
+            f"{other.tp}-rank group and needs its replica handle: build it "
+            f"with ServingEngine(..., replicas=<the rank's EngineGroup>)")
+
+
 class ServeDriver:
     def __init__(self, engines: List[ServingEngine],
                  cfg: DriverCfg = DriverCfg(),
@@ -105,10 +128,13 @@ class ServeDriver:
                  recorder=None):
         self.cfg = cfg
         self.engines = {e.name: e for e in engines}
+        # each prefill engine's P/D targets' tp, for its backend's export
+        pd_tp: Dict[str, Dict[str, int]] = {}
         for src, dsts in (pd_map or {}).items():
             for dst in dsts:
                 if src in self.engines and dst in self.engines:
-                    refuse_pd_across_tp(self.engines[src], self.engines[dst])
+                    check_pd_replicas(self.engines[src], self.engines[dst])
+                    pd_tp.setdefault(src, {})[dst] = self.engines[dst].tp
         ccfg = ClusterCfg(
             instances=tuple(engine_instance_cfg(e, cfg.scheduler)
                             for e in engines),
@@ -122,7 +148,7 @@ class ServeDriver:
         self.runtime = ServingRuntime(
             ccfg,
             backend_factory=lambda icfg, trace: TorchBackend(
-                self.engines[icfg.name], icfg),
+                self.engines[icfg.name], icfg, pd_tp.get(icfg.name)),
             recorder=recorder)
 
     @property

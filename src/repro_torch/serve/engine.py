@@ -36,14 +36,28 @@ the same decisions (``TorchBackend`` hands it the slowest rank's
 latency).  Every engine of a process shares the one default process
 group, so several engines (a P/D pair, several instances) run their
 collectives in the order the deterministic driver calls them, the same on
-every rank.  At tp > 1 the slot export holds the rank's KV heads: under
-P/D rank r of the prefill engine hands off to rank r of the decode engine
-(engines of different tp refuse, ``refuse_pd_across_tp``), and the
-handoff's bytes are the group's (``handoff_nbytes``).  Each rank's prefix
-store keeps its own heads' payload under the same token key, moved
-between tiers by the same runtime decisions on every rank.  The draft of
-speculative decoding is a tp = 1 engine on the rank's device, replicated
-on every rank and never given the group, as in JAX.
+every rank.  Each rank's prefix store keeps its own heads' payload under
+the same token key, moved between tiers by the same runtime decisions on
+every rank; a store entry is never gathered.  The draft of speculative
+decoding is a tp = 1 engine on the rank's device, replicated on every rank
+and never given the group, as in JAX.
+
+A tp = 1 engine served beside a tp > 1 one (a P/D pair of different tp)
+is replicated: every rank builds it from the same weights and drives it
+through the same decisions, and ``replicas`` (the rank's engine group)
+makes its wall times the slowest rank's and lets a speculative step check
+that the ranks accepted alike.  It never joins the model's collectives.
+
+Every slot export is tagged with the KV heads it holds (``_kv_heads``:
+``(lo, hi, KV)``).  Under P/D between engines of the same tp, rank r of
+the prefill engine hands its own heads to rank r of the decode engine.
+Between engines of different tp the payload holds every head, as the JAX
+package ships it: a prefill group all-gathers its ranks' heads
+(``all_heads=True``; ``launch.sharding.gather_kv_heads``), and each rank
+of a decode group restores its own out of the full payload
+(``launch.sharding.take_kv_heads``).  A payload whose heads match neither
+the engine's nor the full set raises.  The handoff's bytes are those of
+the tp = 1 payload in every case (``handoff_nbytes``).
 
 A model with recurrent stages (Mamba2, the zamba superblock, xLSTM) keeps
 dense per-slot state beside the pools (``Model.state_leaves``: each leaf
@@ -261,18 +275,6 @@ class RealRadixCache:
                 pass
 
 
-def refuse_pd_across_tp(prefill, decode) -> None:
-    """Raise for a P/D pair whose engines run at different tp (ROADMAP
-    queue 1 item 3): rank r of a prefill group hands its own KV heads to
-    rank r of the decode group, so both groups must cut the heads alike.
-    The JAX package allows it, its payload holding every head."""
-    if prefill.tp != decode.tp:
-        raise NotImplementedError(
-            f"ServeDriver: P/D from {prefill.name!r} at tp={prefill.tp} to "
-            f"{decode.name!r} at tp={decode.tp}: P/D between engines of "
-            f"different tp not ported yet (ROADMAP queue 1 item 3)")
-
-
 def refuse_unported_recurrent(cfg: ArchConfig, *, tp: int = 1,
                               prefix_cache: bool = False,
                               spec=None) -> None:
@@ -311,7 +313,10 @@ class ServingEngine:
     on the device from ``seed``.  Matmul weights are cast to the compute
     dtype once, here; the JAX model casts at every call, to the same
     values.  At ``tp > 1`` the engine runs on ``group.device`` and keeps
-    rank ``group.rank``'s shard of the (full) params.
+    rank ``group.rank``'s shard of the (full) params.  ``replicas``: a tp
+    = 1 engine's handle on the ranks it is replicated over (the rank's
+    engine group; see the module docstring); it runs on
+    ``replicas.device``.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, *, max_batch: int = 8,
@@ -319,7 +324,7 @@ class ServingEngine:
                  role: str = "unified", name: str = "engine0", seed: int = 0,
                  tp: int = 1, routing=None,
                  spec: Optional[SpecDecodeCfg] = None, device=None,
-                 group=None):
+                 group=None, replicas=None):
         tp = int(tp)
         if tp < 1:
             raise ValueError(f"ServingEngine: tp must be >= 1, got {tp}")
@@ -342,17 +347,23 @@ class ServingEngine:
             if group.size != tp:
                 raise ValueError(f"ServingEngine: tp={tp} but the engine "
                                  f"group has {group.size} ranks")
-            if device is not None:
-                d = resolve_device(device)
-                if d.type != group.device.type or d.index not in (
-                        None, group.device.index):
-                    raise ValueError(f"ServingEngine: device {device} is "
-                                     f"not rank {group.rank}'s "
-                                     f"{group.device}")
-            device = group.device
+            if replicas is not None:
+                raise ValueError(f"ServingEngine: replicas= is a tp = 1 "
+                                 f"engine's handle; at tp={tp} pass group=")
         elif group is not None and group.size != 1:
             raise ValueError(f"ServingEngine: tp=1 in a {group.size}-rank "
-                             f"engine group")
+                             f"engine group; a tp = 1 engine replicated "
+                             f"on every rank takes replicas=")
+        ranks = group if tp > 1 else replicas
+        if ranks is not None:
+            if device is not None:
+                d = resolve_device(device)
+                if d.type != ranks.device.type or d.index not in (
+                        None, ranks.device.index):
+                    raise ValueError(f"ServingEngine: device {device} is "
+                                     f"not rank {ranks.rank}'s "
+                                     f"{ranks.device}")
+            device = ranks.device
         if spec is not None:
             if routing is not None:
                 raise ValueError(
@@ -374,6 +385,9 @@ class ServingEngine:
         self.role = role
         self.tp = tp
         self.group = group if tp > 1 else None
+        #: the ranks that agree on this engine's wall times: its group, its
+        #: replica handle, or None
+        self.ranks = ranks
         self.page_size = 64
         self.routing_trace = None
         hook = None
@@ -393,6 +407,11 @@ class ServingEngine:
                 hook = make_replay_hook(routing)
         self.model = Model(cfg, page_size=self.page_size, routing_hook=hook,
                            group=self.group)
+        from repro_torch.launch.sharding import kv_heads
+        KV = cfg.n_kv_heads
+        #: the KV heads ``(lo, hi, KV)`` this engine's pools hold
+        self.kv_range = (0, KV, KV) if self.group is None else \
+            kv_heads(cfg, self.group.rank, tp) + (KV,)
         dtype = torch_dtype(cfg.compute_dtype)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -451,24 +470,25 @@ class ServingEngine:
             torch.cuda.synchronize(self.device)
 
     def slowest(self, seconds: float) -> float:
-        """A wall time measured on this rank -> the group's largest (the
-        time itself at tp = 1)."""
-        return seconds if self.group is None else self.group.slowest(seconds)
+        """A wall time measured on this rank -> the largest over the ranks
+        of its group or its replicas (the time itself for an engine
+        alone)."""
+        return seconds if self.ranks is None else self.ranks.slowest(seconds)
 
     def handoff_nbytes(self, payload: dict) -> float:
-        """The bytes of an ``_export_slot`` payload over the whole group:
-        the payload's own at tp = 1; at tp > 1 each rank counts the KV
+        """The bytes of an ``_export_slot`` payload over the whole group,
+        the same on every rank and the size of the payload tp = 1 ships.
+        A payload of every KV head (tp = 1, a replica, a gathered export)
+        counts its own bytes once; a rank's payload at tp > 1 counts the
         heads it owns (``launch.sharding.owned_kv_heads``: a head that
         several ranks hold counts once), summed over the ranks with one
-        all-reduce.  The same on every rank, and the size of the payload
-        tp = 1 ships."""
+        all-reduce."""
         local = int(_payload_nbytes(payload))
-        if self.group is None:
+        lo, hi, KV = payload["_kv_heads"]
+        if hi - lo == KV:
             return float(local)
-        from repro_torch.launch.sharding import kv_heads, owned_kv_heads
-        rank, tp = self.group.rank, self.group.size
-        lo, hi = kv_heads(self.cfg, rank, tp)
-        olo, ohi = owned_kv_heads(self.cfg, rank, tp)
+        from repro_torch.launch.sharding import owned_kv_heads
+        olo, ohi = owned_kv_heads(self.cfg, self.group.rank, self.tp)
         # at tp > 1 the payload is K/V only (a recurrent model refuses)
         return float(self.group.total(local // (hi - lo) * (ohi - olo)))
 
@@ -575,20 +595,26 @@ class ServingEngine:
         self._set_length(slot, n)
 
     # ---- slot KV copy-out / restore (P/D handoff) ----
-    def _export_slot(self, slot: int, length: int,
-                     to_host: bool = True) -> dict:
+    def _export_slot(self, slot: int, length: int, to_host: bool = True,
+                     all_heads: bool = False) -> dict:
         """Copy a slot's KV out in the JAX package's contiguous layout:
-        per attending stage ``{"k", "v"}`` of ``(layers, blen, KV, dh)``
-        with ``blen`` the bucketed length (capped at ``max_len``), gathered
-        through the slot's table row, and beside them the slot's recurrent
-        state leaves under ``Model.state_leaves``' names, batch axis
-        removed.  Rows past the pages in use come from the slot's scratch
-        page (finite, never read back).  ``to_host=True`` copies the
-        payload to host memory."""
+        per attending stage ``{"k", "v"}`` of ``(layers, blen, KV_e, dh)``
+        with ``blen`` the bucketed length (capped at ``max_len``) and
+        ``KV_e`` the engine's KV heads (``_kv_heads`` says which),
+        gathered through the slot's table row, and beside them the slot's
+        recurrent state leaves under ``Model.state_leaves``' names, batch
+        axis removed.  Rows past the pages in use come from the slot's
+        scratch page (finite, never read back).  ``to_host=True`` copies
+        the payload to host memory.  ``all_heads=True`` at tp > 1
+        all-gathers every KV head over the group (a collective: every
+        rank calls it for the same slot), for a decode engine of another
+        tp."""
         blen = min(_bucket(length), self.max_len)
         ps = self.page_size
         npg = min(-(-blen // ps), self._maxp)
         pages = self.cache["block_table"][slot, :npg].long()
+        lo, hi, KV = self.kv_range
+        gather = all_heads and hi - lo < KV
         out = {}
         for key, pools in self.model.attention_caches(self.cache):
             kv = {}
@@ -596,7 +622,11 @@ class ServingEngine:
                 pool = pools[f"{name}_pages"][:, pages]
                 t = pool.reshape((pool.shape[0], npg * ps)
                                  + pool.shape[3:])[:, :blen].contiguous()
-                kv[name] = t.cpu() if to_host else t
+                if gather:
+                    from repro_torch.launch.sharding import gather_kv_heads
+                    t = gather_kv_heads(self.group.all_gather(t, 2).chunk(
+                        self.tp, 2), self.cfg, self.tp)
+                kv[name] = t.cpu() if to_host else t.to(self.device)
             out[key] = kv
         for key, name, t, ax in self.model.state_leaves(self.cache):
             # a copy, also on the CPU: the slot's state moves on
@@ -604,13 +634,26 @@ class ServingEngine:
                 "cpu" if to_host else t.device, copy=True)
         out["_length"] = length
         out["_length_bucket"] = blen
+        out["_kv_heads"] = (0, KV, KV) if gather else self.kv_range
         return out
 
     def _restore_slot(self, slot: int, kv: dict, length: int):
         """Scatter an ``_export_slot`` payload through ``slot``'s freshly
         allocated table row, copy its state leaves into the slot and set
         its length.  Pages are allocated for ``length`` tokens; payload
-        rows past them land on the slot's own scratch page."""
+        rows past them land on the slot's own scratch page.  A payload of
+        every KV head restores the engine's own (an untagged payload, the
+        JAX package's, holds every head); one of other heads than the
+        engine's raises."""
+        lo, hi, KV = self.kv_range
+        heads = tuple(kv.get("_kv_heads", (0, KV, KV)))
+        own = heads == self.kv_range
+        if not own and heads != (0, KV, KV):
+            raise ValueError(
+                f"ServingEngine {self.name!r}: a payload of KV heads "
+                f"[{heads[0]}, {heads[1]}) of {heads[2]} does not restore "
+                f"into pools of heads [{lo}, {hi}) of {KV}; only this "
+                f"engine's heads or every head do")
         blen = kv["_length_bucket"]
         self.ensure_capacity(slot, length)
         row = self.cache["block_table"][slot].long()
@@ -619,8 +662,11 @@ class ServingEngine:
         off = pos % self.page_size
         for key, pools in self.model.attention_caches(self.cache):
             for name in ("k", "v"):
-                pools[f"{name}_pages"][:, page, off] = \
-                    kv[key][name].to(self.device)
+                t = kv[key][name]
+                if not own:
+                    from repro_torch.launch.sharding import take_kv_heads
+                    t = take_kv_heads(t, self.cfg, self.group.rank, self.tp)
+                pools[f"{name}_pages"][:, page, off] = t.to(self.device)
         for key, name, t, ax in self.model.state_leaves(self.cache):
             t.select(ax, slot).copy_(kv[key][name])
         self._set_length(slot, length)

@@ -87,7 +87,9 @@ def test_export_payload_matches_jax(n):
     """After one prefill of ``n`` tokens (one page, exactly a page, and
     three pages through two buckets), the port's payload holds the JAX
     engine's rows: same keys, bucket and shapes; the rows of the prompt
-    equal within 1e-5 (rows past it are scratch on both sides)."""
+    equal within 1e-5 (rows past it are scratch on both sides).  Beside
+    them the port tags the KV heads the payload holds: every head here,
+    which is what the JAX payload holds."""
     jcfg, tcfg = _cfgs()
     jeng = _jax_engine(jcfg)
     teng = _port_engine(tcfg, jeng)
@@ -104,7 +106,9 @@ def test_export_payload_matches_jax(n):
     tkv = teng._export_slot(tb._slot[0], n)
     assert tkv["_length"] == jkv["_length"] == n
     assert tkv["_length_bucket"] == jkv["_length_bucket"]
-    assert set(tkv) == set(jkv)
+    assert set(tkv) == set(jkv) | {"_kv_heads"}
+    KV = tcfg.n_kv_heads
+    assert tkv["_kv_heads"] == (0, KV, KV)
     for key in (k for k in jkv if not k.startswith("_")):
         for name in ("k", "v"):
             want = np.asarray(jkv[key][name])

@@ -126,7 +126,8 @@ def test_cli_synthetic_routing_equals_jax(tmp_path):
 
 
 # rank 0's view of a two-rank engine group: building the engines and the
-# refusal run no collective, so no other rank is needed
+# driver's guard run no collective, so no other rank is needed; the tp = 1
+# engine lacks its replica handle
 _PD_ACROSS_TP = """
 import torch
 from repro_torch.configs import get_config
@@ -148,13 +149,14 @@ ServeDriver([p0, d0], pd_map={"p0": ("d0",)})
                   "--tp", "1,2"], "too few cards"),
     ("profiler", ["profile", "--device", "cpu-engine", "--engine-device",
                   "cpu", "--tp", "0"], ">= 1"),
-    (None, ["-c", _PD_ACROSS_TP], "item 3"),
+    (None, ["-c", _PD_ACROSS_TP], "pass replicas="),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, module, args, want):
     """A measured ``--tp`` past the visible cards refuses, naming both
-    counts; ``--tp 0`` refuses; P/D between engines of different tp
-    refuses through ``ServeDriver`` (the serve CLI has one ``--tp``),
-    naming its ROADMAP item.  Nothing is written."""
+    counts; ``--tp 0`` refuses; a P/D pair of different tp whose tp = 1
+    engine lacks its replica handle raises through ``ServeDriver`` (the
+    serve CLI has one ``--tp``), naming the engine and the handle.
+    Nothing is written."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = ["-m", f"repro_torch.{module}"] if module else []
     res = subprocess.run([sys.executable, *cmd, *args],
@@ -164,6 +166,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, module, args, want):
     if want == "too few cards":
         want = (f"tp=2 runs 2 ranks on 2 cuda devices, but "
                 f"{torch.cuda.device_count()} are visible")
+    elif want == "pass replicas=":
+        want = "the tp = 1 engine 'd0' runs on every rank"
+        assert "replicas=<the rank's EngineGroup>" in res.stderr
     assert want in res.stderr
     assert not list(tmp_path.iterdir())
 
