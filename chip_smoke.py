@@ -154,7 +154,18 @@ result line:
    phimini-moe's grouped matmul three times a layer in each), every
    gradient leaf nonzero, step 0's loss within 1 of ln vocab, with step
    times and peak memory;
-9. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+9. the dry run against the card: llama3.1-8b and phimini-moe cut to 2
+   layers, each a train step at B2 S1024 with remat (phase 8's shapes),
+   and llama3.1-8b at full width in bf16, a B1 S2048 prefill, a 256-token
+   extend after 1792 and a B8 decode at 2047 of 2048, each first counted
+   on meta by the dry run's machinery (``repro_torch.launch.dryrun``: the
+   operation counter, the kernels' meta branches and their work counts)
+   and then run on the card: params and optimizer state equal in bytes,
+   every kernel launched exactly as often as predicted, the FLOPs outside
+   the kernels (counted over the card run) equal, and the card's peak
+   allocation within [0.9, 1.1] of the predicted peak; the median step
+   time printed beside the roofline's bound against the h100 preset;
+10. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -660,7 +671,10 @@ def host_us(torch, fn, n=100):
     return (t1 - t0) / n * 1e6
 
 
-def bound(nbytes, flops):
+def bound(work):
+    """(ms, what binds) of a kernel call's (FLOPs, bytes), from its work
+    count in ``ops`` (the dry run's counter charges the same)."""
+    flops, nbytes = work
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -686,8 +700,8 @@ def timings(torch, ops, dev):
     k = _rand(torch, gen, (1, S, KV, dh), bf, dev)
     v = _rand(torch, gen, (1, S, KV, dh), bf, dev)
     lt = torch.tensor([S], dtype=torch.int32, device=dev)
-    pairs = S * (S + 1) // 2                       # causal (q, kv) pairs
-    nbytes = 2 * q.numel() * 2 + (k.numel() + v.numel()) * 2 + 4
+    work = ops.flash_attention_work(1, S, H, KV, dh, 2,
+                                    ops.causal_pairs(S, [S], None))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out["flash_attention"] = measure(
         lambda: ops.flash_attention(q, k, v, lt),
@@ -695,7 +709,7 @@ def timings(torch, ops, dev):
         lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True),
         shape=f"B1 S{S} H{H} KV{KV} dh{dh} bf16",
-        bound=bound(nbytes, 4 * pairs * H * dh))
+        bound=bound(work))
 
     def paged_library(q4, kp, vp, table, lengths, start):
         """Gather the pages, then SDPA under the paged mask."""
@@ -727,24 +741,22 @@ def timings(torch, ops, dev):
           f"{lib.paged_decode_pages_per_split()} pages per split: "
           f"{lib.paged_decode_splits(maxp)} splits for {maxp} pages a table")
     kv_rows = sum(lens)
-    nbytes = kv_rows * KV * dh * 2 * 2 + 2 * qd.numel() * 2 \
-        + table.numel() * 4 + B * 4
     out["paged_attention_decode"] = measure(
         lambda: ops.paged_attention(qd, kp, vp, table, lt, page_size=ps),
         lambda: ops.paged_attention_plain(qd, kp, vp, table, lt,
                                           page_size=ps),
         lambda: paged_library(qd[:, None], kp, vp, table, lt, lt - 1),
         shape=f"B{B} H{H} KV{KV} dh{dh} ps{ps} len{lens} bf16",
-        bound=bound(nbytes, 4 * kv_rows * H * dh))
+        bound=bound(ops.paged_decode_work(B, H, KV, dh, 2, table.numel(),
+                                          kv_rows)))
 
     # extend: one 256-token chunk from a mid-page start (B=1)
     S, start = 256, 293
     qe = _rand(torch, gen, (1, S, H, dh), bf, dev)
     st = torch.tensor([start], dtype=torch.int32, device=dev)
     lt = st + S
-    pairs = sum(start + s + 1 for s in range(S))
-    nbytes = (start + S) * KV * dh * 2 * 2 + 2 * qe.numel() * 2 \
-        + maxp * 4 + 8
+    rows, pairs = ops.paged_work([start], S, [start + S], None)
+    work = ops.paged_extend_work(1, S, H, KV, dh, 2, maxp, rows, pairs)
     out["paged_attention_extend"] = measure(
         lambda: ops.paged_attention(qe, kp, vp, table[:1], lt,
                                     page_size=ps, start=st),
@@ -752,7 +764,7 @@ def timings(torch, ops, dev):
                                           page_size=ps, start=st),
         lambda: paged_library(qe, kp, vp, table[:1], lt, st),
         shape=f"B1 S{S} start{start} H{H} KV{KV} dh{dh} ps{ps} bf16",
-        bound=bound(nbytes, 4 * pairs * H * dh))
+        bound=bound(work))
 
     # grouped matmul: gate/up (d 4096 -> f 960) and down (960 -> 4096), each
     # at a 256-token chunk (C = 40) and at batch-8 decode (C = 1), group
@@ -771,7 +783,6 @@ def timings(torch, ops, dev):
         for d, f, part in ((4096, 960, ""), (960, 4096, "_down")):
             x = _rand(torch, gen, (E, C, d), bf, dev)
             w = _rand(torch, gen, (E, d, f), bf, dev)
-            nbytes = active * d * f * 2 + rows * d * 2 + E * C * f * 2 + E * 4
             name = "moe_gmm" + part + ("" if C == 40 else "_decode")
             out[name] = measure(
                 lambda: ops.moe_gmm(x, w, gs),
@@ -780,7 +791,7 @@ def timings(torch, ops, dev):
                 kernel="moe_gmm",
                 shape=f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
                       f"{rows} rows",
-                bound=bound(nbytes, 2 * rows * d * f))
+                bound=bound(ops.moe_gmm_work(E, C, d, f, 2, rows, active)))
     # verify: the extend kernel at speculative decoding's k = 4 check of a
     # full batch (B = 8, S = 5) from the ragged starts of phase 2, on the
     # decode's pools (timed last, so the other rows' draws stay as they
@@ -789,9 +800,10 @@ def timings(torch, ops, dev):
     st = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
     lt = st + S
     qv = _rand(torch, gen, (B, S, H, dh), bf, dev)
-    pairs = sum(s0 + s + 1 for s0 in VERIFY_STARTS for s in range(S))
-    nbytes = sum(s0 + S for s0 in VERIFY_STARTS) * KV * dh * 2 * 2 \
-        + 2 * qv.numel() * 2 + table.numel() * 4 + 2 * B * 4
+    rows, pairs = ops.paged_work(VERIFY_STARTS, S,
+                                 [s0 + S for s0 in VERIFY_STARTS], None)
+    work = ops.paged_extend_work(B, S, H, KV, dh, 2, table.numel(), rows,
+                                 pairs)
     out["paged_attention_verify"] = measure(
         lambda: ops.paged_attention(qv, kp, vp, table, lt, page_size=ps,
                                     start=st),
@@ -801,7 +813,7 @@ def timings(torch, ops, dev):
         kernel="paged_attention_extend", path=SPEC_PATH,
         shape=f"B{B} S{S} starts{VERIFY_STARTS} H{H} KV{KV} dh{dh} "
               f"ps{ps} bf16",
-        bound=bound(nbytes, 4 * pairs * H * dh))
+        bound=bound(work))
 
     # a rank's shapes at tp = 2 (phase 6's serves): 16 query and 4 KV
     # heads, the serve's prefill chunk, decode and extend, and phimini-moe's
@@ -813,8 +825,8 @@ def timings(torch, ops, dev):
     k2 = _rand(torch, gen, (1, S, KV2, dh), bf, dev)
     v2 = _rand(torch, gen, (1, S, KV2, dh), bf, dev)
     lt2 = torch.tensor([S], dtype=torch.int32, device=dev)
-    pairs = S * (S + 1) // 2
-    nbytes = 2 * q2.numel() * 2 + (k2.numel() + v2.numel()) * 2 + 4
+    work = ops.flash_attention_work(1, S, H2, KV2, dh, 2,
+                                    ops.causal_pairs(S, [S], None))
     qt, kt, vt = (x.transpose(1, 2) for x in (q2, k2, v2))
     out["flash_attention_tp2"] = measure(
         lambda: ops.flash_attention(q2, k2, v2, lt2),
@@ -823,13 +835,11 @@ def timings(torch, ops, dev):
             qt, kt, vt, is_causal=True, enable_gqa=True),
         kernel="flash_attention", path=TP2_PATH,
         shape=f"B1 S{S} H{H2} KV{KV2} dh{dh} bf16",
-        bound=bound(nbytes, 4 * pairs * H2 * dh))
+        bound=bound(work))
     kp2 = _rand(torch, gen, (P, ps, KV2, dh), bf, dev)
     vp2 = _rand(torch, gen, (P, ps, KV2, dh), bf, dev)
     lt = torch.tensor(lens, dtype=torch.int32, device=dev)
     qd = _rand(torch, gen, (B, H2, dh), bf, dev)
-    nbytes = kv_rows * KV2 * dh * 2 * 2 + 2 * qd.numel() * 2 \
-        + table.numel() * 4 + B * 4
     out["paged_attention_decode_tp2"] = measure(
         lambda: ops.paged_attention(qd, kp2, vp2, table, lt, page_size=ps),
         lambda: ops.paged_attention_plain(qd, kp2, vp2, table, lt,
@@ -837,14 +847,14 @@ def timings(torch, ops, dev):
         lambda: paged_library(qd[:, None], kp2, vp2, table, lt, lt - 1),
         kernel="paged_attention_decode", path=TP2_PATH,
         shape=f"B{B} H{H2} KV{KV2} dh{dh} ps{ps} len{lens} bf16",
-        bound=bound(nbytes, 4 * kv_rows * H2 * dh))
+        bound=bound(ops.paged_decode_work(B, H2, KV2, dh, 2, table.numel(),
+                                          kv_rows)))
     S, start = 256, 293
     qe = _rand(torch, gen, (1, S, H2, dh), bf, dev)
     st = torch.tensor([start], dtype=torch.int32, device=dev)
     lt = st + S
-    pairs = sum(start + s + 1 for s in range(S))
-    nbytes = (start + S) * KV2 * dh * 2 * 2 + 2 * qe.numel() * 2 \
-        + maxp * 4 + 8
+    rows, pairs = ops.paged_work([start], S, [start + S], None)
+    work = ops.paged_extend_work(1, S, H2, KV2, dh, 2, maxp, rows, pairs)
     out["paged_attention_extend_tp2"] = measure(
         lambda: ops.paged_attention(qe, kp2, vp2, table[:1], lt,
                                     page_size=ps, start=st),
@@ -853,7 +863,7 @@ def timings(torch, ops, dev):
         lambda: paged_library(qe, kp2, vp2, table[:1], lt, st),
         kernel="paged_attention_extend", path=TP2_PATH,
         shape=f"B1 S{S} start{start} H{H2} KV{KV2} dh{dh} ps{ps} bf16",
-        bound=bound(nbytes, 4 * pairs * H2 * dh))
+        bound=bound(work))
     E2 = E // TP
     for C, T in ((40, 256), (1, 8)):
         pick = torch.rand((T, E), generator=gen, device=dev).argsort(-1)[
@@ -866,8 +876,6 @@ def timings(torch, ops, dev):
         for d, f, part in ((4096, 960, ""), (960, 4096, "_down")):
             x = _rand(torch, gen, (E2, C, d), bf, dev)
             w = _rand(torch, gen, (E2, d, f), bf, dev)
-            nbytes = active * d * f * 2 + rows * d * 2 + E2 * C * f * 2 \
-                + E2 * 4
             name = "moe_gmm" + part + "_tp2" + ("" if C == 40 else "_decode")
             out[name] = measure(
                 lambda: ops.moe_gmm(x, w, gs),
@@ -876,7 +884,7 @@ def timings(torch, ops, dev):
                 kernel="moe_gmm", path=TP2_MOE_PATH,
                 shape=f"E{E2} C{C} d{d} f{f} bf16, {active} experts active, "
                       f"{rows} rows",
-                bound=bound(nbytes, 2 * rows * d * f))
+                bound=bound(ops.moe_gmm_work(E2, C, d, f, 2, rows, active)))
     # verify at the rank's heads (phase 6's tp = 2 spec serve): B8 S5 from
     # the verify row's ragged starts, on the rank's pools (drawn last, so
     # the rank's rows above keep their draws)
@@ -884,9 +892,10 @@ def timings(torch, ops, dev):
     st = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
     lt = st + S
     qv2 = _rand(torch, gen, (B, S, H2, dh), bf, dev)
-    pairs = sum(s0 + s + 1 for s0 in VERIFY_STARTS for s in range(S))
-    nbytes = sum(s0 + S for s0 in VERIFY_STARTS) * KV2 * dh * 2 * 2 \
-        + 2 * qv2.numel() * 2 + table.numel() * 4 + 2 * B * 4
+    rows, pairs = ops.paged_work(VERIFY_STARTS, S,
+                                 [s0 + S for s0 in VERIFY_STARTS], None)
+    work = ops.paged_extend_work(B, S, H2, KV2, dh, 2, table.numel(), rows,
+                                 pairs)
     out["paged_attention_verify_tp2"] = measure(
         lambda: ops.paged_attention(qv2, kp2, vp2, table, lt, page_size=ps,
                                     start=st),
@@ -896,7 +905,7 @@ def timings(torch, ops, dev):
         kernel="paged_attention_extend", path=TP2_SPEC_PATH,
         shape=f"B{B} S{S} starts{VERIFY_STARTS} H{H2} KV{KV2} dh{dh} "
               f"ps{ps} bf16",
-        bound=bound(nbytes, 4 * pairs * H2 * dh))
+        bound=bound(work))
     # zamba2-1.2b's shared attention (phase 7's serve): H32 KV32 dh64, one
     # query head per kv-head; the same chunk, decode and extend shapes as
     # llama's rows, their own generator; launches from the zamba2 serve
@@ -907,8 +916,8 @@ def timings(torch, ops, dev):
     k = _rand(torch, gen, (1, S, KVz, dz), bf, dev)
     v = _rand(torch, gen, (1, S, KVz, dz), bf, dev)
     lt = torch.tensor([S], dtype=torch.int32, device=dev)
-    pairs = S * (S + 1) // 2
-    nbytes = 2 * q.numel() * 2 + (k.numel() + v.numel()) * 2 + 4
+    work = ops.flash_attention_work(1, S, Hz, KVz, dz, 2,
+                                    ops.causal_pairs(S, [S], None))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out["flash_attention_zamba"] = measure(
         lambda: ops.flash_attention(q, k, v, lt),
@@ -916,13 +925,11 @@ def timings(torch, ops, dev):
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
         kernel="flash_attention", path=ZAMBA_PATH,
         shape=f"B1 S{S} H{Hz} KV{KVz} dh{dz} bf16",
-        bound=bound(nbytes, 4 * pairs * Hz * dz))
+        bound=bound(work))
     kpz = _rand(torch, gen, (P, ps, KVz, dz), bf, dev)
     vpz = _rand(torch, gen, (P, ps, KVz, dz), bf, dev)
     lt = torch.tensor(lens, dtype=torch.int32, device=dev)
     qd = _rand(torch, gen, (B, Hz, dz), bf, dev)
-    nbytes = kv_rows * KVz * dz * 2 * 2 + 2 * qd.numel() * 2 \
-        + table.numel() * 4 + B * 4
     out["paged_attention_decode_zamba"] = measure(
         lambda: ops.paged_attention(qd, kpz, vpz, table, lt, page_size=ps),
         lambda: ops.paged_attention_plain(qd, kpz, vpz, table, lt,
@@ -930,14 +937,14 @@ def timings(torch, ops, dev):
         lambda: paged_library(qd[:, None], kpz, vpz, table, lt, lt - 1),
         kernel="paged_attention_decode", path=ZAMBA_PATH,
         shape=f"B{B} H{Hz} KV{KVz} dh{dz} ps{ps} len{lens} bf16",
-        bound=bound(nbytes, 4 * kv_rows * Hz * dz))
+        bound=bound(ops.paged_decode_work(B, Hz, KVz, dz, 2, table.numel(),
+                                          kv_rows)))
     start = 293
     qe = _rand(torch, gen, (1, S, Hz, dz), bf, dev)
     st = torch.tensor([start], dtype=torch.int32, device=dev)
     lt = st + S
-    pairs = sum(start + s + 1 for s in range(S))
-    nbytes = (start + S) * KVz * dz * 2 * 2 + 2 * qe.numel() * 2 \
-        + maxp * 4 + 8
+    rows, pairs = ops.paged_work([start], S, [start + S], None)
+    work = ops.paged_extend_work(1, S, Hz, KVz, dz, 2, maxp, rows, pairs)
     out["paged_attention_extend_zamba"] = measure(
         lambda: ops.paged_attention(qe, kpz, vpz, table[:1], lt,
                                     page_size=ps, start=st),
@@ -946,7 +953,7 @@ def timings(torch, ops, dev):
         lambda: paged_library(qe, kpz, vpz, table[:1], lt, st),
         kernel="paged_attention_extend", path=ZAMBA_PATH,
         shape=f"B1 S{S} start{start} H{Hz} KV{KVz} dh{dz} ps{ps} bf16",
-        bound=bound(nbytes, 4 * pairs * Hz * dz))
+        bound=bound(work))
     out.update(flash_bwd_timings(torch, ops, dev, measure))
     out.update(gmm_train_timings(torch, ops, dev, measure))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
@@ -1004,10 +1011,9 @@ def flash_bwd_timings(torch, ops, dev, measure):
             qt, kt.repeat_interleave(H // KV, dim=1),
             vt.repeat_interleave(H // KV, dim=1), is_causal=True)
         dot = do.transpose(1, 2)
-        pairs = S * (S + 1) // 2
         # read q, k, v, out, dout; write dq, dk, dv (bf16); read lse (f32)
-        nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * 2 \
-            + lse.numel() * 4
+        work = ops.flash_attention_bwd_work(
+            B, S, H, KV, dh, 2, ops.causal_pairs(S, [S] * B, None))
         rows[name] = measure(
             lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, lt),
             lambda: ops.flash_attention_bwd_plain(q, k, v, out, lse, do, lt),
@@ -1015,7 +1021,7 @@ def flash_bwd_timings(torch, ops, dev, measure):
                                         retain_graph=True),
             kernel="flash_attention_bwd", path=path,
             shape=f"B{B} S{S} H{H} KV{KV} dh{dh} bf16",
-            bound=bound(nbytes, 10 * dh * B * H * pairs))
+            bound=bound(work))
         del q, k, v, do, out, lse, qt, kt, vt, ref
         torch.cuda.empty_cache()
     return rows
@@ -1064,25 +1070,21 @@ def gmm_train_timings(torch, ops, dev, measure):
         dy = _rand(torch, gen, (E, C, f), bf, dev)
         shape = (f"E{E} C{C} d{d} f{f} bf16, {active} experts active, "
                  f"{rows} rows")
-        wbytes = active * d * f * 2
-        nbytes = wbytes + rows * d * 2 + E * C * f * 2 + E * 4
         out[f"moe_gmm_train_{part}"] = measure(
             lambda: ops.moe_gmm(x, w, gs),
             lambda: ops.moe_gmm_plain(x, w, gs),
             lambda: torch.bmm(x, w).mul_(mask),
             kernel="moe_gmm", path=TRAIN_MOE_PATH, shape=shape,
-            bound=bound(nbytes, 2 * rows * d * f))
+            bound=bound(ops.moe_gmm_work(E, C, d, f, 2, rows, active)))
         xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
         ref = torch.bmm(xl, wl) * mask
-        nbytes = wbytes + rows * (d + f) * 2 + (E * C * d + E * d * f) * 2 \
-            + E * 4
         out[f"moe_gmm_bwd_{part}"] = measure(
             lambda: ops.moe_gmm_bwd(x, w, gs, dy),
             lambda: ops.moe_gmm_bwd_plain(x, w, gs, dy),
             lambda: torch.autograd.grad(ref, (xl, wl), dy,
                                         retain_graph=True),
             kernel="moe_gmm_bwd", path=TRAIN_MOE_PATH, shape=shape,
-            bound=bound(nbytes, 4 * rows * d * f),
+            bound=bound(ops.moe_gmm_bwd_work(E, C, d, f, 2, rows, active)),
             split_ms=gmm_bwd_split(torch,
                                    lambda: ops.moe_gmm_bwd(x, w, gs, dy)))
         del x, w, dy, xl, wl, ref
@@ -2963,6 +2965,194 @@ def training_on_card(torch, ops, card):
     return by_path
 
 
+# ---------------------------------------------------------------- phase 9
+#: phase 9's steps, each first counted on meta by the dry run's machinery
+#: and then run on the card: (label, arch, layers (None: full depth),
+#: step, batch, tokens a row, max_len, tokens each slot holds before it)
+DRYRUN_STEPS = (
+    ("dry run: train llama3.1-8b (2 layers) B2 S1024", "llama3.1-8b", 2,
+     "train", 2, 1024, None, None),
+    ("dry run: train phimini-moe (2 layers) B2 S1024", "phimini-moe", 2,
+     "train", 2, 1024, None, None),
+    ("dry run: prefill llama3.1-8b B1 S2048", "llama3.1-8b", None,
+     "prefill", 1, 2048, None, None),
+    ("dry run: extend llama3.1-8b B1 S256 after 1792", "llama3.1-8b", None,
+     "extend", 1, 256, 2048, 1792),
+    ("dry run: decode llama3.1-8b B8 at 2047 of 2048", "llama3.1-8b", None,
+     "decode", 8, 1, 2048, 2047),
+)
+#: the card's peak allocation over the dry run's predicted peak
+PEAK_BAND = (0.9, 1.1)
+
+
+def _dry_inputs(torch, model, step, B, S, max_len, held, device,
+                params=None, gen=None):
+    """A phase 9 step's inputs: the dry run's meta specs, or seeded ones
+    on the card (f32 params and AdamW state for a train step; bf16 params
+    otherwise, and for extend and decode a cache whose every slot holds
+    ``held`` tokens through an identity block table)."""
+    from repro_torch.launch import specs
+    from repro_torch.train import AdamW, init_state
+    cfg = model.cfg
+    meta = device == "meta"
+
+    def ids(shape):
+        if meta:
+            return torch.empty(shape, dtype=torch.int32, device=device)
+        return torch.randint(0, cfg.vocab, shape, generator=gen,
+                             device=device, dtype=torch.int32)
+    if step == "train":
+        state = specs.state_specs(model, AdamW()) if meta \
+            else init_state(model, AdamW(), gen, device=device)
+        return {"state": state,
+                "batch": {"inputs": ids((B, S)), "labels": ids((B, S))}}
+    if params is None:
+        params = specs.params_specs(model, torch.bfloat16) if meta \
+            else model.init(gen, device=device, dtype=torch.bfloat16)
+    if step == "prefill":
+        return {"params": params, "tokens": ids((B, S))}
+    cache = model.init_cache(B, max_len, device=device)
+    if not meta:
+        maxp, _ = model.page_geometry(B, max_len)
+        cache["block_table"] = torch.arange(
+            B * maxp, dtype=torch.int32, device=device).reshape(B, maxp)
+        cache["lengths"] = torch.full((B,), held, dtype=torch.int32,
+                                      device=device)
+    return {"params": params, "cache": cache, "tokens": ids((B, S))}
+
+
+def _state_part(inputs):
+    """What phase 9 holds exactly: params and optimizer state."""
+    return inputs.get("state", inputs.get("params"))
+
+
+def _card_peak(torch, model, step, inputs):
+    """The card's peak allocation over one step, with what was allocated
+    before it other than the step's inputs taken out; the decode
+    workspace dropped first, so the step allocates it as the dry run's
+    does."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import dryrun
+    pa._SCRATCH.pop(torch.device("cuda", 0), None)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dryrun.run_step(model, step, inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return peak - base + dryrun.state_bytes(inputs)
+
+
+def _card_ms(torch, model, step, inputs, reps):
+    """Median wall ms of ``reps`` steps, each ended by a synchronize."""
+    from repro_torch.launch import dryrun
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dryrun.run_step(model, step, inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    return statistics.median(times)
+
+
+def dryrun_on_card(torch, ops, card):
+    """Phase 9: each step of ``DRYRUN_STEPS`` counted on meta by the dry
+    run (``repro_torch.launch.dryrun.count_step``), then run on the card:
+    params and optimizer state equal in bytes, every kernel launched as
+    often as predicted, the FLOPs outside the kernels equal (counted over
+    the card run), the peak allocation within ``PEAK_BAND`` of the
+    predicted peak; the median step time printed beside the roofline's
+    bound, no gate (activations under the 50 MB L2 make the per-op HBM
+    bytes no strict floor).  Returns the launch counts by step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    by_path, shared = {}, {}
+    for label, arch, layers, step, B, S, max_len, held in DRYRUN_STEPS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = _depth_cut(cfg, layers)
+        model = Model(cfg, remat=True)
+        # the dry run on meta
+        t1 = time.perf_counter()
+        meta_in = _dry_inputs(torch, model, step, B, S, max_len, held,
+                              "meta", params=shared.get("meta"))
+        mc, mem, _ = dryrun.count_step(model, step, meta_in)
+        rec = dryrun.record(mc, mem)
+        meta_s = time.perf_counter() - t1
+        # the same step on the card
+        gen = torch.Generator(device=dev).manual_seed(0)
+        card_in = _dry_inputs(torch, model, step, B, S, max_len, held, dev,
+                              params=shared.get("card"), gen=gen)
+        if step != "train" and layers is None:
+            shared.setdefault("meta", meta_in["params"])
+            shared.setdefault("card", card_in["params"])
+        want_state = dryrun.state_bytes(_state_part(meta_in))
+        got_state = dryrun.state_bytes(_state_part(card_in))
+        check(got_state == want_state,
+              f"{label}: params and optimizer state {got_state} bytes on "
+              f"the card, {want_state} predicted")
+        check(dryrun.state_bytes(card_in) == dryrun.state_bytes(meta_in),
+              f"{label}: the step's inputs differ in bytes from the dry "
+              f"run's")
+        ops.reset_launch_counts()
+        cc, _, out = dryrun.count_step(model, step, card_in)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        del out
+        want_launch = {k: mc.launches().get(k, 0) for k in launches}
+        check(launches == want_launch,
+              f"{label}: the card launched {launches}; the dry run "
+              f"predicted {want_launch}")
+        check(cc.flops == mc.flops,
+              f"{label}: {cc.flops:.6g} FLOPs outside the kernels on the "
+              f"card, {mc.flops:.6g} predicted")
+        peak = _card_peak(torch, model, step, card_in)
+        ratio = peak / mem["peak_bytes"]
+        ms = _card_ms(torch, model, step, card_in, 3 if step == "train"
+                      else 5)
+        roof = rec["roofline"]
+        bound_ms = max(roof["t_compute_s"], roof["t_memory_s"]) * 1e3
+        charged = {k: (round(mc.kernels[k].flops / 1e9, 3),
+                       round(cc.kernels[k].flops / 1e9, 3))
+                   for k in sorted(mc.kernels)}
+        print(f"phase 9 [{card}] {label}: dry run {meta_s:.1f} s on meta; "
+              f"params + state {got_state} bytes (== predicted); launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})} (== "
+              f"predicted); FLOPs outside the kernels {cc.flops:.6g} (== "
+              f"predicted), kernels' GFLOPs charged (meta, card data) "
+              f"{charged}; peak {peak / 2 ** 30:.3f} GiB, predicted "
+              f"{mem['peak_bytes'] / 2 ** 30:.3f} GiB (argument "
+              f"{mem['argument_size_in_bytes'] / 2 ** 30:.3f}, temp "
+              f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f}), ratio "
+              f"{ratio:.4f}; step p50 {ms:.2f} ms, roofline bound "
+              f"{bound_ms:.2f} ms ({roof['bottleneck']}; compute "
+              f"{roof['t_compute_s'] * 1e3:.2f}, memory "
+              f"{roof['t_memory_s'] * 1e3:.2f}), bound / time "
+              f"{bound_ms / ms:.3f}")
+        check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+              f"{label}: peak {peak} bytes on the card against "
+              f"{mem['peak_bytes']} predicted (ratio {ratio:.4f}, band "
+              f"{PEAK_BAND})")
+        by_path[label] = launches
+        del card_in, meta_in, cc, mc
+        if step == "train":
+            gc.collect()
+            torch.cuda.empty_cache()
+    shared.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 9: ran {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 #: what the kernels without a Pallas counterpart replace: the JAX package
 #: trains through plain JAX
 REPLACES_NOTE = {
@@ -3020,6 +3210,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(training_on_card(torch, ops, card))
+        by_path.update(dryrun_on_card(torch, ops, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

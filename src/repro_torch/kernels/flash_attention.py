@@ -9,18 +9,30 @@ the FMA one) and runs the plain version for CPU tensors.  With
 ``flash_attention_bwd`` is the counterpart of ``repro/models/flash.py``'s
 ``_flash_bwd`` (the JAX package's custom VJP, plain JAX, not a Pallas
 kernel): it launches ``csrc/flash_attention_bwd.cu`` for CUDA tensors and
-runs the plain version for CPU tensors.  Anything else, or a CUDA call a
-kernel does not take, raises.  There is no fallback from a kernel to its
-plain version.
+runs the plain version for CPU tensors (its outputs made contiguous, as
+the kernels write them).  On meta tensors (the dry run,
+``repro_torch.launch.dryrun``) each returns outputs of the kernel's shapes
+and allocates the scratch the CUDA path allocates, launching nothing.
+Anything else, or a CUDA or meta call a kernel does not take, raises.
+There is no fallback from a kernel to its plain version.
+
+``flash_attention_work`` and ``flash_attention_bwd_work`` are each
+kernel's one work count (FLOPs over the visible (query, key) pairs, and
+the bytes of every input read once and every output written once): an
+active ``repro_torch.roofline.counter.Counter`` is charged with them at
+every call, and ``chip_smoke.py``'s bounds use them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.roofline import counter as _roof
 from repro_torch.kernels.ref import (NO_WINDOW, flash_attention_bwd_ref,
                                      flash_attention_fwd_ref,
                                      flash_attention_ref)
@@ -44,6 +56,61 @@ def flash_attention_plain(q, k, v, lengths=None, window=None,
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, lengths=None,
                               window=None):
     return flash_attention_bwd_ref(q, k, v, out, lse, dout, lengths, window)
+
+
+@functools.lru_cache(maxsize=4096)
+def row_pairs(S: int, length: int, window: int) -> int:
+    """Visible (query, key) pairs of one causal sequence of ``S`` queries:
+    query i sees keys j <= i, j < ``length`` and i - j < ``window``."""
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i, length - 1)
+    lo = np.maximum(0, i - window + 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def causal_pairs(S: int, lengths, window) -> int:
+    """``row_pairs`` summed over the batch; ``lengths``: a list of ints."""
+    win = NO_WINDOW if window is None else int(window)
+    return sum(row_pairs(S, int(n), win) for n in lengths)
+
+
+def flash_attention_work(B, S, H, KV, dh, itemsize, pairs, lse=False):
+    """(FLOPs, bytes) of one forward call: QK^T and PV over ``pairs``
+    visible pairs, 2 * dh FLOPs each; q, k, v and the lengths read, out
+    (and the lse, f32) written once."""
+    flops = 4 * pairs * H * dh
+    nbytes = 2 * B * S * H * dh * itemsize + 2 * B * S * KV * dh * itemsize \
+        + 4 * B + (4 * B * H * S if lse else 0)
+    return flops, nbytes
+
+
+def flash_attention_bwd_work(B, S, H, KV, dh, itemsize, pairs):
+    """(FLOPs, bytes) of one backward call: the FlashAttention-2
+    backward's five products per visible pair (S recomputed, dP, dV, dK,
+    dQ), 2 * dh FLOPs each; q, k, v, out, dout and the lse read, dq, dk,
+    dv written once."""
+    flops = 10 * dh * H * pairs
+    nbytes = (4 * B * S * H + 4 * B * S * KV) * dh * itemsize + B * H * S * 4
+    return flops, nbytes
+
+
+def _known_lengths(q, lengths):
+    """Each row's length: from ``lengths`` where its values can be read
+    (the CPU, the card: a host sync, only under a counter), else (meta)
+    the full sequence."""
+    B, S = q.shape[:2]
+    if lengths is None or lengths.device.type == "meta":
+        return [S] * B
+    return lengths.tolist()
+
+
+def _charge(q, k, lengths, window, bwd=False, lse=False):
+    B, S, H, dh = q.shape
+    pairs = causal_pairs(S, _known_lengths(q, lengths), window)
+    args = (B, S, H, k.shape[2], dh, q.element_size(), pairs)
+    work = flash_attention_bwd_work(*args) if bwd \
+        else flash_attention_work(*args, lse=lse)
+    return work + (1 if q.numel() else 0,)
 
 
 def _lib():
@@ -123,18 +190,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     negative number, which differs between the kernels and the plain
     version).
     """
+    if _roof.STACK:
+        with _roof.kernel_call("flash_attention", *_charge(
+                q, k, lengths, window, lse=return_lse)):
+            return _flash_attention(q, k, v, lengths, window, return_lse)
+    return _flash_attention(q, k, v, lengths, window, return_lse)
+
+
+def _contiguous(out):
+    """The CPU branch's outputs in the kernels' layout (contiguous), so
+    that what follows a call runs the same ops on every device."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
+def _flash_attention(q, k, v, lengths, window, return_lse):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, lengths, window, return_lse)
-    if q.device.type != "cuda":
+        return _contiguous(flash_attention_plain(q, k, v, lengths, window,
+                                                 return_lse))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     lengths = _full_lengths(q, lengths)
     _check(q, k, v, lengths)
-    fn = _lib()
+    fn = _lib() if q.device.type == "cuda" else None
     B, S, H, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    if out.numel():
+    if out.numel() and fn is not None:
         win = NO_WINDOW if window is None else int(window)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -159,19 +243,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``_flash_bwd``): ``(dq, dk, dv)`` shaped and typed as q, k, v, from the
     forward's ``out`` and ``lse`` (B,H,S) f32 and the output's cotangent
     ``dout``, under the forward's ``lengths`` and ``window``."""
+    if _roof.STACK:
+        with _roof.kernel_call("flash_attention_bwd", *_charge(
+                q, k, lengths, window, bwd=True)):
+            return _flash_attention_bwd(q, k, v, out, lse, dout, lengths,
+                                        window)
+    return _flash_attention_bwd(q, k, v, out, lse, dout, lengths, window)
+
+
+def _flash_attention_bwd(q, k, v, out, lse, dout, lengths, window):
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, lengths,
-                                         window)
-    if q.device.type != "cuda":
+        return _contiguous(flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                                     lengths, window))
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
     lengths = _full_lengths(q, lengths)
     B, S, H, dh = q.shape
     _check(q, k, v, lengths, ("out", out), ("dout", dout),
            ("lse", lse, (B, H, S), torch.float32))
-    fn = _bwd_lib()
+    fn = _bwd_lib() if q.device.type == "cuda" else None
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
         delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        if fn is None:                # meta: the scratch, no launch
+            return dq, dk, dv
         win = NO_WINDOW if window is None else int(window)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream

@@ -11,7 +11,13 @@ dtype picks the kernels: bf16 the tensor-core ones, f32 the FMA ones; they
 choose their own tiles (the TPU wrapper's ``bc`` has no counterpart), and
 read ``group_sizes`` from device memory, so a call costs no host sync.
 Neither wrapper is differentiable: ``repro_torch.models.moe.
-grouped_matmul`` puts the pair behind a ``torch.autograd.Function``.
+grouped_matmul`` puts the pair behind a ``torch.autograd.Function``.  On
+meta tensors (the dry run) each returns its outputs' shapes and launches
+nothing.
+
+``moe_gmm_work`` and ``moe_gmm_bwd_work`` are the two kernels' one work
+count each (an active ``repro_torch.roofline.counter.Counter`` is charged
+with them at every call, and ``chip_smoke.py``'s bounds use them).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import moe_gmm_bwd_ref, moe_gmm_ref
+from repro_torch.roofline import counter as _roof
 
 #: launches of the CUDA kernels since the last reset (see ``ops``)
 LAUNCHES = {"moe_gmm": 0, "moe_gmm_bwd": 0}
@@ -34,6 +41,43 @@ def moe_gmm_plain(x, w, group_sizes):
 
 def moe_gmm_bwd_plain(x, w, group_sizes, dy):
     return moe_gmm_bwd_ref(x, w, group_sizes, dy)
+
+
+def moe_gmm_work(E, C, d, f, itemsize, rows, active):
+    """(FLOPs, bytes) of one forward call over ``rows`` rows inside the
+    groups of ``active`` experts with a nonzero group: 2 * d * f FLOPs a
+    row; the active experts' weights, the rows inside the groups and the
+    group sizes read, every output row written once."""
+    flops = 2 * rows * d * f
+    nbytes = active * d * f * itemsize + rows * d * itemsize \
+        + E * C * f * itemsize + E * 4
+    return flops, nbytes
+
+
+def moe_gmm_bwd_work(E, C, d, f, itemsize, rows, active):
+    """(FLOPs, bytes) of one backward call: dx and dw, 2 * d * f FLOPs a
+    row each; the active experts' weights and the rows of x and dy inside
+    the groups read, dx (E, C, d) and dw (E, d, f) written once."""
+    flops = 4 * rows * d * f
+    nbytes = active * d * f * itemsize + rows * (d + f) * itemsize \
+        + (E * C * d + E * d * f) * itemsize + E * 4
+    return flops, nbytes
+
+
+def _charge(x, w, group_sizes, bwd=False):
+    """(FLOPs, bytes, launches), from the group sizes where they can be
+    read (the CPU, the card: a host sync, only under a counter), else
+    (meta) with every group full."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    if group_sizes.device.type == "meta":
+        rows, active = E * C, E
+    else:
+        gs = [min(max(int(n), 0), C) for n in group_sizes.tolist()]
+        rows, active = sum(gs), sum(1 for n in gs if n)
+    work = (moe_gmm_bwd_work if bwd else moe_gmm_work)(
+        E, C, d, f, x.element_size(), rows, active)
+    return work + (1 if bwd or E * C * f else 0,)
 
 
 def _lib(name="moe_gmm_fwd", n_ptrs=4):
@@ -78,9 +122,16 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
             group_sizes: torch.Tensor) -> torch.Tensor:
     """x: (E,C,d); w: (E,d,f); group_sizes: (E,) int32 -> (E,C,f) in x's
     dtype, summed in f32; rows ``c >= group_sizes[e]`` are 0."""
-    if x.device.type == "cpu":
-        return moe_gmm_plain(x, w, group_sizes)
-    if x.device.type != "cuda":
+    if _roof.STACK:
+        with _roof.kernel_call("moe_gmm", *_charge(x, w, group_sizes)):
+            return _moe_gmm(x, w, group_sizes)
+    return _moe_gmm(x, w, group_sizes)
+
+
+def _moe_gmm(x, w, group_sizes):
+    if x.device.type == "cpu":      # contiguous, as the kernel writes it
+        return moe_gmm_plain(x, w, group_sizes).contiguous()
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_gmm: no kernel for {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         # the wrapper is not differentiable: its output would carry no
@@ -90,11 +141,11 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
             "through repro_torch.models.moe.grouped_matmul, whose backward "
             "is ops.moe_gmm_bwd")
     _check(x, w, group_sizes)
-    fn = _lib()
+    fn = _lib() if x.device.type == "cuda" else None
     E, C, d = x.shape
     f = w.shape[2]
     out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-    if out.numel():
+    if out.numel() and fn is not None:
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
@@ -112,9 +163,18 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     (E,d,f)) in x's dtype, summed in f32 in one fixed order (no atomics:
     two launches give the same bits).  dx's rows ``c >= group_sizes[e]``
     are 0, and those rows of x and dy take no part whatever they hold."""
+    if _roof.STACK:
+        with _roof.kernel_call("moe_gmm_bwd",
+                               *_charge(x, w, group_sizes, bwd=True)):
+            return _moe_gmm_bwd(x, w, group_sizes, dy)
+    return _moe_gmm_bwd(x, w, group_sizes, dy)
+
+
+def _moe_gmm_bwd(x, w, group_sizes, dy):
     if x.device.type == "cpu":
-        return moe_gmm_bwd_plain(x, w, group_sizes, dy)
-    if x.device.type != "cuda":
+        return tuple(t.contiguous()
+                     for t in moe_gmm_bwd_plain(x, w, group_sizes, dy))
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_gmm_bwd: no kernel for {x.device}")
     _check(x, w, group_sizes)
     E, C, d = x.shape
@@ -126,6 +186,8 @@ def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
                          f"{dy.dtype} on {dy.device}")
     _check_layout("dy", dy)
     dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if x.device.type == "meta":
+        return dx, dw
     fn = _lib("moe_gmm_bwd", 6)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -8,7 +8,9 @@ its source and what it replaces in the JAX package (a Pallas TPU kernel,
 except the two backwards: the flash one's counterpart is the plain-JAX
 custom VJP, the grouped matmul's XLA's autodiff of an einsum), and
 ``launch_counts`` / ``reset_launch_counts`` read and clear the counters
-the wrappers bump at each launch.
+the wrappers bump at each launch.  The ``*_work`` functions are each
+kernel's one work count, (FLOPs, bytes), which the dry run's counter and
+``chip_smoke.py``'s bounds share.
 """
 from __future__ import annotations
 
@@ -17,14 +19,22 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (causal_pairs,
+                                                 flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
-                                                 flash_attention_plain)
+                                                 flash_attention_bwd_work,
+                                                 flash_attention_plain,
+                                                 flash_attention_work)
 from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_bwd,
-                                         moe_gmm_bwd_plain, moe_gmm_plain)
+                                         moe_gmm_bwd_plain,
+                                         moe_gmm_bwd_work, moe_gmm_plain,
+                                         moe_gmm_work)
 from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_plain)
+                                                 paged_attention_plain,
+                                                 paged_decode_work,
+                                                 paged_extend_work,
+                                                 paged_work)
 
 #: name -> (CUDA source in the repo, what it replaces: the TPU kernel, or
 #: for the two backwards what the JAX package trains through instead, plain
@@ -67,8 +77,11 @@ def reset_launch_counts() -> None:
             c[k] = 0
 
 
-__all__ = ["KERNELS", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain",
-           "launch_counts", "moe_gmm", "moe_gmm_bwd", "moe_gmm_bwd_plain",
-           "moe_gmm_plain", "paged_attention",
-           "paged_attention_plain", "reset_launch_counts"]
+__all__ = ["KERNELS", "causal_pairs", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_work", "flash_attention_plain",
+           "flash_attention_work", "launch_counts", "moe_gmm", "moe_gmm_bwd",
+           "moe_gmm_bwd_plain", "moe_gmm_bwd_work", "moe_gmm_plain",
+           "moe_gmm_work", "paged_attention", "paged_attention_plain",
+           "paged_decode_work", "paged_extend_work", "paged_work",
+           "reset_launch_counts"]

@@ -8,17 +8,28 @@ the chosen kernel does not take, raises.  There is no fallback from one
 kernel to another or to the plain version.  The mode and dtype pick the
 kernel: decode (q (B,H,dh)) the split-KV kernel in both dtypes, extend
 (q (B,S,H,dh) with ``start``) the tensor-core kernel in bf16 and the FMA
-kernel in f32.  Decode and extend are counted apart.
+kernel in f32.  Decode and extend are counted apart.  On meta tensors (the
+dry run) the wrapper returns the kernel's output shape and allocates the
+decode workspace as the CUDA path does, launching nothing.
+
+``paged_decode_work`` and ``paged_extend_work`` are the two kernels' one
+work count each (an active ``repro_torch.roofline.counter.Counter`` is
+charged with them at every call, and ``chip_smoke.py``'s bounds use them).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
+from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import NO_WINDOW, paged_attention_ref
+from repro_torch.roofline import counter as _roof
 
 #: launches of the CUDA kernel since the last reset (see ``ops``)
 LAUNCHES = {"paged_attention_decode": 0, "paged_attention_extend": 0}
@@ -45,6 +56,83 @@ def paged_attention_plain(q, k_pages, v_pages, block_table, lengths, *,
     return paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
                                page_size=page_size, start=start,
                                window=window)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_pages_per_split() -> int:
+    """Pages a decode split takes: the default of the source's
+    ``REPRO_PAGED_PAGES_PER_SPLIT``, read from the file (the meta branch
+    sizes the workspace without the library)."""
+    src = (Path(__file__).parent / "csrc" / "paged_attention.cu").read_text()
+    return int(re.search(r"#define REPRO_PAGED_PAGES_PER_SPLIT (\d+)",
+                         src).group(1))
+
+
+@functools.lru_cache(maxsize=4096)
+def _row_work(start: int, S: int, length: int, window: int):
+    """(keys read, visible (query, key) pairs) of one sequence whose S
+    queries sit at start..start+S-1."""
+    p = start + np.arange(S, dtype=np.int64)
+    pairs = np.maximum(np.minimum(p, length - 1)
+                       - np.maximum(0, p - window + 1) + 1, 0).sum()
+    return max(0, length - max(0, start - window + 1)), int(pairs)
+
+
+def paged_work(starts, S: int, lengths, window):
+    """(keys read, visible pairs) summed over the batch; ``starts`` and
+    ``lengths``: lists of ints (decode: start = length - 1, S = 1)."""
+    win = NO_WINDOW if window is None else int(window)
+    rows = pairs = 0
+    for s0, n in zip(starts, lengths):
+        r, p = _row_work(int(s0), S, int(n), win)
+        rows, pairs = rows + r, pairs + p
+    return rows, pairs
+
+
+def paged_decode_work(B, H, KV, dh, itemsize, table_numel, kv_rows):
+    """(FLOPs, bytes) of one decode call: QK^T and PV over ``kv_rows`` keys
+    (one query each), 2 * dh FLOPs a head each; those keys' K and V, q,
+    the block table and the lengths read, out written once."""
+    flops = 4 * kv_rows * H * dh
+    nbytes = kv_rows * KV * dh * itemsize * 2 + 2 * B * H * dh * itemsize \
+        + table_numel * 4 + B * 4
+    return flops, nbytes
+
+
+def paged_extend_work(B, S, H, KV, dh, itemsize, table_numel, kv_rows,
+                      pairs):
+    """(FLOPs, bytes) of one extend (or verify) call: QK^T and PV over
+    ``pairs`` visible pairs; ``kv_rows`` keys' K and V, q, the block
+    table, start and lengths read, out written once."""
+    flops = 4 * pairs * H * dh
+    nbytes = kv_rows * KV * dh * itemsize * 2 \
+        + 2 * B * S * H * dh * itemsize + table_numel * 4 + 2 * B * 4
+    return flops, nbytes
+
+
+def _charge(q, k_pages, block_table, lengths, page_size, start, window):
+    """(FLOPs, bytes, launches) of a call, from the data where it can be
+    read (the CPU, the card: a host sync, only under a counter), else
+    (meta) with every table full: the queries end at its last row."""
+    decode = q.dim() == 3
+    B, H, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    S = 1 if decode else q.shape[1]
+    KV = k_pages.shape[2]
+    full = block_table.shape[1] * page_size
+    if lengths.device.type == "meta":
+        lens = [full] * B
+        starts = [full - S] * B
+    else:
+        lens = lengths.tolist()
+        starts = [n - 1 for n in lens] if decode else start.tolist()
+    rows, pairs = paged_work(starts, S, lens, window)
+    if decode:
+        work = paged_decode_work(B, H, KV, dh, q.element_size(),
+                                 block_table.numel(), rows)
+    else:
+        work = paged_extend_work(B, S, H, KV, dh, q.element_size(),
+                                 block_table.numel(), rows, pairs)
+    return work + (1 if q.numel() else 0,)
 
 
 def _lib():
@@ -130,11 +218,25 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     Extend: q (B,S,H,dh) with ``start`` (B,), queries at start..start+S-1.
     k_pages/v_pages: (P,ps,KV,dh); block_table: (B,maxp) int32; ``window``
     masks q_pos - kv_pos >= window."""
-    if q.device.type == "cpu":
+    if _roof.STACK:
+        name = "paged_attention_decode" if q.dim() == 3 \
+            else "paged_attention_extend"
+        with _roof.kernel_call(name, *_charge(q, k_pages, block_table,
+                                              lengths, page_size, start,
+                                              window)):
+            return _paged_attention(q, k_pages, v_pages, block_table,
+                                    lengths, page_size, start, window)
+    return _paged_attention(q, k_pages, v_pages, block_table, lengths,
+                            page_size, start, window)
+
+
+def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
+                     start, window):
+    if q.device.type == "cpu":      # contiguous, as the kernel writes it
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      lengths, page_size=page_size,
-                                     start=start, window=window)
-    if q.device.type != "cuda":
+                                     start=start, window=window).contiguous()
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     decode = q.dim() == 3
     if decode:
@@ -152,17 +254,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     B, S, H, dh = q.shape
     P, KV, maxp = k_pages.shape[0], k_pages.shape[2], block_table.shape[1]
     _check_kernel(decode, q.dtype, H // KV, page_size)
-    fn, splits = _lib()
+    meta = q.device.type == "meta"
+    fn, splits = (None, None) if meta else _lib()
     out = torch.empty_like(q)
     win = NO_WINDOW if window is None else int(window)
     if out.numel():
         ws = tickets = None
         if decode:
-            n_split = _SPLITS.get(maxp)
-            if n_split is None:
-                n_split = _SPLITS[maxp] = splits(maxp)
+            if meta:
+                n_split = -(-maxp // decode_pages_per_split())
+            else:
+                n_split = _SPLITS.get(maxp)
+                if n_split is None:
+                    n_split = _SPLITS[maxp] = splits(maxp)
             tickets, ws = _decode_scratch(
                 q.device, B * KV, B * KV * n_split * (H // KV) * (dh + 2))
+        if meta:
+            return out[:, 0] if decode else out
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -27,6 +27,12 @@ here catches it.
 :func:`run_ranks` spawns the ranks of one group (``torch.multiprocessing``,
 spawn start method), calls a function in each with its group and returns
 every rank's result.
+
+:class:`CountingGroup` is one rank of a group that does not exist: the dry
+run's stand-in (``repro_torch.launch.dryrun``).  Its collectives return
+what the real ones return in shape and dtype (the values are not the
+group's) and record their result bytes by kind with the active
+``repro_torch.roofline.counter.Counter``.
 """
 from __future__ import annotations
 
@@ -120,6 +126,41 @@ class EngineGroup:
             raise RuntimeError(
                 f"engine group: the ranks' {what} differ: "
                 f"{[p.tolist() for p in parts]}")
+
+
+@dataclasses.dataclass
+class CountingGroup:
+    """A rank of a ``size``-rank group on any device, the meta one
+    included: :class:`EngineGroup`'s model collectives with no other rank.
+    An all-reduce returns its input; an all-gather allocates the parts as
+    the real one does and concatenates them.  Each records its result
+    bytes (``all-reduce``: the input's; ``all-gather``: the gathered
+    tensor's) with the active counter."""
+    rank: int
+    size: int
+    device: torch.device = torch.device("meta")
+    backend: str = "count"
+
+    def _record(self, kind: str, nbytes: int) -> None:
+        from repro_torch.roofline import counter
+        c = counter.active()
+        if c is not None:
+            c.collective(kind, nbytes, self.size)
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        self._record("all-reduce", x.numel() * x.element_size())
+        return x
+
+    all_reduce_max = all_reduce_sum
+
+    def all_gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        return self.all_gather(x, -1)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        self._record("all-gather", self.size * x.numel() * x.element_size())
+        return torch.cat(parts, dim=dim)
 
 
 def make_engine_group(tp: int, rank: int, *, init_method: str,

@@ -56,7 +56,11 @@ Training (``forward``, ``loss_fn``) runs every stage in ``mode ==
 flash kernel and its backward kernel on the card, with autograd between
 them), each layer under ``torch.utils.checkpoint`` when ``remat`` (JAX's
 ``jax.checkpoint`` with ``nothing_saveable``), the MoE layers' aux loss
-summed over layers.  Params stay f32 and every weight is cast per call
+summed over layers.  ``attn_impl`` ("flash" by default) picks training's
+and prefill's attention: the flash kernel, or the plain ``chunked`` /
+``folded`` attentions of ``layers`` that the JAX dry run studies (JAX's
+``gemma_superblock`` is read nowhere there and ``unroll`` has no eager
+meaning; neither is ported).  Params stay f32 and every weight is cast per call
 (``w.to(x.dtype)``), so gradients reach the f32 leaves; ``fuse_qkv`` and
 ``norm_ct16`` are the JAX model's options of the same names.  The MoE
 layers train through ``repro_torch.models.moe.grouped_matmul``: the grouped
@@ -91,7 +95,9 @@ from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
 from repro_torch.models import xlstm as xl
 from repro_torch.models.flash import flash_attention
-from repro_torch.models.layers import (gelu_mlp, rmsnorm, rmsnorm_ct16, rope,
+from repro_torch.models.layers import (chunked_attention,
+                                       folded_causal_attention, gelu_mlp,
+                                       rmsnorm, rmsnorm_ct16, rope,
                                        swiglu_mlp)
 from repro_torch.models.moe import moe_ffn
 
@@ -209,7 +215,7 @@ def _all_reduce(x, group):
 
 
 def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
-               cache, block_table, page_size, group=None):
+               cache, block_table, page_size, group=None, attn_impl="flash"):
     """One layer's attention over the heads of ``p`` (all of them, or one
     rank's shard). Returns (out, new_cache)."""
     B, S, _ = x.shape
@@ -236,7 +242,17 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "train":
+    if mode in ("train", "prefill") and attn_impl != "flash":
+        # the dry run's plain attentions (JAX's attn_impl); folded has no
+        # window, so a windowed layer takes chunked
+        if attn_impl == "folded" and window is None:
+            out = folded_causal_attention(q, k, v, lengths=lengths)
+        else:
+            out = chunked_attention(q, k, v, lengths=lengths, window=window)
+        new_cache = None if mode == "train" else {
+            "k": k.to(torch_dtype(cfg.compute_dtype)),
+            "v": v.to(torch_dtype(cfg.compute_dtype))}
+    elif mode == "train":
         out = flash_attention(q, k, v, lengths, window)
         new_cache = None
     elif mode == "prefill":
@@ -431,6 +447,14 @@ class Model:
     # the attention + MLP blocks' norms cast their input's cotangent to
     # the compute dtype (``layers.rmsnorm_ct16``)
     norm_ct16: bool = False
+    # training and prefill attention: "flash" (the kernel), or the dry
+    # run's plain "chunked" / "folded" (``layers``), as in JAX
+    attn_impl: str = "flash"
+
+    def __post_init__(self):
+        if self.attn_impl not in ("flash", "chunked", "folded"):
+            raise ValueError(f"attn_impl {self.attn_impl!r}: flash, "
+                             f"chunked or folded")
 
     @property
     def recurrent(self) -> bool:
@@ -557,7 +581,7 @@ class Model:
                         params.get("shared_attn"), row_valid)
                 kw = dict(positions=positions, lengths=lengths, mode=mode,
                           block_table=block_table, page_size=self.page_size,
-                          group=self.group)
+                          group=self.group, attn_impl=self.attn_impl)
                 if remat:
                     x, nc, aux = torch.utils.checkpoint.checkpoint(
                         self._layer, *args, use_reentrant=False, **kw)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import module as m
 from repro_torch.models.layers import causal_conv, rmsnorm
+from repro_torch.roofline import counter as _roof
 
 NEG_INF = -1e30
 
@@ -216,10 +217,10 @@ def init_slstm(gen: torch.Generator, d: int, nh: int, *, lead=(),
         "norm_in": m.zeros(lead + (d,), device=device),
         "w_gates": m.dense_init(gen, d, 4 * d, **kw),     # i, f, z, o
         "r_gates": rec.contiguous(),
-        "b_gates": torch.cat([torch.zeros(lead + (d,)),
-                              torch.full(lead + (d,), 3.0),
-                              torch.zeros(lead + (2 * d,))], dim=-1).to(
-            dtype=dtype, device=device),
+        "b_gates": torch.cat([torch.zeros(lead + (d,), device=device),
+                              torch.full(lead + (d,), 3.0, device=device),
+                              torch.zeros(lead + (2 * d,), device=device)],
+                             dim=-1).to(dtype=dtype),
         "norm_h": m.zeros(lead + (d,), device=device),
         "w_up": m.dense_init(gen, d, 2 * ff, **kw),
         "w_down": m.dense_init(gen, ff, d, **kw),
@@ -270,6 +271,10 @@ def slstm_forward(params, x, nh: int, eps: float,
     r = params["r_gates"].float()
     hs = []
     for t in range(S):
+        if t == 1 and _roof.repeats(x):
+            # the dry run: iteration 1 counted for iterations 1..S-1
+            st, hs = _slstm_repeat(st, gates_x, r, nh, S, hs)
+            break
         st = _slstm_cell(st, gates_x[:, t] + _recurrent(st[0], r), nh)
         hs.append(st[0])
     h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
@@ -277,6 +282,23 @@ def slstm_forward(params, x, nh: int, eps: float,
     if return_state:
         return out, dict(zip(("h", "c", "n", "m"), st))
     return out
+
+
+def _slstm_repeat(st, gates_x, r, nh, S, hs):
+    """Iterations 1..S-1 of ``slstm_forward``'s time loop under an
+    operation counter on meta (``roofline.counter.trip_count``): one
+    iteration runs and is charged S - 1 times, its backward too; every
+    step's ``h`` is kept (the loop stacks them), the cell state is carried.
+    Only the meta dry run comes here: on the CPU and the card every
+    iteration runs."""
+    r_loop = r.view_as(r)      # a non-leaf handle for the gradient's adds
+    with _roof.trip_count(S - 1) as rep:
+        new = _slstm_cell(st, gates_x[:, 1] + _recurrent(st[0], r_loop),
+                          nh)
+        rep.region(inputs=(*st, gates_x, r_loop), outputs=new,
+                   shared=(gates_x, r_loop))
+        rep.carry(*new[1:])
+    return new, hs + [new[0]] * (S - 1)
 
 
 def slstm_decode(params, x, nh: int, eps: float, state: dict):

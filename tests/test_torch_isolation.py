@@ -22,6 +22,10 @@ TRAINING_MODULES = ("repro_torch.models.flash", "repro_torch.train.optimizer",
                     "repro_torch.train.checkpoint", "repro_torch.train.tree",
                     "repro_torch.launch.train",
                     "repro_torch.workload.datasets")
+#: the dry run and the roofline, which the checks below must reach too
+DRYRUN_MODULES = ("repro_torch.launch.dryrun", "repro_torch.launch.specs",
+                  "repro_torch.roofline", "repro_torch.roofline.analysis",
+                  "repro_torch.roofline.counter")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -47,7 +51,7 @@ print(json.dumps({{"n": len(names), "names": names, "bad": bad}}))
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] > 30
-    assert set(TRAINING_MODULES) <= set(res["names"])
+    assert set(TRAINING_MODULES + DRYRUN_MODULES) <= set(res["names"])
     assert res["bad"] == []
 
 
@@ -55,9 +59,9 @@ def test_port_sources_name_no_jax():
     pat = re.compile(r"import jax|from jax|\brepro\.")
     sources = sorted(PORT.rglob("*.py"))
     rel = {str(p.relative_to(PORT)) for p in sources}
-    for mod in TRAINING_MODULES:        # the training modules are covered
-        assert mod.replace("repro_torch.", "").replace(".", "/") + ".py" \
-            in rel, mod
+    for mod in TRAINING_MODULES + DRYRUN_MODULES:   # covered, too
+        path = mod.replace("repro_torch.", "").replace(".", "/")
+        assert path + ".py" in rel or path + "/__init__.py" in rel, mod
     hits = [f"{p.relative_to(ROOT)}:{i}"
             for p in sources
             for i, line in enumerate(p.read_text().splitlines(), 1)
