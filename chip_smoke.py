@@ -165,7 +165,25 @@ result line:
    the kernels (counted over the card run) equal, and the card's peak
    allocation within [0.9, 1.1] of the predicted peak; the median step
    time printed beside the roofline's bound against the h100 preset;
-10. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+10. training on a rank grid: two ranks share the card over gloo (one
+   ``run_ranks`` spawn with named devices, as phase 6, holding a (1, 2)
+   and a (2, 1) grid over its world; a check of the sharded training path
+   and of its memory, no time of it a parallel speed): tiny f32 llama and
+   phimini-moe at (1, 2) and at (2, 1) with ZeRO-1 take two AdamW steps,
+   and their losses, grad norms and params gathered over the model ranks
+   equal the CPU's one-process run within the f32 tolerance; then
+   llama3.1-8b at tp = 2 and phimini-moe at tp = 2 (E8 a rank) and at dp
+   = 2 with ZeRO-1 (B1 a rank), published widths cut to 2 layers, bf16
+   compute, f32 params, B2 S1024, from one seeded draw: step 0's loss
+   within the bf16 tolerance of tp = 1's on the same weights, every
+   gradient leaf nonzero on each rank, each rank's state bytes, kernel
+   launches and collective result bytes by mesh axis equal to the dry
+   run's meta count of that rank (step 0 counted), its peak allocation
+   within [0.9, 1.1] of the predicted peak (step 1), with step 1's time;
+   phases 2 and 3 hold and time the flash backward at the rank's B2 S1024
+   H16 KV4 dh128 and the grouped-matmul backward at E8 C320 (both
+   directions), their launches from this phase;
+11. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -388,6 +406,8 @@ def gmm_bwd_cases():
     yield 16, 40, 4096, 960, None
     yield 16, 320, 4096, 960, None
     yield 16, 320, 960, 4096, None
+    yield 8, 320, 4096, 960, None                 # a rank's experts at tp = 2
+    yield 8, 320, 960, 4096, None                 # (phase 10)
     yield 40, 512, 1536, 512, None
     yield 1, 1024, 256, 384, (1024,)
     yield 4, 64, 128, 192, (0, 0, 0, 0)
@@ -454,6 +474,7 @@ def flash_bwd_cases():
     yield 2, 128, 12, 4, 64, None, None
     yield 2, 1024, 12, 4, 64, None, None
     yield 1, 1024, 32, 8, 128, None, None
+    yield 2, 1024, 16, 4, 128, None, None     # a rank's at tp = 2 (phase 10)
     yield 2, 256, 32, 32, 64, None, None
     yield 2, 512, 12, 4, 64, None, 100
     yield 3, 256, 12, 4, 64, (256, 131, 17), 64
@@ -979,7 +1000,8 @@ TRAIN_MOE_PATH = "train phimini-moe (2 layers)"
 
 def flash_bwd_timings(torch, ops, dev, measure):
     """The flash backward at demo-110m's training step (B8 S1024 H12 KV4
-    dh64) and llama3.1-8b's (B2 S1024 H32 KV8 dh128), bf16, beside its
+    dh64), llama3.1-8b's (B2 S1024 H32 KV8 dh128) and a rank's of it at tp
+    = 2 (H16 KV4, phase 10's grid), bf16, beside its
     plain version and autograd through SDPA with K/V expanded to every
     query head (the library call; the port never makes it).
 
@@ -998,7 +1020,9 @@ def flash_bwd_timings(torch, ops, dev, measure):
     for name, B, S, H, KV, dh, path in (
             ("flash_attention_bwd", 8, 1024, 12, 4, 64, TRAIN_PATH),
             ("flash_attention_bwd_llama", 2, 1024, 32, 8, 128,
-             TRAIN_LLAMA_PATH)):
+             TRAIN_LLAMA_PATH),
+            ("flash_attention_bwd_tp2", 2, 1024, 16, 4, 128,
+             GRID_LLAMA_PATH)):
         q = _rand(torch, gen, (B, S, H, dh), bf, dev)
         k = _rand(torch, gen, (B, S, KV, dh), bf, dev)
         v = _rand(torch, gen, (B, S, KV, dh), bf, dev)
@@ -1052,7 +1076,9 @@ def gmm_train_timings(torch, ops, dev, measure):
     dx (E, C, d) and dw (E, d, f)); FLOPs 2 * rows * d * f a product (the
     backward has two).  The library: ``torch.bmm`` times the row mask, and
     for the backward autograd through it (two batched GEMMs over every
-    row, then the mask); the port never calls either."""
+    row, then the mask); the port never calls either.  The backward also
+    at a rank's experts at tp = 2 (phase 10's grid: E8, rank 0's groups of
+    the same routing, C 320)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     bf = torch.bfloat16
     E, k, T = 16, 2, 2048
@@ -1087,6 +1113,31 @@ def gmm_train_timings(torch, ops, dev, measure):
             bound=bound(ops.moe_gmm_bwd_work(E, C, d, f, 2, rows, active)),
             split_ms=gmm_bwd_split(torch,
                                    lambda: ops.moe_gmm_bwd(x, w, gs, dy)))
+        del x, w, dy, xl, wl, ref
+        torch.cuda.empty_cache()
+    E2 = E // TP
+    gs2 = gs[:E2].contiguous()
+    rows2 = int(gs2.sum())
+    active2 = int((gs2 > 0).sum())
+    mask2 = mask[:E2]
+    for d, f, part in ((4096, 960, "gate_up"), (960, 4096, "down")):
+        x = _rand(torch, gen, (E2, C, d), bf, dev)
+        w = _rand(torch, gen, (E2, d, f), bf, dev) * d ** -0.5
+        dy = _rand(torch, gen, (E2, C, f), bf, dev)
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        ref = torch.bmm(xl, wl) * mask2
+        out[f"moe_gmm_bwd_{part}_tp2"] = measure(
+            lambda: ops.moe_gmm_bwd(x, w, gs2, dy),
+            lambda: ops.moe_gmm_bwd_plain(x, w, gs2, dy),
+            lambda: torch.autograd.grad(ref, (xl, wl), dy,
+                                        retain_graph=True),
+            kernel="moe_gmm_bwd", path=GRID_MOE_PATH,
+            shape=(f"E{E2} C{C} d{d} f{f} bf16, {active2} experts active, "
+                   f"{rows2} rows"),
+            bound=bound(ops.moe_gmm_bwd_work(E2, C, d, f, 2, rows2,
+                                             active2)),
+            split_ms=gmm_bwd_split(torch,
+                                   lambda: ops.moe_gmm_bwd(x, w, gs2, dy)))
         del x, w, dy, xl, wl, ref
         torch.cuda.empty_cache()
     return out
@@ -3152,6 +3203,282 @@ def dryrun_on_card(torch, ops, card):
     print(f"phase 9: ran {time.perf_counter() - t0:.1f} s")
     return by_path
 
+# --------------------------------------------------------------- phase 10
+#: phase 10's published-width paths: (by-path key, arch, grid (dp, tp),
+#: ZeRO-1), each cut to 2 layers and trained at B2 S1024 (phase 8's shapes)
+GRID_LLAMA_PATH = "grid (1, 2) train llama3.1-8b (2 layers)"
+GRID_MOE_PATH = "grid (1, 2) train phimini-moe (2 layers)"
+GRID_MOE_DP_PATH = "grid (2, 1) ZeRO-1 train phimini-moe (2 layers)"
+GRID_FULL = ((GRID_LLAMA_PATH, "llama3.1-8b", (1, 2), False),
+             (GRID_MOE_PATH, "phimini-moe", (1, 2), False),
+             (GRID_MOE_DP_PATH, "phimini-moe", (2, 1), True))
+GRID_B, GRID_S = 2, 1024
+#: phase 10's tiny f32 runs: (arch, grid (dp, tp), ZeRO-1), two steps each
+GRID_TINY = tuple((arch, grid, zero1) for arch in TINY_ARCHS
+                  for grid, zero1 in (((1, 2), False), ((2, 1), True)))
+GRID_STEPS = 2
+
+
+def _grid_step(grid, model, zero1, microbatches=1):
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.train import AdamW, TrainStepConfig, make_train_step
+    return make_train_step(model, AdamW(lr=TINY_TRAIN_LR), TrainStepConfig(
+        microbatches=microbatches,
+        dp_axes=dp_axes(grid.mesh) if grid.dp_size > 1 else ()),
+        grid=grid, zero1=zero1)
+
+
+def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1):
+    """(a) on one rank: two steps of tiny f32 ``cfg`` on the card from the
+    CPU's weights; (losses, grad norms, the rank's params on the host)."""
+    from repro_torch.launch.sharding import shard_batch
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW
+    from repro_torch.train.train_step import rank_state
+    from repro_torch.train.tree import map_tree
+    dev = grid.device
+    model = Model(cfg, remat=True, **grid.model_kw())
+    full = map_tree(lambda t: t.detach().to(dev).clone(), params_cpu)
+    state = rank_state(model, AdamW(lr=TINY_TRAIN_LR), full, grid, zero1)
+    step = _grid_step(grid, model, zero1)
+    losses, norms = [], []
+    for b in batches:
+        mine = shard_batch({k: v.to(dev) for k, v in b.items()},
+                           grid.dp_rank, grid.dp_size)
+        state, m = step(state, mine)
+        losses.append(float(m["loss_total"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, map_tree(lambda t: t.detach().cpu(), state.params)
+
+
+def _grid_full_rank(torch, grid, arch, zero1):
+    """(b) on one rank: ``arch`` at published widths cut to 2 layers, bf16
+    compute, f32 params, B2 S1024 from one seeded draw on every rank.  The
+    dry run counts this rank's step on meta first (``counting_grid`` at
+    the rank's coordinates); then tp = 1's loss on the whole batch and the
+    same weights, and two steps: the first under the counter (launches,
+    collective bytes by axis), the second timed with the peak allocation
+    measured as phase 9 measures it."""
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import counting_grid
+    from repro_torch.launch.sharding import shard_batch
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW
+    from repro_torch.train.train_step import rank_state
+    from repro_torch.train.tree import leaves
+    dev = grid.device
+    cfg = _depth_cut(get_config(arch), 2)
+    # the dry run of this rank, on meta
+    cgrid = counting_grid(grid.mesh, grid.rank)
+    mmodel = Model(cfg, remat=True, **cgrid.model_kw())
+    meta_in = specs.input_specs(cfg, ShapeCfg("phase10", GRID_S, GRID_B,
+                                              "train"), mmodel, grid=cgrid,
+                                zero1=zero1)
+    t0 = time.perf_counter()
+    mc, mem, _ = dryrun.count_step(mmodel, "train", meta_in, grid=cgrid,
+                                   zero1=zero1)
+    meta_s = time.perf_counter() - t0
+    want_state = dryrun.state_bytes(meta_in["state"])
+    want_args = dryrun.state_bytes(meta_in)
+    del meta_in
+    # one seeded draw on every rank, tp = 1's loss on it, then the shard
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full = Model(cfg).init(gen, device=dev)
+    batch = {k: torch.randint(0, cfg.vocab, (GRID_B, GRID_S), generator=gen,
+                              device=dev, dtype=torch.int32)
+             for k in ("inputs", "labels")}
+    with torch.no_grad():
+        ref_loss = float(Model(cfg, remat=False).loss_fn(full, batch)[1][
+            "loss"])
+    model = Model(cfg, remat=True, **grid.model_kw())
+    state = rank_state(model, AdamW(lr=TINY_TRAIN_LR), full, grid, zero1)
+    del full
+    mine = shard_batch(batch, grid.dp_rank, grid.dp_size)
+    inputs = {"state": state, "batch": mine}
+    gc.collect()
+    torch.cuda.empty_cache()
+    got_state = dryrun.state_bytes(state)
+    ops.reset_launch_counts()
+    cc, _, (state, m0) = dryrun.count_step(model, "train", inputs,
+                                           grid=grid, zero1=zero1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    nonzero = [bool(mu.any()) for mu in leaves(state.opt.mu)]
+    loss0 = float(m0["loss"])
+    inputs = {"state": state, "batch": mine}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m1 = dryrun.run_step(model, "train", inputs, grid=grid,
+                                zero1=zero1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base + want_args
+    all_launches = ops.launch_counts()
+    out = {"coords": dict(grid.coords), "meta_s": meta_s,
+           "state": (got_state, want_state),
+           "launches": (launches, {k: v for k, v in mc.launches().items()
+                                   if v}),
+           "collectives": (cc.coll_by_axis, mc.coll_by_axis),
+           "peak": (peak, mem["peak_bytes"]), "nonzero": nonzero,
+           "losses": (loss0, float(m1["loss"])), "ref_loss": ref_loss,
+           "step_ms": step_ms, "path_launches": all_launches}
+    del state, inputs, mine, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grid_rank(group, job):
+    """Phase 10's two ranks (one spawn, sharing the card): each grid of
+    ``job`` made over the spawn's world, the tiny runs, then the
+    published-width ones."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import grid_mesh, grid_on_world
+    grids = {}
+    for g in sorted({g for _, g, _ in GRID_TINY}
+                    | {g for _, _, g, _ in GRID_FULL}):
+        grids[g] = grid_on_world(grid_mesh(*g), group.rank, group.device,
+                                 group.backend)
+    out = {"tiny": {}, "full": {}, "backend": group.backend,
+           "device": str(group.device)}
+    for arch, g, zero1 in GRID_TINY:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        out["tiny"][(arch, g)] = _grid_tiny_rank(
+            torch, grids[g], cfg, job["tiny"][arch], job["batches"][arch],
+            zero1)
+    for path, arch, g, zero1 in GRID_FULL:
+        out["full"][path] = _grid_full_rank(torch, grids[g], arch, zero1)
+    return out
+
+
+def _grid_reference(torch, cfg, params, batches):
+    """The CPU's one-process run of phase 10 (a): (losses, grad norms,
+    params)."""
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, TrainState, TrainStepConfig,
+                                   make_train_step)
+    from repro_torch.train.tree import map_tree
+    opt = AdamW(lr=TINY_TRAIN_LR)
+    p = map_tree(lambda t: t.detach().clone(), params)
+    state = TrainState(p, opt.init(p))
+    step = make_train_step(Model(cfg, remat=True), opt, TrainStepConfig())
+    losses, norms = [], []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss_total"]))
+        norms.append(float(m["grad_norm"]))
+    return losses, norms, state.params
+
+
+def grid_training_on_card(torch, card):
+    """Phase 10: training on a rank grid, two ranks sharing the card over
+    gloo (``run_ranks`` with named devices, as phase 6): a check of the
+    sharded training path and of its memory, not a parallel speed.
+    (a) tiny f32 llama and phimini-moe at (1, 2) and at (2, 1) with ZeRO-1,
+    two steps each: losses, grad norms and the params gathered over the
+    model ranks equal the CPU's one-process run within the f32 tolerance.
+    (b) llama3.1-8b at tp = 2 and phimini-moe at tp = 2 and at dp = 2 with
+    ZeRO-1 (B1 a rank), published widths cut to 2 layers, B2 S1024, two
+    steps: step 0's loss within the bf16 tolerance of tp = 1's on the same
+    weights, every gradient leaf nonzero on each rank, each rank's state
+    bytes, kernel launches and collective bytes by axis equal to the dry
+    run's meta count of that rank, its peak allocation within
+    ``PEAK_BAND`` of the predicted peak.  Returns rank 0's launch counts
+    of each (b) path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.sharding import gather_params
+    from repro_torch.models import Model
+    from repro_torch.train.tree import leaves
+    t0 = time.perf_counter()
+    job = {"tiny": {}, "batches": {}}
+    refs = {}
+    for arch in TINY_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        job["tiny"][arch] = Model(cfg).init(torch.Generator().manual_seed(0))
+        job["batches"][arch] = _tiny_batches(cfg, n=GRID_STEPS, seed=14)
+        refs[arch] = _grid_reference(torch, cfg, job["tiny"][arch],
+                                     job["batches"][arch])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(_grid_rank, TP, job, device="cuda",
+                      devices=["cuda:0"] * TP, timeout_s=600)
+    wall = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+              for r in ranks),
+          f"grid ranks: {[(r['backend'], r['device']) for r in ranks]}")
+    tol = TOL["float32"]
+    for arch, (dp, tp), zero1 in GRID_TINY:
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        losses, norms, want = refs[arch]
+        got = [r["tiny"][(arch, (dp, tp))] for r in ranks]
+        err = max(abs(a - b) / abs(b) for g in got
+                  for a, b in zip(g[0] + g[1], losses + norms))
+        full = gather_params([g[2] for g in got[:tp]], cfg, tp)
+        ok, perr = _params_close(leaves(full), leaves(want), TINY_TRAIN_LR,
+                                 GRID_STEPS, rtol=tol, atol=tol)
+        same = all(torch.equal(a, b) for g in got[1:]
+                   for a, b in zip(leaves(g[2]), leaves(got[0][2]))) \
+            if tp == 1 else True
+        print(f"phase 10: tiny {arch} f32 on the grid (dp {dp}, tp {tp})"
+              f"{' with ZeRO-1' if zero1 else ''}, two ranks on the card, "
+              f"{GRID_STEPS} steps: losses {[round(x, 5) for x in got[0][0]]}"
+              f", grad norms {[round(x, 5) for x in got[0][1]]}, max rel "
+              f"err against the CPU's one process {err:.2g} (tol {tol}); "
+              f"params max abs err {perr:.3g} (tol {tol} + {tol} |x| but "
+              f"Adam's ill-conditioned entries); data-parallel ranks "
+              f"bitwise equal: {same}")
+        check(err <= tol and ok and same,
+              f"tiny {arch} on the grid (dp {dp}, tp {tp}) differs from the "
+              f"CPU's one process (losses/norms {err}, params {perr}, "
+              f"ranks equal {same})")
+    by_path = {}
+    for path, arch, (dp, tp), zero1 in GRID_FULL:
+        for r in ranks:
+            o = r["full"][path]
+            where = f"{path} rank {o['coords']}"
+            (gs, ws), (gl, wl) = o["state"], o["launches"]
+            (gc_, wc), (pk, wp) = o["collectives"], o["peak"]
+            ratio = pk / wp
+            l0, l1 = o["losses"]
+            ref = o["ref_loss"]
+            print(f"phase 10 [{card}] {where}: dry run {o['meta_s']:.1f} s "
+                  f"on meta; state {gs} bytes (predicted {ws}); launches "
+                  f"{json.dumps(gl)} (predicted {json.dumps(wl)}); "
+                  f"collective result bytes by axis {json.dumps(gc_)} "
+                  f"(predicted {json.dumps(wc)}); peak "
+                  f"{pk / 2 ** 30:.3f} GiB, predicted {wp / 2 ** 30:.3f} "
+                  f"GiB, ratio {ratio:.4f}; losses {l0:.4f}, {l1:.4f}, "
+                  f"step 0 against tp = 1's {ref:.4f} on the same weights; "
+                  f"step time (the uncounted step, so its p50) "
+                  f"{o['step_ms']:.1f} ms, two ranks sharing one card over "
+                  f"gloo: not a parallel speed")
+            check(gs == ws, f"{where}: state {gs} bytes, {ws} predicted")
+            check(gl == wl, f"{where}: launched {gl}, predicted {wl}")
+            check(gc_ == wc, f"{where}: collective bytes {gc_}, predicted "
+                             f"{wc}")
+            check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+                  f"{where}: peak {pk} bytes against {wp} predicted (ratio "
+                  f"{ratio:.4f}, band {PEAK_BAND})")
+            check(all(o["nonzero"]), f"{where}: "
+                  f"{o['nonzero'].count(False)} gradient leaves all zero")
+            bf = TOL["bfloat16"]
+            check(abs(l0 - ref) <= bf + bf * abs(ref)
+                  and math.isfinite(l1),
+                  f"{where}: step 0's loss {l0} against tp = 1's {ref} "
+                  f"(tol {bf})")
+        by_path[path] = ranks[0]["full"][path]["path_launches"]
+    print(f"phase 10: ran {time.perf_counter() - t0:.1f} s ({wall:.1f} s "
+          f"the spawn)")
+    return by_path
+
 
 #: what the kernels without a Pallas counterpart replace: the JAX package
 #: trains through plain JAX
@@ -3211,6 +3538,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path.update(training_on_card(torch, ops, card))
         by_path.update(dryrun_on_card(torch, ops, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(grid_training_on_card(torch, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -6,30 +6,43 @@ and HLO.  Here each cell's step (a train step with AdamW and remat, a
 prefill, or a decode) runs once on meta tensors, which have shapes and
 dtypes but no data, under ``repro_torch.roofline.counter.Counter``:
 
-1. ``launch/specs.input_specs`` builds the inputs (params, optimizer
-   state, batch, the paged cache) on meta;
+Each cell is counted as one rank's program on a grid of ranks: the mesh
+``(dp, tp)``, or the JAX study's production meshes, 16×16 ``(data,
+model)`` and 2×16×16 ``(pod, data, model)`` (``launch/mesh``; the pod axis
+folds into data parallelism).  Rank 0's program runs on a
+``mesh.counting_grid``, whose groups stand in for every axis:
+
+1. ``launch/specs.input_specs`` builds the rank's inputs on meta: its
+   shard of the params (``launch/sharding``), of the AdamW state (under
+   ``zero1``, its slice of each moment over the data axis), its
+   ``global_batch / dp`` rows of the batch, the paged cache of its slots;
 2. the step runs eagerly on meta: every aten op is counted (FLOPs, HBM
    bytes), every storage is sized while it lives, each kernel wrapper
    charges its kernel's work and adds a predicted launch, and the
-   counting group (tp > 1) records the collectives;
-3. the record carries the memory (argument / output / temp / alias bytes),
-   whether it fits one card (argument + temp <= the ``h100`` preset's HBM
-   capacity), the roofline against that preset, the
-   model FLOPs (6·N·D train, 2·N·D otherwise) and the kernels' launches,
-   FLOPs and bytes.
+   counting groups record the collectives by kind and mesh axis (a train
+   step's gradient reduction, the ZeRO-1 gather, the MoE layers' global
+   routing);
+3. the record carries the memory (argument / output / temp / alias bytes)
+   of one rank, whether it fits one card (argument + temp <= the ``h100``
+   preset's HBM capacity), the roofline against that preset, the model
+   FLOPs (6·N·D train, 2·N·D otherwise) and the kernels' launches, FLOPs
+   and bytes.
+
+A cell the port cannot shard (query heads that do not divide tp, the
+recurrent families at tp > 1: ``sharding.unsupported``) gets ``status:
+"unsupported"`` and the reason.  The batch-1 decode's sequence sharding over
+``data`` and ``seq_shard_cache`` are not ported: a batch that does not
+divide by dp is replicated over the data-parallel ranks, and the record
+says so (``batch_replicated``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch starcoder2-7b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--out results.jsonl] [--tp 2]
+  python -m repro_torch.launch.dryrun --all [--out results.jsonl] \
+      [--dp 16 --tp 16 | --multi-pod | --both-meshes] [--zero1]
 
-Not ported, each with its reason: ``--multi-pod`` and ``--both-meshes``
-(the 16×16 and 2×16×16 GSPMD meshes: the port runs one process a rank, and
-``--tp`` takes the (1, tp) engine mesh it serves on); ``--no-unroll``
-(eager PyTorch has no while loops to unroll; a Python loop runs every
-iteration, or one under a trip count); ``--zero1`` (a GSPMD sharding of
-the optimizer state over a data-parallel mesh; the port trains on one
-card, so a train cell at tp > 1 raises, naming
-``TrainStepConfig.dp_axes``).  ``compile_s`` is null: nothing is compiled.
+Not ported, with its reason: ``--no-unroll`` (eager PyTorch has no while
+loops to unroll; a Python loop runs every iteration, or one under a trip
+count).  ``compile_s`` is null: nothing is compiled.
 """
 from __future__ import annotations
 
@@ -45,9 +58,10 @@ import torch
 from repro_torch.configs import (ALL_SHAPES, ASSIGNED, cell_is_runnable,
                                  get_config, get_shape)
 from repro_torch.kernels import paged_attention as _paged
-from repro_torch.launch.mesh import CountingGroup
-from repro_torch.launch.sharding import shard_params
-from repro_torch.launch.specs import input_specs
+from repro_torch.launch.mesh import (counting_grid, grid_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.sharding import unsupported
+from repro_torch.launch.specs import input_specs, rank_batch
 from repro_torch.models import Model
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline.counter import Counter
@@ -57,13 +71,17 @@ from repro_torch.train.tree import leaves
 
 
 def run_step(model: Model, step: str, inputs: dict, *,
-             microbatches: int = 1):
+             microbatches: int = 1, grid=None, zero1: bool = False):
     """One step of kind ``step`` ("train": AdamW, "prefill", "decode" or
     "extend") on ``inputs`` (``input_specs``' keys; "extend" takes
-    "params", "cache" and "tokens"); returns its outputs."""
+    "params", "cache" and "tokens"); returns its outputs.  ``grid``: the
+    rank's grid of a train step (``make_train_step``'s)."""
     if step == "train":
-        fn = make_train_step(model, AdamW(),
-                             TrainStepConfig(microbatches=microbatches))
+        from repro_torch.launch.mesh import dp_axes
+        dpa = () if grid is None or grid.dp_size == 1 else \
+            dp_axes(grid.mesh)
+        fn = make_train_step(model, AdamW(), TrainStepConfig(
+            microbatches=microbatches, dp_axes=dpa), grid=grid, zero1=zero1)
         return fn(inputs["state"], inputs["batch"])
     with torch.no_grad():
         if step == "prefill":
@@ -78,7 +96,8 @@ def run_step(model: Model, step: str, inputs: dict, *,
 
 
 def count_step(model: Model, step: str, inputs: dict, *,
-               microbatches: int = 1, trip_counts: bool = True):
+               microbatches: int = 1, trip_counts: bool = True,
+               grid=None, zero1: bool = False):
     """Run ``run_step`` once under a fresh counter, on whatever device the
     inputs live (meta for the dry run, the card or the CPU to check it).
     Returns (the counter, its memory record, the step's outputs)."""
@@ -89,7 +108,8 @@ def count_step(model: Model, step: str, inputs: dict, *,
     counter = Counter(trip_counts=trip_counts)
     with counter:
         counter.arguments(inputs)
-        out = run_step(model, step, inputs, microbatches=microbatches)
+        out = run_step(model, step, inputs, microbatches=microbatches,
+                       grid=grid, zero1=zero1)
         gc.collect()
         mem = counter.memory(out)
     return counter, mem, out
@@ -122,6 +142,9 @@ def record(counter, mem, *, n_devices: int = 1, cfg=None,
         "kernels": {n: {"launches": k.launches, "flops": k.flops,
                         "bytes": k.bytes}
                     for n, k in sorted(counter.kernels.items())},
+        "collective_bytes_by_axis": {
+            a: {k: int(v) for k, v in sorted(d.items())}
+            for a, d in sorted(counter.coll_by_axis.items())},
         "flops_outside_kernels": counter.flops,
         "bytes_outside_kernels": counter.hbm_bytes,
     }
@@ -133,40 +156,66 @@ def record(counter, mem, *, n_devices: int = 1, cfg=None,
     return rec
 
 
-def lower_cell(arch: str, shape_name: str, *, tp: int = 1,
+def cell_mesh(dp: int = 1, tp: int = 1, multi_pod: bool = False):
+    """The mesh of a cell: the JAX study's 2×16×16 under ``multi_pod``,
+    else ``(dp, tp)``."""
+    if multi_pod:
+        return make_production_mesh(multi_pod=True)
+    return grid_mesh(dp, tp)
+
+
+def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
+               multi_pod: bool = False, zero1: bool = False,
                attn_impl: str = "flash", microbatches: int = 1,
                fuse_qkv: bool = False, norm_ct16: bool = False,
                variant: str = "baseline") -> dict:
-    """Count one cell on meta; returns its record (the JAX record's keys
-    where they mean something here, see the module docstring)."""
+    """Count rank 0's program of one cell on meta; returns its record (the
+    JAX record's keys where they mean something here, see the module
+    docstring).  ``multi_pod``: the 2×16×16 mesh (``dp`` and ``tp`` must
+    be left at 1); else the ``(dp, tp)`` grid, ``dp=16, tp=16`` the JAX
+    single pod."""
+    if multi_pod and (dp, tp) != (1, 1):
+        raise ValueError("multi_pod is the 2x16x16 mesh; dp and tp are its")
+    mesh = cell_mesh(dp, tp, multi_pod)
     cfg = get_config(arch)
     shape = get_shape(shape_name)
-    head = {"arch": arch, "shape": shape_name, "multi_pod": False,
-            "mesh": [1, tp], "n_devices": tp}
+    grid = counting_grid(mesh)
+    head = {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+            "mesh": list(mesh.extents), "n_devices": mesh.size,
+            "zero1": zero1}
     if not cell_is_runnable(cfg.subquadratic, shape):
         return {**head, "status": "skipped",
                 "reason": "long_500k requires sub-quadratic attention "
                           "(DESIGN.md §5)"}
-    if shape.step == "train" and tp > 1:
-        raise NotImplementedError(
-            f"train at tp={tp}: the port trains on one card; data- or "
-            f"tensor-parallel training is TrainStepConfig.dp_axes, not "
-            f"ported (ROADMAP.md, not queued)")
-    group = CountingGroup(0, tp) if tp > 1 else None
+    why = unsupported(cfg, grid.tp, fuse_qkv)
+    if why is not None:
+        return {**head, "status": "unsupported", "reason": why}
+    kw = grid.model_kw()
+    if shape.step != "train":
+        kw["dp_group"] = None       # a serve's ranks share no collective
     model = Model(cfg, attn_impl=attn_impl, fuse_qkv=fuse_qkv,
-                  norm_ct16=norm_ct16, group=group)
+                  norm_ct16=norm_ct16, **kw)
     t0 = time.time()
-    inputs = input_specs(cfg, shape, model)
-    if group is not None:
-        inputs["params"] = shard_params(inputs["params"], 0, tp, cfg=cfg)
+    inputs = input_specs(cfg, shape, model, grid=grid, zero1=zero1)
     counter, mem, out = count_step(model, shape.step, inputs,
-                                   microbatches=microbatches)
+                                   microbatches=microbatches, grid=grid,
+                                   zero1=zero1)
     del out, inputs
     trace_s = time.time() - t0
-    return {**head, "status": "ok", "attn_impl": attn_impl,
-            "microbatches": microbatches, "variant": variant,
-            "trace_s": round(trace_s, 2), "compile_s": None,
-            **record(counter, mem, n_devices=tp, cfg=cfg, shape=shape)}
+    rec = {**head, "status": "ok", "attn_impl": attn_impl,
+           "microbatches": microbatches, "variant": variant,
+           "trace_s": round(trace_s, 2), "compile_s": None,
+           "batch_per_rank": rank_batch(shape, grid),
+           **record(counter, mem, n_devices=mesh.size, cfg=cfg,
+                    shape=shape)}
+    if shape.global_batch % grid.dp_size:
+        rec["batch_replicated"] = True
+        rec["note"] = (f"a batch of {shape.global_batch} does not split "
+                       f"over dp={grid.dp_size}: every data-parallel rank "
+                       f"holds the whole batch and its cache (the "
+                       f"sequence sharding over data and seq_shard_cache "
+                       f"are not ported)")
+    return rec
 
 
 def main(argv=None):
@@ -174,7 +223,13 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the JAX study's 2x16x16 (pod, data, model) mesh")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="the JAX study's 16x16 and 2x16x16 meshes")
+    ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--attn-impl", default="flash",
                     choices=("flash", "chunked", "folded"))
     ap.add_argument("--out", default="dryrun_results.jsonl")
@@ -182,16 +237,26 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=0,
                     help="0 = auto (8 for train, 1 otherwise)")
     args = ap.parse_args(argv)
+    if (args.multi_pod or args.both_meshes) and (args.dp, args.tp) != (1, 1):
+        ap.error("--multi-pod and --both-meshes are the JAX meshes; "
+                 "--dp and --tp take another grid")
+    if args.both_meshes:
+        meshes = [dict(dp=16, tp=16), dict(multi_pod=True)]
+    elif args.multi_pod:
+        meshes = [dict(multi_pod=True)]
+    else:
+        meshes = [dict(dp=args.dp, tp=args.tp)]
+
+    def key(r):
+        return (r["arch"], r["shape"], tuple(r.get("mesh", ())),
+                r.get("attn_impl", "flash"), bool(r.get("zero1", False)))
 
     done = set()
     if args.skip_done and os.path.exists(args.out):
         with open(args.out) as f:
             for line in f:
                 try:
-                    r = json.loads(line)
-                    done.add((r["arch"], r["shape"], r["multi_pod"],
-                              r.get("attn_impl", "flash"),
-                              r.get("n_devices", 1)))
+                    done.add(key(json.loads(line)))
                 except Exception:
                     pass
 
@@ -201,28 +266,33 @@ def main(argv=None):
     with open(args.out, "a") as f:
         for arch in archs:
             for shape in shapes:
-                key = (arch, shape, False, args.attn_impl, args.tp)
-                if key in done:
-                    print(f"skip (done): {key}")
-                    continue
-                print(f"=== {arch} x {shape} tp={args.tp} ===", flush=True)
-                mb = args.microbatches
-                if mb == 0:
-                    mb = 8 if get_shape(shape).step == "train" else 1
-                try:
-                    rec = lower_cell(arch, shape, tp=args.tp,
-                                     attn_impl=args.attn_impl,
-                                     microbatches=mb)
-                except Exception as e:
-                    rec = {"arch": arch, "shape": shape, "multi_pod": False,
-                           "n_devices": args.tp, "status": "error",
-                           "error": str(e)[:2000],
-                           "attn_impl": args.attn_impl,
-                           "traceback": traceback.format_exc()[-4000:]}
-                print(json.dumps({k: v for k, v in rec.items()
-                                  if k != "traceback"}), flush=True)
-                f.write(json.dumps(rec) + "\n")
-                f.flush()
+                for m in meshes:
+                    mesh = cell_mesh(**m)
+                    head = {"arch": arch, "shape": shape,
+                            "multi_pod": m.get("multi_pod", False),
+                            "mesh": list(mesh.extents),
+                            "n_devices": mesh.size, "zero1": args.zero1,
+                            "attn_impl": args.attn_impl}
+                    if key(head) in done:
+                        print(f"skip (done): {key(head)}")
+                        continue
+                    print(f"=== {arch} x {shape} mesh={head['mesh']} "
+                          f"zero1={args.zero1} ===", flush=True)
+                    mb = args.microbatches
+                    if mb == 0:
+                        mb = 8 if get_shape(shape).step == "train" else 1
+                    try:
+                        rec = lower_cell(arch, shape, zero1=args.zero1,
+                                         attn_impl=args.attn_impl,
+                                         microbatches=mb, **m)
+                    except Exception as e:
+                        rec = {**head, "status": "error",
+                               "error": str(e)[:2000],
+                               "traceback": traceback.format_exc()[-4000:]}
+                    print(json.dumps({k: v for k, v in rec.items()
+                                      if k != "traceback"}), flush=True)
+                    f.write(json.dumps(rec) + "\n")
+                    f.flush()
 
 
 if __name__ == "__main__":

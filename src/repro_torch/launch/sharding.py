@@ -1,40 +1,54 @@
-"""Tensor-parallel sharding rules: one rank's shard of a full param dict.
+"""Sharding rules: one rank's shard of the params, the optimizer state
+and the batch on a (data, model) grid.
 
-The counterpart of the JAX package's ``repro/launch/sharding.py`` rules
-(``_COL``, ``_ROW``, ``_REPL`` and the embed, head and MoE cases of
-``_param_spec``).  JAX hands those rules to GSPMD as PartitionSpecs; the
-port runs explicit Megatron-style tensor parallelism, so each rank cuts
-its own slice out of the full params in the JAX layout
-(:func:`shard_params`) and uploads only that:
+The counterpart of the JAX package's ``repro/launch/sharding.py``
+(``param_pspecs``, ``state_pspecs``, ``batch_pspecs``, ``fit_to_mesh``).
+JAX hands those rules to GSPMD as PartitionSpecs; the port runs explicit
+Megatron-style tensor parallelism, so each rank cuts its own slice out of
+the full params in the JAX layout (:func:`shard_params`) and uploads only
+that:
 
 * column-parallel (the last dim split, contiguous per rank): ``wq``,
   ``wk``, ``wv`` (and their biases), ``w_gate``, ``w_up``, ``w_in``;
 * row-parallel (dim -2 split): ``wo``, ``w_down``, ``w_out``; their
   outputs are partial sums, all-reduced by the model;
-* vocab-parallel: the head's padded vocab, all-gathered by the model; a
-  padded vocab that does not divide by tp leaves the head replicated (as
-  ``fit_to_mesh`` replicates a dim that does not divide the mesh axis);
-* replicated: the norms, the router, and the embedding table.  JAX shards
-  the table's rows; here it stays whole (1.05 GB a rank for llama3.1-8b in
-  bf16), which keeps the lookup free of a collective and computes the same
-  function;
+* vocab-parallel: the embedding table's rows (JAX's ``P(MODEL, None)``:
+  the lookup is a masked local gather plus one all-reduce, a sum of exact
+  zeros and one row) and the head's padded vocab (all-gathered by the
+  model); a padded vocab that does not divide by tp leaves both
+  replicated (as ``fit_to_mesh`` replicates a dim that does not divide
+  the mesh axis);
+* replicated: the norms and the router;
 * MoE experts: expert parallelism when the expert count divides tp (each
   rank holds E / tp whole experts), otherwise tensor parallelism inside
   every expert (``w_gate``/``w_up`` column-, ``w_down`` row-parallel), the
   JAX rule's two branches.
 
+ZeRO-1 (:func:`zero1_dim`, JAX's ``state_pspecs(zero1=True)``): each Adam
+moment leaf is further split over the ``data`` axis on its first dim that
+the model rule does not name and that divides by the data extent (JAX
+hard-codes 16, the extent of its meshes, and never splits over ``pod``).
+:func:`shard_batch` gives a data-parallel rank its rows (JAX's
+``batch_pspecs`` and the train step's microbatch split).
+:func:`leaf_plan` says, leaf by leaf, how a gradient is completed over
+the model axis and counted in the global norm.
+
 **One deviation from GSPMD.**  When the KV heads do not divide tp, GSPMD
-shards the KV cache's ``d_head`` instead (``cache_pspecs``).  Explicit TP
-cannot split ``d_head`` without one more reduction inside attention, so
-here each rank keeps the KV heads its query heads read (their K/V
-projections and their pages are then computed and held on more than one
-rank).  The query heads must split evenly, and a rank's query heads must
-cover whole groups or lie inside one group, so the group size is the same
-on every rank.
+shards the KV projections' and the KV cache's ``d_head`` instead
+(``_COL``, ``cache_pspecs``).  Explicit TP cannot split ``d_head`` without
+one more reduction inside attention, so here each rank keeps the KV heads
+its query heads read (their K/V projections and their pages are then
+computed and held on more than one rank: the consecutive ranks of a
+:func:`kv_block`, whose ``wk``/``wv``/``bk``/``bv`` gradients are summed
+over the block).  The query heads must split evenly, and a rank's query
+heads must cover whole groups or lie inside one group, so the group size is
+the same on every rank (:func:`unsupported` names the configurations that
+break this).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +58,10 @@ from repro_torch.configs.base import ArchConfig
 _COL = {"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_in"}
 _ROW = {"wo", "w_down", "w_out"}
 _KV = {"wk", "wv", "bk", "bv"}
+_QK_NORM = {"q_norm", "k_norm"}
+#: stage kinds the port shards over tp (attention + MLP / MoE); the
+#: recurrent stages have no sharding rule yet (ROADMAP.md, item 7)
+_SHARDABLE = {"attn_mlp", "attn_moe"}
 
 
 def query_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
@@ -110,7 +128,91 @@ def experts_parallel(cfg: ArchConfig, tp: int) -> bool:
 
 
 def head_parallel(cfg: ArchConfig, tp: int) -> bool:
+    """Whether the head's padded vocab (and the embedding's rows) split
+    over tp."""
     return cfg.padded_vocab % tp == 0
+
+
+def kv_block(cfg: ArchConfig, tp: int) -> int:
+    """How many consecutive ranks hold each KV head: 1 when the KV heads
+    divide tp, else tp / KV (the deviation in the module docstring)."""
+    return max(1, tp // cfg.n_kv_heads)
+
+
+def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
+                ) -> Optional[str]:
+    """Why the port cannot shard ``cfg`` over ``tp`` ranks (every reason,
+    joined), or None."""
+    if tp == 1:
+        return None
+    why = []
+    kinds = sorted({st.kind for st in cfg.stages} - _SHARDABLE)
+    if kinds:
+        why.append(f"the {', '.join(kinds)} stages have no tensor-parallel "
+                   f"rule (ROADMAP.md, item 7)")
+    if cfg.n_heads % tp:
+        why.append(f"{cfg.n_heads} query heads do not split over tp={tp} "
+                   f"(GSPMD pads them; the port splits whole heads)")
+    else:
+        n, G = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+        if n % G and G % n:
+            why.append(f"{n} query heads a rank at tp={tp} neither cover "
+                       f"whole groups of {G} nor lie inside one")
+    if fuse_qkv:
+        why.append("fuse_qkv has no tensor-parallel rule")
+    return f"{cfg.name}: " + "; ".join(why) if why else None
+
+
+def _named(path: Tuple[str, ...], cfg: ArchConfig, tp: int
+           ) -> Optional[int]:
+    name = path[-1]
+    if path[0] == "embed":
+        return 0
+    if path[0] == "head":
+        return -1
+    if "moe" in path and name in ("w_gate", "w_up", "w_down"):
+        if experts_parallel(cfg, tp):
+            return -3
+        return -1 if name != "w_down" else -2
+    if name in _COL or name == "wqkv":
+        return -1
+    if name in _ROW:
+        return -2
+    return None
+
+
+def model_dim(path: Tuple[str, ...], ndim: int, cfg: ArchConfig,
+              tp: int) -> Optional[int]:
+    """The dim of a param leaf that the model rule names (non-negative),
+    or None for a replicated leaf.  Named is not always split: a padded
+    vocab that does not divide tp leaves the embedding and the head whole
+    (:func:`split`), as ``fit_to_mesh`` does after JAX's rule named it."""
+    dim = _named(path, cfg, tp)
+    return None if dim is None else dim % ndim
+
+
+def split(path: Tuple[str, ...], cfg: ArchConfig, tp: int) -> bool:
+    """Whether tp > 1 cuts the leaf (rather than replicating it)."""
+    if tp == 1 or _named(path, cfg, tp) is None:
+        return False
+    if path[0] in ("embed", "head"):
+        return head_parallel(cfg, tp)
+    return True
+
+
+def zero1_dim(path: Tuple[str, ...], shape, cfg: ArchConfig, tp: int,
+              data: int) -> Optional[int]:
+    """The dim of a moment leaf (``shape``: the param leaf's full shape)
+    that ZeRO-1 splits over the ``data`` axis: the first one the model
+    rule does not name that divides by ``data`` and is above 1.  None
+    without one, or at ``data == 1``."""
+    if data == 1:
+        return None
+    named = model_dim(path, len(shape), cfg, tp)
+    for i, d in enumerate(shape):
+        if i != named and d > 1 and d % data == 0:
+            return i
+    return None
 
 
 def _split(leaf, dim: int, lo: int, hi: int):
@@ -120,7 +222,7 @@ def _split(leaf, dim: int, lo: int, hi: int):
     idx[dim] = slice(lo, hi)
     part = leaf[tuple(idx)]
     if isinstance(part, torch.Tensor):
-        return part.clone(memory_format=torch.contiguous_format)
+        return part.detach().clone(memory_format=torch.contiguous_format)
     return np.array(part, order="C")
 
 
@@ -133,6 +235,29 @@ def _even(leaf, dim: int, rank: int, tp: int, what: str):
     return _split(leaf, dim, rank * step, (rank + 1) * step)
 
 
+def _range(path, leaf, cfg: ArchConfig, rank: int, tp: int):
+    """(dim, lo, hi) of ``rank``'s part of a leaf that tp splits."""
+    name, dh = path[-1], cfg.d_head
+    dim = model_dim(path, leaf.ndim, cfg, tp)
+    if name in ("wq", "bq", "wo"):
+        lo, hi = query_heads(cfg, rank, tp)
+        return dim, lo * dh, hi * dh
+    if name in _KV:
+        lo, hi = kv_heads(cfg, rank, tp)
+        return dim, lo * dh, hi * dh
+    n = leaf.shape[dim]
+    if n % tp:
+        raise ValueError(f"{'/'.join(path)}: dim {dim} of size {n} does "
+                         f"not split over tp={tp}")
+    return dim, rank * n // tp, (rank + 1) * n // tp
+
+
+def _map(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def shard_params(params: dict, rank: int, tp: int, *,
                  cfg: ArchConfig) -> dict:
     """Rank ``rank``'s shard of ``params`` (a nested dict of numpy arrays
@@ -141,39 +266,130 @@ def shard_params(params: dict, rank: int, tp: int, *,
     ``tp == 1`` returns ``params``."""
     if tp == 1:
         return params
-    dh = cfg.d_head
-    qlo, qhi = query_heads(cfg, rank, tp)
-    klo, khi = kv_heads(cfg, rank, tp)
-    ep = experts_parallel(cfg, tp)
 
     def leaf_shard(path, leaf):
-        name = path[-1]
-        where = "/".join(path)
-        if path[0] == "embed":
-            return leaf
-        if path[0] == "head":
-            return _even(leaf, -1, rank, tp, where) \
-                if head_parallel(cfg, tp) else leaf
-        if "moe" in path and name in ("w_gate", "w_up", "w_down"):
-            if ep:
-                return _even(leaf, -3, rank, tp, where)
-            return _even(leaf, -1 if name != "w_down" else -2, rank, tp,
-                         where)
-        if name in ("wq", "bq"):
-            return _split(leaf, -1, qlo * dh, qhi * dh)
-        if name in _KV:
-            return _split(leaf, -1, klo * dh, khi * dh)
-        if name == "wo":
-            return _split(leaf, -2, qlo * dh, qhi * dh)
-        if name in _COL:
-            return _even(leaf, -1, rank, tp, where)
-        if name in _ROW:
-            return _even(leaf, -2, rank, tp, where)
-        return leaf                    # norms, the router: replicated
+        if path[-1] == "wqkv":
+            raise ValueError(f"{cfg.name}: fuse_qkv has no tensor-parallel "
+                             f"rule")
+        if not split(path, cfg, tp):
+            return leaf            # norms, the router, a vocab that stays
+        return _split(leaf, *_range(path, leaf, cfg, rank, tp))
 
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, path + (k,)) for k, v in tree.items()}
-        return leaf_shard(path, tree)
+    return _map(params, leaf_shard)
 
-    return walk(params, ())
+
+def gather_params(parts, cfg: ArchConfig, tp: int) -> dict:
+    """The full params in the JAX layout from every rank's shard
+    (``parts``, in rank order): split leaves concatenated, a KV head that
+    several ranks hold taken once (from its owner), replicated leaves from
+    rank 0."""
+    if tp == 1:
+        return parts[0]
+
+    def leaf(path, _):
+        got = list(parts)
+        for k in path:
+            got = [g[k] for g in got]
+        if not split(path, cfg, tp):
+            return got[0]
+        dim = model_dim(path, got[0].ndim, cfg, tp)
+        if path[-1] in _KV:          # each KV head once, from its owner
+            dh = cfg.d_head
+            for r, g in enumerate(got):
+                lo, _ = kv_heads(cfg, r, tp)
+                olo, ohi = owned_kv_heads(cfg, r, tp)
+                got[r] = _split(g, dim, (olo - lo) * dh, (ohi - lo) * dh)
+        if isinstance(got[0], torch.Tensor):
+            return torch.cat(got, dim=dim)
+        return np.concatenate(got, axis=dim)
+
+    return _map(parts[0], leaf)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How one param leaf lies over the model axis and the data axis.
+
+    ``grad_sum``: the group its gradient is summed over after the backward
+    (besides data parallelism): "model" for a replicated leaf used inside
+    the sharded region (``q_norm``, ``k_norm``: each rank's gradient holds
+    only its heads' part), "kv" for the projections of a KV head that a
+    block of ranks shares, None otherwise.  ``norm``: how it counts in the
+    global norm: "replicated" (once), "model" (the rank's part, summed
+    over the model group) or "skip" (a shared KV head another rank of its
+    block owns).  ``zero1_dim``: the dim ZeRO-1 splits its moments on."""
+    path: Tuple[str, ...]
+    split: bool
+    grad_sum: Optional[str]
+    norm: str
+    zero1_dim: Optional[int]
+
+
+def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
+              data: int = 1, zero1: bool = False) -> List[LeafPlan]:
+    """A :class:`LeafPlan` for every leaf of ``rank``'s params (any
+    device, meta included), in ``repro_torch.train.tree.leaves`` order.
+    ``data``: the data axis's extent (ZeRO-1's split, when ``zero1``)."""
+    from repro_torch.train.tree import leaves
+    full = {}
+
+    def note(path, leaf):
+        shape = list(leaf.shape)
+        if split(path, cfg, tp):
+            dim = model_dim(path, leaf.ndim, cfg, tp)
+            if path[-1] in _KV:
+                shape[dim] = cfg.n_kv_heads * cfg.d_head
+            elif path[-1] in ("wq", "bq", "wo"):
+                shape[dim] = cfg.n_heads * cfg.d_head
+            else:
+                shape[dim] *= tp
+        full[path] = tuple(shape)
+        return "/".join(path)      # a string: ``leaves`` walks tuples
+
+    paths = [tuple(p.split("/")) for p in leaves(_map(params, note))]
+    shared = kv_block(cfg, tp) > 1
+    olo, ohi = owned_kv_heads(cfg, rank, tp) if shared else (0, 1)
+    plans = []
+    for path in paths:
+        cut = split(path, cfg, tp)
+        grad_sum, norm = None, "model" if cut else "replicated"
+        if tp > 1 and path[-1] in _QK_NORM:
+            grad_sum = "model"
+        elif cut and shared and path[-1] in _KV:
+            grad_sum = "kv"
+            norm = "model" if ohi > olo else "skip"
+        z = zero1_dim(path, full[path], cfg, tp, data) if zero1 else None
+        plans.append(LeafPlan(path, cut, grad_sum, norm, z))
+    return plans
+
+
+def zero1_slice(t, dim: Optional[int], rank: int, data: int):
+    """``rank``'s part of ``t`` along ``dim`` over ``data`` ranks (a
+    view), or ``t`` with no dim."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // data
+    return t.narrow(dim, rank * n, n)
+
+
+def shard_batch(batch: dict, rank: int, dp: int,
+                microbatches: int = 1) -> dict:
+    """Data-parallel rank ``rank``'s rows of a global batch, ordered so
+    that the train step's microbatch i is this rank's 1/dp of global
+    microbatch i: JAX reshapes the batch to ``(mb, B/mb)`` and shards dim 1
+    over the data axes.  A batch whose rows do not divide by ``mb · dp``
+    raises; ``dp == 1`` returns ``batch``."""
+    if dp == 1:
+        return batch
+    out = {}
+    for k, x in batch.items():
+        B = x.shape[0]
+        if B % (microbatches * dp):
+            raise ValueError(f"a batch of {B} rows does not split into "
+                             f"{microbatches} microbatches over dp={dp}")
+        y = x.reshape((microbatches, dp, B // (microbatches * dp))
+                      + tuple(x.shape[1:]))[:, rank]
+        out[k] = y.reshape((B // dp,) + tuple(x.shape[1:]))
+        if isinstance(out[k], torch.Tensor):
+            out[k] = out[k].contiguous()
+    return out

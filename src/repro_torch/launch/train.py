@@ -14,8 +14,10 @@ cosine schedule, attention through the flash kernel and its backward
 kernel.  Checkpoints are atomic and in the JAX package's layout; kill the
 process at any step and ``--resume`` continues from the last durable
 checkpoint, skipping the batches already consumed, so a resumed run sees
-the same data as an uninterrupted one.  One card: the JAX driver's mesh
-(data parallel and TP) is not ported.
+the same data as an uninterrupted one.  One device, as the JAX
+package's trainer, which builds no mesh and jits its step on one device.
+Data- and tensor-parallel training is ``make_train_step(..., grid=)`` on
+the ranks of a grid (``repro_torch.launch.mesh.run_ranks(fn, tp, dp=)``).
 """
 from __future__ import annotations
 

@@ -20,7 +20,19 @@ experts, ``repro_torch.launch.sharding``) a rank dispatches only the
 entries routed to its experts, in the same order and at the same slots as
 tp = 1, and sends the others to the trash bucket; otherwise every rank
 dispatches every entry through its slice of each expert's hidden dim.
-Either way a rank's combine is a partial sum, all-reduced over the group.
+Either way a rank's combine is a partial sum, all-reduced over the group
+(``collectives.reduce_from``); in training the dispatched tokens and the
+combine weights enter through ``collectives.copy_to``, so the tokens and
+the router get the sum of the ranks' partial gradients.
+
+Under data parallelism (``dp_group``, training) the routing is the whole
+batch's, as JAX's over its global microbatch: the capacity comes from the
+global token count, and since the stable sort orders entries token-major
+and the ranks hold consecutive rows, a rank's entries of expert e take the
+slots after the lower ranks' (one all-gather of the E routed counts a
+layer gives the offsets), so the drops are the global batch's.  A rank
+computes only its own kept entries.  The Switch aux loss takes the global
+mean probability and routed fraction.
 
 The JAX dispatch buffer is ``(E, C + 1, d)`` with an overflow slot per
 expert that dropped entries all write to ``(0, C)``; here it is
@@ -36,6 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.expert import expert_capacity
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import copy_to, reduce_from
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -74,25 +87,31 @@ def normalize_topk(probs: torch.Tensor, top_k: int):
     return expert_idx, combine_w
 
 
-def router_topk(x, w_router, top_k: int):
-    """Return (expert_idx (T,k) int32, combine_w (T,k) f32, aux_loss)."""
+def router_topk(x, w_router, top_k: int, dp_group=None):
+    """Return (expert_idx (T,k) int32, combine_w (T,k) f32, aux_loss);
+    under ``dp_group`` the aux loss is the whole batch's."""
     logits = (x @ w_router.to(x.dtype)).float()               # (T, E)
     E = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
     expert_idx, combine_w = normalize_topk(probs, top_k)
     # Switch-style load-balancing aux loss: E * sum_e f_e * p_e
-    me = probs.mean(dim=0)
     flat = expert_idx.reshape(-1)
-    ce = torch.zeros((E,), dtype=torch.float32, device=x.device) \
-        .index_add_(0, flat, torch.ones(flat.shape, device=x.device)) \
-        / flat.numel()
+    hits = torch.zeros((E,), dtype=torch.float32, device=x.device) \
+        .index_add_(0, flat, torch.ones(flat.shape, device=x.device))
+    if dp_group is None:
+        me = probs.mean(dim=0)
+        ce = hits / flat.numel()
+    else:
+        n = dp_group.size
+        me = reduce_from(probs.sum(dim=0), dp_group) / (probs.shape[0] * n)
+        ce = dp_group.all_reduce_sum(hits) / (flat.numel() * n)
     aux = E * torch.sum(me * ce)
     return expert_idx.to(torch.int32), combine_w, aux
 
 
 def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
             gated: bool = True, router_fn=None, positions=None, layer=None,
-            valid=None, group=None):
+            valid=None, group=None, dp_group=None):
     """x: (T, d). params: router (d,E), w_gate/w_up (E,d,de), w_down (E,de,d).
 
     ``router_fn`` is the injectable routing hook (``repro_torch.moe.hooks``):
@@ -103,21 +122,29 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     bucket past every expert and go straight to the overflow slot, so they
     take no real token's capacity.  With ``valid=None`` every row routes
     and competes for capacity (pad tails included), as in JAX.  ``group``
-    (an engine group) makes ``params`` one rank's shard; see the module
-    docstring.
+    (an engine group) makes ``params`` one rank's shard, and ``dp_group``
+    ``x`` one data-parallel rank's tokens; see the module docstring.
     """
     T, d = x.shape
     E = params["router"].shape[-1]
     E_loc = params["w_down"].shape[0]          # E / tp under expert parallel
     first = 0 if group is None or E_loc == E else group.rank * E_loc
     if router_fn is None:
-        expert_idx, combine_w, aux = router_topk(x, params["router"], top_k)
+        expert_idx, combine_w, aux = router_topk(x, params["router"], top_k,
+                                                 dp_group)
     else:
+        if dp_group is not None:
+            raise ValueError("moe_ffn: a routing hook under data "
+                             "parallelism")
         logits = (x @ params["router"].to(x.dtype)).float()
         expert_idx, combine_w, aux = router_fn(
             logits, positions=positions, layer=layer, top_k=top_k,
             valid=valid)
-    C = expert_capacity(T, top_k, E, capacity_factor)
+    ndp = 1 if dp_group is None else dp_group.size
+    C = expert_capacity(T * ndp, top_k, E, capacity_factor)
+    # the sharded region: the tokens dispatched and the combine weights
+    xd = copy_to(x, group)
+    combine_w = copy_to(combine_w, group)
 
     # --- dispatch: sort (token, k) pairs by expert --------------------------
     # (this rank's experts renumbered from 0; the others and invalid rows
@@ -141,18 +168,33 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
         .scatter_add_(0, sort_e, torch.ones_like(sort_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(T * top_k, device=x.device) - starts[s_sorted]
-    keep = (pos_in_e < C) & (s_sorted < E_loc)              # capacity drop
+    # the slots the lower data-parallel ranks take in each expert first
+    slot, room = pos_in_e, C
+    if dp_group is not None:
+        every = expert_idx.reshape(-1).long()
+        if valid is not None:
+            every = torch.where(v, every, torch.full_like(every, E))
+        mine = torch.zeros((E + 1,), dtype=torch.long, device=x.device) \
+            .scatter_add_(0, every, torch.ones_like(every))
+        ranks = dp_group.all_gather_dim(mine[None], 0)       # (dp, E + 1)
+        below = ranks[:dp_group.rank].sum(dim=0)
+        offset = torch.zeros((E_loc + 1,), dtype=torch.long,
+                             device=x.device)
+        offset[:E_loc] = below[first:first + E_loc]
+        slot = pos_in_e + offset[s_sorted]
+        room = torch.clamp(C - offset[:E_loc], min=0)
+    keep = (slot < C) & (s_sorted < E_loc)                  # capacity drop
     # flat buffer row: expert * C + slot, the overflow row E_loc * C
     dst = torch.where(keep, e_sorted * C + pos_in_e,
                       torch.full_like(pos_in_e, E_loc * C))
     buf = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[dst] = x[tok_of]
+    buf[dst] = xd[tok_of]
     hidden_in = buf[:E_loc * C].view(E_loc, C, d)
 
     # --- grouped expert FFN: three launches of the grouped matmul -----------
     # valid rows per expert buffer; rows >= size come out 0 either way.  The
     # casts stay outside the Function, so dw reaches f32 params through them
-    group_sizes = torch.clamp(counts[:E_loc], max=C).to(torch.int32)
+    group_sizes = torch.clamp(counts[:E_loc], max=room).to(torch.int32)
     if gated:
         g = F.silu(grouped_matmul(hidden_in, params["w_gate"].to(x.dtype),
                                   group_sizes))
@@ -176,6 +218,4 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     # atomics (the card); with top_k > 2 it can in the last bit
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device) \
         .index_add_(0, tok_of, contrib)
-    if group is not None:
-        y = group.all_reduce_sum(y)
-    return y, aux
+    return reduce_from(y, group), aux

@@ -76,10 +76,21 @@ embeddings has no negative-token sentinel, so no row is held back.
 Tensor parallelism (``group``, a ``repro_torch.launch.mesh.EngineGroup``):
 the params are one rank's shard (``repro_torch.launch.sharding``), so
 attention runs on the rank's query and KV heads, the pools hold only its KV
-heads, and three collectives complete the layer: an all-reduce after the
-attention output projection, one after the MLP's (or MoE's) down
-projection, and an all-gather of the head's vocab shards, so every rank
-samples from the same full logits.  Without a group none of them runs.
+heads, and the collectives of ``repro_torch.launch.collectives`` complete
+the model: the embedding's lookup of the rank's vocab rows all-reduced, an
+all-reduce after the attention output projection, one after the MLP's (or
+MoE's) down projection, and an all-gather of the head's vocab shards, so
+every rank samples from the same full logits.  In training each sharded
+region starts with ``copy_to`` (identity forward, the gradient all-reduced
+backward) and the head's gather gives each rank its slice of the gradient,
+so every replicated tensor gets its whole gradient.  Without a group none of
+them runs.
+
+Data parallelism (``dp_group``, training only): the batch is the rank's
+rows (``sharding.shard_batch``); ``loss_fn`` divides the rank's weighted
+NLL by the global weight sum and sums it over the group (each rank keeps
+the gradient of its own part, so the train step sums the gradients), and
+the MoE layers route as the whole batch does (``moe_ffn``'s ``dp_group``).
 """
 from __future__ import annotations
 
@@ -91,6 +102,7 @@ import torch
 from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
                                       ZAMBA_SUPER, ArchConfig)
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import copy_to, gather_last, reduce_from
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
 from repro_torch.models import xlstm as xl
@@ -209,17 +221,13 @@ def _init_moe(gen, cfg: ArchConfig, L: int, **kw) -> dict:
 # block forward
 # --------------------------------------------------------------------------
 
-def _all_reduce(x, group):
-    """Sum a row-parallel projection's partial outputs over the group."""
-    return x if group is None else group.all_reduce_sum(x)
-
-
 def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
                cache, block_table, page_size, group=None, attn_impl="flash"):
     """One layer's attention over the heads of ``p`` (all of them, or one
     rank's shard). Returns (out, new_cache)."""
     B, S, _ = x.shape
     dh = cfg.d_head
+    x = copy_to(x, group)
     if "wqkv" in p:
         H, KV = cfg.n_heads, cfg.n_kv_heads
         q, k, v = torch.split(x @ p["wqkv"].to(x.dtype),
@@ -291,15 +299,16 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
                                       start=start, window=window)
         new_cache = cache
     out = out.reshape(B, S, H * dh)
-    return _all_reduce(out @ p["wo"].to(x.dtype), group), new_cache
+    return reduce_from(out @ p["wo"].to(x.dtype), group), new_cache
 
 
 def _mlp(p, x, cfg: ArchConfig, group=None):
+    x = copy_to(x, group)
     if cfg.mlp_gated:
         y = swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
     else:
         y = gelu_mlp(x, p["w_in"], p["w_out"])
-    return _all_reduce(y, group)
+    return reduce_from(y, group)
 
 
 def _attn_mlp_block(p, x, cfg, norm_fn=rmsnorm, **kw):
@@ -312,7 +321,7 @@ def _attn_mlp_block(p, x, cfg, norm_fn=rmsnorm, **kw):
 
 
 def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
-                    **kw):
+                    dp_group=None, **kw):
     """Returns (x, new_cache, the layer's MoE aux loss)."""
     h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
                               cfg, **kw)
@@ -337,7 +346,7 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
                      capacity_factor=cfg.moe.capacity_factor,
                      gated=cfg.mlp_gated, router_fn=routing_hook,
                      positions=pos_flat, layer=layer_idx, valid=valid,
-                     group=kw["group"])
+                     group=kw["group"], dp_group=dp_group)
     return x + y.reshape(B, S, d), new_cache, aux
 
 
@@ -439,6 +448,9 @@ class Model:
     # the engine group of a tensor-parallel rank (params are then its
     # shard); None: the whole model on one device
     group: Optional[Any] = None
+    # training only: the data-parallel group (the batch is then the
+    # rank's rows); None: the whole batch
+    dp_group: Optional[Any] = None
     # training only: recompute each layer in the backward (JAX's
     # jax.checkpoint(nothing_saveable)); the JAX model's default
     remat: bool = True
@@ -502,11 +514,22 @@ class Model:
 
     def _embed(self, params, tokens):
         """Token ids through the table, or precomputed ``(B, S, d)``
-        embeddings (``embed_inputs=False``), in the compute dtype."""
+        embeddings (``embed_inputs=False``), in the compute dtype.  A rank
+        holding a shard of the table's rows looks up the ids in its rows,
+        zeros the others, and sums over the group: exact zeros and one
+        row, so every rank gets the same bits as the whole table."""
         dtype = torch_dtype(self.cfg.compute_dtype)
         if not self.cfg.embed_inputs:
             return tokens.to(dtype)
-        return params["embed"]["tok"].to(dtype)[tokens.long()]
+        table = params["embed"]["tok"].to(dtype)
+        ids = tokens.long()
+        n = table.shape[0]
+        if n == self.cfg.padded_vocab:
+            return table[ids]
+        local = ids - self.group.rank * n
+        outside = (local < 0) | (local >= n)
+        x = table[local.clamp(0, n - 1)].masked_fill(outside[..., None], 0)
+        return reduce_from(x, self.group)
 
     def _head(self, params, x):
         """Logits over the *padded* vocab; consumers slice [..., :vocab];
@@ -514,9 +537,12 @@ class Model:
         holding a vocab shard gathers the others'."""
         cfg = self.cfg
         w = params["head"]["w"]
+        split = w.shape[-1] != self._n_heads_out() * cfg.padded_vocab
+        if split:
+            x = copy_to(x, self.group)
         logits = x @ w.to(x.dtype)
-        if w.shape[-1] != self._n_heads_out() * cfg.padded_vocab:
-            logits = self.group.all_gather_last(logits)
+        if split:
+            logits = gather_last(logits, self.group)
         if cfg.n_codebooks:
             B, S, _ = logits.shape
             logits = logits.reshape(B, S, cfg.n_codebooks, cfg.padded_vocab)
@@ -543,7 +569,8 @@ class Model:
             return _attn_moe_block(p, x, cfg, window=None,
                                    layer_idx=moe_layer,
                                    routing_hook=self.routing_hook,
-                                   row_valid=row_valid, **kw)
+                                   row_valid=row_valid,
+                                   dp_group=self.dp_group, **kw)
         if st.kind == ATTN_MLP:
             x, nc = _attn_mlp_block(
                 p, x, cfg, window=self._window_for_layer(
@@ -623,7 +650,10 @@ class Model:
     def loss_fn(self, params, batch):
         """batch: {inputs, labels, (weights)} -> (total, metrics): the
         mean NLL over the padded vocab (averaged over codebook heads),
-        weighted, plus 0.01 times the MoE aux loss."""
+        weighted, plus 0.01 times the MoE aux loss.  Under ``dp_group`` the
+        mean is the whole batch's: the rank's weighted sum over the global
+        weight sum, summed over the group (its gradient stays the rank's
+        part); the metrics are the whole batch's."""
         labels = batch["labels"]
         logits, aux = self.forward(params, batch["inputs"])
         logp = torch.log_softmax(logits.float(), dim=-1)
@@ -635,10 +665,13 @@ class Model:
             weights = torch.ones(nll.shape, dtype=torch.float32,
                                  device=nll.device)
         weights = weights.float()
-        loss = (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+        num, den = (nll * weights).sum(), weights.sum()
+        if self.dp_group is not None:
+            num = reduce_from(num, self.dp_group)
+            den = self.dp_group.all_reduce_sum(den.detach().clone())
+        loss = num / torch.clamp(den, min=1.0)
         total = loss + 0.01 * aux
-        return total, {"loss": loss, "aux_loss": aux,
-                       "tokens": weights.sum()}
+        return total, {"loss": loss, "aux_loss": aux, "tokens": den}
 
     def prefill(self, params, tokens, *, lengths=None):
         """Returns (logits_last, cache). tokens: (B,S) ids or (B,S,d)

@@ -56,6 +56,9 @@ class Roofline:
     n_devices: int
     coll_moved: float = 0.0      # ring-factor-scaled per-device bytes
     hw: str = "h100"
+    # the result bytes by mesh axis, then by kind
+    coll_by_axis: Dict[str, Dict[str, float]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def t_compute(self) -> float:
@@ -95,7 +98,9 @@ def from_counter(counter, n_devices: int, hw: str = "h100") -> Roofline:
                     coll_bytes={k: int(v) for k, v in
                                 counter.coll_bytes.items()},
                     n_devices=n_devices, coll_moved=counter.coll_moved,
-                    hw=hw)
+                    hw=hw, coll_by_axis={
+                        a: {k: int(v) for k, v in d.items()}
+                        for a, d in counter.coll_by_axis.items()})
 
 
 def model_flops(cfg, shape) -> float:

@@ -26,9 +26,10 @@ walks the compiled HLO; eager PyTorch has no HLO, so :class:`Counter` is a
   are kept apart from the totals above; the call charges the kernel's own
   work from its work-count function and adds its launch.  On the meta
   device that launch is a prediction;
-* **collective bytes** by kind (``all-reduce``, ``all-gather``), the
-  result bytes as the analyzer records them, and the bytes each device
-  moves under the ring factors of ``analysis``.
+* **collective bytes** by kind (``all-reduce``, ``all-gather``) and by
+  mesh axis (``model``, ``data``, ``pod+data``: the group's), the result
+  bytes as the analyzer records them, and the bytes each device moves
+  under the ring factors of ``analysis`` at each group's size.
 
 :func:`trip_count` is the analyzer's ``known_trip_count``: it counts one
 iteration of a loop whose shapes do not change and charges it ``n``
@@ -118,6 +119,7 @@ class Counter(TorchDispatchMode):
         self.hbm_bytes = 0.0
         self.kernels: Dict[str, KernelTally] = {}
         self.coll_bytes: Dict[str, float] = {}
+        self.coll_by_axis: Dict[str, Dict[str, float]] = {}
         self.coll_moved = 0.0
         self.live = 0
         self.peak = 0
@@ -231,11 +233,14 @@ class Counter(TorchDispatchMode):
         k.flops += self._mult * flops
         k.bytes += self._mult * nbytes
 
-    def collective(self, kind: str, result_bytes: int, n: int) -> None:
-        """Record a collective's result bytes over a group of ``n``, and
-        what each device moves (``analysis.RING_FACTORS``)."""
+    def collective(self, kind: str, result_bytes: int, n: int,
+                   axis: str = "model") -> None:
+        """Record a collective's result bytes over a group of ``n`` along
+        ``axis``, and what each device moves (``analysis.RING_FACTORS``)."""
         self.coll_bytes[kind] = self.coll_bytes.get(kind, 0.0) \
             + self._mult * result_bytes
+        by = self.coll_by_axis.setdefault(axis, {})
+        by[kind] = by.get(kind, 0.0) + self._mult * result_bytes
         self.coll_moved += self._mult * result_bytes * ring_factor(kind, n)
 
     # ---- totals ----

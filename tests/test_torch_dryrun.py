@@ -503,9 +503,10 @@ def test_trip_count_equals_the_full_sltm_loop():
 
 @pytest.mark.parametrize("step", ["prefill", "decode"])
 def test_tp2_collectives_by_formula(step):
-    """Tiny llama at tp = 2 on meta, rank 0's shard: two all-reduces of
-    the hidden state a layer (attention and MLP outputs) and the head's
-    all-gather of the vocab shards."""
+    """Tiny llama at tp = 2 on meta, rank 0's shard: the embedding's
+    all-reduce of the rank's rows' lookup, two all-reduces of the hidden
+    state a layer (attention and MLP outputs) and the head's all-gather of
+    the vocab shards."""
     cfg = get_config("llama3.1-8b-tiny")
     model = Model(cfg, group=CountingGroup(0, 2), page_size=16)
     B, S = 2, 32
@@ -515,7 +516,8 @@ def test_tp2_collectives_by_formula(step):
     rows = B * (S if step == "prefill" else 1)
     L = sum(st.n_layers for st in cfg.stages)
     act = 2  # bf16 compute
-    assert c.coll_bytes == {"all-reduce": 2 * L * rows * cfg.d_model * act,
+    assert c.coll_bytes == {"all-reduce": (2 * L + 1) * rows * cfg.d_model
+                            * act,
                             "all-gather": B * cfg.padded_vocab * act}
     assert c.coll_moved == pytest.approx(
         2 * (2 - 1) / 2 * c.coll_bytes["all-reduce"]
@@ -524,14 +526,24 @@ def test_tp2_collectives_by_formula(step):
 
 
 def test_lower_cell_tp2_and_train_refusal():
+    """A tp = 2 decode (the embedding's all-reduce beside the layers'), a
+    train cell at tp = 2 (counted now: its gradients' model-axis sums and
+    the vocab gather), and what still refuses: a cell the port cannot
+    shard is ``unsupported`` with its reason, never an error."""
     rec = dryrun.lower_cell("llama3.1-8b", "decode_32k", tp=2)
     assert rec["status"] == "ok" and rec["mesh"] == [1, 2]
     assert rec["n_devices"] == 2
     assert rec["roofline"]["t_collective_s"] > 0
     assert rec["roofline"]["collective_bytes"]["all-reduce"] == \
-        2 * 32 * 128 * 4096 * 2
-    with pytest.raises(NotImplementedError, match="dp_axes"):
-        dryrun.lower_cell("llama3.1-8b", "train_4k", tp=2)
+        (2 * 32 + 1) * 128 * 4096 * 2
+    rec = dryrun.lower_cell("llama3.1-8b-tiny", "train_4k", tp=2,
+                            microbatches=8)
+    assert rec["status"] == "ok" and rec["mesh"] == [1, 2]
+    assert set(rec["collective_bytes_by_axis"]) == {"model"}
+    assert rec["collective_bytes_by_axis"]["model"]["all-gather"] > 0
+    rec = dryrun.lower_cell("starcoder2-7b", "train_4k", tp=16)
+    assert rec["status"] == "unsupported"
+    assert "36 query heads" in rec["reason"]
 
 
 # ---------------------------------------------------- plain attentions

@@ -361,9 +361,28 @@ def test_grad_compress_is_the_jax_round_trip(ties):
 
 
 def test_dp_axes_refuses():
+    """``dp_axes`` needs the rank's grid (``make_train_step(grid=)``) and
+    must name the grid's data-parallel axes; on a (2, 1) counting grid the
+    step runs (rank 0 on meta: its rows, the gradient summed over data).
+    ``tests/test_torch_grid.py`` holds the grids to the JAX package."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import counting_grid, grid_mesh
     tm = Model(get_config("llama3.1-8b-tiny"))
-    with pytest.raises(NotImplementedError, match="dp_axes"):
+    with pytest.raises(ValueError, match="dp_axes.*grid"):
         make_train_step(tm, AdamW(), TrainStepConfig(dp_axes=("data",)))
+    grid = counting_grid(grid_mesh(2, 1))
+    gm = Model(get_config("llama3.1-8b-tiny"), **grid.model_kw())
+    with pytest.raises(ValueError, match="dp_axes"):
+        make_train_step(gm, AdamW(), TrainStepConfig(dp_axes=("pod",)),
+                        grid=grid)
+    cfg = gm.cfg
+    inputs = specs.input_specs(cfg, ShapeCfg("t", 16, 4, "train"), gm,
+                               grid=grid)
+    assert inputs["batch"]["inputs"].shape == (2, 16)
+    c, _, (state, met) = dryrun.count_step(gm, "train", inputs, grid=grid)
+    assert set(c.coll_by_axis) == {"data"}
+    assert met["loss"].device.type == "meta"
 
 
 # ----------------------------------------------------------- checkpoints
