@@ -19,13 +19,15 @@ result line:
    shapes and at groups of 1 to 9 query heads per kv-head with decode
    splits and windows, paged extend at speculative verify's shape, B8 S5
    from ragged starts 1..2043 and from page edges, the grouped matmul's
-   gate/up and down at every capacity C of 1 to 40, phase 6's
+   gate/up and down at every capacity C of 1 to 40 and at the training
+   steps' C 320 (E16, and a rank's E8 of phase 10), phase 6's
    per-rank shapes at tp = 2: H16 KV4 (verify's B8 S5 too) and 8
    experts, and phase 7's
    zamba2-1.2b shapes, one query head per kv-head at head dim 64: flash
    at S 16 and 256, paged decode at B8 H32 KV32 over the ragged lengths,
    paged extend of 256 from start 293 across page edges); the flash
-   forward's log-sum-exp and the flash backward's dq, dk, dv at
+   forward's output and log-sum-exp and the flash backward's dq, dk, dv
+   at
    demo-110m's heads (S 128 and 1024), llama3.1-8b's (S 1024),
    musicgen-large's (G = 1), a window, ragged lengths, S 100, head dims
    16 and 32, and the edges of the 64-row tiles (S 65 and 129, a window
@@ -179,10 +181,11 @@ result line:
    gradient leaf nonzero on each rank, each rank's state bytes, kernel
    launches and collective result bytes by mesh axis equal to the dry
    run's meta count of that rank (step 0 counted), its peak allocation
-   within [0.9, 1.1] of the predicted peak (step 1), with step 1's time;
-   phases 2 and 3 hold and time the flash backward at the rank's B2 S1024
-   H16 KV4 dh128 and the grouped-matmul backward at E8 C320 (both
-   directions), their launches from this phase;
+   within [0.9, 1.1] of the predicted peak (step 1), and the median of
+   steps 1 to 5's times;
+   phases 2 and 3 hold and time the flash forward and backward at the
+   rank's B2 S1024 H16 KV4 dh128 and the grouped matmul and its backward
+   at E8 C320 (both directions), their launches from this phase;
 11. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
@@ -390,6 +393,11 @@ def gmm_cases():
     for d, f in ((4096, 960), (960, 4096)):
         for C in (1, 10, 40):
             yield 16 // TP, C, d, f, None
+    # the training forward at C = 320: phase 8's E16 and a rank's E8 of
+    # phase 10, gate/up and down
+    for E in (16, 16 // TP):
+        for d, f in ((4096, 960), (960, 4096)):
+            yield E, 320, d, f, None
 
 
 def gmm_bwd_cases():
@@ -490,11 +498,13 @@ def flash_bwd_cases():
 
 
 def flash_bwd_vs_plain(torch, ops, dev, worst):
-    """The forward's lse and the backward kernel's dq, dk, dv against
-    their plain versions on the same inputs (the kernel's own out and
-    lse), and two launches of each giving the same bits."""
+    """The forward's out and lse and the backward kernel's dq, dk, dv
+    against their plain versions on the same inputs (the backward's on the
+    kernel's own out and lse, so out is held here), and two launches of
+    each giving the same bits."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    print("phase 2: flash backward (dq, dk, dv) and the forward's lse vs "
+    print("phase 2: flash backward (dq, dk, dv) and the forward's out "
+          "and lse vs "
           "their plain versions (max abs err | tolerance, as above; rows "
           "an engine reads: lse and dout past a length are not compared "
           "and zero)")
@@ -513,8 +523,8 @@ def flash_bwd_vs_plain(torch, ops, dev, worst):
                                            return_lse=True)
             out2, lse2 = ops.flash_attention(q, k, v, lt, window,
                                              return_lse=True)
-            _, plse = ops.flash_attention_plain(q, k, v, lt, window,
-                                                return_lse=True)
+            pout, plse = ops.flash_attention_plain(q, k, v, lt, window,
+                                                   return_lse=True)
             got = ops.flash_attention_bwd(q, k, v, out, lse, do, lt, window)
             again = ops.flash_attention_bwd(q, k, v, out, lse, do, lt,
                                             window)
@@ -524,13 +534,18 @@ def flash_bwd_vs_plain(torch, ops, dev, worst):
                   f"flash_attention with lse {tag}: two launches differ")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"flash_attention_bwd {tag}: two launches differ")
-            ok, err_lse = True, 0.0
+            ok, err_lse, ok_out, err_out = True, 0.0, True, 0.0
             for b in range(B):
                 o, e = _close(torch, lse[b, :, :n[b]], plse[b, :, :n[b]],
                               dn)
                 ok, err_lse = ok and o, max(err_lse, e)
+                o, e = _close(torch, out[b, :n[b]], pout[b, :n[b]], dn)
+                ok_out, err_out = ok_out and o, max(err_out, e)
             check(ok, f"flash_attention lse disagrees with its plain "
                       f"version {tag}: {err_lse}")
+            # the plain backward takes the kernel's out, so it is held here
+            check(ok_out, f"flash_attention out disagrees with its plain "
+                          f"version {tag}: {err_out}")
             want = ops.flash_attention_bwd_plain(q, k, v, out, lse, do, lt,
                                                  window)
             errs = []
@@ -540,14 +555,15 @@ def flash_bwd_vs_plain(torch, ops, dev, worst):
                 check(o, f"flash_attention_bwd {name} disagrees with its "
                          f"plain version {tag}: {e}")
             worst["flash_attention"] = max(worst["flash_attention"],
-                                           err_lse)
+                                           err_lse, err_out)
             worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
                                                *errs)
             print(f"  flash_bwd {dn} B{B} S{S} H{H} KV{KV} dh{dh} "
                   f"len{tuple(n)} win{window}: dq {errs[0]:.3g} dk "
-                  f"{errs[1]:.3g} dv {errs[2]:.3g}, lse {err_lse:.3g} | "
+                  f"{errs[1]:.3g} dv {errs[2]:.3g}, lse {err_lse:.3g}, "
+                  f"out {err_out:.3g} | "
                   f"{TOL[dn]}")
-            del q, k, v, do, out, lse, got, again, want
+            del q, k, v, do, out, lse, pout, got, again, want
         torch.cuda.empty_cache()
 
 
@@ -3217,15 +3233,15 @@ GRID_B, GRID_S = 2, 1024
 GRID_TINY = tuple((arch, grid, zero1) for arch in TINY_ARCHS
                   for grid, zero1 in (((1, 2), False), ((2, 1), True)))
 GRID_STEPS = 2
+#: phase 10 (b)'s uncounted steps, timed one by one: the first measures
+#: the peak, the median of all is the step p50
+GRID_TIMED = 5
 
 
 def _grid_step(grid, model, zero1, microbatches=1):
-    from repro_torch.launch.mesh import dp_axes
     from repro_torch.train import AdamW, TrainStepConfig, make_train_step
     return make_train_step(model, AdamW(lr=TINY_TRAIN_LR), TrainStepConfig(
-        microbatches=microbatches,
-        dp_axes=dp_axes(grid.mesh) if grid.dp_size > 1 else ()),
-        grid=grid, zero1=zero1)
+        microbatches=microbatches), grid=grid, zero1=zero1)
 
 
 def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1):
@@ -3256,9 +3272,10 @@ def _grid_full_rank(torch, grid, arch, zero1):
     compute, f32 params, B2 S1024 from one seeded draw on every rank.  The
     dry run counts this rank's step on meta first (``counting_grid`` at
     the rank's coordinates); then tp = 1's loss on the whole batch and the
-    same weights, and two steps: the first under the counter (launches,
-    collective bytes by axis), the second timed with the peak allocation
-    measured as phase 9 measures it."""
+    same weights, then steps: the first under the counter (launches,
+    collective bytes by axis), then ``GRID_TIMED`` uncounted ones, each
+    timed, the first with the peak allocation measured as phase 9
+    measures it; the step time is their median."""
     from repro_torch.configs import ShapeCfg, get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, specs
@@ -3313,13 +3330,19 @@ def _grid_full_rank(torch, grid, arch, zero1):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, m1 = dryrun.run_step(model, "train", inputs, grid=grid,
-                                zero1=zero1)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    peak = torch.cuda.max_memory_allocated() - base + want_args
-    all_launches = ops.launch_counts()
+    times = []
+    for i in range(GRID_TIMED):
+        t0 = time.perf_counter()
+        state, m = dryrun.run_step(model, "train", inputs, grid=grid,
+                                   zero1=zero1)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        inputs = {"state": state, "batch": mine}
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() - base + want_args
+            m1 = m
+            # the path's launches: the counted step and one more
+            all_launches = ops.launch_counts()
     out = {"coords": dict(grid.coords), "meta_s": meta_s,
            "state": (got_state, want_state),
            "launches": (launches, {k: v for k, v in mc.launches().items()
@@ -3327,7 +3350,8 @@ def _grid_full_rank(torch, grid, arch, zero1):
            "collectives": (cc.coll_by_axis, mc.coll_by_axis),
            "peak": (peak, mem["peak_bytes"]), "nonzero": nonzero,
            "losses": (loss0, float(m1["loss"])), "ref_loss": ref_loss,
-           "step_ms": step_ms, "path_launches": all_launches}
+           "step_ms": statistics.median(times),
+           "step_ms_all": times, "path_launches": all_launches}
     del state, inputs, mine, batch, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3457,9 +3481,10 @@ def grid_training_on_card(torch, card):
                   f"{pk / 2 ** 30:.3f} GiB, predicted {wp / 2 ** 30:.3f} "
                   f"GiB, ratio {ratio:.4f}; losses {l0:.4f}, {l1:.4f}, "
                   f"step 0 against tp = 1's {ref:.4f} on the same weights; "
-                  f"step time (the uncounted step, so its p50) "
-                  f"{o['step_ms']:.1f} ms, two ranks sharing one card over "
-                  f"gloo: not a parallel speed")
+                  f"step p50 {o['step_ms']:.1f} ms (median of "
+                  f"{len(o['step_ms_all'])} uncounted steps: "
+                  f"{[round(t, 1) for t in o['step_ms_all']]}), two ranks "
+                  f"sharing one card over gloo: not a parallel speed")
             check(gs == ws, f"{where}: state {gs} bytes, {ws} predicted")
             check(gl == wl, f"{where}: launched {gl}, predicted {wl}")
             check(gc_ == wc, f"{where}: collective bytes {gc_}, predicted "

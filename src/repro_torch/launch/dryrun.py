@@ -77,11 +77,8 @@ def run_step(model: Model, step: str, inputs: dict, *,
     "params", "cache" and "tokens"); returns its outputs.  ``grid``: the
     rank's grid of a train step (``make_train_step``'s)."""
     if step == "train":
-        from repro_torch.launch.mesh import dp_axes
-        dpa = () if grid is None or grid.dp_size == 1 else \
-            dp_axes(grid.mesh)
         fn = make_train_step(model, AdamW(), TrainStepConfig(
-            microbatches=microbatches, dp_axes=dpa), grid=grid, zero1=zero1)
+            microbatches=microbatches), grid=grid, zero1=zero1)
         return fn(inputs["state"], inputs["batch"])
     with torch.no_grad():
         if step == "prefill":

@@ -90,11 +90,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def grid_mesh(dp: int, tp: int, pods: int = 1) -> MeshShape:
-    """The (data, model) mesh of a dp × tp grid, or (pod, data, model)
-    with ``pods`` above 1 (``dp`` is then the data extent of one pod)."""
-    if pods > 1:
-        return MeshShape(("pod", "data", "model"), (pods, dp, tp))
+def grid_mesh(dp: int, tp: int) -> MeshShape:
+    """The (data, model) mesh of a dp × tp grid."""
     return MeshShape(("data", "model"), (dp, tp))
 
 
@@ -474,19 +471,21 @@ def _rank_main(rank: int, fn: Callable, n: int, mesh, payload,
 
 
 def run_ranks(fn: Callable, tp: int, payload=None, *, dp: Optional[int] = None,
-              pods: int = 1, device: str = "cuda",
+              device: str = "cuda",
               devices: Optional[Sequence[str]] = None,
               timeout_s: float = 900.0) -> list:
     """Spawn the ranks, run ``fn(group, payload)`` in each and return
     their results in rank order.  With ``dp=None``: ``tp`` ranks of one
-    engine group (an :class:`EngineGroup`).  With ``dp``: ``pods · dp ·
-    tp`` ranks of a grid (a :class:`RankGrid` of :func:`grid_mesh`).
+    engine group (an :class:`EngineGroup`).  With ``dp``: ``dp · tp``
+    ranks of a grid (a :class:`RankGrid` of :func:`grid_mesh`; another
+    mesh of as many ranks, a (pod, data, model) one, through
+    :func:`grid_on_world`).
     ``fn`` must be importable by name (a module-level function) and
     ``payload`` picklable.  A rank that raises ends the others and raises
     here with its traceback; past ``timeout_s`` every rank is ended and
     ``TimeoutError`` raised."""
     import torch.multiprocessing as mp
-    mesh = None if dp is None else grid_mesh(dp, tp, pods)
+    mesh = None if dp is None else grid_mesh(dp, tp)
     n = tp if mesh is None else mesh.size
     work = tempfile.mkdtemp(prefix="engine-group-")
     ctx = None

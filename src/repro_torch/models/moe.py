@@ -35,11 +35,15 @@ computes only its own kept entries.  The Switch aux loss takes the global
 mean probability and routed fraction.
 
 The JAX dispatch buffer is ``(E, C + 1, d)`` with an overflow slot per
-expert that dropped entries all write to ``(0, C)``; here it is
-``(E * C + 1, d)`` with the one overflow row at the end, so the first
-``E * C`` rows are the contiguous ``(E, C, d)`` input the kernel takes.
-Dropped entries read back row ``C - 1`` of expert 0 with weight 0, as in
-JAX, so they add exactly 0.
+expert that dropped entries all write to ``(0, C)``.  Here each expert
+holds ``n = min(C, T)`` rows, T the rank's tokens (C under a routing
+hook): the router gives an expert at most one entry a token, so a rank
+keeps at most ``min(room, count) <= n`` of them (under data parallelism C
+is the whole batch's and can be many times T).  The buffer is ``(E * n + 1, d)`` with the one overflow row at the
+end, so the first ``E * n`` rows are the contiguous ``(E, n, d)`` input the
+kernel takes, and a kept entry's row is its rank-local position, the same
+whatever n.  Dropped entries read back row ``n - 1`` of expert 0 with
+weight 0, as JAX's read a clamped row, so they add exactly 0.
 """
 from __future__ import annotations
 
@@ -184,12 +188,16 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
         slot = pos_in_e + offset[s_sorted]
         room = torch.clamp(C - offset[:E_loc], min=0)
     keep = (slot < C) & (s_sorted < E_loc)                  # capacity drop
-    # flat buffer row: expert * C + slot, the overflow row E_loc * C
-    dst = torch.where(keep, e_sorted * C + pos_in_e,
-                      torch.full_like(pos_in_e, E_loc * C))
-    buf = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=x.device)
+    # the rows an expert holds here: a kept entry's pos_in_e is below C and,
+    # the router's top-k being distinct experts, below T (a hook's routing
+    # may repeat an expert within a token: C then)
+    n = min(C, T) if router_fn is None else C
+    # flat buffer row: expert * n + pos_in_e, the overflow row E_loc * n
+    dst = torch.where(keep, e_sorted * n + pos_in_e,
+                      torch.full_like(pos_in_e, E_loc * n))
+    buf = torch.zeros((E_loc * n + 1, d), dtype=x.dtype, device=x.device)
     buf[dst] = xd[tok_of]
-    hidden_in = buf[:E_loc * C].view(E_loc, C, d)
+    hidden_in = buf[:E_loc * n].view(E_loc, n, d)
 
     # --- grouped expert FFN: three launches of the grouped matmul -----------
     # valid rows per expert buffer; rows >= size come out 0 either way.  The
@@ -208,9 +216,9 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     out_e = grouped_matmul(h, params["w_down"].to(x.dtype), group_sizes)
 
     # --- combine: gather back and weight ------------------------------------
-    # dropped entries read expert 0's row C - 1 (JAX's clamp of slot C)
-    src = torch.where(keep, dst, torch.full_like(dst, C - 1))
-    gathered = out_e.reshape(E_loc * C, d)[src]             # (T*k, d)
+    # dropped entries read expert 0's row n - 1 (JAX's clamp of slot C)
+    src = torch.where(keep, dst, torch.full_like(dst, n - 1))
+    gathered = out_e.reshape(E_loc * n, d)[src]             # (T*k, d)
     w = (combine_w.reshape(-1)[order] * keep).to(x.dtype)
     contrib = gathered * w[:, None]
     # sorted-order adds onto zeros: with top-2 each row takes exactly two

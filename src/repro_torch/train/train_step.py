@@ -13,10 +13,12 @@ On a rank grid (``grid``, a ``repro_torch.launch.mesh.RankGrid``; the
 model built with ``grid.model_kw()`` and the params, state and batch the
 rank's: ``rank_state``, ``sharding.shard_batch``):
 
-* ``dp_axes`` names the grid's data-parallel axes, as JAX's does its
-  mesh's (``("data",)``, or ``("pod", "data")``); the batch is the rank's
-  rows, laid out so that microbatch i is the rank's slice of global
-  microbatch i (JAX's reshape to ``(mb, B/mb)`` sharded on dim 1);
+* the grid decides data parallelism (``grid.dp_size``); the batch is the
+  rank's rows, laid out so that microbatch i is the rank's slice of global
+  microbatch i (JAX's reshape to ``(mb, B/mb)`` sharded on dim 1).
+  ``TrainStepConfig.dp_axes`` may be left empty; it is kept so that a JAX
+  config carries over, and when given must name the grid's data-parallel
+  axes (``("data",)``, or ``("pod", "data")``);
 * each microbatch's loss is the global weighted mean and its metrics are
   global (``Model.loss_fn``); each rank's gradient is its part of the
   global loss's, so after the microbatches the gradients are summed over
@@ -53,7 +55,8 @@ class TrainState(NamedTuple):
 class TrainStepConfig:
     microbatches: int = 1          # grad accumulation steps per train step
     grad_compress: bool = False    # int8 quantized gradient representation
-    # the data-parallel axes of the rank grid (JAX: of the mesh)
+    # JAX's data-parallel mesh axes; on a rank grid the grid decides, and
+    # a non-empty value must name its axes (checked, else unused)
     dp_axes: tuple = ()
 
 

@@ -2,7 +2,10 @@
 JAX package's single-device step.
 
 ``repro_torch.launch.mesh.run_ranks`` spawns each grid once for the
-module, (2, 1), (1, 2) and (2, 2) (data, model), and every rank trains
+module, (2, 1), (1, 2) and (2, 2) (data, model), and the (2, 1) spawn also
+makes the (2, 1, 1) (pod, data, model) grid over its world
+(``grid_on_world``: pod folds into data parallelism, and ZeRO-1 splits
+over data only, which has one rank there), and every rank trains
 each case of its grid for two steps from the same numpy params and batches
 as the JAX package's ``make_train_step`` on one device and the whole batch
 (f32, norms and biases perturbed so no zero-init term hides).  Against it,
@@ -19,8 +22,12 @@ data-parallel rank's equal.  The cases:
   decide which;
 * one KV head shared by both ranks at (1, 2), with ``qk_norm`` and QKV
   biases (their gradients summed over the ranks);
+* phimini-moe-tiny at (2, 1) at its own capacity factor, where the whole
+  batch's capacity is past a rank's tokens (each expert's rows a rank:
+  the rank's tokens);
 * two microbatches at dp = 2 with loss weights uneven across the ranks;
-  ``grad_compress`` at dp = 2.
+  ``grad_compress`` at dp = 2;
+* llama3.1-8b-tiny at (2, 1, 1), ZeRO-1 off and on.
 
 Without a spawn: each rank's state leaf shapes at the JAX study's 16×16 and
 2×16×16 meshes for every supported assigned arch against JAX's
@@ -66,10 +73,12 @@ CASES = {
 }
 GRIDS = {
     (2, 1): ("llama", "llama-zero1", "llama-mb2", "llama-compress",
-             "moe-drop"),
+             "moe-drop", "moe-ep"),
     (1, 2): ("llama", "llama-zero1", "moe-ep", "moe-e3", "llama-kv1"),
     (2, 2): ("llama", "llama-zero1"),
 }
+#: (pod, data, model), trained in the (2, 1) spawn
+POD_GRID, POD_CASES = (2, 1, 1), ("llama", "llama-zero1")
 
 
 def _cfg(get, name):
@@ -110,7 +119,21 @@ def _batches(cfg, uneven, seed=10):
 
 
 def _grid_rank(grid, job):
-    """One rank: every case of its grid, two steps each."""
+    """One rank: every case of its grid, two steps each; then, if the job
+    names them, the pod grid's cases over the same world."""
+    from repro_torch.launch.mesh import MeshShape, grid_on_world
+    out = {"coords": grid.coords, "cases": _train_cases(grid, job,
+                                                         job["cases"])}
+    if job.get("pod"):
+        pod = grid_on_world(MeshShape(("pod", "data", "model"), POD_GRID),
+                            grid.rank, grid.device, grid.backend)
+        assert pod.dp.axis == "pod+data" and pod.dp_size == 2
+        out["pod"] = {"coords": pod.coords,
+                      "cases": _train_cases(pod, job, job["pod"])}
+    return out
+
+
+def _train_cases(grid, job, names):
     from repro_torch.configs import get_config as get
     from repro_torch.convert import params_from_numpy
     from repro_torch.launch.mesh import dp_axes
@@ -118,16 +141,16 @@ def _grid_rank(grid, job):
     from repro_torch.train import AdamW, TrainStepConfig, make_train_step
     from repro_torch.train.train_step import rank_state
     out = {}
-    for name in job["cases"]:
+    for name in names:
         cfg = _cfg(get, name)
         _, _, step_kw, zero1, _ = CASES[name]
         model = Model(cfg, **grid.model_kw())
         opt = AdamW(lr=LR)
         full = params_from_numpy(job["params"][name])
         state = rank_state(model, opt, full, grid, zero1)
+        # JAX's config form: the grid's data-parallel axes named
         step = make_train_step(model, opt, TrainStepConfig(
-            dp_axes=dp_axes(grid.mesh) if grid.dp_size > 1 else (),
-            **step_kw), grid=grid, zero1=zero1)
+            dp_axes=dp_axes(grid.mesh), **step_kw), grid=grid, zero1=zero1)
         mets = []
         for batch in job["batches"][name]:
             mine = shard_batch({k: torch.from_numpy(v)
@@ -143,7 +166,7 @@ def _grid_rank(grid, job):
                                     leaves(state.params))},
                      "mu_shapes": [tuple(t.shape)
                                    for t in leaves(state.opt.mu)]}
-    return {"coords": grid.coords, "cases": out}
+    return out
 
 
 def _jax_run(name):
@@ -183,6 +206,8 @@ def _spawn(grid, jax_runs):
     job = {"cases": names,
            "params": {n: jax_runs[n][0] for n in names},
            "batches": {n: jax_runs[n][1] for n in names}}
+    if grid == (2, 1):
+        job["pod"] = POD_CASES
     dp, tp = grid
     return run_ranks(_grid_rank, tp, job, dp=dp, device="cpu",
                      timeout_s=300)
@@ -286,6 +311,53 @@ def test_zero1_params_bitwise_and_moments_split(grid, request, jax_runs):
     assert any(split) == (dp > 1)
     for a, b in zip(shapes_on, shapes_off):
         assert int(np.prod(a)) * (dp if a != b else 1) == int(np.prod(b))
+
+
+@pytest.mark.parametrize("name", POD_CASES)
+def test_pod_grid_matches_jax(grid21, jax_runs, name):
+    """(2, 1, 1) (pod, data, model): the gradient's group is pod and data
+    folded, and matches JAX's one-device step as (2, 1) does."""
+    pods = [r["pod"] for r in grid21]
+    assert [r["coords"] for r in pods] == [
+        {"pod": p, "data": 0, "model": 0} for p in range(2)]
+    _check(pods, (2, 1), name, jax_runs)
+
+
+def test_pod_grid_zero1_splits_over_data_only(grid21):
+    """JAX's ZeRO-1 rule shards the moments over ``data``, never over
+    ``pod``: with one data rank a pod, ZeRO-1 splits nothing and leaves the
+    params bitwise those without it."""
+    pods = [r["pod"] for r in grid21]
+    on = _gathered(pods, "llama-zero1", 2, 1)
+    off = _gathered(pods, "llama", 2, 1)
+    for a, b in zip(on[0], off[0]):
+        np.testing.assert_array_equal(a, b)
+    assert pods[0]["cases"]["llama-zero1"]["mu_shapes"] == \
+        pods[0]["cases"]["llama"]["mu_shapes"]
+
+
+def test_moe_expert_rows_a_rank_under_dp():
+    """Under data parallelism each expert holds min(C, T) rows a rank, C
+    the whole batch's capacity and T the rank's tokens: at (4, 1) on meta
+    phimini-moe-tiny's capacity is past a rank's 16 tokens, and every
+    grouped-matmul launch is charged for E * 16 rows (the (2, 1) ``moe-ep``
+    case checks the values against JAX)."""
+    from repro_torch.core.expert import expert_capacity
+    cfg = get_config("phimini-moe-tiny")
+    m = cfg.moe
+    grid = counting_grid(grid_mesh(4, 1))
+    model = Model(cfg, **grid.model_kw())
+    inputs = specs.input_specs(cfg, ShapeCfg("t", S, B, "train"), model,
+                               grid=grid)
+    c, _, _ = dryrun.count_step(model, "train", inputs, grid=grid)
+    T = (B // 4) * S
+    C = expert_capacity(B * S, m.top_k, m.n_experts, m.capacity_factor)
+    assert C > T
+    k = c.kernels["moe_gmm"]
+    assert k.launches > 0
+    assert k.flops == k.launches * 2 * m.n_experts * T * cfg.d_model \
+        * m.d_expert
+    assert C > (B // 2) * S          # so it binds at (2, 1) too
 
 
 def test_moe_drops_entries_at_dp2(jax_runs, monkeypatch):
