@@ -186,7 +186,28 @@ result line:
    phases 2 and 3 hold and time the flash forward and backward at the
    rank's B2 S1024 H16 KV4 dh128 and the grouped matmul and its backward
    at E8 C320 (both directions), their launches from this phase;
-11. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+11. query heads that do not divide tp (GSPMD's padded layout, each rank's
+   KV heads as KV slots of one group size): one spawn of three ranks and
+   one of four share the card over gloo (a check of the sharded path and
+   its memory, no time of it a parallel speed); (a) tiny f32 starcoder2
+   variants, 36 query and 4 KV heads at tp = 3 (slots repeat: rank 0's
+   [0, 0, 0, 1]) and 6 and 2 at tp = 4 (rank 3 holds no query head):
+   prefill and decode logits within 1e-5 of the CPU's tp = 1, a serve's
+   tokens and decisions equal to the CPU's tp = 1 and the port
+   simulator's at tp, at tp = 3 P/D 3 -> 1 and 1 -> 3 equal to the CPU's
+   P/D (tokens, decisions, handoff bytes) and the simulator, two AdamW
+   steps on a (1, 3) and a (1, 4) grid equal to the CPU's one process,
+   each rank's launches in a counted step equal to its meta count (the
+   empty rank launches no attention kernel); (b) starcoder2-7b at
+   published widths cut to 2 layers, bf16, tp = 3: 8 requests served
+   (every arrival at 0) with the simulator's decisions at tp = 3 and each
+   rank's resident and peak memory printed, and a (1, 3) train step at
+   B2 S1024 held as phase 10 (b)'s; phases 2 and 3 hold the attention
+   kernels at the rank shapes (H12 on 4 and on 2 KV slots at tp = 3; H3
+   on 1 and 3, H2 on 1 and 2 at tp = 16), check that H = 0 launches
+   nothing, and time flash, paged decode and extend and the flash
+   backward at tp = 3's two rank shapes, their launches from this phase;
+12. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -312,6 +333,15 @@ def _close(torch, got, want, dtype_name):
     return ok, float(err.max()) if err.numel() else 0.0
 
 
+#: a rank's (query heads, KV slots, head dim) where the query heads do not
+#: divide tp (phase 11): starcoder2-7b at tp = 3, rank 0 (12 heads on 4
+#: slots, G 3) and rank 1 (12 on 2, G 6); at tp = 16 starcoder2-7b's 3
+#: heads on one KV head, qwen1.5-32b's 3 (MHA), granite-moe-3b's 2 on
+#: one and on two KV heads (head dim 64)
+HEADS_RANKS = ((12, 4, 128), (12, 2, 128), (3, 1, 128), (3, 3, 128),
+               (2, 1, 64), (2, 2, 64))
+
+
 def flash_cases():
     # (B, S, H, KV, dh, lengths, window)
     yield 2, 64, 8, 2, 32, (64, 29), None          # test_kernel_backends
@@ -325,6 +355,9 @@ def flash_cases():
         yield 1, S, 32 // TP, 8 // TP, 128, (S - S // 4 - 1,), None
     for S, n in ((256, 256), (256, 219), (16, 16)):  # zamba2: G = 1, dh 64
         yield 1, S, 32, 32, 64, (n,), None
+    for H, KV, dh in HEADS_RANKS:                 # phase 11's rank shapes
+        for S in (16, 256):
+            yield 1, S, H, KV, dh, (S - S // 4 - 1,), None
 
 
 #: the verify shape's starts (no page edge) and a batch on page edges
@@ -374,6 +407,11 @@ def paged_cases():
            (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
     yield 1, 256, 32, 32, 64, 64, 32, (293,), (293 + 256,), None
     yield 1, 256, 32, 32, 64, 64, 32, (293,), (293 + 200,), None
+    # phase 11's rank shapes: the serve's decode and a chunk's extend
+    for H, KV, dh in HEADS_RANKS:
+        yield (8, None, H, KV, dh, 64, 32, None,
+               (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
+        yield 1, 256, H, KV, dh, 64, 32, (293,), (293 + 200,), None
 
 
 def gmm_cases():
@@ -483,6 +521,8 @@ def flash_bwd_cases():
     yield 2, 1024, 12, 4, 64, None, None
     yield 1, 1024, 32, 8, 128, None, None
     yield 2, 1024, 16, 4, 128, None, None     # a rank's at tp = 2 (phase 10)
+    for H, KV, dh in HEADS_RANKS:             # phase 11's rank shapes
+        yield 2, 1024 if H == 12 else 256, H, KV, dh, None, None
     yield 2, 256, 32, 32, 64, None, None
     yield 2, 512, 12, 4, 64, None, 100
     yield 3, 256, 12, 4, 64, (256, 131, 17), 64
@@ -667,7 +707,38 @@ def kernels_vs_plain(torch, ops, dev):
                                 f"rows past a group 0: {zeros}")
     flash_bwd_vs_plain(torch, ops, dev, worst)
     gmm_bwd_vs_plain(torch, ops, dev, worst)
+    no_heads(torch, ops, dev)
     return worst
+
+
+def no_heads(torch, ops, dev):
+    """A rank with no query head (phase 11's tp = 4 and the JAX study's
+    tp = 16 past the padded heads) calls the attention wrappers at H = 0:
+    each returns an empty output of its shape on the card and launches
+    nothing."""
+    bf = torch.bfloat16
+    ops.reset_launch_counts()
+    q = torch.empty((2, 64, 0, 128), dtype=bf, device=dev)
+    kv = torch.empty((2, 64, 0, 128), dtype=bf, device=dev)
+    lt = torch.tensor([64, 30], dtype=torch.int32, device=dev)
+    out, lse = ops.flash_attention(q, kv, kv, lt, return_lse=True)
+    grads = ops.flash_attention_bwd(q, kv, kv, out, lse, out, lt)
+    pages = torch.empty((9, 64, 0, 128), dtype=bf, device=dev)
+    table = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+    dec = ops.paged_attention(q[:, 0], pages, pages, table, lt,
+                              page_size=64)
+    ext = ops.paged_attention(q, pages, pages, table, lt + 64,
+                              page_size=64, start=lt)
+    torch.cuda.synchronize()
+    shapes = [tuple(t.shape) for t in (out, lse, *grads, dec, ext)]
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    check(shapes == [(2, 64, 0, 128), (2, 0, 64), (2, 64, 0, 128),
+                     (2, 64, 0, 128), (2, 64, 0, 128), (2, 0, 128),
+                     (2, 64, 0, 128)] and not launched,
+          f"H = 0: outputs {shapes}, launches {launched}")
+    print(f"phase 2: H = 0 (a rank without query heads): flash, its "
+          f"backward, paged decode and extend return empty outputs "
+          f"{shapes} and launch nothing")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -991,6 +1062,59 @@ def timings(torch, ops, dev):
         kernel="paged_attention_extend", path=ZAMBA_PATH,
         shape=f"B1 S{S} start{start} H{Hz} KV{KVz} dh{dz} ps{ps} bf16",
         bound=bound(work))
+    # starcoder2-7b's ranks 0 and 1 at tp = 3 (phase 11 (b)'s serve): 12
+    # query heads on 4 KV slots (G 3) and on 2 (G 6); the chunk, decode
+    # and extend shapes of llama's rows, their own generator; launches
+    # from phase 11's serve (rank 0's)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    S = 256
+    for H3, KV3 in ((12, 4), (12, 2)):
+        tag = "_tp3" + ("" if KV3 == 4 else "_g6")
+        q = _rand(torch, gen, (1, S, H3, dh), bf, dev)
+        k = _rand(torch, gen, (1, S, KV3, dh), bf, dev)
+        v = _rand(torch, gen, (1, S, KV3, dh), bf, dev)
+        lt = torch.tensor([S], dtype=torch.int32, device=dev)
+        work = ops.flash_attention_work(1, S, H3, KV3, dh, 2,
+                                        ops.causal_pairs(S, [S], None))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        out["flash_attention" + tag] = measure(
+            lambda: ops.flash_attention(q, k, v, lt),
+            lambda: ops.flash_attention_plain(q, k, v, lt),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            kernel="flash_attention", path=HEADS_SERVE_PATH,
+            shape=f"B1 S{S} H{H3} KV{KV3} dh{dh} bf16",
+            bound=bound(work))
+        kp3 = _rand(torch, gen, (P, ps, KV3, dh), bf, dev)
+        vp3 = _rand(torch, gen, (P, ps, KV3, dh), bf, dev)
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qd = _rand(torch, gen, (B, H3, dh), bf, dev)
+        out["paged_attention_decode" + tag] = measure(
+            lambda: ops.paged_attention(qd, kp3, vp3, table, lt,
+                                        page_size=ps),
+            lambda: ops.paged_attention_plain(qd, kp3, vp3, table, lt,
+                                              page_size=ps),
+            lambda: paged_library(qd[:, None], kp3, vp3, table, lt, lt - 1),
+            kernel="paged_attention_decode", path=HEADS_SERVE_PATH,
+            shape=f"B{B} H{H3} KV{KV3} dh{dh} ps{ps} len{lens} bf16",
+            bound=bound(ops.paged_decode_work(B, H3, KV3, dh, 2,
+                                              table.numel(), kv_rows)))
+        start = 293
+        qe = _rand(torch, gen, (1, S, H3, dh), bf, dev)
+        st = torch.tensor([start], dtype=torch.int32, device=dev)
+        lt = st + S
+        rows, pairs = ops.paged_work([start], S, [start + S], None)
+        work = ops.paged_extend_work(1, S, H3, KV3, dh, 2, maxp, rows,
+                                     pairs)
+        out["paged_attention_extend" + tag] = measure(
+            lambda: ops.paged_attention(qe, kp3, vp3, table[:1], lt,
+                                        page_size=ps, start=st),
+            lambda: ops.paged_attention_plain(qe, kp3, vp3, table[:1], lt,
+                                              page_size=ps, start=st),
+            lambda: paged_library(qe, kp3, vp3, table[:1], lt, st),
+            kernel="paged_attention_extend", path=HEADS_SERVE_PATH,
+            shape=f"B1 S{S} start{start} H{H3} KV{KV3} dh{dh} ps{ps} bf16",
+            bound=bound(work))
     out.update(flash_bwd_timings(torch, ops, dev, measure))
     out.update(gmm_train_timings(torch, ops, dev, measure))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
@@ -1016,8 +1140,9 @@ TRAIN_MOE_PATH = "train phimini-moe (2 layers)"
 
 def flash_bwd_timings(torch, ops, dev, measure):
     """The flash backward at demo-110m's training step (B8 S1024 H12 KV4
-    dh64), llama3.1-8b's (B2 S1024 H32 KV8 dh128) and a rank's of it at tp
-    = 2 (H16 KV4, phase 10's grid), bf16, beside its
+    dh64), llama3.1-8b's (B2 S1024 H32 KV8 dh128), a rank's of it at tp
+    = 2 (H16 KV4, phase 10's grid) and starcoder2-7b's ranks 0 and 1 at
+    tp = 3 (H12 on 4 KV slots and on 2, phase 11's grid), bf16, beside its
     plain version and autograd through SDPA with K/V expanded to every
     query head (the library call; the port never makes it).
 
@@ -1038,7 +1163,11 @@ def flash_bwd_timings(torch, ops, dev, measure):
             ("flash_attention_bwd_llama", 2, 1024, 32, 8, 128,
              TRAIN_LLAMA_PATH),
             ("flash_attention_bwd_tp2", 2, 1024, 16, 4, 128,
-             GRID_LLAMA_PATH)):
+             GRID_LLAMA_PATH),
+            ("flash_attention_bwd_tp3", 2, 1024, 12, 4, 128,
+             HEADS_TRAIN_PATH),
+            ("flash_attention_bwd_tp3_g6", 2, 1024, 12, 2, 128,
+             HEADS_TRAIN_PATH)):
         q = _rand(torch, gen, (B, S, H, dh), bf, dev)
         k = _rand(torch, gen, (B, S, KV, dh), bf, dev)
         v = _rand(torch, gen, (B, S, KV, dh), bf, dev)
@@ -1939,7 +2068,8 @@ def _three_tiers(instances):
         inst.mem.host.capacity = inst.mem.bytes_per_block
 
 
-def _tiny_technique(cfg, params, draft, dev, technique, group=None):
+def _tiny_technique(cfg, params, draft, dev, technique, group=None,
+                    pd_tp=None):
     """Tiny f32 llama serving one technique on ``dev`` (``group``: the
     rank's engine group, or None for tp = 1): "pd", a prefill and a
     decode engine sharing the weights, at batches of one (the decisions
@@ -1948,6 +2078,7 @@ def _tiny_technique(cfg, params, draft, dev, technique, group=None):
     shared-prefix workload through ``_three_tiers``; "spec", k = 3 with
     an unrelated draft (``draft``: its params) replaying one acceptance
     trace.  Every arrival at 0 (the prefix workload's phases far apart).
+    ``pd_tp``: P/D at these (prefill, decode) tp instead (phase 11).
     Returns what phase 6 holds tp = 2 to tp = 1 and the simulator on."""
     from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
@@ -1956,8 +2087,8 @@ def _tiny_technique(cfg, params, draft, dev, technique, group=None):
     sched = dict(max_batch_size=2, max_batch_tokens=64,
                  chunked_prefill=True, prefill_chunk=16)
     reqs, pd_map = _tiny_requests(cfg.vocab), None
-    if technique in PD_TP:
-        ptp, dtp = PD_TP[technique]
+    if technique in PD_TP or pd_tp is not None:
+        ptp, dtp = pd_tp or PD_TP[technique]
         engines = [ServingEngine(cfg, params, name="p0", role="prefill",
                                  **kw, **ranks_kw(group, ptp)),
                    ServingEngine(cfg, params, name="d0", role="decode",
@@ -2250,14 +2381,14 @@ def _tiny_techniques_check(ranks, refs, cfg, by_path):
               f"{json.dumps(r0['launches'])}")
 
 
-def _sim_decisions(icfgs, reqs, pd_map=None, tiers=False):
-    """The port simulator at the InstanceCfgs' tp (2, or 1 for the tp = 1
-    engine of a P/D pair of different tp) on ``reqs``, its prefix caches
-    held to ``_three_tiers`` when ``tiers``: (its metrics, its decisions
-    by instance)."""
+def _sim_decisions(icfgs, reqs, pd_map=None, tiers=False, tp=TP):
+    """The port simulator at the InstanceCfgs' tp (``tp``, or 1 for the
+    tp = 1 engine of a P/D pair of different tp) on ``reqs``, its prefix
+    caches held to ``_three_tiers`` when ``tiers``: (its metrics, its
+    decisions by instance)."""
     from repro_torch.core import ClusterCfg, RouterCfg
     from repro_torch.core.cluster import Cluster
-    check(TP in {i.parallelism.tp for i in icfgs} <= {1, TP},
+    check(tp in {i.parallelism.tp for i in icfgs} <= {1, tp},
           f"sim twin at tp {[i.parallelism.tp for i in icfgs]}")
     sim = Cluster(ClusterCfg(instances=tuple(icfgs),
                              router=RouterCfg("round_robin"),
@@ -3401,6 +3532,46 @@ def _grid_reference(torch, cfg, params, batches):
     return losses, norms, state.params
 
 
+def _grid_full_check(card, path, o, phase="phase 10"):
+    """Phase 10 (b)'s gates and line for one rank's row ``o`` of a
+    published-width grid path (phase 11 (b) too): state bytes, launches
+    and collective bytes by axis equal to the meta count, the peak ratio
+    in ``PEAK_BAND``, every gradient leaf nonzero, step 0's loss within
+    the bf16 tolerance of tp = 1's."""
+    where = f"{path} rank {o['coords']}"
+    (gs, ws), (gl, wl) = o["state"], o["launches"]
+    (gc_, wc), (pk, wp) = o["collectives"], o["peak"]
+    ratio = pk / wp
+    l0, l1 = o["losses"]
+    ref = o["ref_loss"]
+    print(f"{phase} [{card}] {where}: dry run {o['meta_s']:.1f} s "
+          f"on meta; state {gs} bytes (predicted {ws}); launches "
+          f"{json.dumps(gl)} (predicted {json.dumps(wl)}); "
+          f"collective result bytes by axis {json.dumps(gc_)} "
+          f"(predicted {json.dumps(wc)}); peak "
+          f"{pk / 2 ** 30:.3f} GiB, predicted {wp / 2 ** 30:.3f} "
+          f"GiB, ratio {ratio:.4f}; losses {l0:.4f}, {l1:.4f}, "
+          f"step 0 against tp = 1's {ref:.4f} on the same weights; "
+          f"step p50 {o['step_ms']:.1f} ms (median of "
+          f"{len(o['step_ms_all'])} uncounted steps: "
+          f"{[round(t, 1) for t in o['step_ms_all']]}), ranks sharing "
+          f"one card over gloo: not a parallel speed")
+    check(gs == ws, f"{where}: state {gs} bytes, {ws} predicted")
+    check(gl == wl, f"{where}: launched {gl}, predicted {wl}")
+    check(gc_ == wc, f"{where}: collective bytes {gc_}, predicted "
+                     f"{wc}")
+    check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+          f"{where}: peak {pk} bytes against {wp} predicted (ratio "
+          f"{ratio:.4f}, band {PEAK_BAND})")
+    check(all(o["nonzero"]), f"{where}: "
+          f"{o['nonzero'].count(False)} gradient leaves all zero")
+    bf = TOL["bfloat16"]
+    check(abs(l0 - ref) <= bf + bf * abs(ref)
+          and math.isfinite(l1),
+          f"{where}: step 0's loss {l0} against tp = 1's {ref} "
+          f"(tol {bf})")
+
+
 def grid_training_on_card(torch, card):
     """Phase 10: training on a rank grid, two ranks sharing the card over
     gloo (``run_ranks`` with named devices, as phase 6): a check of the
@@ -3466,42 +3637,309 @@ def grid_training_on_card(torch, card):
     by_path = {}
     for path, arch, (dp, tp), zero1 in GRID_FULL:
         for r in ranks:
-            o = r["full"][path]
-            where = f"{path} rank {o['coords']}"
-            (gs, ws), (gl, wl) = o["state"], o["launches"]
-            (gc_, wc), (pk, wp) = o["collectives"], o["peak"]
-            ratio = pk / wp
-            l0, l1 = o["losses"]
-            ref = o["ref_loss"]
-            print(f"phase 10 [{card}] {where}: dry run {o['meta_s']:.1f} s "
-                  f"on meta; state {gs} bytes (predicted {ws}); launches "
-                  f"{json.dumps(gl)} (predicted {json.dumps(wl)}); "
-                  f"collective result bytes by axis {json.dumps(gc_)} "
-                  f"(predicted {json.dumps(wc)}); peak "
-                  f"{pk / 2 ** 30:.3f} GiB, predicted {wp / 2 ** 30:.3f} "
-                  f"GiB, ratio {ratio:.4f}; losses {l0:.4f}, {l1:.4f}, "
-                  f"step 0 against tp = 1's {ref:.4f} on the same weights; "
-                  f"step p50 {o['step_ms']:.1f} ms (median of "
-                  f"{len(o['step_ms_all'])} uncounted steps: "
-                  f"{[round(t, 1) for t in o['step_ms_all']]}), two ranks "
-                  f"sharing one card over gloo: not a parallel speed")
-            check(gs == ws, f"{where}: state {gs} bytes, {ws} predicted")
-            check(gl == wl, f"{where}: launched {gl}, predicted {wl}")
-            check(gc_ == wc, f"{where}: collective bytes {gc_}, predicted "
-                             f"{wc}")
-            check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
-                  f"{where}: peak {pk} bytes against {wp} predicted (ratio "
-                  f"{ratio:.4f}, band {PEAK_BAND})")
-            check(all(o["nonzero"]), f"{where}: "
-                  f"{o['nonzero'].count(False)} gradient leaves all zero")
-            bf = TOL["bfloat16"]
-            check(abs(l0 - ref) <= bf + bf * abs(ref)
-                  and math.isfinite(l1),
-                  f"{where}: step 0's loss {l0} against tp = 1's {ref} "
-                  f"(tol {bf})")
+            _grid_full_check(card, path, r["full"][path])
         by_path[path] = ranks[0]["full"][path]["path_launches"]
     print(f"phase 10: ran {time.perf_counter() - t0:.1f} s ({wall:.1f} s "
           f"the spawn)")
+    return by_path
+
+
+# --------------------------------------------------------------- phase 11
+#: phase 11's tiny f32 variants of starcoder2-7b-tiny by tp: starcoder2-7b's
+#: 36 query and 4 KV heads at tp = 3 (rank 0's KV slots [0, 0, 0, 1], rank
+#: 1's [1, 2], rank 2's [2, 3, 3, 3]: repeated slots, KV 1 and KV 2 read
+#: by two ranks each), and 6 query and 2 KV heads at tp = 4 (two heads a
+#: rank, rank 1 one on each KV head, rank 3 none); d_ff 192 splits over
+#: both
+HEADS_TINY = {3: dict(n_heads=36, n_kv_heads=4, d_ff=192),
+              4: dict(n_heads=6, n_kv_heads=2, d_ff=192)}
+#: P/D between engines of different tp at tp = 3: (prefill, decode) tp
+HEADS_PD = {"pd-3to1": (3, 1), "pd-1to3": (1, 3)}
+#: phase 11 (b)'s paths: starcoder2-7b at published widths cut to 2
+#: layers, bf16, tp = 3
+HEADS_SERVE_PATH = "tp3 starcoder2-7b (2 layers)"
+HEADS_TRAIN_PATH = "grid (1, 3) train starcoder2-7b (2 layers)"
+HEADS_ARCH = "starcoder2-7b"
+
+
+def _heads_cfg(tp):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("starcoder2-7b-tiny"),
+                               compute_dtype="float32", **HEADS_TINY[tp])
+
+
+def _heads_launches(torch, ops, grid, cfg, params_cpu, batch):
+    """One tiny f32 train step of this rank under the dry run's counter:
+    (the kernels the card launched, those its meta count on a counting
+    grid at the rank's coordinates predicted)."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import counting_grid
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW
+    from repro_torch.train.train_step import rank_state
+    from repro_torch.train.tree import map_tree
+    cgrid = counting_grid(grid.mesh, grid.rank)
+    mmodel = Model(cfg, remat=True, **cgrid.model_kw())
+    B, S = batch["inputs"].shape
+    meta = specs.input_specs(cfg, ShapeCfg("phase11", S, B, "train"),
+                             mmodel, grid=cgrid)
+    mc, _, _ = dryrun.count_step(mmodel, "train", meta, grid=cgrid)
+    model = Model(cfg, remat=True, **grid.model_kw())
+    full = map_tree(lambda t: t.detach().to(grid.device).clone(), params_cpu)
+    state = rank_state(model, AdamW(lr=TINY_TRAIN_LR), full, grid)
+    ops.reset_launch_counts()
+    dryrun.count_step(model, "train", {"state": state, "batch": {
+        k: v.to(grid.device) for k, v in batch.items()}}, grid=grid)
+    torch.cuda.synchronize()
+    return ({k: v for k, v in ops.launch_counts().items() if v},
+            {k: v for k, v in mc.launches().items() if v})
+
+
+def _heads_full_serve(torch, ops, group):
+    """(b) on one rank: starcoder2-7b at published widths cut to 2 layers,
+    bf16, seeded weights drawn on the rank and cut to its shard, serving
+    phase 4's 8 requests (chunked prefill 256, batch 8) with every arrival
+    at 0, so the decisions depend on no latency."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    cfg = _depth_cut(get_config(HEADS_ARCH), 2)
+    reqs = serve_requests(cfg.vocab)
+    for r in reqs:
+        r.arrival = 0.0
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, name="e0", max_batch=8, max_len=2048, seed=0,
+                        tp=group.size, group=group)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    row = {"slots": eng.model.kv_heads(),
+           "resident_gib": torch.cuda.memory_allocated() / 2**30,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    drv = ServeDriver([eng], DriverCfg(scheduler=serve_scheduler()))
+    drv.runtime.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _record_shapes(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        m = drv.run(reqs, warmup=False)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    row.update(wall_s=time.perf_counter() - t0,
+               launches=ops.launch_counts(), shapes=sorted(seen),
+               serve_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               finished=m["finished"],
+               decisions=list(drv.runtime.instances["e0"].decisions),
+               icfg=drv.runtime.instances["e0"].cfg,
+               tokens=dict(drv.runtime.instances["e0"].backend.out_tokens))
+    del eng, drv, m
+    gc.collect()                # ServeDriver and its runtime form a cycle
+    torch.cuda.empty_cache()
+    return row
+
+
+def _heads_rank(group, job):
+    """Phase 11's ranks (one spawn a tp, sharing the card): the tiny
+    variant's logits, serve, P/D across tp (tp = 3) and two steps on a
+    (1, tp) grid made over the spawn's world with one step's launches
+    against its meta count; at tp = 3 then (b)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import grid_mesh, grid_on_world
+    from repro_torch.serve import ServingEngine
+    tp = group.size
+    cfg = _heads_cfg(tp)
+    params = job["params"]
+    out = {"backend": group.backend, "device": str(group.device),
+           "rank": group.rank}
+    ops.reset_launch_counts()
+    out["logits"] = tiny_logits(torch, ServingEngine(
+        cfg, params, max_batch=2, max_len=128, tp=tp, group=group))
+    out["logit_launches"] = ops.launch_counts()
+    tok, dec, _, icfg = _tiny_serve(cfg, params, group.device,
+                                    _tiny_requests(cfg.vocab), tp=tp,
+                                    group=group)
+    out["serve"] = {"tokens": tok, "decisions": dec, "icfg": icfg}
+    if tp == 3:
+        out["pd"] = {t: _tiny_technique(cfg, params, None, group.device, t,
+                                        group, pd_tp=pd_tp)
+                     for t, pd_tp in HEADS_PD.items()}
+    grid = grid_on_world(grid_mesh(1, tp), group.rank, group.device,
+                         group.backend)
+    out["train"] = _grid_tiny_rank(torch, grid, cfg, params,
+                                   job["batches"], False)
+    out["train_launches"] = _heads_launches(torch, ops, grid, cfg, params,
+                                            job["batches"][0])
+    if tp == 3:
+        out["full_serve"] = _heads_full_serve(torch, ops, group)
+        out["full_train"] = _grid_full_rank(torch, grid, HEADS_ARCH, False)
+    return out
+
+
+def heads_on_card(torch, card):
+    """Phase 11: tensor parallelism when the query heads do not divide tp
+    (GSPMD's padded head layout), ranks sharing the card over gloo
+    (``run_ranks`` with named devices, one spawn of three ranks and one
+    of four): a check of the sharded path and of its memory, no time of
+    it a parallel speed.  (a) tiny f32 starcoder2-7b variants, 36 query
+    and 4 KV heads at tp = 3 (slots repeat) and 6 and 2 at tp = 4 (rank 3
+    holds no query head): prefill and decode logits within 1e-5 of the
+    CPU's tp = 1 on every rank; a serve's tokens and decisions equal the
+    CPU's tp = 1 and the port simulator's at tp; at tp = 3 P/D 3 -> 1 and
+    1 -> 3 equal the CPU's P/D at tp = 1 in tokens, decisions and
+    handoff bytes and the simulator at the engines' tp; two AdamW steps
+    on a (1, tp) grid equal the CPU's one process (losses, grad norms,
+    the params gathered); each rank's launches in a counted step equal
+    its meta count (the empty rank's: no attention kernel).  (b)
+    starcoder2-7b at published widths cut to 2 layers, bf16, tp = 3: a
+    serve of phase 4's 8 requests (every arrival at 0) finishing every
+    request with the simulator's decisions at tp = 3, each rank's
+    resident and peak memory printed; one (1, 3) train step at B2 S1024
+    as phase 10's: state bytes, launches and collective bytes by axis
+    equal to the rank's meta count, peak within ``PEAK_BAND``, step 0's
+    loss within the bf16 tolerance of tp = 1's.  Returns rank 0's launch
+    counts of each (b) path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.sharding import gather_params, kv_slots
+    from repro_torch.models import Model
+    from repro_torch.serve import ServingEngine
+    from repro_torch.train.tree import leaves
+    t0 = time.perf_counter()
+    by_path, tol = {}, TOL["float32"]
+    for tp in HEADS_TINY:
+        cfg = _heads_cfg(tp)
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        batches = _tiny_batches(cfg, n=GRID_STEPS, seed=15)
+        reqs = _tiny_requests(cfg.vocab)
+        ref_logits = tiny_logits(torch, ServingEngine(
+            cfg, params, max_batch=2, max_len=128, device="cpu"))
+        ref_tok, ref_dec, _, _ = _tiny_serve(cfg, params, "cpu", reqs)
+        ref_train = _grid_reference(torch, cfg, params, batches)
+        ref_pd = _tiny_technique(cfg, params, None, "cpu", "pd") \
+            if tp == 3 else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = run_ranks(_heads_rank, tp, {"params": params,
+                                            "batches": batches},
+                          device="cuda", devices=["cuda:0"] * tp,
+                          timeout_s=600)
+        wall = time.perf_counter() - t1
+        check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+                  for r in ranks),
+              f"tp = {tp} ranks: "
+              f"{[(r['backend'], r['device']) for r in ranks]}")
+        slots = [kv_slots(cfg, r, tp) for r in range(tp)]
+        err = max(float(np.abs(g - w).max()) for r in ranks
+                  for g, w in zip(r["logits"], ref_logits))
+        check(all(np.allclose(g, w, rtol=1e-5, atol=1e-5) for r in ranks
+                  for g, w in zip(r["logits"], ref_logits)),
+              f"tiny tp = {tp}: logits max err {err:.3g} against the CPU's "
+              f"tp = 1")
+        sim = _sim_decisions([ranks[0]["serve"]["icfg"]], reqs, tp=tp)[1]
+        check(all(r["serve"]["tokens"] == ref_tok
+                  and r["serve"]["decisions"] == ref_dec == sim["e0"]
+                  for r in ranks),
+              f"tiny tp = {tp}: a rank's tokens or decisions differ from "
+              f"the CPU's tp = 1 or the simulator's at tp = {tp}")
+        empty = [r for r in range(tp) if not slots[r]]
+        attn = ("flash_attention", "paged_attention_decode")
+        check(all(bool(ranks[r]["logit_launches"][k]) != (r in empty)
+                  for r in range(tp) for k in attn),
+              f"tiny tp = {tp}: attention launches by rank "
+              f"{[r['logit_launches'] for r in ranks]} (ranks without a "
+              f"query head: {empty})")
+        print(f"phase 11: tiny starcoder2-7b f32 at {cfg.n_heads} query "
+              f"and {cfg.n_kv_heads} KV heads, tp = {tp} ({tp} ranks on the "
+              f"card, gloo; KV slots by rank {slots}): logits max err "
+              f"{err:.3g} against the CPU's tp = 1 (tol 1e-5); "
+              f"{len(ref_tok)} requests' tokens == the CPU's tp = 1, "
+              f"{len(ref_dec)} decisions == tp = 1's == the simulator's at "
+              f"tp = {tp} on every rank; ranks {empty} launched no "
+              f"attention kernel")
+        if ref_pd is not None:
+            for technique, pd_tp in HEADS_PD.items():
+                rows = [r["pd"][technique] for r in ranks]
+                sim = _sim_decisions(rows[0]["icfgs"], reqs,
+                                     rows[0]["pd_map"], tp=tp)[1]
+                check(all(row["tokens"] == ref_pd["tokens"]
+                          and row["decisions"] == ref_pd["decisions"] == sim
+                          and row["network_bytes"] == ref_pd["network_bytes"]
+                          for row in rows),
+                      f"tiny P/D {pd_tp[0]} -> {pd_tp[1]}: tokens, "
+                      f"decisions or handoff bytes differ from the CPU's "
+                      f"P/D at tp = 1 or the simulator's")
+                print(f"phase 11: tiny P/D {pd_tp[0]} -> {pd_tp[1]} f32 on "
+                      f"the card: tokens, decisions and handoff bytes "
+                      f"{json.dumps(ref_pd['network_bytes'])} == the CPU's "
+                      f"P/D at tp = 1 on every rank; decisions == the "
+                      f"simulator's at the engines' tp")
+        losses, norms, want = ref_train
+        got = [r["train"] for r in ranks]
+        terr = max(abs(a - b) / abs(b) for g in got
+                   for a, b in zip(g[0] + g[1], losses + norms))
+        full = gather_params([g[2] for g in got], cfg, tp)
+        ok, perr = _params_close(leaves(full), leaves(want), TINY_TRAIN_LR,
+                                 GRID_STEPS, rtol=tol, atol=tol)
+        counted = [r["train_launches"] for r in ranks]
+        check(terr <= tol and ok and all(a == b for a, b in counted),
+              f"tiny (1, {tp}) grid: losses/norms {terr:.3g}, params "
+              f"{perr:.3g} against the CPU's one process, or launches "
+              f"{counted} (card, meta) differ")
+        check(all(("flash_attention" in counted[r][0]) != (r in empty)
+                  for r in range(tp)),
+              f"tiny (1, {tp}) grid: flash launches {counted}")
+        print(f"phase 11: tiny (1, {tp}) grid, {GRID_STEPS} steps: losses "
+              f"{[round(x, 5) for x in got[0][0]]}, max rel err of losses "
+              f"and grad norms against the CPU's one process {terr:.2g} "
+              f"(tol {tol}); params max abs err {perr:.3g}; a counted "
+              f"step's launches == the meta count on every rank "
+              f"({json.dumps([c[0] for c in counted])}); spawn {wall:.1f} s")
+        if tp != 3:
+            continue
+        # (b): the full-width serve and train step, every rank's row
+        reqs = serve_requests(get_config(HEADS_ARCH).vocab)
+        for r in reqs:
+            r.arrival = 0.0
+        rows = [r["full_serve"] for r in ranks]
+        sim = _sim_decisions([rows[0]["icfg"]], reqs, tp=tp)[1]["e0"]
+        must = ("flash_attention", "paged_attention_decode",
+                "paged_attention_extend")
+        check(all(o["launches"][k] > 0 for o in rows for k in must),
+              f"{HEADS_SERVE_PATH}: launches by rank "
+              f"{[o['launches'] for o in rows]}, each rank must launch "
+              f"{must}")
+        check(all(o["finished"] == len(reqs) and o["decisions"] == sim
+                  and o["tokens"] == rows[0]["tokens"] for o in rows),
+              f"{HEADS_SERVE_PATH}: finished "
+              f"{[o['finished'] for o in rows]} of {len(reqs)}, or the "
+              f"ranks' tokens or decisions differ (from the simulator's at "
+              f"tp = {tp})")
+        for r, o in zip(ranks, rows):
+            launched = {k: v for k, v in o["launches"].items() if v}
+            print(f"phase 11 [{card}] {HEADS_SERVE_PATH} rank {r['rank']}: "
+                  f"{o['finished']} requests finished in {o['wall_s']:.1f} "
+                  f"s, {len(o['decisions'])} decisions == the simulator's "
+                  f"at tp = {tp}; KV slots {o['slots']}; (kernel, H, KV) "
+                  f"{o['shapes']}; launches {json.dumps(launched)}; "
+                  f"resident {o['resident_gib']:.3f} GiB, construction "
+                  f"peak {o['init_peak_gib']:.3f} GiB, serve peak "
+                  f"{o['serve_peak_gib']:.3f} GiB (three ranks share the "
+                  f"card: no parallel speed)")
+        for r in ranks:
+            _grid_full_check(card, HEADS_TRAIN_PATH, r["full_train"],
+                             "phase 11")
+            launched = r["full_train"]["launches"][0]
+            check(all(launched.get(k, 0) > 0 for k in (
+                "flash_attention", "flash_attention_bwd")),
+                  f"{HEADS_TRAIN_PATH} rank {r['rank']}: launched "
+                  f"{launched}")
+        by_path[HEADS_SERVE_PATH] = rows[0]["launches"]
+        by_path[HEADS_TRAIN_PATH] = ranks[0]["full_train"]["path_launches"]
+    print(f"phase 11: ran {time.perf_counter() - t0:.1f} s")
     return by_path
 
 
@@ -3566,6 +4004,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(grid_training_on_card(torch, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(heads_on_card(torch, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,6 +13,8 @@ runs the plain version for CPU tensors (its outputs made contiguous, as
 the kernels write them).  On meta tensors (the dry run,
 ``repro_torch.launch.dryrun``) each returns outputs of the kernel's shapes
 and allocates the scratch the CUDA path allocates, launching nothing.
+With no query head (H = 0: a tensor-parallel rank past GSPMD's padded
+heads) each returns empty outputs on any device and launches nothing.
 Anything else, or a CUDA or meta call a kernel does not take, raises.
 There is no fallback from a kernel to its plain version.
 
@@ -206,6 +208,13 @@ def _contiguous(out):
 
 
 def _flash_attention(q, k, v, lengths, window, return_lse):
+    if q.dim() == 4 and q.shape[2] == 0:
+        # no query head (a tensor-parallel rank past the padded heads):
+        # empty outputs on every device, nothing launched
+        B, S = q.shape[:2]
+        out = torch.empty_like(q)
+        return (out, torch.empty((B, 0, S), dtype=torch.float32,
+                                 device=q.device)) if return_lse else out
     if q.device.type == "cpu":
         return _contiguous(flash_attention_plain(q, k, v, lengths, window,
                                                  return_lse))
@@ -252,6 +261,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash_attention_bwd(q, k, v, out, lse, dout, lengths, window):
+    if q.dim() == 4 and q.shape[2] == 0:      # no query head: nothing
+        return tuple(torch.empty_like(t) for t in (q, k, v))
     if q.device.type == "cpu":
         return _contiguous(flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                                      lengths, window))

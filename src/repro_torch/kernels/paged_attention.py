@@ -10,7 +10,9 @@ kernel: decode (q (B,H,dh)) the split-KV kernel in both dtypes, extend
 (q (B,S,H,dh) with ``start``) the tensor-core kernel in bf16 and the FMA
 kernel in f32.  Decode and extend are counted apart.  On meta tensors (the
 dry run) the wrapper returns the kernel's output shape and allocates the
-decode workspace as the CUDA path does, launching nothing.
+decode workspace as the CUDA path does, launching nothing.  With no query
+head (H = 0: a tensor-parallel rank past GSPMD's padded heads) it returns
+an empty output on any device and launches nothing.
 
 ``paged_decode_work`` and ``paged_extend_work`` are the two kernels' one
 work count each (an active ``repro_torch.roofline.counter.Counter`` is
@@ -232,6 +234,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
                      start, window):
+    if q.dim() in (3, 4) and q.shape[-2] == 0:
+        # no query head (a tensor-parallel rank past the padded heads):
+        # an empty output on every device, nothing launched
+        return torch.empty_like(q)
     if q.device.type == "cpu":      # contiguous, as the kernel writes it
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      lengths, page_size=page_size,

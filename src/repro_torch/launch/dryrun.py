@@ -28,8 +28,12 @@ folds into data parallelism).  Rank 0's program runs on a
    FLOPs (6·N·D train, 2·N·D otherwise) and the kernels' launches, FLOPs
    and bytes.
 
-A cell the port cannot shard (query heads that do not divide tp, the
-recurrent families at tp > 1: ``sharding.unsupported``) gets ``status:
+Query heads that do not divide tp split in GSPMD's padded layout
+(``launch/sharding.py``): rank 0 holds ceil(H / tp) heads, as every device
+does under GSPMD, and is the most loaded rank, so its program is the
+per-device one; such a record says so in its ``note``.  A cell the port
+cannot shard (the recurrent families at tp > 1, a feed-forward width that
+does not divide tp: ``sharding.unsupported``) gets ``status:
 "unsupported"`` and the reason.  The batch-1 decode's sequence sharding over
 ``data`` and ``seq_shard_cache`` are not ported: a batch that does not
 divide by dp is replicated over the data-parallel ranks, and the record
@@ -205,13 +209,21 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
            "batch_per_rank": rank_batch(shape, grid),
            **record(counter, mem, n_devices=mesh.size, cfg=cfg,
                     shape=shape)}
+    notes = []
+    if cfg.n_heads % grid.tp:
+        notes.append(f"{cfg.n_heads} query heads over tp={grid.tp}: "
+                     f"GSPMD's padded layout, ceil(H / tp) = "
+                     f"{-(-cfg.n_heads // grid.tp)} a rank from rank 0; "
+                     f"rank 0, counted here, is the most loaded rank")
     if shape.global_batch % grid.dp_size:
         rec["batch_replicated"] = True
-        rec["note"] = (f"a batch of {shape.global_batch} does not split "
-                       f"over dp={grid.dp_size}: every data-parallel rank "
-                       f"holds the whole batch and its cache (the "
-                       f"sequence sharding over data and seq_shard_cache "
-                       f"are not ported)")
+        notes.append(f"a batch of {shape.global_batch} does not split "
+                     f"over dp={grid.dp_size}: every data-parallel rank "
+                     f"holds the whole batch and its cache (the sequence "
+                     f"sharding over data and seq_shard_cache are not "
+                     f"ported)")
+    if notes:
+        rec["note"] = "; ".join(notes)
     return rec
 
 

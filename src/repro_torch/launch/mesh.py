@@ -23,8 +23,8 @@ runs one process per rank and makes the collectives explicit over
   tensor-parallel group is consecutive ranks): one group per axis
   (``model``, ``data``, ``pod``) made with ``dist.new_group``, plus the
   data-parallel group ``dp`` over pod and data folded (the gradient's), and
-  on request the blocks of consecutive model ranks that hold one shared KV
-  head (:meth:`RankGrid.model_block`).  Training takes a grid; serving keeps
+  on request the model ranks that read one shared KV head
+  (:meth:`RankGrid.model_subgroup`).  Training takes a grid; serving keeps
   ``ServingEngine(tp=, group=)``: one tensor-parallel group, dp = 1.
 
 A tp = 1 engine alone has no group and calls none of this, so it launches
@@ -254,7 +254,8 @@ class RankGrid:
     dp: Any
     device: torch.device
     backend: str
-    _blocks: Dict[int, Any] = dataclasses.field(default_factory=dict)
+    _subgroups: Dict[Tuple[int, ...], Any] = dataclasses.field(
+        default_factory=dict)
     _new_group: Optional[Callable] = None
 
     @property
@@ -283,17 +284,17 @@ class RankGrid:
         return {"group": self.model if self.tp > 1 else None,
                 "dp_group": self.dp if self.dp_size > 1 else None}
 
-    def model_block(self, size: int):
-        """The group of ``size`` consecutive model ranks that holds this
-        rank (``size`` divides tp): the ranks sharing one KV head.  Every
-        rank of the grid must ask for the same sizes in the same order
-        (making a process group is collective over every rank)."""
-        if size not in self._blocks:
-            if self.tp % size:
-                raise ValueError(f"a block of {size} does not divide the "
-                                 f"model axis of {self.tp}")
-            self._blocks[size] = self._new_group(size)
-        return self._blocks[size]
+    def model_subgroup(self, ranks: Sequence[int]):
+        """The group of the model ranks ``ranks`` (model coordinates,
+        ascending) in this rank's row of the grid, or None when this rank
+        is not among them: the readers of one shared KV head
+        (``sharding.shared_kv_heads``).  Every rank of the grid must ask
+        for the same sets in the same order (making a process group is
+        collective over every rank)."""
+        ranks = tuple(ranks)
+        if ranks not in self._subgroups:
+            self._subgroups[ranks] = self._new_group(ranks)
+        return self._subgroups[ranks]
 
 
 def _axis_name(axes: Sequence[str]) -> str:
@@ -328,9 +329,13 @@ def counting_grid(mesh: MeshShape, rank: int = 0) -> RankGrid:
         dpr = dpr * mesh.shape[a] + coords[a]
     dp = CountingGroup(dpr, dp_size(mesh), axis=_axis_name(dpa))
     mr = coords["model"]
+
+    def subgroup(ranks):
+        if mr not in ranks:
+            return None
+        return CountingGroup(ranks.index(mr), len(ranks), axis="model")
     return RankGrid(mesh, rank, coords, groups, dp, torch.device("meta"),
-                    "count", _new_group=lambda size: CountingGroup(
-                        mr % size, size, axis="model"))
+                    "count", _new_group=subgroup)
 
 
 def _devices_and_backend(n: int, device: str, devices):
@@ -432,20 +437,21 @@ def grid_on_world(mesh: MeshShape, rank: int, dev: torch.device,
     coords = {a: g.rank for a, g in groups.items()}
     tp = mesh.shape["model"]
 
-    def block(size):
+    def subgroup(model_ranks):
         mine_pg = None
         for row in range(n // tp):          # collective, as above
-            for b in range(tp // size):
-                ranks = [row * tp + b * size + i for i in range(size)]
-                pg = dist.new_group(ranks)
-                if rank in ranks:
-                    mine_pg = pg
-        return EngineGroup(rank=coords["model"] % size, size=size,
-                           device=dev, backend=backend, pg=mine_pg,
-                           axis="model")
+            ranks = [row * tp + r for r in model_ranks]
+            pg = dist.new_group(ranks)
+            if rank in ranks:
+                mine_pg = pg
+        if mine_pg is None:
+            return None
+        return EngineGroup(rank=model_ranks.index(coords["model"]),
+                           size=len(model_ranks), device=dev,
+                           backend=backend, pg=mine_pg, axis="model")
 
     return RankGrid(mesh, rank, coords, groups, dp, dev, backend,
-                    _new_group=block)
+                    _new_group=subgroup)
 
 
 def _rank_main(rank: int, fn: Callable, n: int, mesh, payload,

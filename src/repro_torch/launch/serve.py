@@ -16,7 +16,10 @@ at ``--alpha``.
 ``--tp k`` spawns k ranks (``repro_torch.launch.mesh.run_ranks``), each
 running the same driver on its shard of the same seeded weights: NCCL with
 one card a rank (fewer cards than k refuse), gloo with ``--device cpu``.
-The ranks' decisions must agree; rank 0's metrics are printed.  ``--pd``,
+Any k splits the heads (GSPMD's padded layout: ``launch/sharding.py``);
+a k that ``sharding.unsupported`` names (a feed-forward width that does
+not divide it) refuses.  The ranks' decisions must agree; rank 0's
+metrics are printed.  ``--pd``,
 ``--prefix-cache`` and ``--spec-k`` combine with it: every engine of the
 serve has the one ``--tp``, and rank r of the prefill engine hands off to
 rank r of the decode engine.  Without a draft each engine draws the seeded
@@ -42,6 +45,7 @@ import json
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.sharding import unsupported
 from repro_torch.models import Model
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve import (DriverCfg, ServeDriver, ServingEngine,
@@ -88,6 +92,9 @@ def main(argv=None):
                                   spec=args.spec_k or None)
     except NotImplementedError as e:
         raise SystemExit(f"--arch {args.arch}: {e}") from None
+    why = unsupported(get_config(args.arch), args.tp)
+    if why is not None:
+        raise SystemExit(f"--tp {args.tp}: {why}")
     if args.tp == 1:
         m = serve(args)[0]
     else:

@@ -33,21 +33,37 @@ hard-codes 16, the extent of its meshes, and never splits over ``pod``).
 :func:`leaf_plan` says, leaf by leaf, how a gradient is completed over
 the model axis and counted in the global norm.
 
+**Heads that do not divide tp.**  GSPMD pads the query heads to a
+multiple of tp; the port splits them in that padded layout without the
+pad heads (:func:`query_heads`): rank r holds heads ``[min(r·c, H),
+min((r+1)·c, H))`` with ``c = ceil(H / tp)``, so rank 0 holds c heads, as
+every device does under GSPMD, and a later rank may hold fewer, or none.
+A rank with no query head holds ``(d, 0)`` ``wq`` and ``(0, d)`` ``wo``
+shards, launches no attention kernel and adds exact zeros to the output
+projection's all-reduce, which it still joins.
+
 **One deviation from GSPMD.**  When the KV heads do not divide tp, GSPMD
 shards the KV projections' and the KV cache's ``d_head`` instead
 (``_COL``, ``cache_pspecs``).  Explicit TP cannot split ``d_head`` without
 one more reduction inside attention, so here each rank keeps the KV heads
-its query heads read (their K/V projections and their pages are then
-computed and held on more than one rank: the consecutive ranks of a
-:func:`kv_block`, whose ``wk``/``wv``/``bk``/``bv`` gradients are summed
-over the block).  The query heads must split evenly, and a rank's query
-heads must cover whole groups or lie inside one group, so the group size is
-the same on every rank (:func:`unsupported` names the configurations that
-break this).
+its query heads read (:func:`kv_heads`; their K/V projections are then
+computed on every rank that reads them, and their ``wk``/``wv``/``bk``/
+``bv`` gradients are summed over those ranks, :func:`shared_kv_heads`).
+The kernels take one group size a call (query head h reads KV head
+h // G), so a rank's K/V go into *KV slots* (:func:`kv_slots`): each KV
+head it reads repeated (its query heads on it) / g times in a row, g the
+gcd of those counts, and g is the rank's group size.  Where every head
+is one slot (every arch at the JAX study's meshes) the slots are the
+heads; starcoder2-7b at tp = 3 gives rank 0 slots [0, 0, 0, 1] for its
+nine query heads on KV 0 and three on KV 1.  The pools hold slots; a
+payload, a gradient and the global norm hold each KV head once
+(:func:`owned_kv_heads`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -65,47 +81,104 @@ _SHARDABLE = {"attn_mlp", "attn_moe"}
 
 
 def query_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
-    """The query heads ``[lo, hi)`` of ``rank``."""
+    """The query heads ``[lo, hi)`` of ``rank``: GSPMD's padded layout
+    without the pad heads (ceil(H / tp) a rank from rank 0; a later rank
+    may hold fewer, or none)."""
     H = cfg.n_heads
-    if H % tp:
-        raise ValueError(f"{cfg.name}: {H} query heads do not split over "
-                         f"tp={tp}")
-    n = H // tp
-    return rank * n, (rank + 1) * n
+    c = -(-H // tp)
+    return min(rank * c, H), min((rank + 1) * c, H)
+
+
+@functools.lru_cache(maxsize=None)
+def kv_slots(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, ...]:
+    """The KV head of each of ``rank``'s KV slots, in order (see the
+    module docstring): ``rank``'s query head ``lo + i`` reads slot
+    ``i // g``, g = its query heads over its slots.  Empty for a rank
+    with no query head."""
+    lo, hi = query_heads(cfg, rank, tp)
+    G = cfg.n_heads // cfg.n_kv_heads
+    counts: dict = {}
+    for h in range(lo, hi):
+        counts[h // G] = counts.get(h // G, 0) + 1
+    g = math.gcd(*counts.values()) if counts else 1
+    return tuple(k for k, n in counts.items() for _ in range(n // g))
 
 
 def kv_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
-    """The KV heads ``[lo, hi)`` that ``rank``'s query heads read: an even
-    split when the KV heads divide tp, else the group(s) its query heads
-    fall in (the deviation in the module docstring)."""
-    KV = cfg.n_kv_heads
-    lo, hi = query_heads(cfg, rank, tp)
-    G = cfg.n_heads // KV
-    n = hi - lo
-    if n % G and G % n:
-        raise ValueError(
-            f"{cfg.name}: {n} query heads a rank at tp={tp} neither cover "
-            f"whole groups of {G} nor lie inside one")
-    return lo // G, (hi - 1) // G + 1
+    """The KV heads ``[lo, hi)`` that ``rank``'s query heads read, each
+    once: an even split when the KV heads divide tp and the query heads
+    cover whole groups, else the group(s) its query heads fall in (the
+    deviation in the module docstring); ``(KV, KV)`` for a rank with no
+    query head."""
+    slots = kv_slots(cfg, rank, tp)
+    if not slots:
+        return cfg.n_kv_heads, cfg.n_kv_heads
+    return slots[0], slots[-1] + 1
+
+
+def to_slots(t: torch.Tensor, cfg: ArchConfig, rank: int, tp: int,
+             dim: int = 2) -> torch.Tensor:
+    """``t`` over ``rank``'s KV heads (:func:`kv_heads`) along ``dim`` ->
+    over its KV slots (each head repeated as :func:`kv_slots` says; a
+    head's copies are expanded views concatenated, so autograd sums their
+    gradients into the head).  ``t`` itself where every head is one
+    slot."""
+    slots = kv_slots(cfg, rank, tp)
+    lo, hi = kv_heads(cfg, rank, tp)
+    if len(slots) == hi - lo:
+        return t
+    parts = []
+    for k in range(lo, hi):
+        one = t.narrow(dim, k - lo, 1)
+        shape = list(one.shape)
+        shape[dim] = slots.count(k)
+        parts.append(one.expand(shape))
+    return torch.cat(parts, dim=dim)
+
+
+def from_slots(t: torch.Tensor, cfg: ArchConfig, rank: int, tp: int,
+               dim: int = 2) -> torch.Tensor:
+    """The inverse of :func:`to_slots`: each KV head's first slot, in head
+    order (``t`` itself where every head is one slot)."""
+    slots = kv_slots(cfg, rank, tp)
+    lo, hi = kv_heads(cfg, rank, tp)
+    if len(slots) == hi - lo:
+        return t
+    return torch.cat([t.narrow(dim, slots.index(k), 1)
+                      for k in range(lo, hi)], dim=dim)
 
 
 def owned_kv_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
     """The KV heads ``[lo, hi)`` that ``rank`` owns: those of
     :func:`kv_heads` that no lower rank holds, so that over the ranks every
-    KV head is owned once (a head held by several ranks, where the KV heads
-    do not divide tp, belongs to the lowest).  Counting a payload's bytes
-    by owned heads gives the group the tp = 1 payload's size."""
+    KV head is owned once (a head held by several ranks belongs to the
+    lowest).  Counting a payload's bytes by owned heads gives the group
+    the tp = 1 payload's size."""
     lo, hi = kv_heads(cfg, rank, tp)
     if rank > 0:
         lo = max(lo, kv_heads(cfg, rank - 1, tp)[1])
     return lo, max(lo, hi)
 
 
+def shared_kv_heads(cfg: ArchConfig, tp: int
+                    ) -> Tuple[Tuple[int, Tuple[int, ...]], ...]:
+    """``(KV head, the ranks that read it)`` for every KV head that two or
+    more ranks read, in ascending head order.  At tp = 3 starcoder2-7b's
+    reader sets overlap: KV 1 is read by ranks (0, 1), KV 2 by (1, 2)."""
+    readers: dict = {}
+    for r in range(tp):
+        lo, hi = kv_heads(cfg, r, tp)
+        for k in range(lo, hi):
+            readers.setdefault(k, []).append(r)
+    return tuple((k, tuple(rs)) for k, rs in sorted(readers.items())
+                 if len(rs) > 1)
+
+
 def gather_kv_heads(parts, cfg: ArchConfig, tp: int) -> torch.Tensor:
     """The full ``(layers, blen, KV, dh)`` payload from every rank's
-    ``(layers, blen, KV_r, dh)`` one (``parts``, in rank order): each
-    rank's owned heads (:func:`owned_kv_heads`), concatenated, so a head
-    that several ranks hold appears once."""
+    ``(layers, blen, KV_r, dh)`` one over its KV heads (``parts``, in rank
+    order): each rank's owned heads (:func:`owned_kv_heads`), concatenated,
+    so a head that several ranks hold appears once."""
     out = []
     for rank, part in enumerate(parts):
         lo, _ = kv_heads(cfg, rank, tp)
@@ -117,7 +190,8 @@ def gather_kv_heads(parts, cfg: ArchConfig, tp: int) -> torch.Tensor:
 def take_kv_heads(full: torch.Tensor, cfg: ArchConfig, rank: int,
                   tp: int) -> torch.Tensor:
     """``rank``'s heads (:func:`kv_heads`: every head it reads, a shared
-    one included) of a full ``(layers, blen, KV, dh)`` payload; a view."""
+    one included, each once) of a full ``(layers, blen, KV, dh)`` payload;
+    a view."""
     lo, hi = kv_heads(cfg, rank, tp)
     return full.narrow(2, lo, hi - lo)
 
@@ -133,16 +207,11 @@ def head_parallel(cfg: ArchConfig, tp: int) -> bool:
     return cfg.padded_vocab % tp == 0
 
 
-def kv_block(cfg: ArchConfig, tp: int) -> int:
-    """How many consecutive ranks hold each KV head: 1 when the KV heads
-    divide tp, else tp / KV (the deviation in the module docstring)."""
-    return max(1, tp // cfg.n_kv_heads)
-
-
 def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
                 ) -> Optional[str]:
     """Why the port cannot shard ``cfg`` over ``tp`` ranks (every reason,
-    joined), or None."""
+    joined), or None.  Any head count splits (the module docstring); a
+    feed-forward or expert width that does not divide tp does not."""
     if tp == 1:
         return None
     why = []
@@ -150,14 +219,13 @@ def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
     if kinds:
         why.append(f"the {', '.join(kinds)} stages have no tensor-parallel "
                    f"rule (ROADMAP.md, item 7)")
-    if cfg.n_heads % tp:
-        why.append(f"{cfg.n_heads} query heads do not split over tp={tp} "
-                   f"(GSPMD pads them; the port splits whole heads)")
-    else:
-        n, G = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
-        if n % G and G % n:
-            why.append(f"{n} query heads a rank at tp={tp} neither cover "
-                       f"whole groups of {G} nor lie inside one")
+    present = {st.kind for st in cfg.stages}
+    if "attn_mlp" in present and cfg.d_ff % tp:
+        why.append(f"d_ff {cfg.d_ff} does not split over tp={tp}")
+    if "attn_moe" in present and not experts_parallel(cfg, tp) \
+            and cfg.moe.d_expert % tp:
+        why.append(f"{cfg.moe.n_experts} experts do not split over "
+                   f"tp={tp}, nor does d_expert {cfg.moe.d_expert}")
     if fuse_qkv:
         why.append("fuse_qkv has no tensor-parallel rule")
     return f"{cfg.name}: " + "; ".join(why) if why else None
@@ -226,15 +294,6 @@ def _split(leaf, dim: int, lo: int, hi: int):
     return np.array(part, order="C")
 
 
-def _even(leaf, dim: int, rank: int, tp: int, what: str):
-    n = leaf.shape[dim]
-    if n % tp:
-        raise ValueError(f"{what}: dim {dim} of size {n} does not split "
-                         f"over tp={tp}")
-    step = n // tp
-    return _split(leaf, dim, rank * step, (rank + 1) * step)
-
-
 def _range(path, leaf, cfg: ArchConfig, rank: int, tp: int):
     """(dim, lo, hi) of ``rank``'s part of a leaf that tp splits."""
     name, dh = path[-1], cfg.d_head
@@ -248,7 +307,8 @@ def _range(path, leaf, cfg: ArchConfig, rank: int, tp: int):
     n = leaf.shape[dim]
     if n % tp:
         raise ValueError(f"{'/'.join(path)}: dim {dim} of size {n} does "
-                         f"not split over tp={tp}")
+                         f"not split over tp={tp} (sharding.unsupported "
+                         f"names such a configuration)")
     return dim, rank * n // tp, (rank + 1) * n // tp
 
 
@@ -313,16 +373,23 @@ class LeafPlan:
     ``grad_sum``: the group its gradient is summed over after the backward
     (besides data parallelism): "model" for a replicated leaf used inside
     the sharded region (``q_norm``, ``k_norm``: each rank's gradient holds
-    only its heads' part), "kv" for the projections of a KV head that a
-    block of ranks shares, None otherwise.  ``norm``: how it counts in the
-    global norm: "replicated" (once), "model" (the rank's part, summed
-    over the model group) or "skip" (a shared KV head another rank of its
-    block owns).  ``zero1_dim``: the dim ZeRO-1 splits its moments on."""
+    only its heads' part), "kv" for the projections of KV heads that other
+    ranks read too, None otherwise.  ``kv_shared``: with "kv", ``(KV head,
+    lo, hi)`` for each such head, its columns ``[lo, hi)`` of the rank's
+    leaf along its model dim, in ascending head order (each summed over
+    the head's readers, ``shared_kv_heads``).  ``norm``: how it counts in
+    the global norm: "replicated" (once), "model" (the rank's part, summed
+    over the model group) or "skip" (KV heads that lower ranks own);
+    ``norm_cols``: with "model", the columns ``[lo, hi)`` along the model
+    dim that count (the rank's owned KV heads), None for all of them.
+    ``zero1_dim``: the dim ZeRO-1 splits its moments on."""
     path: Tuple[str, ...]
     split: bool
     grad_sum: Optional[str]
     norm: str
     zero1_dim: Optional[int]
+    kv_shared: Tuple[Tuple[int, int, int], ...] = ()
+    norm_cols: Optional[Tuple[int, int]] = None
 
 
 def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
@@ -347,19 +414,30 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
         return "/".join(path)      # a string: ``leaves`` walks tuples
 
     paths = [tuple(p.split("/")) for p in leaves(_map(params, note))]
-    shared = kv_block(cfg, tp) > 1
-    olo, ohi = owned_kv_heads(cfg, rank, tp) if shared else (0, 1)
+    dh = cfg.d_head
+    klo, khi = kv_heads(cfg, rank, tp)
+    olo, ohi = owned_kv_heads(cfg, rank, tp)
+    shared = {k for k, _ in shared_kv_heads(cfg, tp)} if tp > 1 else set()
+    mine = tuple((k, (k - klo) * dh, (k - klo + 1) * dh)
+                 for k in range(klo, khi) if k in shared)
+    owned = None if (olo, ohi) == (klo, khi) else \
+        ((olo - klo) * dh, (ohi - klo) * dh)
     plans = []
     for path in paths:
         cut = split(path, cfg, tp)
-        grad_sum, norm = None, "model" if cut else "replicated"
+        grad_sum, norm, kv, cols = None, \
+            "model" if cut else "replicated", (), None
         if tp > 1 and path[-1] in _QK_NORM:
             grad_sum = "model"
-        elif cut and shared and path[-1] in _KV:
-            grad_sum = "kv"
-            norm = "model" if ohi > olo else "skip"
+        elif cut and path[-1] in _KV:
+            if mine:
+                grad_sum, kv = "kv", mine
+            if ohi == olo:
+                norm = "skip"
+            else:
+                cols = owned
         z = zero1_dim(path, full[path], cfg, tp, data) if zero1 else None
-        plans.append(LeafPlan(path, cut, grad_sum, norm, z))
+        plans.append(LeafPlan(path, cut, grad_sum, norm, z, kv, cols))
     return plans
 
 

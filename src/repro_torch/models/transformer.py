@@ -74,10 +74,14 @@ the head gives ``(B, S, n_codebooks, padded_vocab)``.  A decode on
 embeddings has no negative-token sentinel, so no row is held back.
 
 Tensor parallelism (``group``, a ``repro_torch.launch.mesh.EngineGroup``):
-the params are one rank's shard (``repro_torch.launch.sharding``), so
-attention runs on the rank's query and KV heads, the pools hold only its KV
-heads, and the collectives of ``repro_torch.launch.collectives`` complete
-the model: the embedding's lookup of the rank's vocab rows all-reduced, an
+the params are one rank's shard (``repro_torch.launch.sharding``, any tp:
+GSPMD's padded head layout), so attention runs on the rank's query heads
+over its KV slots (its KV heads, one repeated where its query heads
+straddle groups unevenly, so every kernel sees one group size), the pools
+hold only its slots, a rank with no query head computes no attention (the
+kernel wrappers return empty outputs) and adds zeros, and the
+collectives of ``repro_torch.launch.collectives`` complete the model: the
+embedding's lookup of the rank's vocab rows all-reduced, an
 all-reduce after the attention output projection, one after the MLP's (or
 MoE's) down projection, and an all-gather of the head's vocab shards, so
 every rank samples from the same full logits.  In training each sharded
@@ -103,6 +107,7 @@ from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
                                       ZAMBA_SUPER, ArchConfig)
 from repro_torch.kernels import ops
 from repro_torch.launch.collectives import copy_to, gather_last, reduce_from
+from repro_torch.launch.sharding import kv_slots, to_slots
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
 from repro_torch.models import xlstm as xl
@@ -249,6 +254,12 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if group is not None:
+        # the rank's KV heads into its KV slots, one group size for every
+        # kernel (``sharding.kv_slots``; the heads themselves, unless
+        # query heads straddle groups unevenly)
+        k = to_slots(k, cfg, group.rank, group.size)
+        v = to_slots(v, cfg, group.rank, group.size)
 
     if mode in ("train", "prefill") and attn_impl != "flash":
         # the dry run's plain attentions (JAX's attn_impl); folded has no
@@ -769,12 +780,12 @@ class Model:
         return maxp, batch * maxp + batch + 1
 
     def kv_heads(self) -> int:
-        """KV heads this model's pools hold: all, or a rank's share."""
+        """KV heads this model's pools hold: all, or a rank's KV slots
+        (``sharding.kv_slots``: its KV heads, a head repeated where its
+        query heads straddle groups unevenly; none without query heads)."""
         if self.group is None:
             return self.cfg.n_kv_heads
-        from repro_torch.launch.sharding import kv_heads
-        lo, hi = kv_heads(self.cfg, self.group.rank, self.group.size)
-        return hi - lo
+        return len(kv_slots(self.cfg, self.group.rank, self.group.size))
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """Zeroed paged cache in the compute dtype over this model's KV

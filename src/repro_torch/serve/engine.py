@@ -29,12 +29,15 @@ kernel at S = k + 1).  ``TorchBackend`` drives both.
 ``tp > 1`` makes the engine one rank of a tensor-parallel group (``group``,
 a ``repro_torch.launch.mesh.EngineGroup``; one process a rank): the full
 params come in the JAX layout and each rank keeps its shard
-(``repro_torch.launch.sharding``), its pools hold its KV heads, and the
-model's collectives complete every layer.  The page allocator and the
-block table are the same on every rank because every rank's runtime makes
-the same decisions (``TorchBackend`` hands it the slowest rank's
-latency).  Every engine of a process shares the one default process
-group, so several engines (a P/D pair, several instances) run their
+(``repro_torch.launch.sharding``; any tp, in GSPMD's padded head
+layout), its pools hold its KV slots (``Model.kv_heads``: its KV heads,
+one repeated where its query heads straddle groups unevenly, none on a
+rank with no query head), and the model's collectives complete every
+layer.  The page allocator and the block table are the same on every
+rank because every rank's runtime makes the same decisions
+(``TorchBackend`` hands it the slowest rank's latency).  Every engine
+of a process shares the one default process group, so several engines
+(a P/D pair, several instances) run their
 collectives in the order the deterministic driver calls them, the same on
 every rank.  Each rank's prefix store keeps its own heads' payload under
 the same token key, moved between tiers by the same runtime decisions on
@@ -48,13 +51,16 @@ through the same decisions, and ``replicas`` (the rank's engine group)
 makes its wall times the slowest rank's and lets a speculative step check
 that the ranks accepted alike.  It never joins the model's collectives.
 
-Every slot export is tagged with the KV heads it holds (``_kv_heads``:
-``(lo, hi, KV)``).  Under P/D between engines of the same tp, rank r of
-the prefill engine hands its own heads to rank r of the decode engine.
-Between engines of different tp the payload holds every head, as the JAX
-package ships it: a prefill group all-gathers its ranks' heads
-(``all_heads=True``; ``launch.sharding.gather_kv_heads``), and each rank
-of a decode group restores its own out of the full payload
+Every slot export holds each of its KV heads once (a repeated slot is
+read once, ``sharding.from_slots``; a restore repeats it again,
+``to_slots``) and is tagged with them (``_kv_heads``: ``(lo, hi, KV)``).
+Under P/D between engines of the same tp, rank r of the prefill engine
+hands its own heads to rank r of the decode engine.  Between engines of
+different tp the payload holds every head, as the JAX package ships it:
+a prefill group all-gathers its ranks' heads, padded to the most any
+rank reads and cut back, each head taken from its owner (``all_heads=
+True``; ``launch.sharding.gather_kv_heads``), and each rank of a decode
+group restores its own out of the full payload
 (``launch.sharding.take_kv_heads``).  A payload whose heads match neither
 the engine's nor the full set raises.  The handoff's bytes are those of
 the tp = 1 payload in every case (``handoff_nbytes``).
@@ -350,6 +356,10 @@ class ServingEngine:
             if replicas is not None:
                 raise ValueError(f"ServingEngine: replicas= is a tp = 1 "
                                  f"engine's handle; at tp={tp} pass group=")
+            from repro_torch.launch.sharding import unsupported
+            why = unsupported(cfg, tp)
+            if why is not None:
+                raise ValueError(f"ServingEngine: {why}")
         elif group is not None and group.size != 1:
             raise ValueError(f"ServingEngine: tp=1 in a {group.size}-rank "
                              f"engine group; a tp = 1 engine replicated "
@@ -489,8 +499,10 @@ class ServingEngine:
             return float(local)
         from repro_torch.launch.sharding import owned_kv_heads
         olo, ohi = owned_kv_heads(self.cfg, self.group.rank, self.tp)
-        # at tp > 1 the payload is K/V only (a recurrent model refuses)
-        return float(self.group.total(local // (hi - lo) * (ohi - olo)))
+        # at tp > 1 the payload is K/V only (a recurrent model refuses); a
+        # rank with no query head ships nothing
+        mine = local // (hi - lo) * (ohi - olo) if hi > lo else 0
+        return float(self.group.total(mine))
 
     def warmup(self, buckets=(16, 32, 64, 128, 256)):
         """Run prefill (and, with a prefix store, extend) at every bucket
@@ -621,11 +633,13 @@ class ServingEngine:
             for name in ("k", "v"):
                 pool = pools[f"{name}_pages"][:, pages]
                 t = pool.reshape((pool.shape[0], npg * ps)
-                                 + pool.shape[3:])[:, :blen].contiguous()
+                                 + pool.shape[3:])[:, :blen]
+                if self.group is not None:       # each KV head once
+                    from repro_torch.launch.sharding import from_slots
+                    t = from_slots(t, self.cfg, self.group.rank, self.tp)
+                t = t.contiguous()
                 if gather:
-                    from repro_torch.launch.sharding import gather_kv_heads
-                    t = gather_kv_heads(self.group.all_gather(t, 2).chunk(
-                        self.tp, 2), self.cfg, self.tp)
+                    t = self._gather_heads(t)
                 kv[name] = t.cpu() if to_host else t.to(self.device)
             out[key] = kv
         for key, name, t, ax in self.model.state_leaves(self.cache):
@@ -636,6 +650,25 @@ class ServingEngine:
         out["_length_bucket"] = blen
         out["_kv_heads"] = (0, KV, KV) if gather else self.kv_range
         return out
+
+    def _gather_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """Every KV head of a ``(layers, blen, KV_e, dh)`` payload over the
+        group, each once (a collective): each rank's KV heads, padded to
+        the most any rank reads (ranks read different counts, or none,
+        where the heads do not divide tp), all-gathered, cut back, and
+        each head taken from its owner (``sharding.gather_kv_heads``)."""
+        from repro_torch.launch.sharding import gather_kv_heads, kv_heads
+        counts = [hi - lo for lo, hi in (kv_heads(self.cfg, r, self.tp)
+                                         for r in range(self.tp))]
+        width = max(counts)
+        if t.shape[2] < width:
+            pad = list(t.shape)
+            pad[2] = width - t.shape[2]
+            t = torch.cat([t, t.new_zeros(pad)], dim=2)
+        parts = self.group.all_gather(t, 2).chunk(self.tp, 2)
+        return gather_kv_heads([p.narrow(2, 0, n)
+                                for p, n in zip(parts, counts)],
+                               self.cfg, self.tp)
 
     def _restore_slot(self, slot: int, kv: dict, length: int):
         """Scatter an ``_export_slot`` payload through ``slot``'s freshly
@@ -663,9 +696,13 @@ class ServingEngine:
         for key, pools in self.model.attention_caches(self.cache):
             for name in ("k", "v"):
                 t = kv[key][name]
-                if not own:
-                    from repro_torch.launch.sharding import take_kv_heads
-                    t = take_kv_heads(t, self.cfg, self.group.rank, self.tp)
+                if self.group is not None:
+                    from repro_torch.launch.sharding import (take_kv_heads,
+                                                             to_slots)
+                    if not own:
+                        t = take_kv_heads(t, self.cfg, self.group.rank,
+                                          self.tp)
+                    t = to_slots(t, self.cfg, self.group.rank, self.tp)
                 pools[f"{name}_pages"][:, page, off] = t.to(self.device)
         for key, name, t, ax in self.model.state_leaves(self.cache):
             t.select(ax, slot).copy_(kv[key][name])

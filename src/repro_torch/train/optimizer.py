@@ -13,8 +13,9 @@ On a rank grid (a :class:`Layout`: the leaves' plans from
 ``repro_torch.launch.sharding.leaf_plan`` and the groups) the global norm
 is the whole model's: the squares of the leaves tp splits are summed over
 the model group, a replicated leaf counts once, and a KV head that several
-ranks share counts once (its owner's).  Under ZeRO-1 each moment leaf is
-the rank's slice over the data axis (``LeafPlan.zero1_dim``): the rank
+ranks read counts once (its owner's columns, ``LeafPlan.norm_cols``).
+Under ZeRO-1 each moment leaf is the rank's slice over the data axis
+(``LeafPlan.zero1_dim``): the rank
 updates that slice of the moments and of the params, then the params are
 all-gathered over the data group.  Every update is elementwise, so the
 params come out bitwise equal to the update without ZeRO-1.
@@ -127,8 +128,11 @@ def global_norm(tree, layout: Optional[Layout] = None) -> torch.Tensor:
     module docstring)."""
     total = split = None
     for i, x in enumerate(leaves(tree)):
-        sq = torch.sum(torch.square(x.float()))
         how = "replicated" if layout is None else layout.plans[i].norm
+        if how == "model" and layout.plans[i].norm_cols is not None:
+            lo, hi = layout.plans[i].norm_cols
+            x = x.narrow(x.dim() - 1, lo, hi - lo)
+        sq = torch.sum(torch.square(x.float()))
         if how == "replicated":
             total = sq if total is None else total + sq
         elif how == "model":

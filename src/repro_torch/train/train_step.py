@@ -25,8 +25,10 @@ rank's: ``rank_state``, ``sharding.shard_batch``):
   the data-parallel group: the mean over dp of the ranks' usual
   data-parallel gradients;
 * over the model axis, the leaves ``sharding.leaf_plan`` marks are summed:
-  ``q_norm``/``k_norm`` over the model group and a shared KV head's
-  projections over its block of ranks;
+  ``q_norm``/``k_norm`` over the model group, and the columns of each KV
+  head that several ranks read (their ``wk``/``wv``/``bk``/``bv``) over
+  those ranks (``sharding.shared_kv_heads``; one group a head, made here
+  on every rank in ascending head order, and summed in that order);
 * ``grad_compress`` runs after the reduction, as in JAX, with each split
   leaf's scale the whole leaf's (a max over the model group);
 * ``zero1`` keeps the Adam moments split over the data axis (the
@@ -90,7 +92,7 @@ def make_train_step(model, optimizer: AdamW,
     """Returns train_step(state, batch) -> (state, metrics).  ``grid``:
     this rank's grid (see the module docstring); ``zero1`` needs one."""
     dp = None
-    block = None
+    readers = {}          # KV head -> the group of the ranks that read it
     if grid is None:
         if cfg.dp_axes or zero1:
             raise ValueError(
@@ -99,7 +101,7 @@ def make_train_step(model, optimizer: AdamW,
                 f"(make_train_step(..., grid=), repro_torch.launch.mesh)")
     else:
         from repro_torch.launch.mesh import dp_axes
-        from repro_torch.launch.sharding import kv_block
+        from repro_torch.launch.sharding import shared_kv_heads
         want = dp_axes(grid.mesh)
         if cfg.dp_axes and tuple(cfg.dp_axes) != want:
             raise ValueError(f"dp_axes {cfg.dp_axes!r}: the grid's "
@@ -110,8 +112,12 @@ def make_train_step(model, optimizer: AdamW,
                 (model.dp_group is None) != (dp is None):
             raise ValueError("the model's groups are not the grid's: build "
                              "it with Model(cfg, **grid.model_kw())")
-        if grid.tp > 1 and kv_block(model.cfg, grid.tp) > 1:
-            block = grid.model_block(kv_block(model.cfg, grid.tp))
+        if grid.tp > 1:
+            # collective: every rank makes every reader group, in head order
+            for head, ranks in shared_kv_heads(model.cfg, grid.tp):
+                g = grid.model_subgroup(ranks)
+                if g is not None:
+                    readers[head] = g
     layout = None
 
     def single(params, batch):
@@ -132,7 +138,13 @@ def make_train_step(model, optimizer: AdamW,
             if plan.grad_sum == "model":
                 layout.model.all_reduce_sum(g)
             elif plan.grad_sum == "kv":
-                block.all_reduce_sum(g)
+                # each shared head's columns over its readers, in ascending
+                # head order on every rank, so overlapping reader sets
+                # (KV 1 on ranks 0 and 1, KV 2 on 1 and 2) cannot deadlock
+                for head, lo, hi in plan.kv_shared:
+                    part = g.narrow(g.dim() - 1, lo, hi - lo)
+                    part.copy_(readers[head].all_reduce_sum(
+                        part.contiguous()))
             if dp is not None:
                 dp.all_reduce_sum(g)
 

@@ -528,8 +528,9 @@ def test_tp2_collectives_by_formula(step):
 def test_lower_cell_tp2_and_train_refusal():
     """A tp = 2 decode (the embedding's all-reduce beside the layers'), a
     train cell at tp = 2 (counted now: its gradients' model-axis sums and
-    the vocab gather), and what still refuses: a cell the port cannot
-    shard is ``unsupported`` with its reason, never an error."""
+    the vocab gather), a train cell whose query heads do not divide tp
+    (counted now), and what still refuses: a cell the port cannot shard is
+    ``unsupported`` with its reason, never an error."""
     rec = dryrun.lower_cell("llama3.1-8b", "decode_32k", tp=2)
     assert rec["status"] == "ok" and rec["mesh"] == [1, 2]
     assert rec["n_devices"] == 2
@@ -541,9 +542,16 @@ def test_lower_cell_tp2_and_train_refusal():
     assert rec["status"] == "ok" and rec["mesh"] == [1, 2]
     assert set(rec["collective_bytes_by_axis"]) == {"model"}
     assert rec["collective_bytes_by_axis"]["model"]["all-gather"] > 0
+    # 36 query heads over 16 ranks: GSPMD's padded layout, rank 0's three
+    # heads on KV 0, which ranks 1 and 2 read too
     rec = dryrun.lower_cell("starcoder2-7b", "train_4k", tp=16)
+    assert rec["status"] == "ok" and rec["mesh"] == [1, 16]
+    assert "padded layout" in rec["note"] and "rank 0" in rec["note"]
+    assert rec["kernels"]["flash_attention"]["launches"] == 64
+    assert rec["collective_bytes_by_axis"]["model"]["all-reduce"] > 0
+    rec = dryrun.lower_cell("zamba2-1.2b", "train_4k", tp=16)
     assert rec["status"] == "unsupported"
-    assert "36 query heads" in rec["reason"]
+    assert "zamba_super" in rec["reason"]
 
 
 # ---------------------------------------------------- plain attentions

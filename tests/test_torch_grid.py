@@ -31,11 +31,16 @@ data-parallel rank's equal.  The cases:
 
 Without a spawn: each rank's state leaf shapes at the JAX study's 16×16 and
 2×16×16 meshes for every supported assigned arch against JAX's
-``fit_to_mesh(state_pspecs(..., zero1))`` on a stand-in mesh, the one
-deviation listed by leaf (a shared KV head's projections keep whole heads
-where GSPMD splits ``d_head``); the unsupported cells' status and reasons;
-and a (2, 2) counting grid's collective bytes by formula for a tiny train
-step.
+``fit_to_mesh(state_pspecs(..., zero1))`` on a stand-in mesh, the two
+deviations listed by leaf (a shared KV head's projections keep whole heads
+where GSPMD splits ``d_head``; query heads that do not divide 16 split as
+whole heads in GSPMD's padded layout, where GSPMD splits ``H * d_head``
+evenly); the unsupported cells' status and reasons (the recurrent
+stages); a (2, 2) counting grid's collective bytes by formula for a tiny
+train step, and a (1, 3) one's with the all-reduces of the shared KV
+heads' gradients over their readers.  ``tests/test_torch_heads.py``
+trains on (1, 3), (1, 4) and (2, 3) grids with query heads that do not
+divide tp.
 """
 import dataclasses
 
@@ -402,17 +407,19 @@ class FakeMesh:
 
 
 #: the per-rank leaves where the port deviates from GSPMD, by arch: a KV
-#: head shared by tp / KV ranks keeps its whole ``d_head`` (JAX splits
-#: ``KV * d_head`` columns over 16)
+#: head that several ranks read keeps its whole ``d_head`` on each (JAX
+#: splits ``KV * d_head`` columns over 16), and where the query heads do
+#: not divide 16 rank 0 holds ceil(H / 16) whole heads of ``wq``/``bq``/
+#: ``wo`` (JAX splits ``H * d_head`` evenly, across head boundaries)
 DEVIATIONS = {"qwen3-8b": ("wk", "wv"), "chameleon-34b": ("wk", "wv"),
-              "granite-moe-1b-a400m": ("wk", "wv")}
+              "granite-moe-1b-a400m": ("wk", "wv"),
+              "starcoder2-7b": ("wq", "wk", "wv", "wo"),
+              "qwen1.5-32b": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
+              "granite-moe-3b-a800m": ("wq", "wk", "wv", "wo")}
 SUPPORTED = ("gemma3-27b", "qwen3-8b", "chameleon-34b",
-             "granite-moe-1b-a400m", "musicgen-large")
-UNSUPPORTED = {"starcoder2-7b": "36 query heads",
-               "qwen1.5-32b": "40 query heads",
-               "granite-moe-3b-a800m": "24 query heads",
-               "xlstm-125m": "4 query heads",
-               "zamba2-1.2b": "zamba_super"}
+             "granite-moe-1b-a400m", "musicgen-large", "starcoder2-7b",
+             "qwen1.5-32b", "granite-moe-3b-a800m")
+UNSUPPORTED = {"xlstm-125m": "xlstm_pair", "zamba2-1.2b": "zamba_super"}
 
 
 def _jax_rank_shapes(arch, multi_pod, zero1):
@@ -454,7 +461,12 @@ def test_rank_state_shapes_match_jax_meshes(arch, multi_pod, zero1):
     want = _jax_rank_shapes(arch, multi_pod, zero1)
     assert len(got) == len(want)
     dev = DEVIATIONS.get(arch, ())
-    block = sharding.kv_block(cfg, 16)
+    # rank 0's width along the model dim: its query heads, or the KV heads
+    # they read, whole
+    qlo, qhi = sharding.query_heads(cfg, 0, 16)
+    klo, khi = sharding.kv_heads(cfg, 0, 16)
+    width = {n: (khi - klo if n in ("wk", "wv", "bk", "bv") else qhi - qlo)
+             * cfg.d_head for n in dev}
     seen = set()
     for g, (path, w) in zip(got, want):
         name = str(path[-1].key) if hasattr(path[-1], "key") else ""
@@ -462,7 +474,11 @@ def test_rank_state_shapes_match_jax_meshes(arch, multi_pod, zero1):
             continue
         where = jax.tree_util.keystr(path)
         assert name in dev, f"{arch}: {where} {g} != {w}"
-        assert g[:-1] == w[:-1] and g[-1] == w[-1] * block, where
+        diff = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+        assert len(g) == len(w) and len(diff) == 1, where
+        # the one dim that differs is the model dim; under ZeRO-1 a moment
+        # is further split on another dim, the same on both sides
+        assert g[diff[0]] == width[name], (where, g, w)
         seen.add(name)
     assert seen == set(dev)
 
@@ -475,7 +491,7 @@ def test_unsupported_cells_status_and_reasons():
             assert rec["status"] == "unsupported", (arch, rec)
             assert why in rec["reason"], rec["reason"]
     rec = dryrun.lower_cell("xlstm-125m", "decode_32k", dp=16, tp=16)
-    assert "xlstm_pair" in rec["reason"]
+    assert "query heads" not in rec["reason"]
     assert dryrun.lower_cell("xlstm-125m", "decode_32k", dp=16)["status"] \
         == "ok"
 
@@ -512,3 +528,35 @@ def test_counting_grid_collective_bytes_by_formula():
     assert gathered > 0
     assert c.coll_by_axis["data"] == {"all-reduce": 4 + 4 + grads,
                                       "all-gather": gathered}
+
+
+def test_counting_grid_reader_groups_by_formula():
+    """A tiny train step on a (1, 3) grid, rank 1 on meta, at
+    starcoder2-7b's 36 query heads and 4 KV heads: rank 1's twelve query
+    heads read KV 1 (with rank 0) and KV 2 (with rank 2).  Model axis:
+    five all-reduces of the hidden state a layer (as at (2, 2); the padded
+    vocab of 256 does not split over 3, so the embedding and the head stay
+    whole and add none), the global norm's one f32, and each shared
+    head's columns of the ``wk`` and ``wv`` gradients (f32) over its two
+    readers."""
+    cfg = dataclasses.replace(get_config("starcoder2-7b-tiny"), n_heads=36,
+                              n_kv_heads=4, d_ff=192)
+    grid = counting_grid(grid_mesh(1, 3), rank=1)
+    model = Model(cfg, **grid.model_kw())
+    inputs = specs.input_specs(cfg, ShapeCfg("t", S, B, "train"), model,
+                               grid=grid)
+    plans = sharding.leaf_plan(inputs["state"].params, cfg, 3, 1)
+    dh = cfg.d_head
+    kv = {p.path[-1]: p.kv_shared for p in plans if p.grad_sum == "kv"}
+    assert kv == {n: ((1, 0, dh), (2, dh, 2 * dh)) for n in ("wk", "wv")}
+    # rank 1 owns KV 2 only: KV 1 counts in the norm on rank 0
+    assert {p.path[-1]: p.norm_cols for p in plans
+            if p.path[-1] in ("wk", "wv")} == {"wk": (dh, 2 * dh),
+                                                "wv": (dh, 2 * dh)}
+    c, _, _ = dryrun.count_step(model, "train", inputs, grid=grid)
+    L = sum(st.n_layers for st in cfg.stages)
+    d, act = cfg.d_model, 2
+    hidden = B * S * d * act
+    shared = 2 * 2 * L * d * dh * 4
+    assert c.coll_by_axis == {"model": {
+        "all-reduce": 5 * L * hidden + 4 + shared}}
