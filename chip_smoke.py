@@ -358,6 +358,8 @@ def flash_cases():
     for H, KV, dh in HEADS_RANKS:                 # phase 11's rank shapes
         for S in (16, 256):
             yield 1, S, H, KV, dh, (S - S // 4 - 1,), None
+    for S in (16, 256):                           # zamba2 at tp = 2 (phase 12)
+        yield 1, S, 16, 16, 64, (S - S // 4 - 1,), None
 
 
 #: the verify shape's starts (no page edge) and a batch on page edges
@@ -412,6 +414,11 @@ def paged_cases():
         yield (8, None, H, KV, dh, 64, 32, None,
                (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
         yield 1, 256, H, KV, dh, 64, 32, (293,), (293 + 200,), None
+    # zamba2-1.2b's shared attention at a rank's heads, tp = 2 (phase 12):
+    # H16 KV16 dh64
+    yield (8, None, 16, 16, 64, 64, 32, None,
+           (1, 64, 65, 300, 777, 1024, 2048, 2049), None)
+    yield 1, 256, 16, 16, 64, 64, 32, (293,), (293 + 200,), None
 
 
 def gmm_cases():
@@ -524,6 +531,7 @@ def flash_bwd_cases():
     for H, KV, dh in HEADS_RANKS:             # phase 11's rank shapes
         yield 2, 1024 if H == 12 else 256, H, KV, dh, None, None
     yield 2, 256, 32, 32, 64, None, None
+    yield 2, 1024, 16, 16, 64, None, None     # zamba2's rank at tp = 2
     yield 2, 512, 12, 4, 64, None, 100
     yield 3, 256, 12, 4, 64, (256, 131, 17), 64
     yield 2, 100, 8, 2, 16, (100, 57), None
@@ -1062,6 +1070,54 @@ def timings(torch, ops, dev):
         kernel="paged_attention_extend", path=ZAMBA_PATH,
         shape=f"B1 S{S} start{start} H{Hz} KV{KVz} dh{dz} ps{ps} bf16",
         bound=bound(work))
+    # zamba2-1.2b's shared attention at a rank's heads at tp = 2 (phase
+    # 12 (b)'s serve): H16 KV16 dh64, the same shapes as the rows above,
+    # their own generator; launches from phase 12's serve (rank 0's)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Hz = KVz = 16
+    S = 256
+    q = _rand(torch, gen, (1, S, Hz, dz), bf, dev)
+    k = _rand(torch, gen, (1, S, KVz, dz), bf, dev)
+    v = _rand(torch, gen, (1, S, KVz, dz), bf, dev)
+    lt = torch.tensor([S], dtype=torch.int32, device=dev)
+    work = ops.flash_attention_work(1, S, Hz, KVz, dz, 2,
+                                    ops.causal_pairs(S, [S], None))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["flash_attention_zamba_tp2"] = measure(
+        lambda: ops.flash_attention(q, k, v, lt),
+        lambda: ops.flash_attention_plain(q, k, v, lt),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        kernel="flash_attention", path=REC_SERVE_PATH,
+        shape=f"B1 S{S} H{Hz} KV{KVz} dh{dz} bf16",
+        bound=bound(work))
+    kpz = _rand(torch, gen, (P, ps, KVz, dz), bf, dev)
+    vpz = _rand(torch, gen, (P, ps, KVz, dz), bf, dev)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = _rand(torch, gen, (B, Hz, dz), bf, dev)
+    out["paged_attention_decode_zamba_tp2"] = measure(
+        lambda: ops.paged_attention(qd, kpz, vpz, table, lt, page_size=ps),
+        lambda: ops.paged_attention_plain(qd, kpz, vpz, table, lt,
+                                          page_size=ps),
+        lambda: paged_library(qd[:, None], kpz, vpz, table, lt, lt - 1),
+        kernel="paged_attention_decode", path=REC_SERVE_PATH,
+        shape=f"B{B} H{Hz} KV{KVz} dh{dz} ps{ps} len{lens} bf16",
+        bound=bound(ops.paged_decode_work(B, Hz, KVz, dz, 2, table.numel(),
+                                          kv_rows)))
+    start = 293
+    qe = _rand(torch, gen, (1, S, Hz, dz), bf, dev)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    lt = st + S
+    rows, pairs = ops.paged_work([start], S, [start + S], None)
+    work = ops.paged_extend_work(1, S, Hz, KVz, dz, 2, maxp, rows, pairs)
+    out["paged_attention_extend_zamba_tp2"] = measure(
+        lambda: ops.paged_attention(qe, kpz, vpz, table[:1], lt,
+                                    page_size=ps, start=st),
+        lambda: ops.paged_attention_plain(qe, kpz, vpz, table[:1], lt,
+                                          page_size=ps, start=st),
+        lambda: paged_library(qe, kpz, vpz, table[:1], lt, st),
+        kernel="paged_attention_extend", path=REC_SERVE_PATH,
+        shape=f"B1 S{S} start{start} H{Hz} KV{KVz} dh{dz} ps{ps} bf16",
+        bound=bound(work))
     # starcoder2-7b's ranks 0 and 1 at tp = 3 (phase 11 (b)'s serve): 12
     # query heads on 4 KV slots (G 3) and on 2 (G 6); the chunk, decode
     # and extend shapes of llama's rows, their own generator; launches
@@ -1142,7 +1198,8 @@ def flash_bwd_timings(torch, ops, dev, measure):
     """The flash backward at demo-110m's training step (B8 S1024 H12 KV4
     dh64), llama3.1-8b's (B2 S1024 H32 KV8 dh128), a rank's of it at tp
     = 2 (H16 KV4, phase 10's grid) and starcoder2-7b's ranks 0 and 1 at
-    tp = 3 (H12 on 4 KV slots and on 2, phase 11's grid), bf16, beside its
+    tp = 3 (H12 on 4 KV slots and on 2, phase 11's grid) and zamba2-1.2b's
+    rank at tp = 2 (H16 KV16 dh64, phase 12's grid), bf16, beside its
     plain version and autograd through SDPA with K/V expanded to every
     query head (the library call; the port never makes it).
 
@@ -1167,7 +1224,9 @@ def flash_bwd_timings(torch, ops, dev, measure):
             ("flash_attention_bwd_tp3", 2, 1024, 12, 4, 128,
              HEADS_TRAIN_PATH),
             ("flash_attention_bwd_tp3_g6", 2, 1024, 12, 2, 128,
-             HEADS_TRAIN_PATH)):
+             HEADS_TRAIN_PATH),
+            ("flash_attention_bwd_zamba_tp2", 2, 1024, 16, 16, 64,
+             REC_ZAMBA_TRAIN_PATH)):
         q = _rand(torch, gen, (B, S, H, dh), bf, dev)
         k = _rand(torch, gen, (B, S, KV, dh), bf, dev)
         v = _rand(torch, gen, (B, S, KV, dh), bf, dev)
@@ -1289,18 +1348,18 @@ def gmm_train_timings(torch, ops, dev, measure):
 
 
 def _tiny_serve(cfg, params, dev, reqs, *, max_batch=2, chunk=16,
-                **engine_kw):
+                scheduler=None, **engine_kw):
     """One tiny engine on ``dev`` (``engine_kw``: routing, spec,
-    prefix_cache, tp and group) behind a chunked-prefill ServeDriver:
-    (tokens, decisions, metrics, its InstanceCfg).  The callers' arrivals
-    do not depend on latencies (all at 0, or phases far apart), so
-    neither do the decisions.  A prefix store's radix tree is held to 3
-    device blocks, so it spills to the host tier."""
+    prefix_cache, tp and group) behind a chunked-prefill ServeDriver (or
+    ``scheduler``): (tokens, decisions, metrics, its InstanceCfg).  The
+    callers' arrivals do not depend on latencies (all at 0, or phases far
+    apart), so neither do the decisions.  A prefix store's radix tree is
+    held to 3 device blocks, so it spills to the host tier."""
     from repro_torch.core.config import SchedulerCfg
     from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
     eng = ServingEngine(cfg, params, max_batch=max_batch, max_len=256,
                         name="e0", device=dev, **engine_kw)
-    drv = ServeDriver([eng], DriverCfg(scheduler=SchedulerCfg(
+    drv = ServeDriver([eng], DriverCfg(scheduler=scheduler or SchedulerCfg(
         max_batch_size=max_batch, max_batch_tokens=64, chunked_prefill=True,
         prefill_chunk=chunk)))
     if engine_kw.get("prefix_cache"):
@@ -3398,15 +3457,17 @@ def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1):
     return losses, norms, map_tree(lambda t: t.detach().cpu(), state.params)
 
 
-def _grid_full_rank(torch, grid, arch, zero1):
-    """(b) on one rank: ``arch`` at published widths cut to 2 layers, bf16
-    compute, f32 params, B2 S1024 from one seeded draw on every rank.  The
-    dry run counts this rank's step on meta first (``counting_grid`` at
-    the rank's coordinates); then tp = 1's loss on the whole batch and the
-    same weights, then steps: the first under the counter (launches,
-    collective bytes by axis), then ``GRID_TIMED`` uncounted ones, each
-    timed, the first with the peak allocation measured as phase 9
-    measures it; the step time is their median."""
+def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
+                    S=GRID_S, timed=GRID_TIMED):
+    """(b) on one rank: ``arch`` at published widths cut to 2 layers (or
+    ``cfg``), bf16 compute, f32 params, B2 S1024 (or ``B``, ``S``) from
+    one seeded draw on every rank.  The dry run counts this rank's step on
+    meta first (``counting_grid`` at the rank's coordinates); then tp =
+    1's loss on the whole batch and the same weights, then steps: the
+    first under the counter (launches, collective bytes by axis), then
+    ``timed`` uncounted ones, each timed, the first with the peak
+    allocation measured as phase 9 measures it; the step time is their
+    median."""
     from repro_torch.configs import ShapeCfg, get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, specs
@@ -3417,13 +3478,12 @@ def _grid_full_rank(torch, grid, arch, zero1):
     from repro_torch.train.train_step import rank_state
     from repro_torch.train.tree import leaves
     dev = grid.device
-    cfg = _depth_cut(get_config(arch), 2)
+    cfg = cfg or _depth_cut(get_config(arch), 2)
     # the dry run of this rank, on meta
     cgrid = counting_grid(grid.mesh, grid.rank)
     mmodel = Model(cfg, remat=True, **cgrid.model_kw())
-    meta_in = specs.input_specs(cfg, ShapeCfg("phase10", GRID_S, GRID_B,
-                                              "train"), mmodel, grid=cgrid,
-                                zero1=zero1)
+    meta_in = specs.input_specs(cfg, ShapeCfg("phase10", S, B, "train"),
+                                mmodel, grid=cgrid, zero1=zero1)
     t0 = time.perf_counter()
     mc, mem, _ = dryrun.count_step(mmodel, "train", meta_in, grid=cgrid,
                                    zero1=zero1)
@@ -3434,7 +3494,7 @@ def _grid_full_rank(torch, grid, arch, zero1):
     # one seeded draw on every rank, tp = 1's loss on it, then the shard
     gen = torch.Generator(device=dev).manual_seed(0)
     full = Model(cfg).init(gen, device=dev)
-    batch = {k: torch.randint(0, cfg.vocab, (GRID_B, GRID_S), generator=gen,
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=gen,
                               device=dev, dtype=torch.int32)
              for k in ("inputs", "labels")}
     with torch.no_grad():
@@ -3462,7 +3522,7 @@ def _grid_full_rank(torch, grid, arch, zero1):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(GRID_TIMED):
+    for i in range(timed):
         t0 = time.perf_counter()
         state, m = dryrun.run_step(model, "train", inputs, grid=grid,
                                    zero1=zero1)
@@ -3943,6 +4003,300 @@ def heads_on_card(torch, card):
     return by_path
 
 
+# --------------------------------------------------------------- phase 12
+#: phase 12's tiny f32 variants by tp: zamba2-1.2b-tiny at tp = 2 (8 Mamba2
+#: heads and 4 attention heads: 4 and 2 a rank), xlstm-125m-tiny at
+#: d_model 48 (its sLSTM width 64; the tiny config's 85 splits over no tp)
+#: at tp = 4 (one head a rank)
+REC_TINY = {2: ("zamba2-1.2b-tiny", {}),
+            4: ("xlstm-125m-tiny", dict(d_model=48))}
+#: P/D between engines of different tp at tp = 2 (zamba2): (prefill,
+#: decode) tp
+REC_PD = {"pd-2to1": (2, 1), "pd-1to2": (1, 2)}
+#: phase 12's published-width paths
+REC_SERVE_PATH = "tp2 zamba2-1.2b"
+REC_ZAMBA_TRAIN_PATH = "grid (1, 2) train zamba2-1.2b (1 superblock + 2)"
+REC_XLSTM_TRAIN_PATH = "grid (1, 4) train xlstm-125m (2 pairs)"
+#: tp -> (by-path key, arch, B, S, uncounted steps) of (c)'s train step;
+#: one uncounted xLSTM step: four ranks time-share the card through the
+#: sLSTM's 512-step loop, ~10 s a step at 6 pairs on one H100
+REC_TRAIN = {2: (REC_ZAMBA_TRAIN_PATH, ZAMBA_PATH, 2, 1024, 3),
+             4: (REC_XLSTM_TRAIN_PATH, XLSTM_PATH, 2, 512, 1)}
+#: (b)'s output tokens a request
+REC_OUT = 32
+
+
+def _rec_cfg(tp):
+    from repro_torch.configs import get_config
+    arch, over = REC_TINY[tp]
+    return dataclasses.replace(get_config(arch), compute_dtype="float32",
+                               **over)
+
+
+def _rec_train_cfg(arch):
+    """(c)'s config at full width: zamba2-1.2b cut to one superblock and
+    its two trailing Mamba2 layers (8 Mamba2 layers, the shared block
+    once), xlstm-125m to 2 of its 6 (mLSTM, sLSTM) pairs."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch != ZAMBA_PATH:
+        return _depth_cut(cfg, 2)
+    sup, tail = cfg.stages
+    return dataclasses.replace(
+        cfg, n_layers=6 + tail.n_layers,
+        stages=(dataclasses.replace(sup, n_layers=1), tail))
+
+
+def _rec_tiny_serve(cfg, params, dev, reqs, **kw):
+    """zamba2 in chunks of 16 (a slot sits mid-prefill while others
+    decode); xLSTM, which has no extend, whole prompts."""
+    from repro_torch.core.config import engine_scheduler_cfg
+    sched = None if cfg.ssm is not None else engine_scheduler_cfg(2)
+    return _tiny_serve(cfg, params, dev, reqs, scheduler=sched, **kw)
+
+
+def _rec_full_serve(torch, ops, group):
+    """(b) on one rank: zamba2-1.2b at full width and depth, bf16, seeded
+    weights drawn on the rank and cut to its shard, serving phase 7's 8
+    requests (chunked prefill 256, batch 8, ``REC_OUT`` output tokens
+    each) with every arrival at 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    cfg = get_config(ZAMBA_PATH)
+    reqs = recurrent_requests(cfg.vocab, 128, 1024, out=REC_OUT, rate=None)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, name="e0", max_batch=8, max_len=2048, seed=0,
+                        tp=group.size, group=group)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    row = {"state": [tuple(t.shape) for _, _, t, _ in
+                     eng.model.state_leaves(eng.cache)][:2],
+           "resident_gib": torch.cuda.memory_allocated() / 2**30,
+           "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    drv = ServeDriver([eng], DriverCfg(scheduler=serve_scheduler()))
+    drv.runtime.warmup()
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _record_shapes(ops)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        m = drv.run(reqs, warmup=False)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    inst = drv.runtime.instances["e0"]
+    row.update(wall_s=time.perf_counter() - t0,
+               launches=ops.launch_counts(), shapes=sorted(seen),
+               serve_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               finished=m["finished"], decisions=list(inst.decisions),
+               icfg=inst.cfg, tokens=dict(inst.backend.out_tokens))
+    del eng, drv, m, inst
+    gc.collect()                # ServeDriver and its runtime form a cycle
+    torch.cuda.empty_cache()
+    return row
+
+
+def _rec_rank(group, job):
+    """Phase 12's ranks (one spawn a tp, sharing the card): the tiny
+    variant's logits and serve, for zamba2 P/D across tp, two steps on a
+    (1, 2) grid and (b); then (c)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import grid_mesh, grid_on_world
+    from repro_torch.serve import ServingEngine
+    tp = group.size
+    cfg = _rec_cfg(tp)
+    params = job["params"]
+    out = {"backend": group.backend, "device": str(group.device),
+           "rank": group.rank}
+    out["logits"] = tiny_logits(torch, ServingEngine(
+        cfg, params, max_batch=2, max_len=128, tp=tp, group=group))
+    tok, dec, _, icfg = _rec_tiny_serve(cfg, params, group.device,
+                                        _tiny_requests(cfg.vocab), tp=tp,
+                                        group=group)
+    out["serve"] = {"tokens": tok, "decisions": dec, "icfg": icfg}
+    if cfg.ssm is not None:
+        out["pd"] = {t: _tiny_technique(cfg, params, None, group.device, t,
+                                        group, pd_tp=pd_tp)
+                     for t, pd_tp in REC_PD.items()}
+    grid = grid_on_world(grid_mesh(1, tp), group.rank, group.device,
+                         group.backend)
+    if cfg.ssm is not None:
+        out["train"] = _grid_tiny_rank(torch, grid, cfg, params,
+                                       job["batches"], False)
+        out["full_serve"] = _rec_full_serve(torch, ops, group)
+    _, arch, B, S, timed = REC_TRAIN[tp]
+    out["full_train"] = _grid_full_rank(torch, grid, arch, False,
+                                        cfg=_rec_train_cfg(arch), B=B, S=S,
+                                        timed=timed)
+    return out
+
+
+def recurrent_tp_on_card(torch, card):
+    """Phase 12: tensor parallelism of the recurrent stages (Mamba2, the
+    zamba superblock, mLSTM, sLSTM; GSPMD's padded head layout), ranks
+    sharing the card over gloo (``run_ranks`` with named devices, a spawn
+    of two ranks and one of four): a check of the sharded path and of its
+    memory, no time of it a parallel speed.  (a) tiny f32 zamba2 at tp =
+    2 and xLSTM (d_model 48) at tp = 4: prefill and decode logits within
+    1e-5 of the CPU's tp = 1 on every rank; a serve's tokens and
+    decisions equal the CPU's tp = 1 and the port simulator's at tp; for
+    zamba2 P/D 2 -> 1 and 1 -> 2 equal the CPU's P/D at tp = 1 in tokens,
+    decisions and handoff bytes (the recurrent state shipped whole) and
+    the simulator at the engines' tp and two AdamW steps on a (1, 2) grid
+    equal the CPU's one process (losses, grad norms, the params
+    gathered).  (b) zamba2-1.2b at full width and depth, bf16, tp = 2: a
+    serve of 8 requests (every arrival at 0) finishing every request with
+    the simulator's decisions at tp = 2, launching the three attention
+    kernels at the rank's H16 KV16, each rank's resident and peak memory
+    printed.  (c) zamba2-1.2b cut to one superblock and its two trailing
+    Mamba2 layers at (1, 2), B2 S1024, and xlstm-125m cut to 2 pairs at
+    (1, 4), B2 S512: each held as phase 10 (b) (state bytes, launches
+    and collective bytes by axis equal to the rank's meta count, peak
+    within ``PEAK_BAND``, step 0's loss within the bf16 tolerance of tp =
+    1's).
+    Returns rank 0's launch counts of each path."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.sharding import gather_params, recurrent_heads
+    from repro_torch.models import Model
+    from repro_torch.serve import ServingEngine
+    from repro_torch.train.tree import leaves
+    t0 = time.perf_counter()
+    by_path, tol = {}, TOL["float32"]
+    for tp in REC_TINY:
+        cfg = _rec_cfg(tp)
+        params = Model(cfg).init(torch.Generator().manual_seed(0))
+        batches = _tiny_batches(cfg, n=GRID_STEPS, seed=16)
+        reqs = _tiny_requests(cfg.vocab)
+        ref_logits = tiny_logits(torch, ServingEngine(
+            cfg, params, max_batch=2, max_len=128, device="cpu"))
+        ref_tok, ref_dec, _, _ = _rec_tiny_serve(cfg, params, "cpu", reqs)
+        zamba = cfg.ssm is not None
+        ref_train = _grid_reference(torch, cfg, params, batches) \
+            if zamba else None
+        ref_pd = _tiny_technique(cfg, params, None, "cpu", "pd") \
+            if zamba else None
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = run_ranks(_rec_rank, tp, {"params": params,
+                                          "batches": batches},
+                          device="cuda", devices=["cuda:0"] * tp,
+                          timeout_s=600)
+        wall = time.perf_counter() - t1
+        check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+                  for r in ranks),
+              f"tp = {tp} ranks: "
+              f"{[(r['backend'], r['device']) for r in ranks]}")
+        block = "mamba" if zamba else "mlstm"
+        heads = [recurrent_heads(cfg, r, tp, block) for r in range(tp)]
+        err = max(float(np.abs(g - w).max()) for r in ranks
+                  for g, w in zip(r["logits"], ref_logits))
+        check(all(np.allclose(g, w, rtol=1e-5, atol=1e-5) for r in ranks
+                  for g, w in zip(r["logits"], ref_logits)),
+              f"tiny {cfg.name} tp = {tp}: logits max err {err:.3g} "
+              f"against the CPU's tp = 1")
+        sim = _sim_decisions([ranks[0]["serve"]["icfg"]], reqs, tp=tp)[1]
+        check(all(r["serve"]["tokens"] == ref_tok
+                  and r["serve"]["decisions"] == ref_dec == sim["e0"]
+                  for r in ranks),
+              f"tiny {cfg.name} tp = {tp}: a rank's tokens or decisions "
+              f"differ from the CPU's tp = 1 or the simulator's")
+        print(f"phase 12: tiny {cfg.name} f32 (d_model {cfg.d_model}) at "
+              f"tp = {tp} ({tp} ranks on the card, gloo; {block} heads by "
+              f"rank {heads}): logits max err {err:.3g} against the CPU's "
+              f"tp = 1 (tol 1e-5); {len(ref_tok)} requests' tokens == the "
+              f"CPU's tp = 1, {len(ref_dec)} decisions == tp = 1's == the "
+              f"simulator's at tp = {tp} on every rank; spawn {wall:.1f} s")
+        if ref_pd is not None:
+            for technique, pd_tp in REC_PD.items():
+                rows = [r["pd"][technique] for r in ranks]
+                sim = _sim_decisions(rows[0]["icfgs"], reqs,
+                                     rows[0]["pd_map"], tp=tp)[1]
+                check(all(row["tokens"] == ref_pd["tokens"]
+                          and row["decisions"] == ref_pd["decisions"] == sim
+                          and row["network_bytes"] == ref_pd["network_bytes"]
+                          for row in rows),
+                      f"tiny zamba2 P/D {pd_tp[0]} -> {pd_tp[1]}: tokens, "
+                      f"decisions or handoff bytes differ from the CPU's "
+                      f"P/D at tp = 1 or the simulator's")
+                print(f"phase 12: tiny zamba2 P/D {pd_tp[0]} -> {pd_tp[1]} "
+                      f"f32 on the card: tokens, decisions and handoff "
+                      f"bytes {json.dumps(ref_pd['network_bytes'])} (K/V "
+                      f"and the recurrent state) == the CPU's P/D at tp = 1 "
+                      f"on every rank; decisions == the simulator's at the "
+                      f"engines' tp")
+        if zamba:
+            losses, norms, want = ref_train
+            got = [r["train"] for r in ranks]
+            terr = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g[0] + g[1], losses + norms))
+            full = gather_params([g[2] for g in got], cfg, tp)
+            ok, perr = _params_close(leaves(full), leaves(want),
+                                     TINY_TRAIN_LR, GRID_STEPS, rtol=tol,
+                                     atol=tol)
+            check(terr <= tol and ok,
+                  f"tiny {cfg.name} (1, {tp}) grid: losses/norms "
+                  f"{terr:.3g}, params {perr:.3g} against the CPU's one "
+                  f"process")
+            print(f"phase 12: tiny {cfg.name} (1, {tp}) grid, {GRID_STEPS} "
+                  f"steps: losses {[round(x, 5) for x in got[0][0]]}, max "
+                  f"rel err of losses and grad norms against the CPU's one "
+                  f"process {terr:.2g} (tol {tol}); params max abs err "
+                  f"{perr:.3g}")
+            # (b): the full-width serve, every rank's row
+            full_cfg = get_config(ZAMBA_PATH)
+            reqs = recurrent_requests(full_cfg.vocab, 128, 1024, out=REC_OUT,
+                                      rate=None)
+            rows = [r["full_serve"] for r in ranks]
+            sim = _sim_decisions([rows[0]["icfg"]], reqs, tp=tp)[1]["e0"]
+            must = ("flash_attention", "paged_attention_decode",
+                    "paged_attention_extend")
+            want_shapes = {("flash_attention", 16, 16),
+                           ("paged_attention", 16, 16)}
+            check(all(o["launches"][k] > 0 for o in rows for k in must)
+                  and all(set(o["shapes"]) == want_shapes for o in rows),
+                  f"{REC_SERVE_PATH}: launches by rank "
+                  f"{[o['launches'] for o in rows]} at "
+                  f"{[o['shapes'] for o in rows]}, each rank must launch "
+                  f"{must} at H16 KV16")
+            check(all(o["finished"] == len(reqs) and o["decisions"] == sim
+                      and o["tokens"] == rows[0]["tokens"] for o in rows),
+                  f"{REC_SERVE_PATH}: finished "
+                  f"{[o['finished'] for o in rows]} of {len(reqs)}, or the "
+                  f"ranks' tokens or decisions differ (from the "
+                  f"simulator's at tp = {tp})")
+            for r, o in zip(ranks, rows):
+                launched = {k: v for k, v in o["launches"].items() if v}
+                print(f"phase 12 [{card}] {REC_SERVE_PATH} rank "
+                      f"{r['rank']}: {o['finished']} requests finished in "
+                      f"{o['wall_s']:.1f} s, {len(o['decisions'])} "
+                      f"decisions == the simulator's at tp = {tp}; the "
+                      f"superblocks' Mamba2 state {o['state']}; (kernel, "
+                      f"H, KV) {o['shapes']}; launches "
+                      f"{json.dumps(launched)}; resident "
+                      f"{o['resident_gib']:.3f} GiB, construction peak "
+                      f"{o['init_peak_gib']:.3f} GiB, serve peak "
+                      f"{o['serve_peak_gib']:.3f} GiB (two ranks share the "
+                      f"card: no parallel speed)")
+            by_path[REC_SERVE_PATH] = rows[0]["launches"]
+        # (c): the train step, every rank's row
+        path = REC_TRAIN[tp][0]
+        for r in ranks:
+            _grid_full_check(card, path, r["full_train"], "phase 12")
+            launched = r["full_train"]["launches"][0]
+            want = ("flash_attention", "flash_attention_bwd") if zamba \
+                else ()
+            check(all(launched.get(k, 0) > 0 for k in want)
+                  and (zamba or not launched),
+                  f"{path} rank {r['rank']}: launched {launched}")
+        by_path[path] = ranks[0]["full_train"]["path_launches"]
+    print(f"phase 12: ran {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 #: what the kernels without a Pallas counterpart replace: the JAX package
 #: trains through plain JAX
 REPLACES_NOTE = {
@@ -4007,6 +4361,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(heads_on_card(torch, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path.update(recurrent_tp_on_card(torch, card))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -16,7 +16,20 @@ engine group (``repro_torch.launch.mesh``):
   numerator, the router's mean probability) while each rank keeps the
   gradient of its own part;
 * :func:`gather_last` : all-gather of the last dim forward, the rank's
-  slice of the gradient backward (the head's vocab shards).
+  slice of the gradient backward (the head's vocab shards; with
+  ``counts``, parts of different widths: the recurrent blocks' heads in
+  GSPMD's padded layout, where a later rank holds fewer heads, or none.
+  Each part is padded to the widest, gathered and cut back, and the
+  backward's slice is the rank's own width at its offset).  Where every
+  rank then reads only its columns of the gathered tensor (the mLSTM's
+  ``cx`` and ``x_in`` before ``w_q``/``w_k``/``w_v``, the sLSTM's ``h``
+  before its column-parallel FFN), a :func:`copy_to` follows the gather,
+  so the two together are a reduce-scatter backward;
+* :func:`norm_stat`: a statistic summed over the ranks that every rank's
+  outputs read (the mean square of a norm over a feature dim the ranks
+  split: Mamba2's gated norm, the mLSTM's ``norm_h``), ``copy_to`` after
+  ``reduce_from``: an all-reduce forward and an all-reduce of the
+  gradient backward.
 
 Without a group each is the identity.  Without autograd (``no_grad``, or
 an input that needs no gradient) each runs the plain collective, in place
@@ -54,15 +67,39 @@ class _ReduceFrom(torch.autograd.Function):
         return dy, None
 
 
+def gather_parts(x: torch.Tensor, group, counts, dim: int = -1,
+                 gather=None) -> list:
+    """Every rank's ``x`` (``counts[r]`` wide along ``dim`` on rank r), in
+    rank order (a collective, no autograd): each padded to the widest,
+    all-gathered, cut back.  ``gather(x, dim)`` is the group's all-gather
+    (``group.all_gather_dim`` by default, on ``x``'s device)."""
+    dim %= x.dim()
+    width = max(counts)
+    if x.shape[dim] < width:
+        pad = list(x.shape)
+        pad[dim] = width - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    parts = (gather or group.all_gather_dim)(x, dim).split(width, dim)
+    return [p.narrow(dim, 0, n) for p, n in zip(parts, counts)]
+
+
+def _gather_uneven(x: torch.Tensor, group, counts) -> torch.Tensor:
+    return torch.cat(gather_parts(x, group, counts), dim=-1)
+
+
 class _GatherLast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.rank, ctx.n = group.rank, x.shape[-1]
-        return group.all_gather_last(x)
+    def forward(ctx, x, group, counts):
+        ctx.n = x.shape[-1]
+        if counts is None:
+            ctx.off = group.rank * ctx.n
+            return group.all_gather_last(x)
+        ctx.off = sum(counts[:group.rank])
+        return _gather_uneven(x, group, counts)
 
     @staticmethod
     def backward(ctx, dy):
-        return dy.narrow(-1, ctx.rank * ctx.n, ctx.n).contiguous(), None
+        return dy.narrow(-1, ctx.off, ctx.n).contiguous(), None, None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -82,9 +119,22 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
 
 
-def gather_last(x: torch.Tensor, group) -> torch.Tensor:
+def gather_last(x: torch.Tensor, group, counts=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated on the last dim in rank order; the
-    gradient's slice of this rank goes back."""
+    gradient's slice of this rank goes back.  ``counts``: each rank's
+    width, in rank order, where they differ (None: all ``x``'s)."""
+    if counts is not None and len(set(counts)) == 1:
+        counts = None
     if not _needs_grad(x):
-        return group.all_gather_last(x)
-    return _GatherLast.apply(x, group)
+        if counts is None:
+            return group.all_gather_last(x)
+        return _gather_uneven(x, group, counts)
+    return _GatherLast.apply(x, group, counts)
+
+
+def norm_stat(s: torch.Tensor, group) -> torch.Tensor:
+    """``s`` summed over ``group``, forward, and its gradient summed over
+    ``group``, backward: every rank's outputs read the total."""
+    if group is None:
+        return s
+    return copy_to(reduce_from(s, group), group)

@@ -31,9 +31,11 @@ folds into data parallelism).  Rank 0's program runs on a
 Query heads that do not divide tp split in GSPMD's padded layout
 (``launch/sharding.py``): rank 0 holds ceil(H / tp) heads, as every device
 does under GSPMD, and is the most loaded rank, so its program is the
-per-device one; such a record says so in its ``note``.  A cell the port
-cannot shard (the recurrent families at tp > 1, a feed-forward width that
-does not divide tp: ``sharding.unsupported``) gets ``status:
+per-device one; such a record says so in its ``note``.  The recurrent
+stages (Mamba2, the zamba superblock, xLSTM) split their heads the same
+way (xlstm-125m's four heads at tp = 16: ranks 4-15 hold none).  A cell
+the port cannot shard (a feed-forward width that does not divide tp, the
+sLSTM's among them: ``sharding.unsupported``) gets ``status:
 "unsupported"`` and the reason.  The batch-1 decode's sequence sharding over
 ``data`` and ``seq_shard_cache`` are not ported: a batch that does not
 divide by dp is replicated over the data-parallel ranks, and the record
@@ -211,7 +213,9 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
                     shape=shape)}
     notes = []
     if cfg.n_heads % grid.tp:
-        notes.append(f"{cfg.n_heads} query heads over tp={grid.tp}: "
+        what = "xLSTM" if any(st.kind == "xlstm_pair" for st in cfg.stages) \
+            else "query"
+        notes.append(f"{cfg.n_heads} {what} heads over tp={grid.tp}: "
                      f"GSPMD's padded layout, ceil(H / tp) = "
                      f"{-(-cfg.n_heads // grid.tp)} a rank from rank 0; "
                      f"rank 0, counted here, is the most loaded rank")

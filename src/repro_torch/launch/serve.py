@@ -31,9 +31,12 @@ through ``ServeDriver``, its tp = 1 engine replicated on every rank with
 the rank's group as its handle (``ServingEngine(tp=1, replicas=group)``).
 
 The recurrent and hybrid families serve too (``--arch zamba2-1.2b``,
-``--arch xlstm-125m``; their ``-tiny`` variants with ``--device cpu``);
-with them the prefix store, speculative decoding and ``--tp`` above 1
-refuse (ROADMAP queue 1 item 7).  xLSTM has no cached prefill, so under
+``--arch xlstm-125m``; their ``-tiny`` variants with ``--device cpu``),
+at any ``--tp`` whose widths split (``launch.sharding.unsupported``:
+zamba2-1.2b-tiny's ``d_ff`` 128 splits over 2 and 4, not 3, and
+xlstm-125m-tiny's sLSTM width 85 over none);
+with them the prefix store and speculative decoding refuse (ROADMAP queue
+1 item 7).  xLSTM has no cached prefill, so under
 ``--chunked-prefill`` a prompt longer than one chunk (64) raises, as in
 the JAX package.
 """
@@ -87,7 +90,7 @@ def main(argv=None):
     if args.tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {args.tp}")
     try:
-        refuse_unported_recurrent(get_config(args.arch), tp=args.tp,
+        refuse_unported_recurrent(get_config(args.arch),
                                   prefix_cache=args.prefix_cache,
                                   spec=args.spec_k or None)
     except NotImplementedError as e:

@@ -42,6 +42,27 @@ A rank with no query head holds ``(d, 0)`` ``wq`` and ``(0, d)`` ``wo``
 shards, launches no attention kernel and adds exact zeros to the output
 projection's all-reduce, which it still joins.
 
+**The recurrent stages** (Mamba2 blocks, the zamba superblock's six,
+xLSTM pairs) split their heads the same way (:func:`recurrent_heads`:
+Mamba2's ``d_in / head_dim``, xLSTM's ``n_heads``; ceil(nh / tp) a rank
+from rank 0).  The leaves JAX names column-parallel are cut by head, and
+where a projection packs several parts side by side the rank's columns
+of each part are kept, in order (strided: Mamba2's ``w_zx`` its z and x
+heads, the mLSTM's ``w_up`` its ``x_in`` and z heads, the sLSTM's
+``w_gates`` its heads of each gate i, f, z, o, the sLSTM FFN's ``w_up``
+its 1/tp of a and of b); ``w_out`` / ``w_down`` are row-parallel.  Every
+other recurrent leaf stays replicated, as in JAX; where a rank reads only
+its heads' part of one (or, like Mamba2's ``w_bc``, feeds only its heads
+from it) its gradient is summed over the model group
+(:data:`_READ_IN_PART`).  The recurrent state splits by the same heads
+(:func:`state_pieces`; Mamba2's conv state keeps all of B and C's
+channels on every rank), and a P/D payload carries it in the tp = 1
+layout (:func:`gather_state`, :func:`take_state`).  Where JAX splits the
+mLSTM's heads' columns evenly across head boundaries (xlstm-125m's four
+heads at tp = 16), rank 0 here holds one head whole: its ``w_up``,
+``w_q``, ``w_k``, ``w_v``, ``w_down`` and ``w_gates`` are wider than
+GSPMD's per-device shards, and ranks 4-15 hold none.
+
 **One deviation from GSPMD.**  When the KV heads do not divide tp, GSPMD
 shards the KV projections' and the KV cache's ``d_head`` instead
 (``_COL``, ``cache_pspecs``).  Explicit TP cannot split ``d_head`` without
@@ -71,22 +92,118 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-_COL = {"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_in"}
+_COL = {"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_in",
+        "w_zx", "w_dt", "w_q", "w_k", "w_v", "w_gates"}
 _ROW = {"wo", "w_down", "w_out"}
 _KV = {"wk", "wv", "bk", "bv"}
 _QK_NORM = {"q_norm", "k_norm"}
-#: stage kinds the port shards over tp (attention + MLP / MoE); the
-#: recurrent stages have no sharding rule yet (ROADMAP.md, item 7)
-_SHARDABLE = {"attn_mlp", "attn_moe"}
+#: the recurrent blocks' replicated leaves that a rank reads only in part
+#: (its heads' entries) or uses only for its heads: gradients summed over
+#: the model group, by block
+_READ_IN_PART = {
+    "mamba": {"w_bc", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+              "norm_scale"},
+    "mlstm": {"conv_w", "conv_b", "w_i", "w_f", "f_bias", "norm_h"},
+    "slstm": {"r_gates", "b_gates"}}
+
+
+def head_range(n: int, rank: int, tp: int) -> Tuple[int, int]:
+    """Heads ``[lo, hi)`` of ``n`` that ``rank`` holds: GSPMD's padded
+    layout without the pad heads (ceil(n / tp) a rank from rank 0; a later
+    rank may hold fewer, or none)."""
+    c = -(-n // tp)
+    return min(rank * c, n), min((rank + 1) * c, n)
+
+
+def group_heads(n: int, group) -> Tuple[int, int]:
+    """The heads ``[lo, hi)`` of ``n`` that ``group``'s rank holds
+    (:func:`head_range`; all of them without a group)."""
+    if group is None:
+        return 0, n
+    return head_range(n, group.rank, group.size)
+
+
+def head_widths(n: int, width: int, tp: int) -> List[int]:
+    """Every rank's width of ``n`` heads ``width`` wide, in rank order."""
+    return [(hi - lo) * width
+            for lo, hi in (head_range(n, r, tp) for r in range(tp))]
 
 
 def query_heads(cfg: ArchConfig, rank: int, tp: int) -> Tuple[int, int]:
-    """The query heads ``[lo, hi)`` of ``rank``: GSPMD's padded layout
-    without the pad heads (ceil(H / tp) a rank from rank 0; a later rank
-    may hold fewer, or none)."""
-    H = cfg.n_heads
-    c = -(-H // tp)
-    return min(rank * c, H), min((rank + 1) * c, H)
+    """The query heads ``[lo, hi)`` of ``rank`` (:func:`head_range`)."""
+    return head_range(cfg.n_heads, rank, tp)
+
+
+def mamba_dims(d: int, ssm) -> Tuple[int, int, int, int]:
+    """Mamba2's ``(d_in, heads, head_dim, d_state)`` of the whole block at
+    model width ``d``."""
+    d_in = ssm.expand * d
+    nh = ssm.n_heads or d_in // ssm.head_dim
+    return d_in, nh, d_in // nh, ssm.d_state
+
+
+def slstm_ff(cfg: ArchConfig) -> int:
+    """The sLSTM block's feed-forward width (JAX's ``int(d * 4 / 3)``)."""
+    return int(cfg.d_model * 4 / 3)
+
+
+def recurrent_heads(cfg: ArchConfig, rank: int, tp: int,
+                    block: str = "mamba") -> Tuple[int, int]:
+    """The heads ``[lo, hi)`` of ``rank`` in a recurrent block: Mamba2's
+    (``block`` "mamba") or the xLSTM's ("mlstm", "slstm": ``n_heads``),
+    in the padded layout (:func:`head_range`)."""
+    nh = mamba_dims(cfg.d_model, cfg.ssm)[1] if block == "mamba" else cfg.n_heads
+    return head_range(nh, rank, tp)
+
+
+def _block(path: Tuple[str, ...]) -> Optional[str]:
+    """The recurrent block a param path lies in, or None."""
+    for b in ("mamba", "mlstm", "slstm"):
+        if b in path[:-1]:
+            return b
+    return None
+
+
+def _heads_cols(cfg: ArchConfig, block: str, rank: int, tp: int
+                ) -> Tuple[int, int, int]:
+    """``(lo, hi, head width)`` of ``rank``'s heads in ``block``."""
+    lo, hi = recurrent_heads(cfg, rank, tp, block)
+    if block == "mamba":
+        return lo, hi, mamba_dims(cfg.d_model, cfg.ssm)[2]
+    d_in = 2 * cfg.d_model if block == "mlstm" else cfg.d_model
+    return lo, hi, d_in // cfg.n_heads
+
+
+def state_pieces(cfg: ArchConfig, name: str, rank: int, tp: int
+                 ) -> Tuple[int, List[Tuple[int, int]]]:
+    """``(dim from the end, [(lo, hi), ...])``: where ``rank``'s part of
+    a recurrent state leaf (``Model.state_leaves``' name) lies in the
+    whole one, the pieces in the order the rank holds them.  The dim
+    counts from the end, so it holds with or without the batch axis."""
+    leaf = name.split(".")[-1]
+    if "mlstm" in name or "slstm" in name:
+        block = "mlstm" if "mlstm" in name else "slstm"
+        lo, hi, hd = _heads_cols(cfg, block, rank, tp)
+        if leaf == "conv":
+            return -1, [(lo * hd, hi * hd)]
+        dim = {"C": -3, "m": -1}.get(leaf, -2) if block == "mlstm" else -2
+        return dim, [(lo, hi)]
+    lo, hi, hd = _heads_cols(cfg, "mamba", rank, tp)
+    if leaf == "ssd":
+        return -3, [(lo, hi)]
+    d_in, _, _, ds = mamba_dims(cfg.d_model, cfg.ssm)
+    return -1, [(lo * hd, hi * hd), (d_in, d_in + 2 * ds)]
+
+
+def owned_state_width(cfg: ArchConfig, name: str, rank: int, tp: int
+                      ) -> int:
+    """The width (along :func:`state_pieces`' dim) of ``rank``'s part of a
+    recurrent state leaf that no lower rank holds: its heads, and a piece
+    every rank holds (Mamba2's B/C conv channels) on rank 0 only."""
+    lower = {p for r in range(rank)
+             for p in state_pieces(cfg, name, r, tp)[1]}
+    return sum(hi - lo for lo, hi in state_pieces(cfg, name, rank, tp)[1]
+               if (lo, hi) not in lower)
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,18 +327,19 @@ def head_parallel(cfg: ArchConfig, tp: int) -> bool:
 def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
                 ) -> Optional[str]:
     """Why the port cannot shard ``cfg`` over ``tp`` ranks (every reason,
-    joined), or None.  Any head count splits (the module docstring); a
-    feed-forward or expert width that does not divide tp does not."""
+    joined), or None.  Any head count splits, the recurrent blocks'
+    included (the module docstring); a feed-forward or expert width that
+    does not divide tp does not."""
     if tp == 1:
         return None
     why = []
-    kinds = sorted({st.kind for st in cfg.stages} - _SHARDABLE)
-    if kinds:
-        why.append(f"the {', '.join(kinds)} stages have no tensor-parallel "
-                   f"rule (ROADMAP.md, item 7)")
     present = {st.kind for st in cfg.stages}
-    if "attn_mlp" in present and cfg.d_ff % tp:
+    # zamba's superblock runs the shared attention + MLP block
+    if present & {"attn_mlp", "zamba_super"} and cfg.d_ff % tp:
         why.append(f"d_ff {cfg.d_ff} does not split over tp={tp}")
+    if "xlstm_pair" in present and slstm_ff(cfg) % tp:
+        why.append(f"the sLSTM's feed-forward width {slstm_ff(cfg)} does "
+                   f"not split over tp={tp}")
     if "attn_moe" in present and not experts_parallel(cfg, tp) \
             and cfg.moe.d_expert % tp:
         why.append(f"{cfg.moe.n_experts} experts do not split over "
@@ -294,22 +412,107 @@ def _split(leaf, dim: int, lo: int, hi: int):
     return np.array(part, order="C")
 
 
-def _range(path, leaf, cfg: ArchConfig, rank: int, tp: int):
-    """(dim, lo, hi) of ``rank``'s part of a leaf that tp splits."""
-    name, dh = path[-1], cfg.d_head
-    dim = model_dim(path, leaf.ndim, cfg, tp)
+def _full_len(path, n: int, cfg: ArchConfig, tp: int) -> int:
+    """The whole length along the model dim of a split leaf whose rank
+    part has ``n`` there (rank 0's part where ranks differ)."""
+    name, block = path[-1], _block(path)
+    if block == "mamba":
+        d_in, nh, _, _ = mamba_dims(cfg.d_model, cfg.ssm)
+        return {"w_zx": 2 * d_in, "w_dt": nh}.get(name, d_in)
+    if block == "mlstm":
+        return 4 * cfg.d_model if name == "w_up" else 2 * cfg.d_model
+    if block == "slstm" and name == "w_gates":
+        return 4 * cfg.d_model
+    if name in ("wq", "bq", "wo"):
+        return cfg.n_heads * cfg.d_head
+    if name in _KV:
+        return cfg.n_kv_heads * cfg.d_head
+    return n * tp
+
+
+def _pieces(path, n: int, cfg: ArchConfig, rank: int, tp: int
+            ) -> List[Tuple[int, int]]:
+    """``rank``'s parts ``[(lo, hi), ...]`` of a leaf that tp splits,
+    along its model dim of whole length ``n``, in the order the shard
+    holds them (several where a projection packs parts side by side)."""
+    name, block = path[-1], _block(path)
+    if block in ("mamba", "mlstm") or (block == "slstm"
+                                       and name == "w_gates"):
+        lo, hi, hd = _heads_cols(cfg, block, rank, tp)
+        if name == "w_dt":
+            return [(lo, hi)]
+        if name in ("w_zx", "w_up", "w_gates"):
+            # z | x (Mamba2), x_in | z (mLSTM), i | f | z | o (sLSTM)
+            k = 4 if name == "w_gates" else 2
+            return [(j * n // k + lo * hd, j * n // k + hi * hd)
+                    for j in range(k)]
+        return [(lo * hd, hi * hd)]
     if name in ("wq", "bq", "wo"):
         lo, hi = query_heads(cfg, rank, tp)
-        return dim, lo * dh, hi * dh
+        return [(lo * cfg.d_head, hi * cfg.d_head)]
     if name in _KV:
         lo, hi = kv_heads(cfg, rank, tp)
-        return dim, lo * dh, hi * dh
-    n = leaf.shape[dim]
-    if n % tp:
-        raise ValueError(f"{'/'.join(path)}: dim {dim} of size {n} does "
+        return [(lo * cfg.d_head, hi * cfg.d_head)]
+    k = 2 if block == "slstm" and name == "w_up" else 1   # a | b
+    if n % (k * tp):
+        raise ValueError(f"{'/'.join(path)}: a model dim of size {n} does "
                          f"not split over tp={tp} (sharding.unsupported "
                          f"names such a configuration)")
-    return dim, rank * n // tp, (rank + 1) * n // tp
+    c = n // (k * tp)
+    return [(j * n // k + rank * c, j * n // k + (rank + 1) * c)
+            for j in range(k)]
+
+
+def _take(leaf, dim: int, pieces):
+    """A fresh copy of ``leaf``'s ``pieces`` along ``dim``, concatenated:
+    the shard never keeps the full tensor's storage alive."""
+    parts = [_split(leaf, dim, lo, hi) for lo, hi in pieces]
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(leaf, torch.Tensor):
+        return torch.cat(parts, dim=dim)
+    return np.concatenate(parts, axis=dim)
+
+
+def _place(parts, pieces, dim: int, n: int):
+    """The whole leaf of length ``n`` along ``dim`` from every rank's part
+    (``parts``) and its pieces (``pieces``, one list a rank), each piece
+    written where it lies; a column several ranks hold is taken from the
+    lowest of them (the ranks are written from the last)."""
+    first = parts[0]
+    shape = list(first.shape)
+    shape[dim] = n
+    if isinstance(first, torch.Tensor):
+        out = first.new_zeros(shape)
+        parts = [p.detach() for p in parts]
+    else:
+        out = np.zeros(shape, dtype=first.dtype)
+    for part, pcs in reversed(list(zip(parts, pieces))):
+        off = 0
+        for lo, hi in pcs:
+            src = [slice(None)] * len(shape)
+            dst = [slice(None)] * len(shape)
+            src[dim] = slice(off, off + hi - lo)
+            dst[dim] = slice(lo, hi)
+            out[tuple(dst)] = part[tuple(src)]
+            off += hi - lo
+    return out
+
+
+def take_state(full, cfg: ArchConfig, name: str, rank: int, tp: int):
+    """``rank``'s part of a whole recurrent state leaf (tp = 1's layout;
+    ``name`` as ``Model.state_leaves`` gives it), a fresh copy."""
+    dim, pcs = state_pieces(cfg, name, rank, tp)
+    return _take(full, full.dim() + dim, pcs)
+
+
+def gather_state(parts, cfg: ArchConfig, name: str, tp: int):
+    """The whole recurrent state leaf (tp = 1's layout) from every rank's
+    part (``parts``, in rank order)."""
+    dim = state_pieces(cfg, name, 0, tp)[0]
+    pcs = [state_pieces(cfg, name, r, tp)[1] for r in range(tp)]
+    n = max(hi for p in pcs for _, hi in p)
+    return _place(parts, pcs, parts[0].dim() + dim, n)
 
 
 def _map(tree, fn, path=()):
@@ -333,16 +536,18 @@ def shard_params(params: dict, rank: int, tp: int, *,
                              f"rule")
         if not split(path, cfg, tp):
             return leaf            # norms, the router, a vocab that stays
-        return _split(leaf, *_range(path, leaf, cfg, rank, tp))
+        dim = model_dim(path, leaf.ndim, cfg, tp)
+        return _take(leaf, dim, _pieces(path, leaf.shape[dim], cfg, rank,
+                                        tp))
 
     return _map(params, leaf_shard)
 
 
 def gather_params(parts, cfg: ArchConfig, tp: int) -> dict:
     """The full params in the JAX layout from every rank's shard
-    (``parts``, in rank order): split leaves concatenated, a KV head that
-    several ranks hold taken once (from its owner), replicated leaves from
-    rank 0."""
+    (``parts``, in rank order): each split leaf's parts written where they
+    lie (strided ones included), a KV head that several ranks hold taken
+    once (from its owner, the lowest), replicated leaves from rank 0."""
     if tp == 1:
         return parts[0]
 
@@ -353,15 +558,9 @@ def gather_params(parts, cfg: ArchConfig, tp: int) -> dict:
         if not split(path, cfg, tp):
             return got[0]
         dim = model_dim(path, got[0].ndim, cfg, tp)
-        if path[-1] in _KV:          # each KV head once, from its owner
-            dh = cfg.d_head
-            for r, g in enumerate(got):
-                lo, _ = kv_heads(cfg, r, tp)
-                olo, ohi = owned_kv_heads(cfg, r, tp)
-                got[r] = _split(g, dim, (olo - lo) * dh, (ohi - lo) * dh)
-        if isinstance(got[0], torch.Tensor):
-            return torch.cat(got, dim=dim)
-        return np.concatenate(got, axis=dim)
+        n = _full_len(path, got[0].shape[dim], cfg, tp)
+        return _place(got, [_pieces(path, n, cfg, r, tp)
+                            for r in range(tp)], dim, n)
 
     return _map(parts[0], leaf)
 
@@ -372,8 +571,9 @@ class LeafPlan:
 
     ``grad_sum``: the group its gradient is summed over after the backward
     (besides data parallelism): "model" for a replicated leaf used inside
-    the sharded region (``q_norm``, ``k_norm``: each rank's gradient holds
-    only its heads' part), "kv" for the projections of KV heads that other
+    the sharded region (``q_norm``, ``k_norm``, the recurrent blocks'
+    :data:`_READ_IN_PART`: each rank's gradient holds only its heads'
+    part), "kv" for the projections of KV heads that other
     ranks read too, None otherwise.  ``kv_shared``: with "kv", ``(KV head,
     lo, hi)`` for each such head, its columns ``[lo, hi)`` of the rank's
     leaf along its model dim, in ascending head order (each summed over
@@ -404,12 +604,7 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
         shape = list(leaf.shape)
         if split(path, cfg, tp):
             dim = model_dim(path, leaf.ndim, cfg, tp)
-            if path[-1] in _KV:
-                shape[dim] = cfg.n_kv_heads * cfg.d_head
-            elif path[-1] in ("wq", "bq", "wo"):
-                shape[dim] = cfg.n_heads * cfg.d_head
-            else:
-                shape[dim] *= tp
+            shape[dim] = _full_len(path, shape[dim], cfg, tp)
         full[path] = tuple(shape)
         return "/".join(path)      # a string: ``leaves`` walks tuples
 
@@ -427,7 +622,8 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
         cut = split(path, cfg, tp)
         grad_sum, norm, kv, cols = None, \
             "model" if cut else "replicated", (), None
-        if tp > 1 and path[-1] in _QK_NORM:
+        if tp > 1 and (path[-1] in _QK_NORM or path[-1]
+                       in _READ_IN_PART.get(_block(path), ())):
             grad_sum = "model"
         elif cut and path[-1] in _KV:
             if mine:

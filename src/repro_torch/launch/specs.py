@@ -16,7 +16,9 @@ run's ``counting_grid``) each function gives that rank's inputs: the
 batch's ``global_batch / dp`` rows (the whole batch when it does not divide
 by dp, as JAX's ``batch_pspecs`` and ``fit_to_mesh`` replicate it), its
 shard of the params (``sharding.shard_params``) and of the AdamW state,
-and under ``zero1`` its slice of each moment over the data axis.
+and under ``zero1`` its slice of each moment over the data axis; a
+cache holds the rank's KV slots and the recurrent state of its heads
+(``Model.init_cache`` under the grid's model group).
 """
 from __future__ import annotations
 

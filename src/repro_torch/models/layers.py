@@ -29,6 +29,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return (out * (1.0 + scale.float())).to(dtype)
 
 
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                  group, n: int):
+    """``rmsnorm`` over a feature dim of ``n`` that the ranks of ``group``
+    split: ``x`` and ``scale`` are this rank's columns (any number, none
+    included), and the sum of squares is summed over the group forward
+    and backward (``collectives.norm_stat``).  ``rmsnorm`` itself without
+    a group."""
+    if group is None:
+        return rmsnorm(x, scale, eps)
+    from repro_torch.launch.collectives import norm_stat
+    dtype = x.dtype
+    x = x.float()
+    ss = norm_stat(x.square().sum(dim=-1, keepdim=True), group)
+    out = x * torch.rsqrt(ss / n + eps)
+    return (out * (1.0 + scale.float())).to(dtype)
+
+
 class _CotangentDtype(torch.autograd.Function):
     """Identity whose backward casts the cotangent to the input's dtype.
     The JAX package's ``_bf16_ct_boundary`` also wraps both in an XLA

@@ -13,6 +13,16 @@ in f32, and the SSD state is f32, as in JAX.
 Decode keeps ``{"ssd": (B, nh, hd, ds) f32, "conv": (B, k-1, conv_dim)}``
 per sequence and costs O(1) per token.  Neither entry point masks by
 length: a bucket's pad tail moves the state, as in JAX.
+
+Tensor parallelism (``group``; the params one rank's shard,
+``repro_torch.launch.sharding``): the rank runs its heads (its columns of
+``w_zx``'s z and x halves and of ``w_dt``), computes B and C in full from
+the replicated ``w_bc`` (one group of B/C for every head), convolves its x
+channels and all of B/C's, reads its heads' entries of ``A_log``, ``D``,
+``dt_bias`` and ``norm_scale``, takes the gated norm's mean square over
+the whole ``d_in`` (``layers.rmsnorm_split``) and ends with the
+row-parallel ``w_out`` and an all-reduce.  Its state holds its heads:
+``ssd (B, nh_r, hd, ds)``, ``conv (B, k-1, d_in_r + 2·ds)``.
 """
 from __future__ import annotations
 
@@ -22,14 +32,39 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.collectives import copy_to, reduce_from
+from repro_torch.launch.sharding import group_heads, mamba_dims
 from repro_torch.models import module as m
-from repro_torch.models.layers import causal_conv, rmsnorm
+from repro_torch.models.layers import causal_conv, rmsnorm_split
 
 
-def _dims(d: int, ssm):
-    d_in = ssm.expand * d
-    nh = ssm.n_heads or d_in // ssm.head_dim
-    return d_in, nh, d_in // nh, ssm.d_state
+def _rank(params, d: int, ssm, group):
+    """``(d_in, head_dim, d_state, lo, hi)``: the whole ``d_in`` and this
+    rank's heads ``[lo, hi)`` (all of them without a group; the count is
+    the shard's ``w_dt`` width)."""
+    d_in, nh, hd, ds = mamba_dims(d, ssm)
+    lo, hi = group_heads(nh, group)
+    assert params["w_dt"].shape[-1] == hi - lo, "not this rank's shard"
+    return d_in, hd, ds, lo, hi
+
+
+def _rank_params(params, d_in, hd, ds, lo, hi):
+    """The replicated leaves' entries this rank reads: its x channels and
+    all of B/C's of the conv, its heads of ``dt_bias``, ``A_log``, ``D``,
+    its ``d_in`` slice of ``norm_scale`` (the leaves themselves for all
+    heads)."""
+    p = dict(params)
+    if hi - lo == params["A_log"].shape[-1]:
+        return p
+    for k in ("conv_w", "conv_b"):
+        t = params[k]
+        p[k] = torch.cat([t.narrow(-1, lo * hd, (hi - lo) * hd),
+                          t.narrow(-1, d_in, 2 * ds)], dim=-1)
+    for k in ("dt_bias", "A_log", "D"):
+        p[k] = params[k].narrow(-1, lo, hi - lo)
+    p["norm_scale"] = params["norm_scale"].narrow(-1, lo * hd,
+                                                  (hi - lo) * hd)
+    return p
 
 
 def init_mamba(gen: torch.Generator, d: int, ssm, *, lead=(),
@@ -37,7 +72,7 @@ def init_mamba(gen: torch.Generator, d: int, ssm, *, lead=(),
     """One block's params (``lead`` stacks them), JAX ``init_mamba``'s
     layout and distributions; ``dt_bias``, ``A_log``, ``D`` and
     ``norm_scale`` in f32."""
-    d_in, nh, _, ds = _dims(d, ssm)
+    d_in, nh, _, ds = mamba_dims(d, ssm)
     conv_dim = d_in + 2 * ds
     lead = tuple(lead)
     kw = dict(lead=lead, dtype=dtype, device=device)
@@ -123,19 +158,25 @@ def ssd_chunked(xs, a, B, C, chunk: int, h0=None):
     return y, h
 
 
-def _gate_out(params, y, z, x, cfg):
-    """Gated RMSNorm and the output projection."""
-    y = rmsnorm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype)
+def _gate_out(params, y, z, x, cfg, d_in, group):
+    """Gated RMSNorm (over the whole ``d_in``) and the output
+    projection, all-reduced over ``group``."""
+    y = rmsnorm_split(y * F.silu(z), params["norm_scale"], cfg.norm_eps,
+                      group, d_in)
+    return reduce_from(y @ params["w_out"].to(x.dtype), group)
 
 
 def mamba_forward(params, x, cfg, state: Optional[dict] = None,
-                  return_state: bool = False):
+                  return_state: bool = False, group=None):
     """Full-sequence Mamba2 block. x: (B, S, d) -> (B, S, d); ``state``
-    continues a sequence (extend)."""
+    continues a sequence (extend).  ``group``: this rank's heads (the
+    module docstring)."""
     ssm = cfg.ssm
     B_, S, d = x.shape
-    d_in, nh, hd, ds = _dims(d, ssm)
+    d_in, hd, ds, lo, hi = _rank(params, d, ssm, group)
+    params = _rank_params(params, d_in, hd, ds, lo, hi)
+    nh, d_r = hi - lo, (hi - lo) * hd
+    x = copy_to(x, group)
     z, xc = torch.chunk(x @ params["w_zx"].to(x.dtype), 2, dim=-1)
     bc = x @ params["w_bc"].to(x.dtype)
     xbc = torch.cat([xc, bc], dim=-1)                  # (B, S, d_in + 2ds)
@@ -148,7 +189,7 @@ def mamba_forward(params, x, cfg, state: Optional[dict] = None,
     conv_out = causal_conv(full, params["conv_w"].to(x.dtype),
                            params["conv_b"].to(x.dtype))
     xbc = F.silu(conv_out[:, full.shape[1] - S:])
-    xc2, Bm, Cm = torch.split(xbc, [d_in, ds, ds], dim=-1)
+    xc2, Bm, Cm = torch.split(xbc, [d_r, ds, ds], dim=-1)
     dt = F.softplus((x @ params["w_dt"].to(x.dtype)).float()
                     + params["dt_bias"].float())       # (B, S, nh)
     A = -torch.exp(params["A_log"].float())            # (nh,)
@@ -157,25 +198,30 @@ def mamba_forward(params, x, cfg, state: Optional[dict] = None,
     y, h_final = ssd_chunked(xh * dt[..., None], dt * A, Bm.float(),
                              Cm.float(), ssm.chunk, h0=h0)
     y = y + params["D"].float()[None, None, :, None] * xh
-    out = _gate_out(params, y.reshape(B_, S, d_in).to(x.dtype), z, x, cfg)
+    out = _gate_out(params, y.reshape(B_, S, d_r).to(x.dtype), z, x, cfg,
+                    d_in, group)
     if return_state:
         return out, {"ssd": h_final, "conv": conv_tail}
     return out
 
 
-def mamba_decode(params, x, cfg, state):
+def mamba_decode(params, x, cfg, state, group=None):
     """Single-token decode. x: (B, 1, d); state: {ssd (B, nh, hd, ds),
-    conv (B, k-1, conv_dim)}.  Returns (out, new state)."""
+    conv (B, k-1, conv_dim)}, this rank's heads under ``group``.  Returns
+    (out, new state)."""
     ssm = cfg.ssm
     B_, _, d = x.shape
-    d_in, nh, hd, ds = _dims(d, ssm)
+    d_in, hd, ds, lo, hi = _rank(params, d, ssm, group)
+    params = _rank_params(params, d_in, hd, ds, lo, hi)
+    nh, d_r = hi - lo, (hi - lo) * hd
+    x = copy_to(x, group)
     z, xc = torch.chunk(x @ params["w_zx"].to(x.dtype), 2, dim=-1)
     bc = x @ params["w_bc"].to(x.dtype)
     xbc = torch.cat([xc, bc], dim=-1)                  # (B, 1, cd)
     conv_buf = torch.cat([state["conv"], xbc], dim=1)  # (B, k, cd)
     conv_out = (conv_buf * params["conv_w"].to(x.dtype)).sum(dim=1) \
         + params["conv_b"].to(x.dtype)                 # (B, cd)
-    xc2, Bm, Cm = torch.split(F.silu(conv_out), [d_in, ds, ds], dim=-1)
+    xc2, Bm, Cm = torch.split(F.silu(conv_out), [d_r, ds, ds], dim=-1)
     dt = F.softplus((x[:, 0] @ params["w_dt"].to(x.dtype)).float()
                     + params["dt_bias"].float())       # (B, nh)
     A = -torch.exp(params["A_log"].float())
@@ -186,13 +232,18 @@ def mamba_decode(params, x, cfg, state):
         (xh * dt[..., None])[..., None] * Bf[:, None, None, :]
     y = (h @ Cf[:, None, :, None])[..., 0]             # (B, nh, hd)
     y = y + params["D"].float()[None, :, None] * xh
-    out = _gate_out(params, y.reshape(B_, 1, d_in).to(x.dtype), z, x, cfg)
+    out = _gate_out(params, y.reshape(B_, 1, d_r).to(x.dtype), z, x, cfg,
+                    d_in, group)
     return out, {"ssd": h, "conv": conv_buf[:, 1:]}
 
 
 def init_mamba_state(batch: int, d: int, ssm, dtype=torch.float32,
-                     device=None) -> dict:
-    d_in, nh, hd, ds = _dims(d, ssm)
+                     device=None, heads: Optional[int] = None) -> dict:
+    """Fresh state for ``heads`` heads (all of them by default; a
+    tensor-parallel rank's count)."""
+    d_in, nh, hd, ds = mamba_dims(d, ssm)
+    if heads is not None:
+        nh, d_in = heads, heads * hd
     return {
         "ssd": torch.zeros((batch, nh, hd, ds), dtype=torch.float32,
                            device=device),

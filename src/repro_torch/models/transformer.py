@@ -75,7 +75,9 @@ embeddings has no negative-token sentinel, so no row is held back.
 
 Tensor parallelism (``group``, a ``repro_torch.launch.mesh.EngineGroup``):
 the params are one rank's shard (``repro_torch.launch.sharding``, any tp:
-GSPMD's padded head layout), so attention runs on the rank's query heads
+GSPMD's padded head layout); the recurrent blocks run their heads
+(``models.mamba2``, ``models.xlstm``) and the state holds only those, and
+attention runs on the rank's query heads
 over its KV slots (its KV heads, one repeated where its query heads
 straddle groups unevenly, so every kernel sees one group size), the pools
 hold only its slots, a rank with no query head computes no attention (the
@@ -107,7 +109,7 @@ from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
                                       ZAMBA_SUPER, ArchConfig)
 from repro_torch.kernels import ops
 from repro_torch.launch.collectives import copy_to, gather_last, reduce_from
-from repro_torch.launch.sharding import kv_slots, to_slots
+from repro_torch.launch.sharding import kv_slots, recurrent_heads, to_slots
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
 from repro_torch.models import xlstm as xl
@@ -372,38 +374,44 @@ def _keep_rows(new, old, row_valid):
     return torch.where(mask, new, old)
 
 
-def _mamba_block(p, x, cfg, *, mode, cache, row_valid):
+def _mamba_block(p, x, cfg, *, mode, cache, row_valid, group=None):
     """Pre-norm residual Mamba2 block; ``cache``: the layer's state (None
-    in prefill and training).  Returns (x, new state; None in training)."""
+    in prefill and training).  Returns (x, new state; None in training).
+    ``group``: this rank's heads (``models.mamba2``)."""
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     if mode == "train":
-        return x + mb.mamba_forward(p["mamba"], xn, cfg), None
+        return x + mb.mamba_forward(p["mamba"], xn, cfg, group=group), None
     if mode == "decode":
-        y, st = mb.mamba_decode(p["mamba"], xn, cfg, cache)
+        y, st = mb.mamba_decode(p["mamba"], xn, cfg, cache, group=group)
         st = _keep_rows(st, cache, row_valid)
     else:
         y, st = mb.mamba_forward(p["mamba"], xn, cfg, state=cache,
-                                 return_state=True)
+                                 return_state=True, group=group)
     return x + y, st
 
 
-def _xlstm_block(p, x, cfg, *, mode, cache, row_valid):
-    """An mLSTM block, then an sLSTM block.  Returns (x, new state)."""
+def _xlstm_block(p, x, cfg, *, mode, cache, row_valid, group=None):
+    """An mLSTM block, then an sLSTM block.  Returns (x, new state).
+    ``group``: this rank's heads (``models.xlstm``)."""
     nh, eps = cfg.n_heads, cfg.norm_eps
     if mode == "extend":
         raise NotImplementedError(
             "xLSTM cached-prefill (extend) is not supported; the serving "
             "engine uses fresh prefill for xLSTM models")
     if mode == "decode":
-        x, st_m = xl.mlstm_decode(p["mlstm"], x, nh, eps, cache["mlstm"])
-        x, st_s = xl.slstm_decode(p["slstm"], x, nh, eps, cache["slstm"])
+        x, st_m = xl.mlstm_decode(p["mlstm"], x, nh, eps, cache["mlstm"],
+                                  group=group)
+        x, st_s = xl.slstm_decode(p["slstm"], x, nh, eps, cache["slstm"],
+                                  group=group)
         return x, _keep_rows({"mlstm": st_m, "slstm": st_s}, cache,
                              row_valid)
     if mode == "train":
-        x = xl.mlstm_forward(p["mlstm"], x, nh, eps)
-        return xl.slstm_forward(p["slstm"], x, nh, eps), None
-    x, st_m = xl.mlstm_forward(p["mlstm"], x, nh, eps, return_state=True)
-    x, st_s = xl.slstm_forward(p["slstm"], x, nh, eps, return_state=True)
+        x = xl.mlstm_forward(p["mlstm"], x, nh, eps, group=group)
+        return xl.slstm_forward(p["slstm"], x, nh, eps, group=group), None
+    x, st_m = xl.mlstm_forward(p["mlstm"], x, nh, eps, return_state=True,
+                               group=group)
+    x, st_s = xl.slstm_forward(p["slstm"], x, nh, eps, return_state=True,
+                               group=group)
     return x, {"mlstm": st_m, "slstm": st_s}
 
 
@@ -414,7 +422,8 @@ def _zamba_super(p, shared, x, cfg, *, cache, row_valid, **kw):
     for j in range(ZAMBA_INNER):
         cj = None if cache is None else _layer(cache["mamba"], j)
         x, st = _mamba_block(_layer(p["inner"], j), x, cfg, mode=kw["mode"],
-                             cache=cj, row_valid=row_valid)
+                             cache=cj, row_valid=row_valid,
+                             group=kw["group"])
         states.append(st)
     x, attn = _attn_mlp_block(shared, x, cfg, window=None,
                               cache=None if cache is None else cache["attn"],
@@ -589,13 +598,13 @@ class Model:
                 norm_fn=rmsnorm_ct16 if self.norm_ct16 else rmsnorm, **kw)
         elif st.kind == MAMBA2:
             x, nc = _mamba_block(p, x, cfg, mode=kw["mode"], cache=kcache,
-                                 row_valid=row_valid)
+                                 row_valid=row_valid, group=self.group)
         elif st.kind == ZAMBA_SUPER:
             x, nc = _zamba_super(p, shared, x, cfg, row_valid=row_valid,
                                  **kw)
         else:
             x, nc = _xlstm_block(p, x, cfg, mode=kw["mode"], cache=kcache,
-                                 row_valid=row_valid)
+                                 row_valid=row_valid, group=self.group)
         return x, nc, None
 
     def _run_stages(self, params, x, *, positions, lengths, mode, cache,
@@ -787,10 +796,21 @@ class Model:
             return self.cfg.n_kv_heads
         return len(kv_slots(self.cfg, self.group.rank, self.group.size))
 
+    def _rank_heads(self, block: str) -> Optional[int]:
+        """The heads of a recurrent ``block`` this model's state holds:
+        None (all) without a group, else the rank's count
+        (``sharding.recurrent_heads``)."""
+        if self.group is None:
+            return None
+        lo, hi = recurrent_heads(self.cfg, self.group.rank, self.group.size,
+                                 block)
+        return hi - lo
+
     def init_cache(self, batch: int, max_len: int, device=None):
         """Zeroed paged cache in the compute dtype over this model's KV
         heads, every table entry of slot b at b's scratch page, and fresh
-        recurrent state for every slot (``_stage_cache``'s layout)."""
+        recurrent state for every slot (``_stage_cache``'s layout; a
+        rank's heads of it under a group)."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
         maxp, n_pages = self.page_geometry(batch, max_len)
@@ -807,7 +827,8 @@ class Model:
                     "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
         mamba = None if cfg.ssm is None else mb.init_mamba_state(
-            batch, cfg.d_model, cfg.ssm, dtype, device)
+            batch, cfg.d_model, cfg.ssm, dtype, device,
+            heads=self._rank_heads("mamba"))
         for i, st in enumerate(cfg.stages):
             L = st.n_layers
             if st.kind in (ATTN_MLP, ATTN_MOE):
@@ -818,11 +839,13 @@ class Model:
                 c = {"mamba": _lead(mamba, (L, ZAMBA_INNER)),
                      "attn": pools(L)}
             else:
+                heads = self._rank_heads("mlstm")
                 c = {"mlstm": _lead(xl.init_mlstm_state(
-                        batch, cfg.d_model, cfg.n_heads, dtype, device),
-                        (L,)),
+                        batch, cfg.d_model, cfg.n_heads, dtype, device,
+                        heads), (L,)),
                      "slstm": _lead(xl.init_slstm_state(
-                         batch, cfg.d_model, cfg.n_heads, device), (L,))}
+                         batch, cfg.d_model, cfg.n_heads, device, heads),
+                         (L,))}
             cache[f"stage{i}"] = c
         return cache
 

@@ -71,9 +71,15 @@ with its batch axis, 2 for a superblock's ``(L, 6, B, ...)``).  The slot
 plumbing carries it on that axis: a prefill's state is copied into the
 slot, a one-row subcache views it, an ``extend``'s new state is copied
 back, a P/D payload carries the slot's state leaves (batch axis removed)
-beside ``{"k", "v"}``, and a released slot gets fresh state.  The prefix
-store, speculative decoding and tp > 1 refuse such a model
-(``refuse_unported_recurrent``).
+beside ``{"k", "v"}``, and a released slot gets fresh state.  At tp > 1
+a rank's state holds its heads (``launch.sharding.state_pieces``).  As
+with the K/V, under P/D between engines of the same tp rank r hands its
+own part to rank r (tagged ``_state_rank``); between engines of different
+tp the payload carries the state in the tp = 1 layout: the export
+all-gathers it over the group (``sharding.gather_state``) and a restore
+takes the rank's part (``sharding.take_state``).  The handoff's state
+bytes are tp = 1's in every case.  The prefix store and speculative
+decoding refuse such a model (``refuse_unported_recurrent``).
 """
 from __future__ import annotations
 
@@ -136,9 +142,11 @@ def _payload_to_host(payload: dict) -> dict:
     return _payload_map(payload, lambda t: t.cpu())
 
 
-def _payload_nbytes(payload: dict) -> float:
+def _payload_nbytes(payload: dict, names=None) -> float:
+    """The bytes of a payload's tensors (only those named ``names``)."""
     return float(sum(t.nbytes for k, v in payload.items()
-                     if not k.startswith("_") for t in v.values()))
+                     if not k.startswith("_") for n, t in v.items()
+                     if names is None or n in names))
 
 
 class RealRadixCache:
@@ -281,19 +289,18 @@ class RealRadixCache:
                 pass
 
 
-def refuse_unported_recurrent(cfg: ArchConfig, *, tp: int = 1,
+def refuse_unported_recurrent(cfg: ArchConfig, *,
                               prefix_cache: bool = False,
                               spec=None) -> None:
     """Raise for the serving techniques not ported to models with
     recurrent stages (ROADMAP queue 1 item 7): a prefix hit needs the
-    state at the hit's length, which neither package stores; a rejected
-    draft cannot be rolled back out of a recurrent state; and the tensor
-    parallel shards have no rules for these stages."""
+    state at the hit's length, which neither package stores, and a
+    rejected draft cannot be rolled back out of a recurrent state."""
     if not any(st.kind in RECURRENT for st in cfg.stages):
         return
     what = [w for w, on in (("the prefix store", prefix_cache),
-                            ("speculative decoding", spec is not None),
-                            (f"tp={tp}", tp > 1)) if on]
+                            ("speculative decoding", spec is not None))
+            if on]
     if what:
         raise NotImplementedError(
             f"ServingEngine: {' and '.join(what)} on {cfg.name}, a model "
@@ -340,8 +347,7 @@ class ServingEngine:
                 f"and has codebook heads; the serving engine takes token "
                 f"ids only, as the JAX one does (ROADMAP.md, \"After the "
                 f"port\": serving musicgen-large)")
-        refuse_unported_recurrent(cfg, tp=tp, prefix_cache=prefix_cache,
-                                  spec=spec)
+        refuse_unported_recurrent(cfg, prefix_cache=prefix_cache, spec=spec)
         if tp > 1:
             if group is None:
                 raise ValueError(
@@ -492,17 +498,35 @@ class ServingEngine:
         counts its own bytes once; a rank's payload at tp > 1 counts the
         heads it owns (``launch.sharding.owned_kv_heads``: a head that
         several ranks hold counts once), summed over the ranks with one
-        all-reduce."""
-        local = int(_payload_nbytes(payload))
+        all-reduce.  Recurrent state counts the same way: a whole state
+        once, a rank's part (``_state_rank``) by the entries it owns
+        (``launch.sharding.owned_state_width``: Mamba2's B/C conv
+        channels, which every rank holds, count on rank 0)."""
+        from repro_torch.launch import sharding
+        kv = int(_payload_nbytes(payload, ("k", "v")))
+        state = int(_payload_nbytes(payload)) - kv
         lo, hi, KV = payload["_kv_heads"]
-        if hi - lo == KV:
-            return float(local)
-        from repro_torch.launch.sharding import owned_kv_heads
-        olo, ohi = owned_kv_heads(self.cfg, self.group.rank, self.tp)
-        # at tp > 1 the payload is K/V only (a recurrent model refuses); a
-        # rank with no query head ships nothing
-        mine = local // (hi - lo) * (ohi - olo) if hi > lo else 0
-        return float(self.group.total(mine))
+        whole = float(kv if hi - lo == KV else 0)
+        mine, split = 0, False
+        if hi - lo < KV:
+            split = True
+            olo, ohi = sharding.owned_kv_heads(self.cfg, self.group.rank,
+                                               self.tp)
+            # a rank with no query head ships no K/V
+            mine += kv // (hi - lo) * (ohi - olo) if hi > lo else 0
+        if payload.get("_state_rank") is None:
+            whole += state
+        else:
+            split = True
+            for key, name, _, _ in self.model.state_leaves(self.cache):
+                t = payload[key][name]
+                dim, _ = sharding.state_pieces(self.cfg, name,
+                                               self.group.rank, self.tp)
+                if t.shape[dim]:
+                    mine += t.nbytes // t.shape[dim] * \
+                        sharding.owned_state_width(
+                            self.cfg, name, self.group.rank, self.tp)
+        return whole + (float(self.group.total(mine)) if split else 0.0)
 
     def warmup(self, buckets=(16, 32, 64, 128, 256)):
         """Run prefill (and, with a prefix store, extend) at every bucket
@@ -618,9 +642,10 @@ class ServingEngine:
         axis removed.  Rows past the pages in use come from the slot's
         scratch page (finite, never read back).  ``to_host=True`` copies
         the payload to host memory.  ``all_heads=True`` at tp > 1
-        all-gathers every KV head over the group (a collective: every
-        rank calls it for the same slot), for a decode engine of another
-        tp."""
+        all-gathers every KV head and the whole recurrent state over the
+        group (collectives: every rank calls it for the same slot), for a
+        decode engine of another tp; without it a rank's state part is
+        tagged ``_state_rank`` ``(rank, tp)``."""
         blen = min(_bucket(length), self.max_len)
         ps = self.page_size
         npg = min(-(-blen // ps), self._maxp)
@@ -642,33 +667,52 @@ class ServingEngine:
                     t = self._gather_heads(t)
                 kv[name] = t.cpu() if to_host else t.to(self.device)
             out[key] = kv
-        for key, name, t, ax in self.model.state_leaves(self.cache):
-            # a copy, also on the CPU: the slot's state moves on
-            out.setdefault(key, {})[name] = t.select(ax, slot).to(
-                "cpu" if to_host else t.device, copy=True)
+        leaves = self.model.state_leaves(self.cache)
+        for key, name, t, ax in leaves:
+            # a copy, also on the CPU: the slot's state moves on; whole
+            # (tp = 1's layout) for a decode engine of another tp
+            one = t.select(ax, slot)
+            if self.group is not None and all_heads:
+                one = self._gather_state(one, name)
+            out.setdefault(key, {})[name] = one.to(
+                "cpu" if to_host else self.device, copy=True)
         out["_length"] = length
         out["_length_bucket"] = blen
         out["_kv_heads"] = (0, KV, KV) if gather else self.kv_range
+        if leaves and self.group is not None and not all_heads:
+            out["_state_rank"] = (self.group.rank, self.tp)
         return out
 
     def _gather_heads(self, t: torch.Tensor) -> torch.Tensor:
         """Every KV head of a ``(layers, blen, KV_e, dh)`` payload over the
-        group, each once (a collective): each rank's KV heads, padded to
-        the most any rank reads (ranks read different counts, or none,
-        where the heads do not divide tp), all-gathered, cut back, and
-        each head taken from its owner (``sharding.gather_kv_heads``)."""
+        group, each once (a collective): each rank's KV heads (ranks read
+        different counts, or none, where the heads do not divide tp),
+        gathered, each head taken from its owner
+        (``sharding.gather_kv_heads``)."""
         from repro_torch.launch.sharding import gather_kv_heads, kv_heads
         counts = [hi - lo for lo, hi in (kv_heads(self.cfg, r, self.tp)
                                          for r in range(self.tp))]
-        width = max(counts)
-        if t.shape[2] < width:
-            pad = list(t.shape)
-            pad[2] = width - t.shape[2]
-            t = torch.cat([t, t.new_zeros(pad)], dim=2)
-        parts = self.group.all_gather(t, 2).chunk(self.tp, 2)
-        return gather_kv_heads([p.narrow(2, 0, n)
-                                for p, n in zip(parts, counts)],
-                               self.cfg, self.tp)
+        return gather_kv_heads(self._gather_parts(t, 2, counts), self.cfg,
+                               self.tp)
+
+    def _gather_parts(self, t: torch.Tensor, dim: int, widths) -> list:
+        """Every rank's ``t`` (``widths[r]`` wide along ``dim``), in rank
+        order, through the host under gloo (``collectives.gather_parts``
+        over ``group.all_gather``)."""
+        from repro_torch.launch.collectives import gather_parts
+        return gather_parts(t, self.group, widths, dim,
+                            self.group.all_gather)
+
+    def _gather_state(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """A slot's state leaf ``name`` whole from every rank's part (a
+        collective): the parts gathered along the head dim and put in
+        place (``sharding.gather_state``)."""
+        from repro_torch.launch.sharding import gather_state, state_pieces
+        dim = state_pieces(self.cfg, name, 0, self.tp)[0] % t.dim()
+        widths = [sum(hi - lo for lo, hi in state_pieces(
+            self.cfg, name, r, self.tp)[1]) for r in range(self.tp)]
+        return gather_state(self._gather_parts(t, dim, widths), self.cfg,
+                            name, self.tp)
 
     def _restore_slot(self, slot: int, kv: dict, length: int):
         """Scatter an ``_export_slot`` payload through ``slot``'s freshly
@@ -687,6 +731,13 @@ class ServingEngine:
                 f"[{heads[0]}, {heads[1]}) of {heads[2]} does not restore "
                 f"into pools of heads [{lo}, {hi}) of {KV}; only this "
                 f"engine's heads or every head do")
+        part = kv.get("_state_rank")
+        me = None if self.group is None else (self.group.rank, self.tp)
+        if part is not None and tuple(part) != me:
+            raise ValueError(
+                f"ServingEngine {self.name!r}: the recurrent state part of "
+                f"(rank, tp) {tuple(part)} does not restore into {me}; "
+                f"only this rank's part or the whole state does")
         blen = kv["_length_bucket"]
         self.ensure_capacity(slot, length)
         row = self.cache["block_table"][slot].long()
@@ -705,5 +756,10 @@ class ServingEngine:
                     t = to_slots(t, self.cfg, self.group.rank, self.tp)
                 pools[f"{name}_pages"][:, page, off] = t.to(self.device)
         for key, name, t, ax in self.model.state_leaves(self.cache):
-            t.select(ax, slot).copy_(kv[key][name])
+            one = kv[key][name]
+            if self.group is not None and part is None:  # the rank's heads
+                from repro_torch.launch.sharding import take_state
+                one = take_state(one, self.cfg, name, self.group.rank,
+                                 self.tp)
+            t.select(ax, slot).copy_(one)
         self._set_length(slot, length)

@@ -549,9 +549,9 @@ def test_lower_cell_tp2_and_train_refusal():
     assert "padded layout" in rec["note"] and "rank 0" in rec["note"]
     assert rec["kernels"]["flash_attention"]["launches"] == 64
     assert rec["collective_bytes_by_axis"]["model"]["all-reduce"] > 0
-    rec = dryrun.lower_cell("zamba2-1.2b", "train_4k", tp=16)
+    rec = dryrun.lower_cell("xlstm-125m", "train_4k", tp=3)
     assert rec["status"] == "unsupported"
-    assert "zamba_super" in rec["reason"]
+    assert "feed-forward width 1024" in rec["reason"]
 
 
 # ---------------------------------------------------- plain attentions

@@ -35,12 +35,14 @@ Without a spawn: each rank's state leaf shapes at the JAX study's 16×16 and
 deviations listed by leaf (a shared KV head's projections keep whole heads
 where GSPMD splits ``d_head``; query heads that do not divide 16 split as
 whole heads in GSPMD's padded layout, where GSPMD splits ``H * d_head``
-evenly); the unsupported cells' status and reasons (the recurrent
-stages); a (2, 2) counting grid's collective bytes by formula for a tiny
-train step, and a (1, 3) one's with the all-reduces of the shared KV
-heads' gradients over their readers.  ``tests/test_torch_heads.py``
-trains on (1, 3), (1, 4) and (2, 3) grids with query heads that do not
-divide tp.
+evenly, and xlstm-125m's four heads split as whole heads); the
+unsupported cells' status and reasons (widths that do not split); a (2,
+2) counting grid's collective bytes by formula for a tiny train step,
+and a (1, 3) one's with the all-reduces of the shared KV heads'
+gradients over their readers.  ``tests/test_torch_heads.py`` trains on
+(1, 3), (1, 4) and (2, 3) grids with query heads that do not divide tp,
+``tests/test_torch_recurrent_tp.py`` the recurrent families on (1, 2),
+(1, 3), (1, 4) and (2, 2) grids.
 """
 import dataclasses
 
@@ -415,11 +417,20 @@ DEVIATIONS = {"qwen3-8b": ("wk", "wv"), "chameleon-34b": ("wk", "wv"),
               "granite-moe-1b-a400m": ("wk", "wv"),
               "starcoder2-7b": ("wq", "wk", "wv", "wo"),
               "qwen1.5-32b": ("wq", "wk", "wv", "wo", "bq", "bk", "bv"),
-              "granite-moe-3b-a800m": ("wq", "wk", "wv", "wo")}
+              "granite-moe-3b-a800m": ("wq", "wk", "wv", "wo"),
+              # four xLSTM heads over 16: rank 0 holds one head whole of
+              # the mLSTM's w_up (its x_in and z halves), w_q, w_k, w_v,
+              # w_down and of the sLSTM's w_gates (each gate); the sLSTM
+              # FFN's w_up / w_down split evenly, as JAX's
+              "xlstm-125m": ("w_up", "w_q", "w_k", "w_v", "w_down",
+                             "w_gates")}
 SUPPORTED = ("gemma3-27b", "qwen3-8b", "chameleon-34b",
              "granite-moe-1b-a400m", "musicgen-large", "starcoder2-7b",
-             "qwen1.5-32b", "granite-moe-3b-a800m")
-UNSUPPORTED = {"xlstm-125m": "xlstm_pair", "zamba2-1.2b": "zamba_super"}
+             "qwen1.5-32b", "granite-moe-3b-a800m", "zamba2-1.2b",
+             "xlstm-125m")
+#: arch -> (tp, what ``unsupported`` names)
+UNSUPPORTED = {"xlstm-125m": (3, "feed-forward width 1024"),
+               "zamba2-1.2b-tiny": (3, "d_ff 128")}
 
 
 def _jax_rank_shapes(arch, multi_pod, zero1):
@@ -467,6 +478,10 @@ def test_rank_state_shapes_match_jax_meshes(arch, multi_pod, zero1):
     klo, khi = sharding.kv_heads(cfg, 0, 16)
     width = {n: (khi - klo if n in ("wk", "wv", "bk", "bv") else qhi - qlo)
              * cfg.d_head for n in dev}
+    if arch == "xlstm-125m":      # one head of 2d (mLSTM), d / 4 (sLSTM)
+        hd = 2 * cfg.d_model // cfg.n_heads
+        width = {"w_up": 2 * hd, "w_q": hd, "w_k": hd, "w_v": hd,
+                 "w_down": hd, "w_gates": 4 * cfg.d_model // cfg.n_heads}
     seen = set()
     for g, (path, w) in zip(got, want):
         name = str(path[-1].key) if hasattr(path[-1], "key") else ""
@@ -484,14 +499,17 @@ def test_rank_state_shapes_match_jax_meshes(arch, multi_pod, zero1):
 
 
 def test_unsupported_cells_status_and_reasons():
-    for arch, why in UNSUPPORTED.items():
-        for multi_pod in (False, True):
-            kw = dict(multi_pod=True) if multi_pod else dict(dp=16, tp=16)
-            rec = dryrun.lower_cell(arch, "train_4k", **kw)
+    """What still refuses on a grid: a width that does not split over tp
+    (the sLSTM's 1024 over 3, a tiny ``d_ff`` of 128 over 3); the same
+    archs count at tp 16 and on one rank."""
+    for arch, (tp, why) in UNSUPPORTED.items():
+        for dp in (1, 2):
+            rec = dryrun.lower_cell(arch, "train_4k", dp=dp, tp=tp)
             assert rec["status"] == "unsupported", (arch, rec)
             assert why in rec["reason"], rec["reason"]
+            assert "stages" not in rec["reason"]
     rec = dryrun.lower_cell("xlstm-125m", "decode_32k", dp=16, tp=16)
-    assert "query heads" not in rec["reason"]
+    assert rec["status"] == "ok" and "xLSTM heads" in rec["note"]
     assert dryrun.lower_cell("xlstm-125m", "decode_32k", dp=16)["status"] \
         == "ok"
 

@@ -20,7 +20,10 @@ port through ``convert.params_from_numpy``.
   to the JAX simulator's); P/D emits the unified serve's tokens.
 * The JAX engine's recurrent-state faults, pinned: its zamba2 tokens
   (unified and P/D) differ from the oracle, and chunked prefill raises.
-* The refusals: the prefix store, spec decoding and tp > 1.
+* The refusals: the prefix store and spec decoding; tp = 2 serves both
+  families on two gloo ranks with tp = 1's tokens and decisions, and the
+  CLI serves zamba2 at ``--tp 2`` (``test_torch_recurrent_tp.py`` holds
+  tensor parallelism to the JAX package).
 * Card (``-m cuda``): the three attention kernels at zamba2's shapes (dh
   64, one query head per kv-head) against their plain versions.  Only the
   card test runs without JAX, which every other test imports lazily.
@@ -611,21 +614,98 @@ def test_jax_engine_recurrent_faults_pinned(jx):
 
 
 @pytest.mark.parametrize("arch", [ZAMBA, XLSTM])
-@pytest.mark.parametrize("what", ["prefix_cache", "spec", "tp"])
+@pytest.mark.parametrize("what", ["prefix_cache", "spec"])
 def test_recurrent_refusals(arch, what):
     from repro_torch.serve import ServingEngine, SpecDecodeCfg
     cfg = get_config(arch)
     kw = {"prefix_cache": dict(prefix_cache=True),
-          "spec": dict(spec=SpecDecodeCfg(draft=cfg, k=2)),
-          "tp": dict(tp=2)}[what]
+          "spec": dict(spec=SpecDecodeCfg(draft=cfg, k=2))}[what]
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         ServingEngine(cfg, max_batch=2, max_len=64, device="cpu", **kw)
 
 
-def test_cli_refuses_tp_on_a_recurrent_model():
-    from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        main(["--arch", ZAMBA, "--tp", "2", "--device", "cpu"])
+def _tp_cfg(arch):
+    """f32; xlstm-125m-tiny's sLSTM width of 85 splits over no tp, so the
+    xLSTM serves at d_model 48 (width 64)."""
+    over = dict(d_model=48) if arch == XLSTM else {}
+    return dataclasses.replace(get_config(arch), compute_dtype="float32",
+                               **over)
+
+
+def _tp_serve(arch, params, group=None):
+    """The engine-matched scheduler, batch 3, at tp = 1 or over
+    ``group``: (finished, tokens, decisions)."""
+    from repro_torch.core.config import engine_scheduler_cfg
+    from repro_torch.serve import DriverCfg, ServeDriver, ServingEngine
+    cfg = _tp_cfg(arch)
+    kw = {} if group is None else dict(tp=group.size, group=group)
+    eng = ServingEngine(cfg, params_from_numpy(params), max_batch=3,
+                        max_len=256, device="cpu", **kw)
+    m, toks, dec = _run(ServeDriver([eng], DriverCfg(
+        scheduler=engine_scheduler_cfg(3))), _port_requests(cfg.vocab))
+    return m["finished"], toks, dec
+
+
+def _tp_serve_rank(group, job):
+    return {arch: _tp_serve(arch, params, group)
+            for arch, params in job.items()}
+
+
+@pytest.fixture(scope="module")
+def tp2_serves():
+    """Both families served on two gloo ranks, and at tp = 1, from one
+    draw of the weights (numpy)."""
+    from repro_torch.launch.mesh import run_ranks
+    job = {}
+    for i, arch in enumerate((ZAMBA, XLSTM)):
+        p = Model(_tp_cfg(arch)).init(torch.Generator().manual_seed(i))
+        job[arch] = _np_tree(p)
+    ranks = run_ranks(_tp_serve_rank, 2, job, device="cpu", timeout_s=300)
+    return ranks, {arch: _tp_serve(arch, p) for arch, p in job.items()}
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+@pytest.mark.parametrize("arch", [ZAMBA, XLSTM])
+def test_recurrent_tp2_serves(tp2_serves, arch):
+    """tp = 2 serves the recurrent families (ROADMAP queue 1 item 7 no
+    longer holds it back): every rank finishes every request with the
+    tokens and decisions of tp = 1."""
+    ranks, tp1 = tp2_serves
+    assert tp1[arch][0] == N
+    for r in ranks:
+        assert r[arch] == tp1[arch]
+
+
+def test_cli_serves_tp2_on_a_recurrent_model(tmp_path):
+    """``launch.serve --tp 2`` serves zamba2-1.2b-tiny on two ranks; with
+    xlstm-125m-tiny it refuses before any rank starts, naming the sLSTM's
+    width that does not split."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+
+    def cli(arch):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--device",
+             "cpu", "--arch", arch, "--tp", "2", "--n", "3"],
+            capture_output=True, text=True, timeout=300, cwd=tmp_path,
+            env=env)
+    res = cli(ZAMBA)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = res.stdout
+    assert json.loads(out[out.index("{"):])["finished"] == 3
+    res = cli(XLSTM)
+    assert res.returncode != 0
+    assert "--tp 2" in res.stderr and "width 85" in res.stderr
 
 
 def test_engine_slot_state_round_trip():

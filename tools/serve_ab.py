@@ -7,7 +7,8 @@ one card.
 ``git archive``.  Runs ``--pairs`` pairs of serves, base and this, each in
 a process of its own, alternating which side runs first (base/this,
 this/base, ...).  Each serves ``chip_smoke.py``'s full-width workload (8
-requests, chunked prefill of 256, batch 8) once, from fresh seeded
+requests, chunked prefill of 256, batch 8; for zamba2-1.2b and
+xlstm-125m phase 7's, ``recurrent_serve_setup``) once, from fresh seeded
 weights, behind a warmed-up driver.  Prints every serve's TTFT p50, TPOT
 p50, output tokens/s and wall; then, per metric, each side's median and
 quartiles, the pairs this side wins (ties count for neither), and whether
@@ -38,7 +39,9 @@ def serve(root: Path, arch: str) -> int:
         return 2
     import chip_smoke
     chip_smoke.card_and_setup(torch)
-    _, eng, drv, reqs = chip_smoke.full_serve_setup(torch, arch)
+    setup = chip_smoke.recurrent_serve_setup if arch in RECURRENT else \
+        chip_smoke.full_serve_setup
+    _, eng, drv, reqs = setup(torch, arch)
     t0 = time.perf_counter()
     drv.run(reqs, warmup=False)
     torch.cuda.synchronize()
@@ -53,6 +56,8 @@ def serve(root: Path, arch: str) -> int:
     return 0
 
 
+#: the archs phase 7 serves (``chip_smoke.recurrent_serve_setup``)
+RECURRENT = ("zamba2-1.2b", "xlstm-125m")
 #: metric -> True where higher is better
 METRICS = {"ttft_ms": False, "tpot_ms": False, "tok_s": True,
            "wall_s": False}
@@ -79,7 +84,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--base", type=Path, help="the other checkout")
     ap.add_argument("--arch", default="phimini-moe",
-                    choices=("llama3.1-8b", "phimini-moe"))
+                    choices=("llama3.1-8b", "phimini-moe") + RECURRENT)
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--serve", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
