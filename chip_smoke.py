@@ -39,8 +39,13 @@ result line:
    expert of 1024 rows (fewer tiles than SMs), four empty groups (dw
    exactly 0) and groups of 127, 128, 129 at C 320; NaN in x's and dy's
    rows past each group (they must take no part), dx's rows there exactly
-   0; every kernel must also give bitwise the same result on a second
-   launch;
+   0; the paged decode writing its log-sum-exp (``return_lse``) at a
+   sequence-sharded rank's shapes: local lengths and query positions
+   before, inside and past the rank's keys, rows with no key (output 0
+   and log-sum-exp -inf exactly), gemma3-27b's H32 KV16 dh128 with a
+   window of 1024 inside and past the range, and its 16x16 rank of
+   ``long_500k`` (H2 KV1 over 32,768 tokens), in f32 and bf16; every
+   kernel must also give bitwise the same result on a second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
@@ -55,7 +60,10 @@ result line:
    ``torch.bmm`` times the row mask and with its device time split
    between its dx and dw kernels by a profiled call), with the decode
    kernel's pages per split and split count, and the host's time to issue
-   one call of each kernel's wrapper (the serves are host-bound);
+   one call of each kernel's wrapper (the serves are host-bound); the
+   log-sum-exp decode at gemma3-27b's ``long_500k`` rank at 16x16 (B1 H2
+   KV1 over 32,768 of 524,288 tokens) beside SDPA over the rank's pages
+   gathered contiguous;
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
@@ -169,7 +177,8 @@ result line:
    time printed beside the roofline's bound against the h100 preset;
 10. training on a rank grid: two ranks share the card over gloo (one
    ``run_ranks`` spawn with named devices, as phase 6, holding a (1, 2)
-   and a (2, 1) grid over its world; a check of the sharded training path
+   and a (2, 1) grid over its world, then phase 12's tp = 2 work and
+   phase 13's rank work, each process started once; a check of the sharded training path
    and of its memory, no time of it a parallel speed): tiny f32 llama and
    phimini-moe at (1, 2) and at (2, 1) with ZeRO-1 take two AdamW steps,
    and their losses, grad norms and params gathered over the model ranks
@@ -207,7 +216,21 @@ result line:
    on 1 and 3, H2 on 1 and 2 at tp = 16), check that H = 0 launches
    nothing, and time flash, paged decode and extend and the flash
    backward at tp = 3's two rank shapes, their launches from this phase;
-12. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
+12. the recurrent stages under tp (``recurrent_tp_on_card``): zamba2 at
+   tp = 2, its rank work run in phase 10's spawn, and xLSTM at tp = 4,
+   this phase's one spawn of four ranks;
+13. the sequence-sharded decode cache and the fused QKV projection at tp
+   = 2 (``seq_shard_on_card``; the rank work runs in phase 10's spawn):
+   gemma3-27b cut to one local:global period (6 layers) at published
+   width, bf16, a batch of one over 131,072 tokens of seeded K/V, its
+   sequence over dp = 2 ranks: the logits of 4 decode steps equal the
+   whole cache's (dp = 1) within 2e-2 of the largest, each rank's state
+   bytes, launches and data-axis collective bytes equal to its meta
+   count, its peak within [0.9, 1.1]; llama3.1-8b cut to 2 layers at (1,
+   2), B8 over 32,768 tokens, the decode under ``seq_shard_cache`` equal
+   to the head-sharded tp = 2 decode; tiny f32 qwen3-8b with ``fuse_qkv``
+   at tp = 2 equal to the CPU's tp = 1;
+14. a ``{"kernels": [...]}`` line, one row per timed shape, and, last, the
    ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -715,8 +738,92 @@ def kernels_vs_plain(torch, ops, dev):
                                 f"rows past a group 0: {zeros}")
     flash_bwd_vs_plain(torch, ops, dev, worst)
     gmm_bwd_vs_plain(torch, ops, dev, worst)
+    decode_lse_vs_plain(torch, ops, dev, worst)
     no_heads(torch, ops, dev)
     return worst
+
+
+#: gemma3-27b's 16x16 rank of ``long_500k``: 2 query heads on one KV head
+#: (tp 16), 32,768 of 524,288 tokens (the sequence over 16 data ranks)
+LONG_RANK = dict(H=2, KV=1, dh=128, ps=64, tokens=32768, S=524288)
+
+
+def decode_lse_cases():
+    """(label, B, H, KV, dh, ps, maxp, local lengths, local starts,
+    window): a rank's part of a sequence-sharded cache (start = the
+    query's global position less the rank's first token)."""
+    # the serve's decode shape, one query past the rank's range
+    yield ("serve", 8, 32, 8, 128, 64, 32,
+           (1, 64, 65, 300, 777, 1024, 2048, 2048),
+           (0, 63, 64, 299, 776, 1023, 2047, 5000), None)
+    # rows with nothing to attend to: no token on the rank, the query
+    # before the range
+    yield ("empty rows", 4, 32, 8, 128, 64, 32, (0, 0, 100, 2048),
+           (-5, 3000, -1, 2047), None)
+    # gemma3-27b's H32 KV16 dh128, a local layer's window of 1024: its
+    # edge inside the range, at its last key, past it (an empty rank)
+    yield ("gemma3-27b local", 4, 32, 16, 128, 64, 32, (2048,) * 4,
+           (2047, 2500, 3070, 3172), 1024)
+    yield ("gemma3-27b global", 2, 32, 16, 128, 64, 32, (2048, 1500),
+           (100000, 1499), None)
+    # the 16x16 rank: the query's rank (window inside) and rank 0
+    r = LONG_RANK
+    for label, start, window in (("16x16 rank, local", r["tokens"] - 1,
+                                  1024),
+                                 ("16x16 rank 0, global", r["S"] - 1, None)):
+        yield (label, 1, r["H"], r["KV"], r["dh"], r["ps"],
+               r["tokens"] // r["ps"], (r["tokens"],), (start,), window)
+
+
+def decode_lse_vs_plain(torch, ops, dev, worst):
+    """The decode kernel's output and log-sum-exp (``return_lse``) against
+    its plain version at a sequence-sharded rank's shapes, f32 and bf16,
+    bitwise over two launches; a row with no visible key: output 0 and
+    log-sum-exp -inf, both exactly.  The log-sum-exp is held at the f32
+    tolerance in both dtypes (f32 in both paths)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst_lse = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for (label, B, H, KV, dh, ps, maxp, lengths, starts,
+             window) in decode_lse_cases():
+            P = B * maxp + 1
+            q = _rand(torch, gen, (B, H, dh), dtype, dev)
+            kp = _rand(torch, gen, (P, ps, KV, dh), dtype, dev)
+            vp = _rand(torch, gen, (P, ps, KV, dh), dtype, dev)
+            table = torch.randperm(P - 1, generator=gen, device=dev)[
+                :B * maxp].reshape(B, maxp).to(torch.int32)
+            lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            kw = dict(page_size=ps, start=st, window=window,
+                      return_lse=True)
+            got, lse = ops.paged_attention(q, kp, vp, table, lt, **kw)
+            again, lse2 = ops.paged_attention(q, kp, vp, table, lt, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again) and torch.equal(lse, lse2),
+                  f"paged decode with lse ({dn}, {label}): two launches "
+                  f"differ")
+            want, wlse = ops.paged_attention_plain(q, kp, vp, table, lt,
+                                                   **kw)
+            empty = torch.isinf(wlse)
+            ok = torch.equal(torch.isinf(lse), empty) \
+                and bool((lse[empty] < 0).all()) \
+                and not bool(got[empty].float().any())
+            o, err = _close(torch, got[~empty], want[~empty], dn)
+            lo, lerr = _close(torch, lse[~empty], wlse[~empty], "float32")
+            worst["paged_attention_decode"] = max(
+                worst["paged_attention_decode"], err)
+            worst_lse = max(worst_lse, lerr)
+            print(f"  decode+lse {dn} {label}: B{B} H{H} KV{KV} dh{dh} "
+                  f"local len{lengths if B <= 8 else '...'} start{starts} "
+                  f"win{window}: out {err:.3g} | {TOL[dn]}, lse {lerr:.3g} "
+                  f"| {TOL['float32']}; {int(empty.sum())} (row, head) "
+                  f"empty: 0 and -inf exactly: {ok}")
+            check(ok and o and lo,
+                  f"paged decode with lse disagrees with its plain "
+                  f"version ({dn}, {label}): out {err}, lse {lerr}, "
+                  f"empty rows {ok}")
+    print(f"phase 2: decode log-sum-exp largest error {worst_lse:.3g}")
 
 
 def no_heads(torch, ops, dev):
@@ -1171,6 +1278,41 @@ def timings(torch, ops, dev):
             kernel="paged_attention_extend", path=HEADS_SERVE_PATH,
             shape=f"B1 S{S} start{start} H{H3} KV{KV3} dh{dh} ps{ps} bf16",
             bound=bound(work))
+    # gemma3-27b's long_500k rank at 16x16 (``LONG_RANK``): the decode
+    # writing its log-sum-exp, B1, 2 query heads on one KV head over the
+    # rank's 32,768 of 524,288 tokens, a global layer's query past them;
+    # the library: the rank's pages gathered contiguous, then SDPA (no
+    # log-sum-exp); its own generator; launches from phase 13 (a)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    r = LONG_RANK
+    Hl, KVl, n, psl = r["H"], r["KV"], r["tokens"], r["ps"]
+    mp = n // psl
+    kpl = _rand(torch, gen, (mp + 1, psl, KVl, dh), bf, dev)
+    vpl = _rand(torch, gen, (mp + 1, psl, KVl, dh), bf, dev)
+    tl = torch.randperm(mp, generator=gen, device=dev).reshape(1, mp).to(
+        torch.int32)
+    ql = _rand(torch, gen, (1, Hl, dh), bf, dev)
+    ltl = torch.tensor([n], dtype=torch.int32, device=dev)
+    stl = torch.tensor([r["S"] - 1], dtype=torch.int32, device=dev)
+
+    def long_library():
+        kg = kpl[tl.reshape(-1).long()].reshape(1, n, KVl, dh)
+        vg = vpl[tl.reshape(-1).long()].reshape(1, n, KVl, dh)
+        return F.scaled_dot_product_attention(
+            ql[:, :, None], kg.transpose(1, 2), vg.transpose(1, 2),
+            enable_gqa=True)
+    out["paged_attention_decode_lse_long"] = measure(
+        lambda: ops.paged_attention(ql, kpl, vpl, tl, ltl, page_size=psl,
+                                    start=stl, return_lse=True),
+        lambda: ops.paged_attention_plain(ql, kpl, vpl, tl, ltl,
+                                          page_size=psl, start=stl,
+                                          return_lse=True),
+        long_library,
+        kernel="paged_attention_decode", path=SEQ_DP_PATH,
+        shape=f"B1 H{Hl} KV{KVl} dh{dh} ps{psl}, {n} of {r['S']} tokens "
+              f"(a 16x16 rank), query past them, lse written, bf16",
+        bound=bound(ops.paged_decode_work(1, Hl, KVl, dh, 2, tl.numel(), n,
+                                          lse=True, start=True)))
     out.update(flash_bwd_timings(torch, ops, dev, measure))
     out.update(gmm_train_timings(torch, ops, dev, measure))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
@@ -3552,7 +3694,9 @@ def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
 def _grid_rank(group, job):
     """Phase 10's two ranks (one spawn, sharing the card): each grid of
     ``job`` made over the spawn's world, the tiny runs, then the
-    published-width ones."""
+    published-width ones; then phase 12's tp = 2 work and phase 13's rank
+    work, in the same spawn (each rank pays process start, CUDA context
+    and the kernels' load once)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import grid_mesh, grid_on_world
@@ -3570,6 +3714,12 @@ def _grid_rank(group, job):
             zero1)
     for path, arch, g, zero1 in GRID_FULL:
         out["full"][path] = _grid_full_rank(torch, grids[g], arch, zero1)
+    t0 = time.perf_counter()
+    out["rec"] = _rec_rank(group, job["rec"])
+    out["rec_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["seq"] = _seq_rank(torch, group, grids, job["fused"])
+    out["seq_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3653,7 +3803,8 @@ def grid_training_on_card(torch, card):
     from repro_torch.models import Model
     from repro_torch.train.tree import leaves
     t0 = time.perf_counter()
-    job = {"tiny": {}, "batches": {}}
+    job = {"tiny": {}, "batches": {}, "rec": _rec_job(torch, TP),
+           "fused": {"params": _fused_params(torch)}}
     refs = {}
     for arch in TINY_ARCHS:
         cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
@@ -3664,7 +3815,7 @@ def grid_training_on_card(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     ranks = run_ranks(_grid_rank, TP, job, device="cuda",
-                      devices=["cuda:0"] * TP, timeout_s=600)
+                      devices=["cuda:0"] * TP, timeout_s=900)
     wall = time.perf_counter() - t0
     check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
               for r in ranks),
@@ -3700,8 +3851,9 @@ def grid_training_on_card(torch, card):
             _grid_full_check(card, path, r["full"][path])
         by_path[path] = ranks[0]["full"][path]["path_launches"]
     print(f"phase 10: ran {time.perf_counter() - t0:.1f} s ({wall:.1f} s "
-          f"the spawn)")
-    return by_path
+          f"the spawn, of it {ranks[0]['rec_s']:.1f} s phase 12's tp = 2 "
+          f"work and {ranks[0]['seq_s']:.1f} s phase 13's)")
+    return by_path, ranks
 
 
 # --------------------------------------------------------------- phase 11
@@ -4132,7 +4284,23 @@ def _rec_rank(group, job):
     return out
 
 
-def recurrent_tp_on_card(torch, card):
+def _rec_job(torch, tp):
+    """Phase 12's job for ``tp``'s tiny variant: its weights (seed 0) and
+    the grid's batches."""
+    from repro_torch.models import Model
+    cfg = _rec_cfg(tp)
+    return {"params": Model(cfg).init(torch.Generator().manual_seed(0)),
+            "batches": _tiny_batches(cfg, n=GRID_STEPS, seed=16)}
+
+
+def _fused_params(torch):
+    """Phase 13 (c)'s tiny fused-QKV weights (seed 0)."""
+    from repro_torch.models import Model
+    return Model(_fused_cfg(), fuse_qkv=True).init(
+        torch.Generator().manual_seed(0))
+
+
+def recurrent_tp_on_card(torch, card, grid_ranks):
     """Phase 12: tensor parallelism of the recurrent stages (Mamba2, the
     zamba superblock, mLSTM, sLSTM; GSPMD's padded head layout), ranks
     sharing the card over gloo (``run_ranks`` with named devices, a spawn
@@ -4154,38 +4322,40 @@ def recurrent_tp_on_card(torch, card):
     (1, 4), B2 S512: each held as phase 10 (b) (state bytes, launches
     and collective bytes by axis equal to the rank's meta count, peak
     within ``PEAK_BAND``, step 0's loss within the bf16 tolerance of tp =
-    1's).
+    1's).  The tp = 2 ranks' work runs in phase 10's spawn (``grid_ranks``,
+    its ranks' results); the tp = 4 ranks are this phase's one spawn.
     Returns rank 0's launch counts of each path."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.sharding import gather_params, recurrent_heads
-    from repro_torch.models import Model
     from repro_torch.serve import ServingEngine
     from repro_torch.train.tree import leaves
     t0 = time.perf_counter()
     by_path, tol = {}, TOL["float32"]
     for tp in REC_TINY:
         cfg = _rec_cfg(tp)
-        params = Model(cfg).init(torch.Generator().manual_seed(0))
-        batches = _tiny_batches(cfg, n=GRID_STEPS, seed=16)
+        job = _rec_job(torch, tp)
+        params = job["params"]
         reqs = _tiny_requests(cfg.vocab)
         ref_logits = tiny_logits(torch, ServingEngine(
             cfg, params, max_batch=2, max_len=128, device="cpu"))
         ref_tok, ref_dec, _, _ = _rec_tiny_serve(cfg, params, "cpu", reqs)
         zamba = cfg.ssm is not None
-        ref_train = _grid_reference(torch, cfg, params, batches) \
+        ref_train = _grid_reference(torch, cfg, params, job["batches"]) \
             if zamba else None
         ref_pd = _tiny_technique(cfg, params, None, "cpu", "pd") \
             if zamba else None
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        ranks = run_ranks(_rec_rank, tp, {"params": params,
-                                          "batches": batches},
-                          device="cuda", devices=["cuda:0"] * tp,
-                          timeout_s=600)
-        wall = time.perf_counter() - t1
+        if tp == TP:                    # run in phase 10's spawn
+            ranks = [r["rec"] for r in grid_ranks]
+            wall = grid_ranks[0]["rec_s"]
+        else:
+            ranks = run_ranks(_rec_rank, tp, job, device="cuda",
+                              devices=["cuda:0"] * tp, timeout_s=600)
+            wall = time.perf_counter() - t1
         check(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
                   for r in ranks),
               f"tp = {tp} ranks: "
@@ -4297,6 +4467,318 @@ def recurrent_tp_on_card(torch, card):
     return by_path
 
 
+# --------------------------------------------------------------- phase 13
+#: phase 13's paths: gemma3-27b cut to one local:global period (6 layers:
+#: five windowed, one global) at published width, bf16, a batch of one
+#: over a context of seeded K/V, its sequence over dp = 2 ranks (JAX's
+#: long_500k rule); llama3.1-8b cut to 2 layers at (1, 2), B8, its
+#: sequence over the model ranks (seq_shard_cache)
+SEQ_DP_PATH = "dp2 sequence-sharded decode gemma3-27b (6 layers)"
+SEQ_TP_PATH = "(1, 2) seq_shard_cache decode llama3.1-8b (2 layers)"
+SEQ_CTX = 131072
+SEQ_TP_CTX = 32768
+#: the B8 rows' context lengths: whole on rank 0, on both, at the split
+SEQ_TP_LENS = (32764, 30000, 20000, 16385, 16384, 16000, 5000, 100)
+SEQ_STEPS = 4
+#: the logits of a sequence-sharded decode against the whole cache's, bf16:
+#: max |got - want| <= SEQ_TOL * max |want| (each rank's partial attention
+#: rounds to bf16 before the combine, the whole cache's once)
+SEQ_TOL = 2e-2
+#: phase 13's tiny fused-QKV model at tp = 2 (f32, the card against the
+#: CPU's tp = 1)
+FUSED_ARCH = "qwen3-8b-tiny"
+
+
+def _seq_cache(torch, model, B, ctx, gen, dev):
+    """``model``'s cache of ``B`` sequences of ``ctx`` tokens on ``dev``
+    through an identity block table, its pools filled with seeded K/V."""
+    cache = model.init_cache(B, ctx, device=dev)
+    maxp = cache["block_table"].shape[1]
+    cache["block_table"] = torch.arange(
+        B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+    for _, pools in model.attention_caches(cache):
+        for t in pools.values():
+            t.normal_(generator=gen)
+    return cache
+
+
+def _take_seq(torch, model, cache, whole, full):
+    """Tokens ``cache["seq_range"]`` of every sequence of ``whole``'s cache
+    ``full`` into ``model``'s ``cache`` (identity table); lengths copied."""
+    from repro_torch.launch.sharding import take_seq_pages
+    lo, hi = cache["seq_range"]
+    for (_, mine), (_, src) in zip(model.attention_caches(cache),
+                                   whole.attention_caches(full)):
+        for k in mine:
+            take_seq_pages(src[k], full["block_table"], mine[k],
+                           cache["block_table"], lo, hi, model.page_size)
+    cache["lengths"] = full["lengths"].clone()
+
+
+def _decode_steps(torch, model, params, cache, tokens):
+    """One decode step a row of ``tokens`` (fixed ids, the same on every
+    path): the logits of each step on the host, and the last cache."""
+    out = []
+    with torch.no_grad():
+        for tok in tokens:
+            logits, cache = model.decode(params, cache, tok)
+            out.append(logits.float().cpu())
+    return out, cache
+
+
+def _seq_err(torch, got, want):
+    """max |got - want| over every step, and max |want|."""
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want)),
+            max(float(w.abs().max()) for w in want))
+
+
+def _seq_dp_rank(torch, grid):
+    """(a) on one rank of the (2, 1) grid: gemma3-27b's 6 layers, bf16,
+    one seeded draw on every rank, B1 over ``SEQ_CTX`` tokens of seeded
+    K/V; the dp = 1 decode on the whole cache, then the rank's decode
+    over its half (counted first: launches, collectives by axis), its
+    meta count, state bytes and peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import counting_grid
+    from repro_torch.models import Model
+    dev = grid.device
+    cfg = _depth_cut(get_config("gemma3-27b"), 6)
+    # the meta count of this rank's step
+    cgrid = counting_grid(grid.mesh, grid.rank)
+    mmodel = Model(cfg, seq_group=cgrid.seq_group(1))
+    meta_in = {"params": specs.params_specs(mmodel, torch.bfloat16),
+               "cache": mmodel.init_cache(1, SEQ_CTX, device="meta"),
+               "tokens": torch.empty((1, 1), dtype=torch.int32,
+                                     device="meta")}
+    mc, mem, _ = dryrun.count_step(mmodel, "decode", meta_in)
+    want_state = dryrun.state_bytes(meta_in)
+    del meta_in
+    gen = torch.Generator(device=dev).manual_seed(0)
+    whole = Model(cfg)
+    params = whole.init(gen, device=dev, dtype=torch.bfloat16)
+    full = _seq_cache(torch, whole, 1, SEQ_CTX, gen, dev)
+    full["lengths"] = torch.full((1,), SEQ_CTX - SEQ_STEPS,
+                                 dtype=torch.int32, device=dev)
+    # each step's token in its own storage (the step's input bytes)
+    tokens = [t.clone() for t in torch.randint(
+        0, cfg.vocab, (SEQ_STEPS, 1, 1), generator=gen, device=dev,
+        dtype=torch.int32)]
+    model = Model(cfg, seq_group=grid.seq_group(1))
+    cache = model.init_cache(1, SEQ_CTX, device=dev)
+    cache["block_table"] = torch.arange(
+        cache["block_table"].numel(), dtype=torch.int32,
+        device=dev).reshape(cache["block_table"].shape)
+    _take_seq(torch, model, cache, whole, full)
+    want, _ = _decode_steps(torch, whole, params, full, tokens)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    inputs = {"params": params, "cache": cache, "tokens": tokens[0]}
+    got_state = dryrun.state_bytes(inputs)
+    ops.reset_launch_counts()
+    cc, _, (logits, nxt) = dryrun.count_step(model, "decode", inputs)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    t0 = time.perf_counter()
+    rest, _ = _decode_steps(torch, model, params, nxt, tokens[1:])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (SEQ_STEPS - 1)
+    path_launches = ops.launch_counts()
+    err, top = _seq_err(torch, [logits.float().cpu()] + rest, want)
+    peak = _card_peak(torch, model, "decode", inputs)
+    out = {"coords": dict(grid.coords), "seq_range": cache["seq_range"],
+           "state": (got_state, want_state),
+           "launches": (launches, {k: v for k, v in mc.launches().items()
+                                   if v}),
+           "collectives": (cc.coll_by_axis, mc.coll_by_axis),
+           "peak": (peak, mem["peak_bytes"]), "err": err, "top": top,
+           "step_ms": step_ms, "path_launches": path_launches}
+    del inputs, cache, params, logits, nxt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_tp_rank(torch, grid):
+    """(b) on one rank of the (1, 2) grid: llama3.1-8b's 2 layers, bf16,
+    one seeded draw cut to the rank's shard, B8 over ``SEQ_TP_CTX``
+    tokens of seeded K/V (``SEQ_TP_LENS``): the head-sharded decode (the
+    rank's KV heads over every token) against the sequence-sharded one
+    (every KV head over the rank's tokens), ``SEQ_STEPS`` steps each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import kv_heads, shard_params
+    from repro_torch.models import Model
+    dev, g = grid.device, grid.model
+    cfg = _depth_cut(get_config("llama3.1-8b"), 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    whole = Model(cfg)
+    params = shard_params(whole.init(gen, device=dev, dtype=torch.bfloat16),
+                          g.rank, g.size, cfg=cfg)
+    B = len(SEQ_TP_LENS)
+    full = _seq_cache(torch, whole, B, SEQ_TP_CTX, gen, dev)
+    full["lengths"] = torch.tensor(SEQ_TP_LENS, dtype=torch.int32,
+                                   device=dev)
+    tokens = torch.randint(0, cfg.vocab, (SEQ_STEPS, B, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    heads = Model(cfg, group=g)
+    hc = heads.init_cache(B, SEQ_TP_CTX, device=dev)
+    lo, hi = kv_heads(cfg, g.rank, g.size)
+    for (_, mine), (_, src) in zip(heads.attention_caches(hc),
+                                   whole.attention_caches(full)):
+        for k in mine:
+            mine[k].copy_(src[k][..., lo:hi, :])
+    hc["block_table"] = full["block_table"].clone()
+    hc["lengths"] = full["lengths"].clone()
+    seqm = Model(cfg, group=g, seq_group=grid.seq_group(B, True))
+    sc = seqm.init_cache(B, SEQ_TP_CTX, device=dev)
+    sc["block_table"] = torch.arange(
+        sc["block_table"].numel(), dtype=torch.int32,
+        device=dev).reshape(sc["block_table"].shape)
+    _take_seq(torch, seqm, sc, whole, full)
+    del full
+    want, _ = _decode_steps(torch, heads, params, hc, tokens)
+    del hc
+    ops.reset_launch_counts()
+    got, sc = _decode_steps(torch, seqm, params, sc, tokens)
+    torch.cuda.synchronize()
+    err, top = _seq_err(torch, got, want)
+    out = {"coords": dict(grid.coords), "seq_range": sc["seq_range"],
+           "pool": tuple(seqm.attention_caches(sc)[0][1]["k_pages"].shape),
+           "err": err, "top": top, "path_launches": ops.launch_counts()}
+    del sc, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fused_logits(torch, cfg, params, group, dev):
+    """Tiny fused-QKV logits (``Model(fuse_qkv=True)``, the rank's shard
+    under ``group``): a prefill of two rows (16 and 11 tokens), their K/V
+    into pools through an identity table, two decode steps; the logits of
+    each call on the host."""
+    import numpy as np
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models import Model
+    from repro_torch.train.tree import map_tree
+    if group is not None:
+        params = shard_params(params, group.rank, group.size, cfg=cfg)
+    params = map_tree(lambda t: t.to(dev), params)
+    model = Model(cfg, page_size=16, group=group, fuse_qkv=True)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)).to(dev)
+    lengths = torch.tensor([16, 11], dtype=torch.int32, device=dev)
+    out = []
+    with torch.no_grad():
+        logits, c1 = model.prefill(params, toks, lengths=lengths)
+        out.append(logits.cpu())
+        cache = model.init_cache(2, 64, device=dev)
+        maxp = cache["block_table"].shape[1]
+        cache["block_table"] = torch.arange(
+            2 * maxp, dtype=torch.int32, device=dev).reshape(2, maxp)
+        for (_, pools), (_, kv) in zip(model.attention_caches(cache),
+                                       model.attention_caches(c1)):
+            for b in range(2):
+                pools["k_pages"][:, b * maxp] = kv["k"][:, b]
+                pools["v_pages"][:, b * maxp] = kv["v"][:, b]
+        cache["lengths"] = lengths
+        for _ in range(2):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1)).astype(
+                np.int32)).to(dev)
+            logits, cache = model.decode(params, cache, tok)
+            out.append(logits.cpu())
+    return out
+
+
+def _fused_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(FUSED_ARCH),
+                               compute_dtype="float32")
+
+
+def _seq_rank(torch, group, grids, job):
+    """Phase 13 on one of phase 10's two ranks: (a) on its (2, 1) grid,
+    (b) and (c) on its (1, 2) grid."""
+    return {"dp": _seq_dp_rank(torch, grids[(2, 1)]),
+            "tp": _seq_tp_rank(torch, grids[(1, 2)]),
+            "fused": _fused_logits(torch, _fused_cfg(), job["params"],
+                                   grids[(1, 2)].model, group.device)}
+
+
+def seq_shard_on_card(torch, card, ranks, fused_want):
+    """Phase 13: the sequence-sharded decode cache and the fused QKV
+    projection at tp = 2, their rank work run in phase 10's spawn (two
+    ranks sharing the card over gloo; no time of it a parallel speed).
+    (a) gemma3-27b cut to one local:global period (6 layers) at published
+    width, bf16, batch 1 over a ``SEQ_CTX``-token context of seeded K/V,
+    its sequence over dp = 2 ranks: ``SEQ_STEPS`` decode steps' logits on
+    each rank within ``SEQ_TOL`` of the whole cache's (dp = 1, the same
+    weights and tokens); each rank's state bytes, kernel launches and
+    collective result bytes by axis (the combine's, on ``data``) equal to
+    its meta count, its peak within ``PEAK_BAND``.  (b) llama3.1-8b cut
+    to 2 layers at (1, 2), B8 over ``SEQ_TP_CTX`` tokens: the decode
+    under ``seq_shard_cache`` (every KV head over half the tokens, the
+    combine on ``model``) within ``SEQ_TOL`` of the head-sharded tp = 2
+    decode.  (c) tiny f32 ``FUSED_ARCH`` with ``fuse_qkv`` at tp = 2:
+    prefill and decode logits within 1e-5 of the CPU's tp = 1.  Returns
+    rank 0's launch counts of (a) and (b)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    for r in ranks:
+        o = r["seq"]["dp"]
+        where = f"{SEQ_DP_PATH} rank {o['coords']}"
+        (gs, ws), (gl, wl) = o["state"], o["launches"]
+        (gc_, wc), (pk, wp) = o["collectives"], o["peak"]
+        ratio = pk / wp
+        print(f"phase 13 [{card}] {where}: tokens {o['seq_range']} of "
+              f"{SEQ_CTX}; {SEQ_STEPS} steps' logits max abs err "
+              f"{o['err']:.4g} against the whole cache's (max |logit| "
+              f"{o['top']:.4g}, tol {SEQ_TOL} of it); state {gs} bytes "
+              f"(predicted {ws}); launches {json.dumps(gl)} (predicted "
+              f"{json.dumps(wl)}); collective result bytes by axis "
+              f"{json.dumps(gc_)} (predicted {json.dumps(wc)}); peak "
+              f"{pk / 2 ** 30:.3f} GiB, predicted {wp / 2 ** 30:.3f} GiB, "
+              f"ratio {ratio:.4f}; a step {o['step_ms']:.1f} ms (two ranks "
+              f"sharing one card over gloo: not a parallel speed)")
+        check(o["err"] <= SEQ_TOL * o["top"],
+              f"{where}: logits {o['err']} from dp = 1's")
+        check(gs == ws, f"{where}: state {gs} bytes, {ws} predicted")
+        check(gl == wl, f"{where}: launched {gl}, predicted {wl}")
+        check(gc_ == wc and "data" in gc_,
+              f"{where}: collective bytes {gc_}, predicted {wc}")
+        check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+              f"{where}: peak {pk} bytes against {wp} predicted (ratio "
+              f"{ratio:.4f}, band {PEAK_BAND})")
+    for r in ranks:
+        o = r["seq"]["tp"]
+        where = f"{SEQ_TP_PATH} rank {o['coords']}"
+        print(f"phase 13 [{card}] {where}: tokens {o['seq_range']} of "
+              f"{SEQ_TP_CTX}, pool {o['pool']} (every KV head); "
+              f"{SEQ_STEPS} steps' logits max abs err {o['err']:.4g} "
+              f"against the head-sharded tp = 2 decode (max |logit| "
+              f"{o['top']:.4g}, tol {SEQ_TOL} of it); launches "
+              f"{json.dumps({k: v for k, v in o['path_launches'].items() if v})}")
+        check(o["err"] <= SEQ_TOL * o["top"]
+              and o["path_launches"]["paged_attention_decode"] > 0,
+              f"{where}: logits {o['err']} from the head-sharded decode")
+    err = max(float((g - w).abs().max()) for r in ranks
+              for g, w in zip(r["seq"]["fused"], fused_want))
+    check(all(np.allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+              for r in ranks for g, w in zip(r["seq"]["fused"], fused_want)),
+          f"tiny {FUSED_ARCH} fuse_qkv tp = 2: logits max err {err:.3g} "
+          f"against the CPU's tp = 1")
+    print(f"phase 13: tiny {FUSED_ARCH} f32 with fuse_qkv at tp = 2 (two "
+          f"ranks on the card): prefill and decode logits max err "
+          f"{err:.3g} against the CPU's tp = 1 (tol 1e-5)")
+    print(f"phase 13: checked in {time.perf_counter() - t0:.1f} s (its "
+          f"rank work ran in phase 10's spawn)")
+    return {SEQ_DP_PATH: ranks[0]["seq"]["dp"]["path_launches"],
+            SEQ_TP_PATH: ranks[0]["seq"]["tp"]["path_launches"]}
+
+
 #: what the kernels without a Pallas counterpart replace: the JAX package
 #: trains through plain JAX
 REPLACES_NOTE = {
@@ -4357,13 +4839,18 @@ def main() -> int:
         by_path.update(dryrun_on_card(torch, ops, card))
         gc.collect()
         torch.cuda.empty_cache()
-        by_path.update(grid_training_on_card(torch, card))
+        grid_paths, grid_ranks = grid_training_on_card(torch, card)
+        by_path.update(grid_paths)
         gc.collect()
         torch.cuda.empty_cache()
         by_path.update(heads_on_card(torch, card))
         gc.collect()
         torch.cuda.empty_cache()
-        by_path.update(recurrent_tp_on_card(torch, card))
+        by_path.update(recurrent_tp_on_card(torch, card, grid_ranks))
+        by_path.update(seq_shard_on_card(
+            torch, card, grid_ranks,
+            _fused_logits(torch, _fused_cfg(), _fused_params(torch), None,
+                          "cpu")))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -41,7 +41,11 @@
 // split order in the same launch: it knows it is last from a ticket
 // counter (a __threadfence before the ticket; the target is the number of
 // splits that hold keys, computed on the device), and resets the counter
-// to 0.  Blocks that exit at once take no ticket.
+// to 0.  Blocks that exit at once take no ticket.  On request the block
+// that writes a row's output also writes its log-sum-exp, (m + log2 l) ·
+// ln 2 (m runs in scale · log2 e units), and -inf for a row with nothing
+// to attend to: a sequence-sharded cache combines the ranks' partial
+// outputs by it.
 //
 // Extend, bf16 (paged_extend_wgmma_kernel).  What bounds it: a 256-token
 // chunk reuses each K/V byte 4*S times, so operations; it needs the tensor
@@ -154,6 +158,7 @@ constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecKeys = 64;          // keys per ring stage, 32 per half
 constexpr int kDecStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int decode_splits(int maxp) {
   return (maxp + kPagesPerSplit - 1) / kPagesPerSplit;
@@ -240,7 +245,8 @@ paged_decode_split_kernel(const T* __restrict__ q,
                           const int* __restrict__ start,
                           const int* __restrict__ lengths,
                           T* __restrict__ out, float* __restrict__ ws,
-                          int* __restrict__ tickets, int H, int KV, int ps,
+                          int* __restrict__ tickets,
+                          float* __restrict__ lse, int H, int KV, int ps,
                           int maxp, int window, float scale_log2) {
   using namespace repro_hopper;
   using L = Dec<DH, T>;
@@ -263,9 +269,13 @@ paged_decode_split_kernel(const T* __restrict__ q,
   const int n_active = kv_end > kv_w ? (kv_end - 1) / span - s_first + 1 : 0;
   const int64_t bk = int64_t(b) * KV + kvh;
   T* orow = out + (int64_t(b) * H + kvh * G) * DH;
-  if (n_active == 0) {                // nothing to attend to: zeros
-    if (split == 0)
+  float* lrow = lse == nullptr ? nullptr : lse + int64_t(b) * H + kvh * G;
+  if (n_active == 0) {                // nothing to attend to: zeros, -inf
+    if (split == 0) {
       for (int i = tid; i < G * DH; i += kDecThreads) store(0.f, orow + i);
+      if (lrow != nullptr)
+        for (int g = tid; g < G; g += kDecThreads) lrow[g] = -INFINITY;
+    }
     return;
   }
   if (split < s_first || split >= s_first + n_active) return;
@@ -429,6 +439,8 @@ paged_decode_split_kernel(const T* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < L::DPL; ++e)
           store(acc[i][e] / li, orow + (rs + 2 * i) * DH + d0 + e);
+        if (lrow != nullptr && lane == 0)
+          lrow[rs + 2 * i] = (m[i] + log2f(li)) * kLn2;
       }
     }
     return;
@@ -474,6 +486,7 @@ paged_decode_split_kernel(const T* __restrict__ q,
     }
     mrow[2 * g] = mx;
     mrow[2 * g + 1] = fmaxf(sum, 1e-20f);
+    if (lrow != nullptr) lrow[g] = (mx + log2f(mrow[2 * g + 1])) * kLn2;
   }
   __syncthreads();
   for (int i = tid; i < G * DH; i += kDecThreads) {
@@ -493,8 +506,9 @@ template <int DH, typename T, int RW>
 static int launch_decode(const void* q, const void* kp, const void* vp,
                          const int* table, const int* start,
                          const int* lengths, void* out, float* ws,
-                         int* tickets, int B, int H, int KV, int ps, int maxp,
-                         int window, float scale, cudaStream_t stream) {
+                         int* tickets, float* lse, int B, int H, int KV,
+                         int ps, int maxp, int window, float scale,
+                         cudaStream_t stream) {
   using L = Dec<DH, T>;
   const int G = H / KV;
   const int smem =
@@ -506,7 +520,7 @@ static int launch_decode(const void* q, const void* kp, const void* vp,
   paged_decode_split_kernel<DH, T, RW><<<grid, kDecThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, start, lengths,
-      static_cast<T*>(out), ws, tickets, H, KV, ps, maxp, window,
+      static_cast<T*>(out), ws, tickets, lse, H, KV, ps, maxp, window,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -695,15 +709,18 @@ extern "C" int paged_decode_pages_per_split() {
 }
 
 // mode: 0 = decode (S == 1; split-KV kernel, needs ``ws`` and ``tickets``:
-// B * KV int32 counters that are 0 before and after every launch), 1 =
-// extend.  dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t: the
+// B * KV int32 counters that are 0 before and after every launch; ``lse``,
+// when not null, takes each (sequence, head)'s log-sum-exp of its scaled
+// scores, (B, H) f32 in natural log, -inf where nothing is visible), 1 =
+// extend (``lse`` must be null).  dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t: the
 // launch's own error, or cudaErrorInvalidValue for a shape, head dim, dtype
 // or mode the chosen kernel does not take.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages,
                                    const int* block_table, const int* start,
                                    const int* lengths, void* out, float* ws,
-                                   int* tickets, int B, int S, int H, int KV,
+                                   int* tickets, float* lse, int B, int S,
+                                   int H, int KV,
                                    int dh, int ps, int P, int maxp,
                                    int window, float scale, int dtype,
                                    int mode, void* stream) {
@@ -718,8 +735,8 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
     if (S != 1 || G > 16) return bad;
 #define REPRO_DEC(D, T, RW)                                                 \
   return launch_decode<D, T, RW>(q, k_pages, v_pages, block_table, start,   \
-                                 lengths, out, ws, tickets, B, H, KV, ps,   \
-                                 maxp, window, scale, st)
+                                 lengths, out, ws, tickets, lse, B, H, KV,  \
+                                 ps, maxp, window, scale, st)
 #define REPRO_DEC_RW(D, T)                                                  \
   case D:                                                                   \
     if (G <= 4) REPRO_DEC(D, T, 2);                                         \
@@ -736,7 +753,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
 #undef REPRO_DEC_RW
 #undef REPRO_DEC
   }
-  if (mode != 1) return bad;
+  if (mode != 1 || lse != nullptr) return bad;
   if (dtype == 0) {
 #define REPRO_FMA(D)                                                        \
   case D:                                                                   \

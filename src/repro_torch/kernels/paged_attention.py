@@ -8,7 +8,11 @@ the chosen kernel does not take, raises.  There is no fallback from one
 kernel to another or to the plain version.  The mode and dtype pick the
 kernel: decode (q (B,H,dh)) the split-KV kernel in both dtypes, extend
 (q (B,S,H,dh) with ``start``) the tensor-core kernel in bf16 and the FMA
-kernel in f32.  Decode and extend are counted apart.  On meta tensors (the
+kernel in f32.  Decode and extend are counted apart.  A decode may also
+return each row's log-sum-exp (``return_lse``: the kernel writes it beside
+its output; a row with nothing to attend to gets 0 and -inf), which a
+sequence-sharded cache combines over its ranks
+(``repro_torch.launch.collectives.combine_lse``).  On meta tensors (the
 dry run) the wrapper returns the kernel's output shape and allocates the
 decode workspace as the CUDA path does, launching nothing.  With no query
 head (H = 0: a tensor-parallel rank past GSPMD's padded heads) it returns
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import NO_WINDOW, paged_attention_ref
+from repro_torch.kernels.ref import (NO_WINDOW, paged_attention_ref,
+                                    paged_decode_lse_ref)
 from repro_torch.roofline import counter as _roof
 
 #: launches of the CUDA kernel since the last reset (see ``ops``)
@@ -54,7 +59,12 @@ _SPLITS = {}
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_table, lengths, *,
-                          page_size, start=None, window=None):
+                          page_size, start=None, window=None,
+                          return_lse=False):
+    if return_lse:
+        return paged_decode_lse_ref(q, k_pages, v_pages, block_table,
+                                    lengths, page_size=page_size,
+                                    start=start, window=window)
     return paged_attention_ref(q, k_pages, v_pages, block_table, lengths,
                                page_size=page_size, start=start,
                                window=window)
@@ -73,11 +83,13 @@ def decode_pages_per_split() -> int:
 @functools.lru_cache(maxsize=4096)
 def _row_work(start: int, S: int, length: int, window: int):
     """(keys read, visible (query, key) pairs) of one sequence whose S
-    queries sit at start..start+S-1."""
+    queries sit at start..start+S-1 (a start past ``length`` or below 0:
+    a rank's part of a sequence-sharded cache)."""
     p = start + np.arange(S, dtype=np.int64)
     pairs = np.maximum(np.minimum(p, length - 1)
                        - np.maximum(0, p - window + 1) + 1, 0).sum()
-    return max(0, length - max(0, start - window + 1)), int(pairs)
+    return max(0, min(length, start + S) - max(0, start - window + 1)), \
+        int(pairs)
 
 
 def paged_work(starts, S: int, lengths, window):
@@ -91,13 +103,16 @@ def paged_work(starts, S: int, lengths, window):
     return rows, pairs
 
 
-def paged_decode_work(B, H, KV, dh, itemsize, table_numel, kv_rows):
+def paged_decode_work(B, H, KV, dh, itemsize, table_numel, kv_rows,
+                      lse=False, start=False):
     """(FLOPs, bytes) of one decode call: QK^T and PV over ``kv_rows`` keys
     (one query each), 2 * dh FLOPs a head each; those keys' K and V, q,
-    the block table and the lengths read, out written once."""
+    the block table and the lengths (and ``start``, when passed) read,
+    out (and with ``lse`` the f32 log-sum-exp) written once."""
     flops = 4 * kv_rows * H * dh
     nbytes = kv_rows * KV * dh * itemsize * 2 + 2 * B * H * dh * itemsize \
-        + table_numel * 4 + B * 4
+        + table_numel * 4 + B * 4 * (2 if start else 1) \
+        + (B * H * 4 if lse else 0)
     return flops, nbytes
 
 
@@ -112,10 +127,13 @@ def paged_extend_work(B, S, H, KV, dh, itemsize, table_numel, kv_rows,
     return flops, nbytes
 
 
-def _charge(q, k_pages, block_table, lengths, page_size, start, window):
+def _charge(q, k_pages, block_table, lengths, page_size, start, window,
+            lse=False):
     """(FLOPs, bytes, launches) of a call, from the data where it can be
     read (the CPU, the card: a host sync, only under a counter), else
-    (meta) with every table full: the queries end at its last row."""
+    (meta) with every table full: the queries end at its last row (for a
+    rank's part of a sequence-sharded cache, the rank holding the
+    query's window: the most loaded)."""
     decode = q.dim() == 3
     B, H, dh = q.shape[0], q.shape[-2], q.shape[-1]
     S = 1 if decode else q.shape[1]
@@ -126,11 +144,13 @@ def _charge(q, k_pages, block_table, lengths, page_size, start, window):
         starts = [full - S] * B
     else:
         lens = lengths.tolist()
-        starts = [n - 1 for n in lens] if decode else start.tolist()
+        starts = [n - 1 for n in lens] if start is None \
+            else start.tolist()
     rows, pairs = paged_work(starts, S, lens, window)
     if decode:
         work = paged_decode_work(B, H, KV, dh, q.element_size(),
-                                 block_table.numel(), rows)
+                                 block_table.numel(), rows, lse,
+                                 start is not None)
     else:
         work = paged_extend_work(B, S, H, KV, dh, q.element_size(),
                                  block_table.numel(), rows, pairs)
@@ -142,8 +162,8 @@ def _lib():
     fn = lib.paged_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                       i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
         lib.paged_decode_splits.argtypes = [i]
         lib.paged_decode_splits.restype = i
@@ -215,33 +235,48 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_table: torch.Tensor,
                     lengths: torch.Tensor, *, page_size: int,
                     start: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Decode: q (B,H,dh), one query per sequence at position length-1.
-    Extend: q (B,S,H,dh) with ``start`` (B,), queries at start..start+S-1.
-    k_pages/v_pages: (P,ps,KV,dh); block_table: (B,maxp) int32; ``window``
-    masks q_pos - kv_pos >= window."""
+                    window: Optional[int] = None, return_lse: bool = False):
+    """Decode: q (B,H,dh), one query per sequence at position length-1, or
+    at ``start`` (B,) where given (a rank's local position in a
+    sequence-sharded cache: below 0 or past ``lengths`` where the query
+    lies outside the rank's keys).  Extend: q (B,S,H,dh) with ``start``
+    (B,), queries at start..start+S-1.  k_pages/v_pages: (P,ps,KV,dh);
+    block_table: (B,maxp) int32; ``window`` masks q_pos - kv_pos >= window.
+    ``return_lse`` (decode only): ``(out, lse)``, ``lse`` (B, H) f32 in
+    natural log, -inf (and ``out`` 0) for a row with no visible key."""
+    if return_lse and q.dim() != 3:
+        raise ValueError("paged_attention: return_lse is for decode "
+                         "(q (B,H,dh)) only")
     if _roof.STACK:
         name = "paged_attention_decode" if q.dim() == 3 \
             else "paged_attention_extend"
         with _roof.kernel_call(name, *_charge(q, k_pages, block_table,
                                               lengths, page_size, start,
-                                              window)):
+                                              window, return_lse)):
             return _paged_attention(q, k_pages, v_pages, block_table,
-                                    lengths, page_size, start, window)
+                                    lengths, page_size, start, window,
+                                    return_lse)
     return _paged_attention(q, k_pages, v_pages, block_table, lengths,
-                            page_size, start, window)
+                            page_size, start, window, return_lse)
 
 
 def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
-                     start, window):
+                     start, window, return_lse=False):
     if q.dim() in (3, 4) and q.shape[-2] == 0:
         # no query head (a tensor-parallel rank past the padded heads):
         # an empty output on every device, nothing launched
-        return torch.empty_like(q)
+        out = torch.empty_like(q)
+        if return_lse:
+            return out, q.new_empty(q.shape[:2], dtype=torch.float32)
+        return out
     if q.device.type == "cpu":      # contiguous, as the kernel writes it
-        return paged_attention_plain(q, k_pages, v_pages, block_table,
-                                     lengths, page_size=page_size,
-                                     start=start, window=window).contiguous()
+        got = paged_attention_plain(q, k_pages, v_pages, block_table,
+                                    lengths, page_size=page_size,
+                                    start=start, window=window,
+                                    return_lse=return_lse)
+        if return_lse:
+            return got[0].contiguous(), got[1].contiguous()
+        return got.contiguous()
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     decode = q.dim() == 3
@@ -263,6 +298,8 @@ def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
     meta = q.device.type == "meta"
     fn, splits = (None, None) if meta else _lib()
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     win = NO_WINDOW if window is None else int(window)
     if out.numel():
         ws = tickets = None
@@ -276,7 +313,8 @@ def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
             tickets, ws = _decode_scratch(
                 q.device, B * KV, B * KV * n_split * (H // KV) * (dh + 2))
         if meta:
-            return out[:, 0] if decode else out
+            return (out[:, 0], lse) if return_lse else \
+                (out[:, 0] if decode else out)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -284,6 +322,7 @@ def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
                      lengths.data_ptr(), out.data_ptr(),
                      None if ws is None else ws.data_ptr(),
                      None if tickets is None else tickets.data_ptr(),
+                     None if lse is None else lse.data_ptr(),
                      B, S, H, KV, dh, page_size, P, maxp, win, dh ** -0.5,
                      _DTYPES[q.dtype], 0 if decode else 1, stream)
         if err != 0:
@@ -291,4 +330,6 @@ def _paged_attention(q, k_pages, v_pages, block_table, lengths, page_size,
                                f"cudaError {err}")
         LAUNCHES["paged_attention_decode" if decode
                  else "paged_attention_extend"] += 1
+    if return_lse:
+        return out[:, 0], lse
     return out[:, 0] if decode else out

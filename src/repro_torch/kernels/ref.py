@@ -123,6 +123,43 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, lengths, *,
     return o[:, 0] if squeeze else o
 
 
+def paged_decode_lse_ref(q, k_pages, v_pages, block_table, lengths, *,
+                         page_size: int, start=None, window=None):
+    """Decode with its log-sum-exp: ``(out, lse)`` for q (B,H,dh) at
+    ``start`` (B,) (default ``lengths - 1``), ``lse`` (B, H) f32 in
+    natural-log units of the scaled scores over the visible keys.  A row
+    with no visible key gives ``out`` 0 and ``lse`` -inf, as the kernel
+    writes them, so a combine over key ranges weights it 0; every other
+    row's ``out`` is ``paged_attention_ref``'s."""
+    B, H, dh = q.shape
+    P, ps, KV, _ = k_pages.shape
+    G = H // KV
+    maxp = block_table.shape[1]
+    lengths = lengths.to(q.device).long()
+    if start is None:
+        start = torch.clamp(lengths - 1, min=0)
+    start = start.to(q.device).long()
+    flat = block_table.reshape(-1).long()
+    kg = k_pages[flat].reshape(B, maxp * ps, KV, dh)
+    vg = v_pages[flat].reshape(B, maxp * ps, KV, dh)
+    qr = q.reshape(B, KV, G, dh).float() * dh ** -0.5
+    s = torch.einsum("bkgd,bjkd->bkgj", qr, kg.float())
+    kv_pos = torch.arange(maxp * ps, device=q.device)[None]
+    win = NO_WINDOW if window is None else window
+    mask = (kv_pos <= start[:, None]) & (kv_pos < lengths[:, None]) \
+        & (start[:, None] - kv_pos < win)                     # (B, J)
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    e = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = e.sum(dim=-1)
+    o = torch.einsum("bkgj,bjkd->bkgd", e / torch.clamp(l, min=1e-20)[
+        ..., None], vg.float())
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-20)),
+                      torch.full_like(m, float("-inf")))
+    return o.reshape(B, H, dh).to(q.dtype), lse.reshape(B, H)
+
+
 def moe_gmm_ref(x, w, group_sizes):
     """Grouped matmul: x: (E,C,d); w: (E,d,f); rows >= group_sizes[e] give 0."""
     E, C, d = x.shape

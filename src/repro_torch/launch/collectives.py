@@ -31,6 +31,12 @@ engine group (``repro_torch.launch.mesh``):
   ``reduce_from``: an all-reduce forward and an all-reduce of the
   gradient backward.
 
+One more, outside autograd (inference only, as JAX shards only the decode
+cache's sequence): :func:`combine_lse` merges the partial decode
+attentions of ranks that each hold a range of a sequence's keys (a
+split-KV decode across ranks), by the log-sum-exp each rank's kernel
+writes beside its output.
+
 Without a group each is the identity.  Without autograd (``no_grad``, or
 an input that needs no gradient) each runs the plain collective, in place
 for the all-reduce, as the serving engine always has.
@@ -138,3 +144,32 @@ def norm_stat(s: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return s
     return copy_to(reduce_from(s, group), group)
+
+
+def combine_lse(out: torch.Tensor, lse: torch.Tensor, group, keep=None
+                ) -> torch.Tensor:
+    """The attention over every rank's keys from each rank's attention over
+    its own: ``out`` (B, H, dh) and ``lse`` (B, H) f32 (natural log, -inf
+    for a row with no key on the rank; ``paged_attention(return_lse=
+    True)``).  Each part is weighted by ``exp(lse - max)``, the max taken
+    over ``group`` (0 where ``lse`` is -inf), and the weighted parts and
+    the weights are summed over ``group`` in one all-reduce; the result is
+    their quotient in f32 (0 where no rank holds a key), cast to
+    ``out``'s dtype.  ``keep``: ``(lo, hi)``, the heads this rank keeps
+    (its query heads, when the sequence splits over the model axis).
+    Every rank gets the same bits.  Collectives: an all-reduce (max) of B
+    · H · 4 bytes and one (sum) of B · H · (dh + 1) · 4, under the
+    group's axis."""
+    if group is not None:
+        m = group.all_reduce_max(lse.clone())
+        live = lse > float("-inf")
+        w = torch.where(live, torch.exp(lse - torch.where(live, m, 0.0)),
+                        torch.zeros_like(lse))
+        acc = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+        acc = group.all_reduce_sum(acc)
+        num, den = acc[..., :-1], acc[..., -1:]
+        out = torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                          torch.zeros_like(num)).to(out.dtype)
+    if keep is not None:
+        out = out[:, keep[0]:keep[1]]
+    return out

@@ -36,10 +36,23 @@ stages (Mamba2, the zamba superblock, xLSTM) split their heads the same
 way (xlstm-125m's four heads at tp = 16: ranks 4-15 hold none).  A cell
 the port cannot shard (a feed-forward width that does not divide tp, the
 sLSTM's among them: ``sharding.unsupported``) gets ``status:
-"unsupported"`` and the reason.  The batch-1 decode's sequence sharding over
-``data`` and ``seq_shard_cache`` are not ported: a batch that does not
-divide by dp is replicated over the data-parallel ranks, and the record
-says so (``batch_replicated``).
+"unsupported"`` and the reason.
+
+A decode cache's sequence splits as JAX's ``cache_pspecs`` splits it
+(``RankGrid.seq_group``): a batch of one (every ``long_500k`` cell) over
+the ``data`` axis alone (16 ways at 16×16 and at 2×16×16, where the pod
+axis holds a replica), each rank holding ``seq_len / 16`` tokens of its
+KV heads and combining its partial attention over ``data`` by the
+kernel's log-sum-exp (``collective_bytes_by_axis["data"]``); under
+``seq_shard_cache=True`` (a keyword, as in JAX, whose CLI has no flag) a
+larger batch over the ``model`` axis, each rank holding every KV head for
+``seq_len / tp`` tokens, the query heads all-gathered and the combine on
+``model``.  The recurrent state at a batch of one is split by heads over
+``model`` and replicated over ``data``, as in JAX (xlstm-125m's
+``long_500k`` has nothing to split; its note says so).  The record's
+``note`` names the split.  A batch above one that does not divide by dp
+is replicated over the data-parallel ranks, and the record says so
+(``batch_replicated``; no shape of the study has one).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch starcoder2-7b --shape train_4k
@@ -171,12 +184,14 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
                multi_pod: bool = False, zero1: bool = False,
                attn_impl: str = "flash", microbatches: int = 1,
                fuse_qkv: bool = False, norm_ct16: bool = False,
+               seq_shard_cache: bool = False,
                variant: str = "baseline") -> dict:
     """Count rank 0's program of one cell on meta; returns its record (the
     JAX record's keys where they mean something here, see the module
     docstring).  ``multi_pod``: the 2×16×16 mesh (``dp`` and ``tp`` must
     be left at 1); else the ``(dp, tp)`` grid, ``dp=16, tp=16`` the JAX
-    single pod."""
+    single pod.  ``seq_shard_cache``: a decode of a batch above one splits
+    its cache's sequence over the model axis (JAX's keyword)."""
     if multi_pod and (dp, tp) != (1, 1):
         raise ValueError("multi_pod is the 2x16x16 mesh; dp and tp are its")
     mesh = cell_mesh(dp, tp, multi_pod)
@@ -194,8 +209,12 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
     if why is not None:
         return {**head, "status": "unsupported", "reason": why}
     kw = grid.model_kw()
+    seq_group = None
     if shape.step != "train":
         kw["dp_group"] = None       # a serve's ranks share no collective
+    if shape.step == "decode":
+        seq_group = grid.seq_group(shape.global_batch, seq_shard_cache)
+        kw["seq_group"] = seq_group
     model = Model(cfg, attn_impl=attn_impl, fuse_qkv=fuse_qkv,
                   norm_ct16=norm_ct16, **kw)
     t0 = time.time()
@@ -207,6 +226,7 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
     trace_s = time.time() - t0
     rec = {**head, "status": "ok", "attn_impl": attn_impl,
            "microbatches": microbatches, "variant": variant,
+           "seq_shard_cache": seq_shard_cache, "fuse_qkv": fuse_qkv,
            "trace_s": round(trace_s, 2), "compile_s": None,
            "batch_per_rank": rank_batch(shape, grid),
            **record(counter, mem, n_devices=mesh.size, cfg=cfg,
@@ -219,13 +239,28 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
                      f"GSPMD's padded layout, ceil(H / tp) = "
                      f"{-(-cfg.n_heads // grid.tp)} a rank from rank 0; "
                      f"rank 0, counted here, is the most loaded rank")
-    if shape.global_batch % grid.dp_size:
+    attends = any(st.kind in ("attn_mlp", "attn_moe", "zamba_super")
+                  for st in cfg.stages)
+    if seq_group is not None and attends:
+        axis = "model" if seq_group is grid.model else "data"
+        lo, hi = model.init_cache(1, shape.seq_len, device="meta")[
+            "seq_range"]
+        notes.append(f"the decode cache's sequence splits over {axis} "
+                     f"({seq_group.size} ranks, {hi - lo} of "
+                     f"{shape.seq_len} tokens a rank"
+                     f"{', every KV head' if axis == 'model' else ''}); "
+                     f"the partial attentions combine over {axis} by "
+                     f"their log-sum-exp")
+    elif shape.global_batch == 1 and grid.dp_size > 1:
+        notes.append(f"a batch of one: no attention cache to split over "
+                     f"data; the recurrent state is split by heads over "
+                     f"model and replicated over the {grid.dp_size} "
+                     f"data-parallel ranks, as in JAX")
+    elif shape.global_batch % grid.dp_size:
         rec["batch_replicated"] = True
         notes.append(f"a batch of {shape.global_batch} does not split "
                      f"over dp={grid.dp_size}: every data-parallel rank "
-                     f"holds the whole batch and its cache (the sequence "
-                     f"sharding over data and seq_shard_cache are not "
-                     f"ported)")
+                     f"holds the whole batch and its cache")
     if notes:
         rec["note"] = "; ".join(notes)
     return rec

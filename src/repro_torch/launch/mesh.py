@@ -22,9 +22,11 @@ runs one process per rank and makes the collectives explicit over
   grid, ranks numbered row-major (the model axis fastest, so a
   tensor-parallel group is consecutive ranks): one group per axis
   (``model``, ``data``, ``pod``) made with ``dist.new_group``, plus the
-  data-parallel group ``dp`` over pod and data folded (the gradient's), and
-  on request the model ranks that read one shared KV head
-  (:meth:`RankGrid.model_subgroup`).  Training takes a grid; serving keeps
+  data-parallel group ``dp`` over pod and data folded (the gradient's), on
+  request the model ranks that read one shared KV head
+  (:meth:`RankGrid.model_subgroup`), and the group a decode cache's
+  sequence splits over (:meth:`RankGrid.seq_group`: ``data`` for a batch
+  of one, ``model`` under ``seq_shard_cache``).  Training takes a grid; serving keeps
   ``ServingEngine(tp=, group=)``: one tensor-parallel group, dp = 1.
 
 A tp = 1 engine alone has no group and calls none of this, so it launches
@@ -284,6 +286,21 @@ class RankGrid:
         return {"group": self.model if self.tp > 1 else None,
                 "dp_group": self.dp if self.dp_size > 1 else None}
 
+    def seq_group(self, batch: int, seq_shard: bool = False):
+        """The group a decode cache's sequence splits over (JAX's
+        ``cache_pspecs``): the ``data`` group alone for a batch of one (on
+        a (pod, data, model) grid the pod axis then holds a replica), the
+        model group under ``seq_shard`` (``seq_shard_cache``) for a larger
+        batch; None where that axis has one rank, or otherwise.
+        ``Model(seq_group=)`` takes it."""
+        if batch == 1:
+            g = self.groups.get("data")
+        elif seq_shard:
+            g = self.model
+        else:
+            return None
+        return g if g is not None and g.size > 1 else None
+
     def model_subgroup(self, ranks: Sequence[int]):
         """The group of the model ranks ``ranks`` (model coordinates,
         ascending) in this rank's row of the grid, or None when this rank
@@ -311,7 +328,7 @@ def _grid_ranks(mesh: MeshShape, axes: Sequence[str], rank: int):
     flat = idx.permute(keep + vary).reshape(-1, math.prod(
         mesh.extents[i] for i in vary))
     groups = [row.tolist() for row in flat]
-    mine = next(g for g in groups if rank in g)
+    mine = next((g for g in groups if rank in g), None)
     return groups, mine
 
 
@@ -411,14 +428,18 @@ def make_rank_grid(mesh: MeshShape, rank: int, *, init_method: str,
 
 
 def grid_on_world(mesh: MeshShape, rank: int, dev: torch.device,
-                  backend: str) -> RankGrid:
-    """Rank ``rank``'s grid over a default process group of ``mesh.size``
-    ranks that is already initialised (one spawn can hold grids of several
-    shapes).  Collective: every rank must call it, in the same order."""
+                  backend: str) -> Optional[RankGrid]:
+    """Rank ``rank``'s grid over a default process group that is already
+    initialised (one spawn can hold grids of several shapes).  The grid's
+    ranks are the world's first ``mesh.size``; on a larger world the
+    others get None.  Collective: every rank of the world must call it,
+    in the same order.  A grid on part of the world cannot make
+    :meth:`RankGrid.model_subgroup`'s groups (each is made over the whole
+    world): it raises there."""
     n = mesh.size
-    if dist.get_world_size() != n:
-        raise ValueError(f"a grid of {n} ranks over a world of "
-                         f"{dist.get_world_size()}")
+    world = dist.get_world_size()
+    if world < n:
+        raise ValueError(f"a grid of {n} ranks over a world of {world}")
 
     def group_over(axes):
         mine_pg = None
@@ -427,6 +448,8 @@ def grid_on_world(mesh: MeshShape, rank: int, dev: torch.device,
             pg = dist.new_group(ranks)
             if rank in ranks:
                 mine_pg = pg
+        if mine is None:
+            return None
         return EngineGroup(rank=mine.index(rank), size=len(mine),
                            device=dev, backend=backend, pg=mine_pg,
                            axis=_axis_name(axes))
@@ -434,10 +457,16 @@ def grid_on_world(mesh: MeshShape, rank: int, dev: torch.device,
     groups = {a: group_over((a,)) for a in mesh.axis_names}
     dpa = dp_axes(mesh)
     dp = groups["data"] if dpa == ("data",) else group_over(dpa)
+    if rank >= n:
+        return None
     coords = {a: g.rank for a, g in groups.items()}
     tp = mesh.shape["model"]
 
     def subgroup(model_ranks):
+        if world != n:
+            raise ValueError(f"a shared KV head's reader group is made "
+                             f"over the whole world: a grid of {n} ranks "
+                             f"on a world of {world} cannot make one")
         mine_pg = None
         for row in range(n // tp):          # collective, as above
             ranks = [row * tp + r for r in model_ranks]

@@ -9,7 +9,11 @@ the full params in the JAX layout (:func:`shard_params`) and uploads only
 that:
 
 * column-parallel (the last dim split, contiguous per rank): ``wq``,
-  ``wk``, ``wv`` (and their biases), ``w_gate``, ``w_up``, ``w_in``;
+  ``wk``, ``wv`` (and their biases), ``w_gate``, ``w_up``, ``w_in``; the
+  fused ``wqkv`` strided: the rank's query heads' columns, then its KV
+  heads' K and V columns (where a KV head has several readers only those
+  K and V columns are summed over them in training, never the query
+  columns);
 * row-parallel (dim -2 split): ``wo``, ``w_down``, ``w_out``; their
   outputs are partial sums, all-reduced by the model;
 * vocab-parallel: the embedding table's rows (JAX's ``P(MODEL, None)``:
@@ -23,6 +27,13 @@ that:
   rank holds E / tp whole experts), otherwise tensor parallelism inside
   every expert (``w_gate``/``w_up`` column-, ``w_down`` row-parallel), the
   JAX rule's two branches.
+
+**A decode cache's sequence** splits over a group as JAX's
+``cache_pspecs`` splits it (over ``data`` for a batch of one, over
+``model`` under ``seq_shard_cache``; ``RankGrid.seq_group``): rank r of
+n holds tokens :func:`seq_range` of every sequence (ceil(S / n) a rank
+from rank 0), and :func:`take_seq_pages` / :func:`gather_seq_pages` move a
+whole cache's pools to a rank's and back.
 
 ZeRO-1 (:func:`zero1_dim`, JAX's ``state_pspecs(zero1=True)``): each Adam
 moment leaf is further split over the ``data`` axis on its first dim that
@@ -92,8 +103,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-_COL = {"wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "w_in",
-        "w_zx", "w_dt", "w_q", "w_k", "w_v", "w_gates"}
+_COL = {"wq", "wk", "wv", "wqkv", "bq", "bk", "bv", "w_gate", "w_up",
+        "w_in", "w_zx", "w_dt", "w_q", "w_k", "w_v", "w_gates"}
 _ROW = {"wo", "w_down", "w_out"}
 _KV = {"wk", "wv", "bk", "bv"}
 _QK_NORM = {"q_norm", "k_norm"}
@@ -313,6 +324,46 @@ def take_kv_heads(full: torch.Tensor, cfg: ArchConfig, rank: int,
     return full.narrow(2, lo, hi - lo)
 
 
+def seq_range(S: int, rank: int, n: int) -> Tuple[int, int]:
+    """The tokens ``[lo, hi)`` of a decode cache of ``S`` tokens a sequence
+    that ``rank`` of ``n`` holds when the cache's sequence splits over a
+    group (JAX's ``cache_pspecs``: over ``data`` for a batch of one, over
+    ``model`` under ``seq_shard_cache``): ceil(S / n) a rank from rank 0,
+    a later rank fewer where ``n`` does not divide ``S``."""
+    return head_range(S, rank, n)
+
+
+def _seq_index(table, lo: int, hi: int, page_size: int):
+    """(pages (B, hi - lo), offsets (hi - lo,)) of positions ``lo..hi-1``
+    of every sequence through ``table``."""
+    pos = torch.arange(lo, hi, device=table.device)
+    return table[:, pos // page_size].long(), pos % page_size
+
+
+def take_seq_pages(pool, table, out_pool, out_table, lo: int, hi: int,
+                   page_size: int) -> None:
+    """Copy tokens ``[lo, hi)`` of every sequence of a whole cache's pool
+    (``pool`` (L, P, ps, KV, dh) through ``table`` (B, maxp)) into a rank's
+    pool (``out_pool`` through ``out_table``, its positions from 0), in
+    place: a rank's part of a sequence-sharded cache.  The heads are the
+    pools' own (take a rank's KV heads before or after)."""
+    src_p, off = _seq_index(table, lo, hi, page_size)
+    dst_p, doff = _seq_index(out_table, 0, hi - lo, page_size)
+    out_pool[:, dst_p, doff] = pool[:, src_p, off].to(out_pool.device,
+                                                        out_pool.dtype)
+
+
+def gather_seq_pages(parts, pool, table, page_size: int) -> None:
+    """The inverse of :func:`take_seq_pages`: every rank's ``(pool, table,
+    lo, hi)`` written back into a whole cache's ``pool`` through
+    ``table``, in place."""
+    for part, ptable, lo, hi in parts:
+        dst_p, off = _seq_index(table, lo, hi, page_size)
+        src_p, soff = _seq_index(ptable, 0, hi - lo, page_size)
+        pool[:, dst_p, off] = part[:, src_p, soff].to(pool.device,
+                                                      pool.dtype)
+
+
 def experts_parallel(cfg: ArchConfig, tp: int) -> bool:
     """Expert parallelism when the experts divide tp (the JAX rule)."""
     return cfg.moe is not None and cfg.moe.n_experts % tp == 0
@@ -328,8 +379,9 @@ def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
                 ) -> Optional[str]:
     """Why the port cannot shard ``cfg`` over ``tp`` ranks (every reason,
     joined), or None.  Any head count splits, the recurrent blocks'
-    included (the module docstring); a feed-forward or expert width that
-    does not divide tp does not."""
+    included (the module docstring), and so does the fused QKV projection
+    (``fuse_qkv``, strided: :func:`_pieces`); a feed-forward or expert
+    width that does not divide tp does not."""
     if tp == 1:
         return None
     why = []
@@ -344,8 +396,6 @@ def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
             and cfg.moe.d_expert % tp:
         why.append(f"{cfg.moe.n_experts} experts do not split over "
                    f"tp={tp}, nor does d_expert {cfg.moe.d_expert}")
-    if fuse_qkv:
-        why.append("fuse_qkv has no tensor-parallel rule")
     return f"{cfg.name}: " + "; ".join(why) if why else None
 
 
@@ -360,7 +410,7 @@ def _named(path: Tuple[str, ...], cfg: ArchConfig, tp: int
         if experts_parallel(cfg, tp):
             return -3
         return -1 if name != "w_down" else -2
-    if name in _COL or name == "wqkv":
+    if name in _COL:
         return -1
     if name in _ROW:
         return -2
@@ -427,6 +477,8 @@ def _full_len(path, n: int, cfg: ArchConfig, tp: int) -> int:
         return cfg.n_heads * cfg.d_head
     if name in _KV:
         return cfg.n_kv_heads * cfg.d_head
+    if name == "wqkv":
+        return (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
     return n * tp
 
 
@@ -453,6 +505,14 @@ def _pieces(path, n: int, cfg: ArchConfig, rank: int, tp: int
     if name in _KV:
         lo, hi = kv_heads(cfg, rank, tp)
         return [(lo * cfg.d_head, hi * cfg.d_head)]
+    if name == "wqkv":
+        # q | k | v: the rank's query heads' columns, then its KV heads'
+        # of K and of V (strided, as ``w_zx``)
+        H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        qlo, qhi = query_heads(cfg, rank, tp)
+        klo, khi = kv_heads(cfg, rank, tp)
+        return [(qlo * dh, qhi * dh), ((H + klo) * dh, (H + khi) * dh),
+                ((H + KV + klo) * dh, (H + KV + khi) * dh)]
     k = 2 if block == "slstm" and name == "w_up" else 1   # a | b
     if n % (k * tp):
         raise ValueError(f"{'/'.join(path)}: a model dim of size {n} does "
@@ -531,9 +591,6 @@ def shard_params(params: dict, rank: int, tp: int, *,
         return params
 
     def leaf_shard(path, leaf):
-        if path[-1] == "wqkv":
-            raise ValueError(f"{cfg.name}: fuse_qkv has no tensor-parallel "
-                             f"rule")
         if not split(path, cfg, tp):
             return leaf            # norms, the router, a vocab that stays
         dim = model_dim(path, leaf.ndim, cfg, tp)
@@ -574,22 +631,25 @@ class LeafPlan:
     the sharded region (``q_norm``, ``k_norm``, the recurrent blocks'
     :data:`_READ_IN_PART`: each rank's gradient holds only its heads'
     part), "kv" for the projections of KV heads that other
-    ranks read too, None otherwise.  ``kv_shared``: with "kv", ``(KV head,
-    lo, hi)`` for each such head, its columns ``[lo, hi)`` of the rank's
-    leaf along its model dim, in ascending head order (each summed over
-    the head's readers, ``shared_kv_heads``).  ``norm``: how it counts in
-    the global norm: "replicated" (once), "model" (the rank's part, summed
-    over the model group) or "skip" (KV heads that lower ranks own);
-    ``norm_cols``: with "model", the columns ``[lo, hi)`` along the model
-    dim that count (the rank's owned KV heads), None for all of them.
-    ``zero1_dim``: the dim ZeRO-1 splits its moments on."""
+    ranks read too (``wk``, ``wv``, their biases, and the K and V columns
+    of the fused ``wqkv``; never its query columns), None otherwise.
+    ``kv_shared``: with "kv", ``(KV head, lo, hi)`` for each such head's
+    columns ``[lo, hi)`` of the rank's leaf along its model dim (two a
+    head in ``wqkv``: K's, then V's), in ascending head order (each summed
+    over the head's readers, ``shared_kv_heads``).  ``norm``: how it counts
+    in the global norm: "replicated" (once), "model" (the rank's part,
+    summed over the model group) or "skip" (KV heads that lower ranks
+    own); ``norm_cols``: with "model", the column ranges ``((lo, hi),
+    ...)`` along the model dim that count (the rank's owned KV heads, and
+    in ``wqkv`` its query columns), None for all of them.  ``zero1_dim``:
+    the dim ZeRO-1 splits its moments on."""
     path: Tuple[str, ...]
     split: bool
     grad_sum: Optional[str]
     norm: str
     zero1_dim: Optional[int]
     kv_shared: Tuple[Tuple[int, int, int], ...] = ()
-    norm_cols: Optional[Tuple[int, int]] = None
+    norm_cols: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
 def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
@@ -616,7 +676,17 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
     mine = tuple((k, (k - klo) * dh, (k - klo + 1) * dh)
                  for k in range(klo, khi) if k in shared)
     owned = None if (olo, ohi) == (klo, khi) else \
-        ((olo - klo) * dh, (ohi - klo) * dh)
+        (((olo - klo) * dh, (ohi - klo) * dh),)
+    # the fused leaf: the rank's query columns, then K's and V's of its
+    # KV heads (``_pieces``)
+    qlo, qhi = query_heads(cfg, rank, tp)
+    hq = (qhi - qlo) * dh
+    hk = (khi - klo) * dh
+    fused_kv = tuple((k, off + lo, off + hi) for k, lo, hi in mine
+                     for off in (hq, hq + hk))
+    fused_owned = None if owned is None else \
+        ((0, hq),) + tuple((off + lo, off + hi) for lo, hi in owned
+                           for off in (hq, hq + hk) if hi > lo)
     plans = []
     for path in paths:
         cut = split(path, cfg, tp)
@@ -632,6 +702,10 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
                 norm = "skip"
             else:
                 cols = owned
+        elif cut and path[-1] == "wqkv":
+            if mine:
+                grad_sum, kv = "kv", fused_kv
+            cols = fused_owned
         z = zero1_dim(path, full[path], cfg, tp, data) if zero1 else None
         plans.append(LeafPlan(path, cut, grad_sum, norm, z, kv, cols))
     return plans

@@ -38,7 +38,8 @@ def _t(shape, dtype) -> torch.Tensor:
 
 def rank_batch(shape: ShapeCfg, grid=None) -> int:
     """The rows of one data-parallel rank: ``global_batch / dp``, or the
-    whole batch when it does not divide (replicated over dp)."""
+    whole batch when it does not divide (replicated over dp; a batch of
+    one, whose decode cache's sequence splits over ``data`` instead)."""
     B = shape.global_batch
     dp = 1 if grid is None else grid.dp_size
     return B // dp if B % dp == 0 else B
@@ -75,7 +76,8 @@ def decode_token_specs(cfg: ArchConfig, shape: ShapeCfg,
 
 def cache_specs(model: Model, shape: ShapeCfg, grid=None) -> dict:
     """The port's paged cache for the rank's slots of ``seq_len`` tokens
-    each, on meta (see the module docstring)."""
+    each, on meta (see the module docstring); under ``model.seq_group``
+    the rank's pages: its tokens of each sequence."""
     return model.init_cache(rank_batch(shape, grid), shape.seq_len,
                             device=META)
 

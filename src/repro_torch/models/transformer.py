@@ -97,6 +97,30 @@ rows (``sharding.shard_batch``); ``loss_fn`` divides the rank's weighted
 NLL by the global weight sum and sums it over the group (each rank keeps
 the gradient of its own part, so the train step sums the gradients), and
 the MoE layers route as the whole batch does (``moe_ffn``'s ``dp_group``).
+
+A sequence-sharded decode cache (``seq_group``, JAX's ``cache_pspecs``:
+``RankGrid.seq_group``): each rank's pools hold tokens ``[lo, hi)`` of
+every sequence (``sharding.seq_range`` of the cache's length,
+``cache["seq_range"]``; ``lengths`` stay the whole sequences').  A decode
+runs the paged kernel over the rank's tokens (local lengths ``clamp(len -
+lo, 0, hi - lo)``, the query at its local position, which lies before or
+past the rank's tokens on most ranks), which returns its output and
+log-sum-exp, and ``collectives.combine_lse`` merges the ranks' parts over
+``seq_group``; the new token's K/V lands on the rank holding its position,
+the other ranks write it past the table.  Over the ``data`` group (a batch
+of one) the heads split over ``group`` as above.  Over the model group
+itself (``seq_group is group``: ``seq_shard_cache``) every rank's pools
+hold every KV head: the query heads and the new K/V are all-gathered over
+the model group (the padded layout), each rank attends every head over its
+tokens and keeps its own heads after the combine, and ``wo`` stays
+row-parallel.  The recurrent state is whole on every rank of
+``seq_group`` (JAX replicates it over ``data``).  Prefill runs over whole
+sequences (``sharding.take_seq_pages`` moves its K/V to the ranks);
+extend and verify refuse a sequence-sharded cache.
+
+``fuse_qkv`` at tp > 1: the rank's ``wqkv`` holds its query heads'
+columns, then its KV heads' K and V columns (``sharding``'s strided
+shard), so the fused branch splits by the rank's heads.
 """
 from __future__ import annotations
 
@@ -108,8 +132,11 @@ import torch
 from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA2, XLSTM_PAIR,
                                       ZAMBA_SUPER, ArchConfig)
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import copy_to, gather_last, reduce_from
-from repro_torch.launch.sharding import kv_slots, recurrent_heads, to_slots
+from repro_torch.launch.collectives import (combine_lse, copy_to, gather_last,
+                                           gather_parts, reduce_from)
+from repro_torch.launch.sharding import (gather_kv_heads, kv_heads, kv_slots,
+                                         query_heads, recurrent_heads,
+                                         seq_range, to_slots)
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import module as m
 from repro_torch.models import xlstm as xl
@@ -228,15 +255,56 @@ def _init_moe(gen, cfg: ArchConfig, L: int, **kw) -> dict:
 # block forward
 # --------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A decode over a sequence-sharded cache: this rank holds tokens
+    ``[lo, hi)`` of every sequence, its attention is combined over
+    ``group``, and ``over_model``: the group is the model group (all heads
+    on every rank, ``seq_shard_cache``)."""
+    group: Any
+    lo: int
+    hi: int
+    over_model: bool
+
+
+def _gather_heads(t, cfg: ArchConfig, group, kv: bool):
+    """The whole model's query heads (``kv`` False) or KV heads (True) of
+    ``t`` (B, S, heads, dh), from every rank's in the padded layout (a KV
+    head that several ranks read taken from its owner)."""
+    tp = group.size
+    spans = [kv_heads(cfg, r, tp) if kv else query_heads(cfg, r, tp)
+             for r in range(tp)]
+    parts = gather_parts(t, group, [hi - lo for lo, hi in spans], dim=2)
+    if kv:
+        return gather_kv_heads(parts, cfg, tp)
+    return torch.cat(parts, dim=2)
+
+
+def _chunk_kv(k, v, cfg: ArchConfig) -> dict:
+    """A prefill's K/V, contiguous in the compute dtype (not a view of the
+    fused projection's output, which would keep all of it alive)."""
+    dtype = torch_dtype(cfg.compute_dtype)
+    return {"k": k.to(dtype).contiguous(), "v": v.to(dtype).contiguous()}
+
+
 def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
-               cache, block_table, page_size, group=None, attn_impl="flash"):
+               cache, block_table, page_size, group=None, attn_impl="flash",
+               seq: Optional[SeqShard] = None):
     """One layer's attention over the heads of ``p`` (all of them, or one
-    rank's shard). Returns (out, new_cache)."""
+    rank's shard). Returns (out, new_cache).  ``seq``: a decode over the
+    rank's part of a sequence-sharded cache (see ``Model``)."""
     B, S, _ = x.shape
     dh = cfg.d_head
     x = copy_to(x, group)
     if "wqkv" in p:
-        H, KV = cfg.n_heads, cfg.n_kv_heads
+        # the fused projection: this rank's query heads' columns, then its
+        # KV heads' K and V columns (``sharding``'s strided pieces)
+        if group is None:
+            H, KV = cfg.n_heads, cfg.n_kv_heads
+        else:
+            qlo, qhi = query_heads(cfg, group.rank, group.size)
+            klo, khi = kv_heads(cfg, group.rank, group.size)
+            H, KV = qhi - qlo, khi - klo
         q, k, v = torch.split(x @ p["wqkv"].to(x.dtype),
                               [H * dh, KV * dh, KV * dh], dim=-1)
     else:
@@ -256,7 +324,16 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if group is not None:
+    keep = None
+    if seq is not None and seq.over_model:
+        # the sequence splits over the model ranks: each attends every
+        # head over its tokens and keeps its own heads after the combine
+        lo, hi = query_heads(cfg, group.rank, group.size)
+        keep = (lo, hi)
+        q = _gather_heads(q, cfg, group, kv=False)
+        k = _gather_heads(k, cfg, group, kv=True)
+        v = _gather_heads(v, cfg, group, kv=True)
+    elif group is not None:
         # the rank's KV heads into its KV slots, one group size for every
         # kernel (``sharding.kv_slots``; the heads themselves, unless
         # query heads straddle groups unevenly)
@@ -270,38 +347,50 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
             out = folded_causal_attention(q, k, v, lengths=lengths)
         else:
             out = chunked_attention(q, k, v, lengths=lengths, window=window)
-        new_cache = None if mode == "train" else {
-            "k": k.to(torch_dtype(cfg.compute_dtype)),
-            "v": v.to(torch_dtype(cfg.compute_dtype))}
+        new_cache = None if mode == "train" else _chunk_kv(k, v, cfg)
     elif mode == "train":
         out = flash_attention(q, k, v, lengths, window)
         new_cache = None
     elif mode == "prefill":
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), lengths, window)
-        new_cache = {"k": k.to(torch_dtype(cfg.compute_dtype)),
-                     "v": v.to(torch_dtype(cfg.compute_dtype))}
+        new_cache = _chunk_kv(k, v, cfg)
     else:
         kc, vc = cache["k_pages"], cache["v_pages"]
         n_pages = kc.shape[0]
         maxp = block_table.shape[1]
         rows = torch.arange(B, device=x.device)
-        if mode == "decode":
+        if mode == "decode" and seq is not None:
+            # the rank's tokens [lo, hi): local lengths, the query at its
+            # local position (below 0 or past the rank's keys where it
+            # lies outside them); the new K/V lands on the rank holding
+            # its position, the others write past the table
+            pos = (lengths.long() - 1 - seq.lo)[:, None]           # (B,1)
+            mine = (pos >= 0) & (pos < seq.hi - seq.lo)
+        elif mode == "decode":
             pos = torch.clamp(lengths.long() - 1, min=0)[:, None]   # (B,1)
         else:
             start = positions[:, 0].to(torch.int32)
             pos = positions.long()                                  # (B,S)
         pidx = pos // page_size
         page = block_table[rows[:, None],
-                           torch.clamp(pidx, max=maxp - 1)].long()
+                           torch.clamp(pidx, min=0, max=maxp - 1)].long()
         # writes past the table land on the last page, never read
-        page = torch.where(pidx < maxp, page,
-                           torch.full_like(page, n_pages - 1))
+        past = pidx >= maxp if seq is None else ~mine
+        page = torch.where(past, torch.full_like(page, n_pages - 1), page)
         off = pos % page_size
         # in place (index_put_): the pools are the storage of every slot
         kc[page, off] = k.to(kc.dtype)
         vc[page, off] = v.to(vc.dtype)
-        if mode == "decode":
+        if mode == "decode" and seq is not None:
+            local = torch.clamp(lengths - seq.lo, 0,
+                                seq.hi - seq.lo).to(torch.int32)
+            out, lse = ops.paged_attention(
+                q[:, 0].contiguous(), kc, vc, block_table, local,
+                page_size=page_size, start=pos[:, 0].to(torch.int32),
+                window=window, return_lse=True)
+            out = combine_lse(out, lse, seq.group, keep)[:, None]
+        elif mode == "decode":
             out = ops.paged_attention(q[:, 0].contiguous(), kc, vc,
                                       block_table, lengths,
                                       page_size=page_size,
@@ -482,6 +571,10 @@ class Model:
     # training and prefill attention: "flash" (the kernel), or the dry
     # run's plain "chunked" / "folded" (``layers``), as in JAX
     attn_impl: str = "flash"
+    # the group a decode cache's sequence splits over (``RankGrid.
+    # seq_group``: the data group of a batch-1 decode, or ``group`` itself
+    # under seq_shard_cache); None: every rank holds whole sequences
+    seq_group: Optional[Any] = None
 
     def __post_init__(self):
         if self.attn_impl not in ("flash", "chunked", "folded"):
@@ -607,12 +700,30 @@ class Model:
                                  row_valid=row_valid, group=self.group)
         return x, nc, None
 
+    @property
+    def seq_over_model(self) -> bool:
+        """Whether the cache's sequence splits over the model ranks
+        (``seq_shard_cache``: every rank holds every KV head)."""
+        return self.seq_group is not None and self.seq_group is self.group
+
+    def _seq(self, cache) -> Optional[SeqShard]:
+        if self.seq_group is None:
+            return None
+        lo, hi = cache["seq_range"]
+        return SeqShard(self.seq_group, lo, hi, self.seq_over_model)
+
     def _run_stages(self, params, x, *, positions, lengths, mode, cache,
                     block_table, row_valid=None):
         """Every stage in order: (x, the new caches by stage key, the MoE
         layers' aux loss summed, f32).  In training each layer runs under
         ``torch.utils.checkpoint`` when ``remat``, and no cache is kept."""
         cfg = self.cfg
+        seq = self._seq(cache) if mode == "decode" else None
+        if mode == "extend" and self.seq_group is not None:
+            raise NotImplementedError(
+                "a sequence-sharded cache takes decode only: extend and "
+                "verify run over whole sequences (the JAX package shards "
+                "only the decode cache's sequence)")
         new_caches = {}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         moe_off = 0          # model-wide MoE layer index of the stage's 0
@@ -628,7 +739,8 @@ class Model:
                         params.get("shared_attn"), row_valid)
                 kw = dict(positions=positions, lengths=lengths, mode=mode,
                           block_table=block_table, page_size=self.page_size,
-                          group=self.group, attn_impl=self.attn_impl)
+                          group=self.group, attn_impl=self.attn_impl,
+                          seq=seq)
                 if remat:
                     x, nc, aux = torch.utils.checkpoint.checkpoint(
                         self._layer, *args, use_reentrant=False, **kw)
@@ -736,6 +848,8 @@ class Model:
         x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         new_cache = {"lengths": lengths, "block_table": block_table,
                      **stages}
+        if "seq_range" in cache:
+            new_cache["seq_range"] = cache["seq_range"]
         return self._head(params, x), new_cache
 
     def _extend_states(self, params, cache, tokens, n_new):
@@ -791,8 +905,9 @@ class Model:
     def kv_heads(self) -> int:
         """KV heads this model's pools hold: all, or a rank's KV slots
         (``sharding.kv_slots``: its KV heads, a head repeated where its
-        query heads straddle groups unevenly; none without query heads)."""
-        if self.group is None:
+        query heads straddle groups unevenly; none without query heads);
+        all of them where the sequence splits over the model ranks."""
+        if self.group is None or self.seq_over_model:
             return self.cfg.n_kv_heads
         return len(kv_slots(self.cfg, self.group.rank, self.group.size))
 
@@ -810,9 +925,21 @@ class Model:
         """Zeroed paged cache in the compute dtype over this model's KV
         heads, every table entry of slot b at b's scratch page, and fresh
         recurrent state for every slot (``_stage_cache``'s layout; a
-        rank's heads of it under a group)."""
+        rank's heads of it under a group).  Under ``seq_group`` the pools
+        hold the rank's tokens ``[lo, hi)`` of each sequence
+        (``sharding.seq_range`` of ``max_len``; ``cache["seq_range"]``),
+        its block table addresses them from 0, and ``lengths`` stay the
+        whole sequences'; the recurrent state is whole on every rank."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.compute_dtype)
+        seq = None
+        if self.seq_group is not None:
+            g = self.seq_group
+            seq = seq_range(max_len, g.rank, g.size)
+            if seq[1] == seq[0]:
+                raise ValueError(f"a cache of {max_len} tokens a sequence "
+                                 f"leaves rank {g.rank} of {g.size} none")
+            max_len = seq[1] - seq[0]
         maxp, n_pages = self.page_geometry(batch, max_len)
         scratch = batch * maxp + torch.arange(batch, dtype=torch.int32,
                                               device=device)
@@ -820,6 +947,8 @@ class Model:
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device),
             "block_table": scratch[:, None].expand(batch, maxp).contiguous()}
+        if seq is not None:
+            cache["seq_range"] = seq
 
         def pools(L):
             shape = (L, n_pages, self.page_size, self.kv_heads(), cfg.d_head)

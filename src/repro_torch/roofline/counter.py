@@ -27,7 +27,8 @@ walks the compiled HLO; eager PyTorch has no HLO, so :class:`Counter` is a
   work from its work-count function and adds its launch.  On the meta
   device that launch is a prediction;
 * **collective bytes** by kind (``all-reduce``, ``all-gather``) and by
-  mesh axis (``model``, ``data``, ``pod+data``: the group's), the result
+  mesh axis (``model``, ``data``, ``pod+data``: the group's; a
+  sequence-sharded decode's combine under its group's axis), the result
   bytes as the analyzer records them, and the bytes each device moves
   under the ring factors of ``analysis`` at each group's size.
 

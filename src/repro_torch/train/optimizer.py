@@ -130,8 +130,9 @@ def global_norm(tree, layout: Optional[Layout] = None) -> torch.Tensor:
     for i, x in enumerate(leaves(tree)):
         how = "replicated" if layout is None else layout.plans[i].norm
         if how == "model" and layout.plans[i].norm_cols is not None:
-            lo, hi = layout.plans[i].norm_cols
-            x = x.narrow(x.dim() - 1, lo, hi - lo)
+            parts = [x.narrow(x.dim() - 1, lo, hi - lo)
+                     for lo, hi in layout.plans[i].norm_cols]
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         sq = torch.sum(torch.square(x.float()))
         if how == "replicated":
             total = sq if total is None else total + sq

@@ -569,8 +569,8 @@ def test_counting_grid_reader_groups_by_formula():
     assert kv == {n: ((1, 0, dh), (2, dh, 2 * dh)) for n in ("wk", "wv")}
     # rank 1 owns KV 2 only: KV 1 counts in the norm on rank 0
     assert {p.path[-1]: p.norm_cols for p in plans
-            if p.path[-1] in ("wk", "wv")} == {"wk": (dh, 2 * dh),
-                                                "wv": (dh, 2 * dh)}
+            if p.path[-1] in ("wk", "wv")} == {"wk": ((dh, 2 * dh),),
+                                                "wv": ((dh, 2 * dh),)}
     c, _, _ = dryrun.count_step(model, "train", inputs, grid=grid)
     L = sum(st.n_layers for st in cfg.stages)
     d, act = cfg.d_model, 2

@@ -862,7 +862,9 @@ DRY = tuple((a, m) for a in ("zamba2-1.2b", "xlstm-125m") for m in MESHES)
 def test_dryrun_recurrent_cells_at_jax_meshes(arch, mesh):
     """The serve cells of the recurrent families count at the JAX study's
     meshes: decode_32k sharded over the model axis (its collectives there),
-    long_500k's batch of one replicated over data."""
+    long_500k's batch of one as JAX splits it: zamba2's shared attention
+    cache over data (the combine's collectives there), xLSTM's state
+    replicated over data (nothing to split)."""
     from repro_torch.launch import dryrun
     rec = dryrun.lower_cell(arch, "decode_32k", **mesh[1])
     assert rec["status"] == "ok", rec
@@ -873,7 +875,11 @@ def test_dryrun_recurrent_cells_at_jax_meshes(arch, mesh):
     else:
         assert rec["kernels"]["paged_attention_decode"]["launches"] > 0
     rec = dryrun.lower_cell(arch, "long_500k", **mesh[1])
-    assert rec["status"] == "ok" and rec["batch_replicated"], rec
+    assert rec["status"] == "ok" and "batch_replicated" not in rec, rec
+    if arch == "xlstm-125m":
+        assert "no attention cache to split over data" in rec["note"]
+    else:
+        assert rec["collective_bytes_by_axis"]["data"]["all-reduce"] > 0
 
 
 def test_slstm_backward_bytes_linear_in_seq():
