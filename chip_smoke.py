@@ -194,7 +194,14 @@ result line:
    steps 1 to 5's times;
    phases 2 and 3 hold and time the flash forward and backward at the
    rank's B2 S1024 H16 KV4 dh128 and the grouped matmul and its backward
-   at E8 C320 (both directions), their launches from this phase;
+   at E8 C320 (both directions), their launches from this phase; and
+   ``shard_experts`` (the experts whole on the model ranks, the tokens
+   carried by all-to-all): tiny f32 phimini-moe and granite-moe-3b with
+   their published expert count and top-k (16 top-2, 40 top-8) take two
+   AdamW steps at (1, 2) with the flag and without it (16 and 40 divide
+   tp = 2: the expert-parallel layout, only the token flow differs): the
+   flag's run within the f32 tolerance of the CPU's one process and
+   within rtol 1e-4, atol 1e-5 of the flag-off run;
 11. query heads that do not divide tp (GSPMD's padded layout, each rank's
    KV heads as KV slots of one group size): one spawn of three ranks and
    one of four share the card over gloo (a check of the sharded path and
@@ -211,7 +218,18 @@ result line:
    published widths cut to 2 layers, bf16, tp = 3: 8 requests served
    (every arrival at 0) with the simulator's decisions at tp = 3 and each
    rank's resident and peak memory printed, and a (1, 3) train step at
-   B2 S1024 held as phase 10 (b)'s; phases 2 and 3 hold the attention
+   B2 S1024 held as phase 10 (b)'s; (c) in the tp = 3 spawn,
+   granite-moe-3b-a800m at published widths (d_model 1536, 40 experts
+   top-8, d_expert 512, 24 heads on 8 KV heads) cut to 2 layers under
+   ``shard_experts`` at (1, 3), 14, 14 and 12 experts a rank: a train
+   step at B2 S1024 held as phase 10 (b)'s (all-to-all bytes among the
+   collectives against meta), and a B1 S1024 prefill with 4 decode steps
+   (a decode's one token leaves ranks 1 and 2 with none) against tp = 1
+   on the same weights, in f32 within 1e-4 of the largest logit and in
+   bf16 printed beside tp = 1's own run-to-run difference (bf16 MoE
+   logits do not repeat on the card); phases 2 and 3 hold and time the
+   grouped matmul and its backward at rank 0's E14 C512 d1536 f512 (both
+   directions), their launches from (c); phases 2 and 3 hold the attention
    kernels at the rank shapes (H12 on 4 and on 2 KV slots at tp = 3; H3
    on 1 and 3, H2 on 1 and 2 at tp = 16), check that H = 0 launches
    nothing, and time flash, paged decode and extend and the flash
@@ -466,6 +484,10 @@ def gmm_cases():
     for E in (16, 16 // TP):
         for d, f in ((4096, 960), (960, 4096)):
             yield E, 320, d, f, None
+    # rank 0's experts under shard_experts (phase 11): granite-moe-3b's 14
+    # whole experts of 40 at tp = 3, C 512, gate/up and down
+    for d, f in ((1536, 512), (512, 1536)):
+        yield SE_E0, 512, d, f, None
 
 
 def gmm_bwd_cases():
@@ -485,6 +507,8 @@ def gmm_bwd_cases():
     yield 8, 320, 4096, 960, None                 # a rank's experts at tp = 2
     yield 8, 320, 960, 4096, None                 # (phase 10)
     yield 40, 512, 1536, 512, None
+    yield SE_E0, 512, 1536, 512, None             # rank 0 under shard_experts
+    yield SE_E0, 512, 512, 1536, None             # (phase 11)
     yield 1, 1024, 256, 384, (1024,)
     yield 4, 64, 128, 192, (0, 0, 0, 0)
     yield 3, 320, 256, 192, (127, 128, 129)
@@ -1334,6 +1358,15 @@ TRAIN_PATH = "train demo-110m"
 TRAIN_LLAMA_PATH = "train llama3.1-8b (2 layers)"
 TRAIN_MUSICGEN_PATH = "train musicgen-large (4 layers)"
 TRAIN_MOE_PATH = "train phimini-moe (2 layers)"
+#: phase 11's shard_experts paths: granite-moe-3b-a800m at published widths
+#: cut to 2 layers, bf16, at (1, 3): its 40 experts whole, 14 / 14 / 12 a
+#: rank (rank 0's 14 are phases 2 and 3's E14 C512 shape)
+SE_ARCH = "granite-moe-3b-a800m"
+SE_TRAIN_PATH = "grid (1, 3) shard_experts train granite-moe-3b-a800m " \
+                "(2 layers)"
+SE_E0 = 14
+#: (b)'s decode steps after a B1 S1024 prefill
+SE_STEPS = 4
 
 
 def flash_bwd_timings(torch, ops, dev, measure):
@@ -1484,6 +1517,43 @@ def gmm_train_timings(torch, ops, dev, measure):
                                              active2)),
             split_ms=gmm_bwd_split(torch,
                                    lambda: ops.moe_gmm_bwd(x, w, gs2, dy)))
+        del x, w, dy, xl, wl, ref
+        torch.cuda.empty_cache()
+    # granite-moe-3b-a800m under shard_experts at (1, 3) (phase 11): rank
+    # 0's 14 whole experts of 40, C 512 from a seeded top-8 routing of the
+    # same 2048 tokens, gate/up (d 1536 -> f 512) and down (512 -> 1536)
+    E3, k3 = 40, 8
+    C3 = round(T * k3 * 1.25 / E3)
+    pick = torch.rand((T, E3), generator=gen, device=dev).argsort(-1)[:, :k3]
+    gs3 = torch.clamp(torch.bincount(pick.reshape(-1), minlength=E3),
+                      max=C3)[:SE_E0].to(torch.int32).contiguous()
+    rows3, active3 = int(gs3.sum()), int((gs3 > 0).sum())
+    mask3 = (torch.arange(C3, device=dev)[None, :] < gs3[:, None])[..., None]
+    for d, f, part in ((1536, 512, "gate_up"), (512, 1536, "down")):
+        x = _rand(torch, gen, (SE_E0, C3, d), bf, dev)
+        w = _rand(torch, gen, (SE_E0, d, f), bf, dev) * d ** -0.5
+        dy = _rand(torch, gen, (SE_E0, C3, f), bf, dev)
+        shape = (f"E{SE_E0} C{C3} d{d} f{f} bf16, {active3} experts active, "
+                 f"{rows3} rows")
+        out[f"moe_gmm_train_{part}_se"] = measure(
+            lambda: ops.moe_gmm(x, w, gs3),
+            lambda: ops.moe_gmm_plain(x, w, gs3),
+            lambda: torch.bmm(x, w).mul_(mask3),
+            kernel="moe_gmm", path=SE_TRAIN_PATH, shape=shape,
+            bound=bound(ops.moe_gmm_work(SE_E0, C3, d, f, 2, rows3,
+                                         active3)))
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        ref = torch.bmm(xl, wl) * mask3
+        out[f"moe_gmm_bwd_{part}_se"] = measure(
+            lambda: ops.moe_gmm_bwd(x, w, gs3, dy),
+            lambda: ops.moe_gmm_bwd_plain(x, w, gs3, dy),
+            lambda: torch.autograd.grad(ref, (xl, wl), dy,
+                                        retain_graph=True),
+            kernel="moe_gmm_bwd", path=SE_TRAIN_PATH, shape=shape,
+            bound=bound(ops.moe_gmm_bwd_work(SE_E0, C3, d, f, 2, rows3,
+                                             active3)),
+            split_ms=gmm_bwd_split(torch,
+                                   lambda: ops.moe_gmm_bwd(x, w, gs3, dy)))
         del x, w, dy, xl, wl, ref
         torch.cuda.empty_cache()
     return out
@@ -3565,6 +3635,16 @@ GRID_B, GRID_S = 2, 1024
 GRID_TINY = tuple((arch, grid, zero1) for arch in TINY_ARCHS
                   for grid, zero1 in (((1, 2), False), ((2, 1), True)))
 GRID_STEPS = 2
+#: phase 10's tiny f32 MoE archs under shard_experts at (1, 2), their
+#: published expert count and top-k kept (as phase 8's), two steps each,
+#: and the same without the flag (16 and 40 experts divide tp = 2: the
+#: expert-parallel layout, only the token flow differs): the two card runs
+#: within ``tests/test_torch_grid.py``'s TOL of each other, and the run
+#: under the flag within the f32 tolerance of the CPU's one process, as
+#: phase 10's other tiny runs (card against CPU, the flag-off run misses
+#: atol 1e-5 by the same entries: 81 of w_gate's 65,536 for phimini)
+GRID_SE_TINY = ("phimini-moe-tiny", "granite-moe-3b-a800m-tiny")
+GRID_TOL = dict(rtol=1e-4, atol=1e-5)
 #: phase 10 (b)'s uncounted steps, timed one by one: the first measures
 #: the peak, the median of all is the step p50
 GRID_TIMED = 5
@@ -3576,7 +3656,17 @@ def _grid_step(grid, model, zero1, microbatches=1):
         microbatches=microbatches), grid=grid, zero1=zero1)
 
 
-def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1):
+def _se_tiny_cfg(arch):
+    """A tiny f32 MoE arch with its published expert count and top-k."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    full = get_config(arch.removesuffix("-tiny")).moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=full.n_experts, top_k=full.top_k))
+
+
+def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1,
+                    shard_experts=False):
     """(a) on one rank: two steps of tiny f32 ``cfg`` on the card from the
     CPU's weights; (losses, grad norms, the rank's params on the host)."""
     from repro_torch.launch.sharding import shard_batch
@@ -3585,7 +3675,8 @@ def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1):
     from repro_torch.train.train_step import rank_state
     from repro_torch.train.tree import map_tree
     dev = grid.device
-    model = Model(cfg, remat=True, **grid.model_kw())
+    model = Model(cfg, remat=True, shard_experts=shard_experts,
+                  **grid.model_kw())
     full = map_tree(lambda t: t.detach().to(dev).clone(), params_cpu)
     state = rank_state(model, AdamW(lr=TINY_TRAIN_LR), full, grid, zero1)
     step = _grid_step(grid, model, zero1)
@@ -3600,7 +3691,7 @@ def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1):
 
 
 def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
-                    S=GRID_S, timed=GRID_TIMED):
+                    S=GRID_S, timed=GRID_TIMED, shard_experts=False):
     """(b) on one rank: ``arch`` at published widths cut to 2 layers (or
     ``cfg``), bf16 compute, f32 params, B2 S1024 (or ``B``, ``S``) from
     one seeded draw on every rank.  The dry run counts this rank's step on
@@ -3609,7 +3700,8 @@ def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
     first under the counter (launches, collective bytes by axis), then
     ``timed`` uncounted ones, each timed, the first with the peak
     allocation measured as phase 9 measures it; the step time is their
-    median."""
+    median.  ``shard_experts``: the model's flag (the experts whole on the
+    model ranks, the tokens carried by all-to-all)."""
     from repro_torch.configs import ShapeCfg, get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun, specs
@@ -3623,7 +3715,8 @@ def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
     cfg = cfg or _depth_cut(get_config(arch), 2)
     # the dry run of this rank, on meta
     cgrid = counting_grid(grid.mesh, grid.rank)
-    mmodel = Model(cfg, remat=True, **cgrid.model_kw())
+    mmodel = Model(cfg, remat=True, shard_experts=shard_experts,
+                   **cgrid.model_kw())
     meta_in = specs.input_specs(cfg, ShapeCfg("phase10", S, B, "train"),
                                 mmodel, grid=cgrid, zero1=zero1)
     t0 = time.perf_counter()
@@ -3642,7 +3735,8 @@ def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
     with torch.no_grad():
         ref_loss = float(Model(cfg, remat=False).loss_fn(full, batch)[1][
             "loss"])
-    model = Model(cfg, remat=True, **grid.model_kw())
+    model = Model(cfg, remat=True, shard_experts=shard_experts,
+                  **grid.model_kw())
     state = rank_state(model, AdamW(lr=TINY_TRAIN_LR), full, grid, zero1)
     del full
     mine = shard_batch(batch, grid.dp_rank, grid.dp_size)
@@ -3705,13 +3799,18 @@ def _grid_rank(group, job):
                     | {g for _, _, g, _ in GRID_FULL}):
         grids[g] = grid_on_world(grid_mesh(*g), group.rank, group.device,
                                  group.backend)
-    out = {"tiny": {}, "full": {}, "backend": group.backend,
+    out = {"tiny": {}, "full": {}, "se": {}, "backend": group.backend,
            "device": str(group.device)}
     for arch, g, zero1 in GRID_TINY:
         cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
         out["tiny"][(arch, g)] = _grid_tiny_rank(
             torch, grids[g], cfg, job["tiny"][arch], job["batches"][arch],
             zero1)
+    for arch in GRID_SE_TINY:
+        out["se"][arch] = [_grid_tiny_rank(
+            torch, grids[(1, 2)], _se_tiny_cfg(arch), job["se"][arch],
+            job["se_batches"][arch], False, shard_experts=se)
+            for se in (True, False)]
     for path, arch, g, zero1 in GRID_FULL:
         out["full"][path] = _grid_full_rank(torch, grids[g], arch, zero1)
     t0 = time.perf_counter()
@@ -3804,14 +3903,21 @@ def grid_training_on_card(torch, card):
     from repro_torch.train.tree import leaves
     t0 = time.perf_counter()
     job = {"tiny": {}, "batches": {}, "rec": _rec_job(torch, TP),
-           "fused": {"params": _fused_params(torch)}}
-    refs = {}
+           "fused": {"params": _fused_params(torch)}, "se": {},
+           "se_batches": {}}
+    refs, se_refs = {}, {}
     for arch in TINY_ARCHS:
         cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
         job["tiny"][arch] = Model(cfg).init(torch.Generator().manual_seed(0))
         job["batches"][arch] = _tiny_batches(cfg, n=GRID_STEPS, seed=14)
         refs[arch] = _grid_reference(torch, cfg, job["tiny"][arch],
                                      job["batches"][arch])
+    for arch in GRID_SE_TINY:
+        cfg = _se_tiny_cfg(arch)
+        job["se"][arch] = Model(cfg).init(torch.Generator().manual_seed(3))
+        job["se_batches"][arch] = _tiny_batches(cfg, n=GRID_STEPS, seed=16)
+        se_refs[arch] = _grid_reference(torch, cfg, job["se"][arch],
+                                        job["se_batches"][arch])
     gc.collect()
     torch.cuda.empty_cache()
     ranks = run_ranks(_grid_rank, TP, job, device="cuda",
@@ -3845,6 +3951,34 @@ def grid_training_on_card(torch, card):
               f"tiny {arch} on the grid (dp {dp}, tp {tp}) differs from the "
               f"CPU's one process (losses/norms {err}, params {perr}, "
               f"ranks equal {same})")
+    for arch in GRID_SE_TINY:
+        cfg = _se_tiny_cfg(arch)
+        losses, norms, want = se_refs[arch]
+        got = [r["se"][arch][0] for r in ranks]
+        off = [r["se"][arch][1] for r in ranks]
+        err = max(abs(a - b) / abs(b) for g in got
+                  for a, b in zip(g[0] + g[1], losses + norms))
+        full = gather_params([g[2] for g in got], cfg, TP,
+                             shard_experts=True)
+        ok, perr = _params_close(leaves(full), leaves(want), TINY_TRAIN_LR,
+                                 GRID_STEPS, rtol=tol, atol=tol)
+        same, serr = _params_close(
+            leaves(full), leaves(gather_params([g[2] for g in off], cfg, TP)),
+            TINY_TRAIN_LR, GRID_STEPS, **GRID_TOL)
+        held = [tuple(g[2]["stage0"]["moe"]["w_up"].shape[:2]) for g in got]
+        print(f"phase 10: tiny {arch} f32 under shard_experts at (1, 2), "
+              f"E{cfg.moe.n_experts} top-{cfg.moe.top_k} ((layers, experts) "
+              f"a rank {held}), two ranks on the card, {GRID_STEPS} steps: "
+              f"losses {[round(x, 5) for x in got[0][0]]}, max rel err of "
+              f"losses and grad norms against the CPU's one process "
+              f"{err:.2g} (tol {tol}); params max abs err {perr:.3g} (tol "
+              f"{tol} + {tol} |x| but Adam's ill-conditioned entries); "
+              f"against the flag-off run on the card {serr:.3g} (rtol "
+              f"{GRID_TOL['rtol']}, atol {GRID_TOL['atol']})")
+        check(err <= tol and ok and same,
+              f"tiny {arch} under shard_experts at (1, 2) differs from the "
+              f"CPU's one process (losses/norms {err}, params {perr}) or "
+              f"from the flag-off run on the card ({serr})")
     by_path = {}
     for path, arch, (dp, tp), zero1 in GRID_FULL:
         for r in ranks:
@@ -3951,6 +4085,85 @@ def _heads_full_serve(torch, ops, group):
     return row
 
 
+def _prefill_decode(torch, model, params, toks, dec):
+    """A prefill of ``toks`` (B, S), its K/V into pools through an identity
+    table, then a decode step for each of ``dec``: every call's logits
+    (f32, on the card)."""
+    dev = toks.device
+    B, S = toks.shape
+    out = []
+    with torch.no_grad():
+        logits, c1 = model.prefill(params, toks)
+        out.append(logits.float())
+        cache = model.init_cache(B, S + len(dec), device=dev)
+        maxp = cache["block_table"].shape[1]
+        cache["block_table"] = torch.arange(
+            B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+        ps = model.page_size
+        pos = torch.arange(S, device=dev)
+        for (_, pools), (_, kv) in zip(model.attention_caches(cache),
+                                       model.attention_caches(c1)):
+            for b in range(B):
+                page = cache["block_table"][b, pos // ps].long()
+                pools["k_pages"][:, page, pos % ps] = kv["k"][:, b]
+                pools["v_pages"][:, page, pos % ps] = kv["v"][:, b]
+        cache["lengths"] = torch.full((B,), S, dtype=torch.int32, device=dev)
+        del c1
+        for tok in dec:
+            logits, cache = model.decode(params, cache, tok)
+            out.append(logits.float())
+    return out
+
+
+def _se_logits(torch, group):
+    """Phase 11 (b) under shard_experts on one rank: granite-moe-3b-a800m
+    at published widths cut to 2 layers, one seeded draw on every rank; a
+    B1 S1024 prefill and ``SE_STEPS`` decode steps through ``Model`` at tp
+    = 1 and at (1, 3) with the rank's whole experts (a decode row's one
+    token: ranks 1 and 2 hold none), in f32 compute and in bf16.  Returns
+    {dtype: (the largest |got - want| over the calls, the largest |logit|
+    of tp = 1's, every logit finite)}, the bf16 tp = 1 path's own largest
+    difference between two runs, and the grouped matmul launches of the
+    sharded calls.  bf16 MoE logits on the card do not repeat: the
+    combine's atomic adds reorder, a later router flips an expert and a
+    decode step's logits move by up to ~0.8 of ~4 (``PERF.md``), so the
+    f32 run is the one held to tp = 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models import Model
+    base = _depth_cut(get_config(SE_ARCH), 2)
+    dev = group.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    full = Model(base).init(gen, device=dev)
+    toks = torch.randint(0, base.vocab, (1, 1024), generator=gen,
+                         device=dev, dtype=torch.int32)
+    dec = [torch.randint(0, base.vocab, (1, 1), generator=gen, device=dev,
+                         dtype=torch.int32) for _ in range(SE_STEPS)]
+    mine = shard_params(full, group.rank, group.size, cfg=base,
+                        shard_experts=True)
+    out = {}
+    ops.reset_launch_counts()
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        got = _prefill_decode(torch, Model(cfg, group=group,
+                                           shard_experts=True),
+                              mine, toks, dec)
+        want = _prefill_decode(torch, Model(cfg), full, toks, dec)
+        out[dtype] = (max(float((a - b).abs().max())
+                          for a, b in zip(got, want)),
+                      max(float(b.abs().max()) for b in want),
+                      all(bool(torch.isfinite(a).all()) for a in got))
+    again = _prefill_decode(torch, Model(cfg), full, toks, dec)
+    spread = max(float((a - b).abs().max()) for a, b in zip(again, want))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["moe_gmm"]
+    del mine, full, got, want, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, spread, launches
+
+
 def _heads_rank(group, job):
     """Phase 11's ranks (one spawn a tp, sharing the card): the tiny
     variant's logits, serve, P/D across tp (tp = 3) and two steps on a
@@ -3986,6 +4199,11 @@ def _heads_rank(group, job):
     if tp == 3:
         out["full_serve"] = _heads_full_serve(torch, ops, group)
         out["full_train"] = _grid_full_rank(torch, grid, HEADS_ARCH, False)
+        t0 = time.perf_counter()
+        out["se_train"] = _grid_full_rank(torch, grid, SE_ARCH, False,
+                                          shard_experts=True)
+        out["se_logits"] = _se_logits(torch, group)
+        out["se_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4010,8 +4228,9 @@ def heads_on_card(torch, card):
     resident and peak memory printed; one (1, 3) train step at B2 S1024
     as phase 10's: state bytes, launches and collective bytes by axis
     equal to the rank's meta count, peak within ``PEAK_BAND``, step 0's
-    loss within the bf16 tolerance of tp = 1's.  Returns rank 0's launch
-    counts of each (b) path."""
+    loss within the bf16 tolerance of tp = 1's.  (c) granite-moe-3b-a800m
+    under ``shard_experts`` at (1, 3) (the module docstring).  Returns
+    rank 0's launch counts of each (b) and (c) path."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
@@ -4151,6 +4370,39 @@ def heads_on_card(torch, card):
                   f"{launched}")
         by_path[HEADS_SERVE_PATH] = rows[0]["launches"]
         by_path[HEADS_TRAIN_PATH] = ranks[0]["full_train"]["path_launches"]
+        # (c): granite-moe-3b-a800m under shard_experts at (1, 3)
+        from repro_torch.launch.sharding import expert_range
+        E = get_config(SE_ARCH).moe.n_experts
+        held = [b - a for a, b in (expert_range(E, r, tp)
+                                   for r in range(tp))]
+        for r in ranks:
+            o = r["se_train"]
+            _grid_full_check(card, SE_TRAIN_PATH, o, "phase 11")
+            launched, coll = o["launches"][0], o["collectives"][0]
+            check(all(launched.get(k, 0) > 0 for k in (
+                "moe_gmm", "moe_gmm_bwd")) and
+                  coll.get("model", {}).get("all-to-all", 0) > 0,
+                  f"{SE_TRAIN_PATH} rank {r['rank']}: launched {launched}, "
+                  f"collectives {coll}")
+        for r in ranks:
+            errs, spread, gmm = r["se_logits"]
+            (e32, t32, ok32), (e16, t16, ok16) = (errs["float32"],
+                                                  errs["bfloat16"])
+            tol = TOL["float32"]
+            print(f"phase 11 [{card}] shard_experts {SE_ARCH} (2 layers) "
+                  f"at (1, 3), rank {r['rank']} holding {held[r['rank']]} "
+                  f"of {E} experts: B1 S1024 prefill and {SE_STEPS} decode "
+                  f"steps against tp = 1's on the same weights: f32 logits "
+                  f"max abs err {e32:.3g} ({e32 / t32:.2e} of the largest, "
+                  f"{t32:.4g}; tol {tol}); bf16 {e16:.4g} ({e16 / t16:.2%} "
+                  f"of {t16:.4g}), tp = 1's own two bf16 runs {spread:.4g} "
+                  f"apart; {gmm} moe_gmm launches; {r['se_s']:.1f} s of the "
+                  f"rank's work")
+            check(e32 <= tol * t32 and ok32 and ok16 and gmm > 0,
+                  f"shard_experts {SE_ARCH} rank {r['rank']}: f32 logits "
+                  f"max err {e32} against tp = 1's largest {t32} (tol "
+                  f"{tol}), finite {ok32}/{ok16}, {gmm} moe_gmm launches")
+        by_path[SE_TRAIN_PATH] = ranks[0]["se_train"]["path_launches"]
     print(f"phase 11: ran {time.perf_counter() - t0:.1f} s")
     return by_path
 

@@ -25,6 +25,18 @@ engine group (``repro_torch.launch.mesh``):
   ``cx`` and ``x_in`` before ``w_q``/``w_k``/``w_v``, the sLSTM's ``h``
   before its column-parallel FFN), a :func:`copy_to` follows the gather,
   so the two together are a reduce-scatter backward;
+* :func:`take_rows` / :func:`gather_rows`: a rank's share of a replicated
+  tensor's rows (``counts[r]`` rows a rank, in rank order: the MoE layer's
+  tokens under ``shard_experts``, GSPMD's padded layout) and back.
+  ``take_rows`` slices forward and all-gathers the ranks' row gradients
+  backward, so the replicated input gets its whole gradient (as
+  :func:`copy_to` gives it); ``gather_rows`` all-gathers the ranks' rows
+  forward (each part padded to the widest) and takes the rank's rows of
+  the gradient backward, which every rank holds whole after it (never an
+  all-reduce: that would count it tp times);
+* :func:`all_to_all`: rows to their ranks with static splits forward, the
+  reverse all-to-all backward (the MoE layer's dispatch to the ranks that
+  hold the experts and the return of their outputs);
 * :func:`norm_stat`: a statistic summed over the ranks that every rank's
   outputs read (the mean square of a norm over a feature dim the ranks
   split: Mamba2's gated norm, the mLSTM's ``norm_h``), ``copy_to`` after
@@ -106,6 +118,70 @@ class _GatherLast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return dy.narrow(-1, ctx.off, ctx.n).contiguous(), None, None
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, counts):
+        ctx.group, ctx.counts = group, counts
+        lo = sum(counts[:group.rank])
+        return x.narrow(0, lo, counts[group.rank])
+
+    @staticmethod
+    def backward(ctx, dy):
+        return torch.cat(gather_parts(dy.contiguous(), ctx.group, ctx.counts,
+                                      dim=0), dim=0), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, counts):
+        ctx.lo, ctx.n = sum(counts[:group.rank]), x.shape[0]
+        return torch.cat(gather_parts(x, group, counts, dim=0), dim=0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy.narrow(0, ctx.lo, ctx.n).contiguous(), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, in_splits, out_splits):
+        ctx.group, ctx.splits = group, (in_splits, out_splits)
+        return group.all_to_all(x, in_splits, out_splits)
+
+    @staticmethod
+    def backward(ctx, dy):
+        in_splits, out_splits = ctx.splits
+        return ctx.group.all_to_all(dy.contiguous(), out_splits,
+                                    in_splits), None, None, None
+
+
+def take_rows(x: torch.Tensor, group, counts) -> torch.Tensor:
+    """This rank's rows of a replicated ``x`` (``counts[r]`` rows rank r,
+    in rank order along dim 0); backward, every rank's row gradients
+    all-gathered into the whole one."""
+    lo = sum(counts[:group.rank])
+    if not _needs_grad(x):
+        return x.narrow(0, lo, counts[group.rank])
+    return _TakeRows.apply(x, group, tuple(counts))
+
+
+def gather_rows(x: torch.Tensor, group, counts) -> torch.Tensor:
+    """Every rank's rows (``counts[r]`` on rank r) concatenated along dim 0
+    in rank order; backward, this rank's rows of the gradient."""
+    if not _needs_grad(x):
+        return torch.cat(gather_parts(x, group, counts, dim=0), dim=0)
+    return _GatherRows.apply(x, group, tuple(counts))
+
+
+def all_to_all(x: torch.Tensor, group, in_splits, out_splits
+               ) -> torch.Tensor:
+    """``group.all_to_all``: rows ``in_splits[r]`` of ``x`` to rank r, the
+    rows ``out_splits[r]`` from rank r back; backward, the reverse."""
+    if not _needs_grad(x):
+        return group.all_to_all(x, in_splits, out_splits)
+    return _AllToAll.apply(x, group, tuple(in_splits), tuple(out_splits))
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

@@ -47,8 +47,12 @@ kernel's log-sum-exp (``collective_bytes_by_axis["data"]``); under
 ``seq_shard_cache=True`` (a keyword, as in JAX, whose CLI has no flag) a
 larger batch over the ``model`` axis, each rank holding every KV head for
 ``seq_len / tp`` tokens, the query heads all-gathered and the combine on
-``model``.  The recurrent state at a batch of one is split by heads over
-``model`` and replicated over ``data``, as in JAX (xlstm-125m's
+``model``.  ``shard_experts=True`` (a keyword too) holds the MoE experts
+whole on the model ranks in GSPMD's padded layout (ceil(E / tp) a rank
+from rank 0, which the note names) and carries the tokens to them by
+all-to-all (``collective_bytes_by_axis["model"]["all-to-all"]``).  The
+recurrent state at a batch of one is split by heads over ``model`` and
+replicated over ``data``, as in JAX (xlstm-125m's
 ``long_500k`` has nothing to split; its note says so).  The record's
 ``note`` names the split.  A batch above one that does not divide by dp
 is replicated over the data-parallel ranks, and the record says so
@@ -79,7 +83,7 @@ from repro_torch.configs import (ALL_SHAPES, ASSIGNED, cell_is_runnable,
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.launch.mesh import (counting_grid, grid_mesh,
                                      make_production_mesh)
-from repro_torch.launch.sharding import unsupported
+from repro_torch.launch.sharding import expert_range, unsupported
 from repro_torch.launch.specs import input_specs, rank_batch
 from repro_torch.models import Model
 from repro_torch.roofline import analysis as ra
@@ -184,14 +188,17 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
                multi_pod: bool = False, zero1: bool = False,
                attn_impl: str = "flash", microbatches: int = 1,
                fuse_qkv: bool = False, norm_ct16: bool = False,
-               seq_shard_cache: bool = False,
+               seq_shard_cache: bool = False, shard_experts: bool = False,
                variant: str = "baseline") -> dict:
     """Count rank 0's program of one cell on meta; returns its record (the
     JAX record's keys where they mean something here, see the module
     docstring).  ``multi_pod``: the 2×16×16 mesh (``dp`` and ``tp`` must
     be left at 1); else the ``(dp, tp)`` grid, ``dp=16, tp=16`` the JAX
     single pod.  ``seq_shard_cache``: a decode of a batch above one splits
-    its cache's sequence over the model axis (JAX's keyword)."""
+    its cache's sequence over the model axis (JAX's keyword).
+    ``shard_experts``: the MoE experts whole on the model ranks in the
+    padded layout, the tokens carried to them by all-to-all (JAX's
+    keyword)."""
     if multi_pod and (dp, tp) != (1, 1):
         raise ValueError("multi_pod is the 2x16x16 mesh; dp and tp are its")
     mesh = cell_mesh(dp, tp, multi_pod)
@@ -205,7 +212,7 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
         return {**head, "status": "skipped",
                 "reason": "long_500k requires sub-quadratic attention "
                           "(DESIGN.md §5)"}
-    why = unsupported(cfg, grid.tp, fuse_qkv)
+    why = unsupported(cfg, grid.tp, fuse_qkv, shard_experts)
     if why is not None:
         return {**head, "status": "unsupported", "reason": why}
     kw = grid.model_kw()
@@ -216,7 +223,7 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
         seq_group = grid.seq_group(shape.global_batch, seq_shard_cache)
         kw["seq_group"] = seq_group
     model = Model(cfg, attn_impl=attn_impl, fuse_qkv=fuse_qkv,
-                  norm_ct16=norm_ct16, **kw)
+                  norm_ct16=norm_ct16, shard_experts=shard_experts, **kw)
     t0 = time.time()
     inputs = input_specs(cfg, shape, model, grid=grid, zero1=zero1)
     counter, mem, out = count_step(model, shape.step, inputs,
@@ -227,6 +234,7 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
     rec = {**head, "status": "ok", "attn_impl": attn_impl,
            "microbatches": microbatches, "variant": variant,
            "seq_shard_cache": seq_shard_cache, "fuse_qkv": fuse_qkv,
+           "shard_experts": shard_experts,
            "trace_s": round(trace_s, 2), "compile_s": None,
            "batch_per_rank": rank_batch(shape, grid),
            **record(counter, mem, n_devices=mesh.size, cfg=cfg,
@@ -239,6 +247,20 @@ def lower_cell(arch: str, shape_name: str, *, dp: int = 1, tp: int = 1,
                      f"GSPMD's padded layout, ceil(H / tp) = "
                      f"{-(-cfg.n_heads // grid.tp)} a rank from rank 0; "
                      f"rank 0, counted here, is the most loaded rank")
+    if shard_experts and cfg.moe is not None and grid.tp > 1:
+        E = cfg.moe.n_experts
+        lo, hi = expert_range(E, 0, grid.tp)
+        held = [b - a for a, b in (expert_range(E, r, grid.tp)
+                                   for r in range(grid.tp))]
+        notes.append(f"shard_experts: {E} experts whole over tp={grid.tp} "
+                     f"in GSPMD's padded layout ({held.count(hi - lo)} "
+                     f"ranks of {hi - lo}"
+                     + "".join(f", {held.count(k)} of {k}"
+                               for k in sorted(set(held) - {hi - lo},
+                                               reverse=True))
+                     + f"); rank 0, counted here, holds experts {lo}-"
+                     f"{hi - 1}, the most; the tokens reach them by "
+                     f"all-to-all over model")
     attends = any(st.kind in ("attn_mlp", "attn_moe", "zamba_super")
                   for st in cfg.stages)
     if seq_group is not None and attends:

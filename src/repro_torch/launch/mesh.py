@@ -12,7 +12,8 @@ runs one process per rank and makes the collectives explicit over
   axis folds into data parallelism).
 * An :class:`EngineGroup` is one rank's view of one group of ranks: its
   rank and size in the group, its device, the model's collectives
-  (all-reduce sum and max, all-gather on the last dim or any dim) and the
+  (all-reduce sum and max, all-gather on the last dim or any dim, an
+  all-to-all of rows with static splits) and the
   serving engine's bookkeeping over the ranks (the slowest rank's time, a
   count summed over the ranks, a guard that the ranks agree).  Its
   collectives run on its own process group (``pg``; None: the default,
@@ -175,6 +176,25 @@ class EngineGroup:
         there)."""
         return self._gather(x.to(self._host_side()).contiguous(), dim)
 
+    def all_to_all(self, x: torch.Tensor, in_splits: Sequence[int],
+                   out_splits: Sequence[int]) -> torch.Tensor:
+        """Rows ``in_splits[r]`` of ``x`` (in order along dim 0) to rank r;
+        returns the rows every rank sent here, in rank order
+        (``out_splits[r]`` from rank r), on ``x``'s device.  The splits
+        are static: every rank's ``in_splits[me]`` is its peer's
+        ``out_splits``.  Under gloo, which takes host tensors only, the
+        rows go through the host.  Records the result's bytes."""
+        side = self._host_side()
+        out = torch.empty((sum(out_splits),) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=side)
+        _record("all-to-all", out.numel() * out.element_size(), self.size,
+                self.axis)
+        dist.all_to_all_single(out, x.to(side).contiguous(),
+                               output_split_sizes=list(out_splits),
+                               input_split_sizes=list(in_splits),
+                               group=self.pg)
+        return out.to(x.device)
+
     def _host_side(self):
         """Where a small bookkeeping tensor lives for a collective: the
         card under NCCL, the host under gloo."""
@@ -242,6 +262,13 @@ class CountingGroup:
         _record("all-gather", self.size * x.numel() * x.element_size(),
                 self.size, self.axis)
         return torch.cat(parts, dim=dim)
+
+    def all_to_all(self, x: torch.Tensor, in_splits: Sequence[int],
+                   out_splits: Sequence[int]) -> torch.Tensor:
+        out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
+        _record("all-to-all", out.numel() * out.element_size(), self.size,
+                self.axis)
+        return out
 
 
 @dataclasses.dataclass

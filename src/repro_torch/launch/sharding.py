@@ -26,7 +26,13 @@ that:
 * MoE experts: expert parallelism when the expert count divides tp (each
   rank holds E / tp whole experts), otherwise tensor parallelism inside
   every expert (``w_gate``/``w_up`` column-, ``w_down`` row-parallel), the
-  JAX rule's two branches.
+  JAX rule's two branches; under ``shard_experts`` (the JAX model's
+  placement hint, every function here takes the flag) the third layout:
+  every expert whole on one rank in GSPMD's padded layout
+  (:func:`expert_range`: ceil(E / tp) a rank from rank 0, a later rank
+  fewer or none, ``(0, d, f)`` leaves), whatever E and ``d_expert``; where
+  E divides tp it is the expert-parallel layout.  An expert leaf then
+  lives on one rank: no gradient sum over the model axis.
 
 **A decode cache's sequence** splits over a group as JAX's
 ``cache_pspecs`` splits it (over ``data`` for a batch of one, over
@@ -369,19 +375,32 @@ def experts_parallel(cfg: ArchConfig, tp: int) -> bool:
     return cfg.moe is not None and cfg.moe.n_experts % tp == 0
 
 
+def expert_range(n: int, rank: int, tp: int) -> Tuple[int, int]:
+    """The experts ``[lo, hi)`` of ``n`` that ``rank`` holds under
+    ``shard_experts`` (:func:`head_range`: ceil(n / tp) a rank from rank
+    0).  40 experts at tp = 16: ranks 0-12 hold 3, rank 13 one, ranks 14
+    and 15 none; at tp = 3: 14, 14 and 12."""
+    return head_range(n, rank, tp)
+
+
+def _expert_leaf(path: Tuple[str, ...]) -> bool:
+    return "moe" in path and path[-1] in ("w_gate", "w_up", "w_down")
+
+
 def head_parallel(cfg: ArchConfig, tp: int) -> bool:
     """Whether the head's padded vocab (and the embedding's rows) split
     over tp."""
     return cfg.padded_vocab % tp == 0
 
 
-def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
-                ) -> Optional[str]:
+def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False,
+                shard_experts: bool = False) -> Optional[str]:
     """Why the port cannot shard ``cfg`` over ``tp`` ranks (every reason,
     joined), or None.  Any head count splits, the recurrent blocks'
     included (the module docstring), and so does the fused QKV projection
     (``fuse_qkv``, strided: :func:`_pieces`); a feed-forward or expert
-    width that does not divide tp does not."""
+    width that does not divide tp does not, except that under
+    ``shard_experts`` any expert count splits (whole experts a rank)."""
     if tp == 1:
         return None
     why = []
@@ -392,22 +411,22 @@ def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False
     if "xlstm_pair" in present and slstm_ff(cfg) % tp:
         why.append(f"the sLSTM's feed-forward width {slstm_ff(cfg)} does "
                    f"not split over tp={tp}")
-    if "attn_moe" in present and not experts_parallel(cfg, tp) \
-            and cfg.moe.d_expert % tp:
+    if "attn_moe" in present and not shard_experts \
+            and not experts_parallel(cfg, tp) and cfg.moe.d_expert % tp:
         why.append(f"{cfg.moe.n_experts} experts do not split over "
                    f"tp={tp}, nor does d_expert {cfg.moe.d_expert}")
     return f"{cfg.name}: " + "; ".join(why) if why else None
 
 
-def _named(path: Tuple[str, ...], cfg: ArchConfig, tp: int
-           ) -> Optional[int]:
+def _named(path: Tuple[str, ...], cfg: ArchConfig, tp: int,
+           shard_experts: bool = False) -> Optional[int]:
     name = path[-1]
     if path[0] == "embed":
         return 0
     if path[0] == "head":
         return -1
-    if "moe" in path and name in ("w_gate", "w_up", "w_down"):
-        if experts_parallel(cfg, tp):
+    if _expert_leaf(path):
+        if shard_experts or experts_parallel(cfg, tp):
             return -3
         return -1 if name != "w_down" else -2
     if name in _COL:
@@ -418,18 +437,19 @@ def _named(path: Tuple[str, ...], cfg: ArchConfig, tp: int
 
 
 def model_dim(path: Tuple[str, ...], ndim: int, cfg: ArchConfig,
-              tp: int) -> Optional[int]:
+              tp: int, shard_experts: bool = False) -> Optional[int]:
     """The dim of a param leaf that the model rule names (non-negative),
     or None for a replicated leaf.  Named is not always split: a padded
     vocab that does not divide tp leaves the embedding and the head whole
     (:func:`split`), as ``fit_to_mesh`` does after JAX's rule named it."""
-    dim = _named(path, cfg, tp)
+    dim = _named(path, cfg, tp, shard_experts)
     return None if dim is None else dim % ndim
 
 
-def split(path: Tuple[str, ...], cfg: ArchConfig, tp: int) -> bool:
+def split(path: Tuple[str, ...], cfg: ArchConfig, tp: int,
+          shard_experts: bool = False) -> bool:
     """Whether tp > 1 cuts the leaf (rather than replicating it)."""
-    if tp == 1 or _named(path, cfg, tp) is None:
+    if tp == 1 or _named(path, cfg, tp, shard_experts) is None:
         return False
     if path[0] in ("embed", "head"):
         return head_parallel(cfg, tp)
@@ -437,14 +457,14 @@ def split(path: Tuple[str, ...], cfg: ArchConfig, tp: int) -> bool:
 
 
 def zero1_dim(path: Tuple[str, ...], shape, cfg: ArchConfig, tp: int,
-              data: int) -> Optional[int]:
+              data: int, shard_experts: bool = False) -> Optional[int]:
     """The dim of a moment leaf (``shape``: the param leaf's full shape)
     that ZeRO-1 splits over the ``data`` axis: the first one the model
     rule does not name that divides by ``data`` and is above 1.  None
     without one, or at ``data == 1``."""
     if data == 1:
         return None
-    named = model_dim(path, len(shape), cfg, tp)
+    named = model_dim(path, len(shape), cfg, tp, shard_experts)
     for i, d in enumerate(shape):
         if i != named and d > 1 and d % data == 0:
             return i
@@ -462,10 +482,13 @@ def _split(leaf, dim: int, lo: int, hi: int):
     return np.array(part, order="C")
 
 
-def _full_len(path, n: int, cfg: ArchConfig, tp: int) -> int:
+def _full_len(path, n: int, cfg: ArchConfig, tp: int,
+              shard_experts: bool = False) -> int:
     """The whole length along the model dim of a split leaf whose rank
     part has ``n`` there (rank 0's part where ranks differ)."""
     name, block = path[-1], _block(path)
+    if shard_experts and _expert_leaf(path):
+        return cfg.moe.n_experts
     if block == "mamba":
         d_in, nh, _, _ = mamba_dims(cfg.d_model, cfg.ssm)
         return {"w_zx": 2 * d_in, "w_dt": nh}.get(name, d_in)
@@ -482,12 +505,14 @@ def _full_len(path, n: int, cfg: ArchConfig, tp: int) -> int:
     return n * tp
 
 
-def _pieces(path, n: int, cfg: ArchConfig, rank: int, tp: int
-            ) -> List[Tuple[int, int]]:
+def _pieces(path, n: int, cfg: ArchConfig, rank: int, tp: int,
+            shard_experts: bool = False) -> List[Tuple[int, int]]:
     """``rank``'s parts ``[(lo, hi), ...]`` of a leaf that tp splits,
     along its model dim of whole length ``n``, in the order the shard
     holds them (several where a projection packs parts side by side)."""
     name, block = path[-1], _block(path)
+    if shard_experts and _expert_leaf(path):
+        return [expert_range(n, rank, tp)]
     if block in ("mamba", "mlstm") or (block == "slstm"
                                        and name == "w_gates"):
         lo, hi, hd = _heads_cols(cfg, block, rank, tp)
@@ -582,29 +607,32 @@ def _map(tree, fn, path=()):
 
 
 def shard_params(params: dict, rank: int, tp: int, *,
-                 cfg: ArchConfig) -> dict:
+                 cfg: ArchConfig, shard_experts: bool = False) -> dict:
     """Rank ``rank``'s shard of ``params`` (a nested dict of numpy arrays
     or tensors in the JAX layout) at tensor-parallel degree ``tp``.  Split
     leaves are fresh copies; replicated leaves are the inputs themselves.
-    ``tp == 1`` returns ``params``."""
+    ``tp == 1`` returns ``params``.  ``shard_experts``: the experts whole
+    in the padded layout (:func:`expert_range`)."""
     if tp == 1:
         return params
 
     def leaf_shard(path, leaf):
-        if not split(path, cfg, tp):
+        if not split(path, cfg, tp, shard_experts):
             return leaf            # norms, the router, a vocab that stays
-        dim = model_dim(path, leaf.ndim, cfg, tp)
+        dim = model_dim(path, leaf.ndim, cfg, tp, shard_experts)
         return _take(leaf, dim, _pieces(path, leaf.shape[dim], cfg, rank,
-                                        tp))
+                                        tp, shard_experts))
 
     return _map(params, leaf_shard)
 
 
-def gather_params(parts, cfg: ArchConfig, tp: int) -> dict:
+def gather_params(parts, cfg: ArchConfig, tp: int,
+                  shard_experts: bool = False) -> dict:
     """The full params in the JAX layout from every rank's shard
     (``parts``, in rank order): each split leaf's parts written where they
     lie (strided ones included), a KV head that several ranks hold taken
-    once (from its owner, the lowest), replicated leaves from rank 0."""
+    once (from its owner, the lowest), replicated leaves from rank 0.
+    ``shard_experts``: the shards' layout of the experts."""
     if tp == 1:
         return parts[0]
 
@@ -612,11 +640,11 @@ def gather_params(parts, cfg: ArchConfig, tp: int) -> dict:
         got = list(parts)
         for k in path:
             got = [g[k] for g in got]
-        if not split(path, cfg, tp):
+        if not split(path, cfg, tp, shard_experts):
             return got[0]
-        dim = model_dim(path, got[0].ndim, cfg, tp)
-        n = _full_len(path, got[0].shape[dim], cfg, tp)
-        return _place(got, [_pieces(path, n, cfg, r, tp)
+        dim = model_dim(path, got[0].ndim, cfg, tp, shard_experts)
+        n = _full_len(path, got[0].shape[dim], cfg, tp, shard_experts)
+        return _place(got, [_pieces(path, n, cfg, r, tp, shard_experts)
                             for r in range(tp)], dim, n)
 
     return _map(parts[0], leaf)
@@ -653,18 +681,22 @@ class LeafPlan:
 
 
 def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
-              data: int = 1, zero1: bool = False) -> List[LeafPlan]:
+              data: int = 1, zero1: bool = False,
+              shard_experts: bool = False) -> List[LeafPlan]:
     """A :class:`LeafPlan` for every leaf of ``rank``'s params (any
     device, meta included), in ``repro_torch.train.tree.leaves`` order.
-    ``data``: the data axis's extent (ZeRO-1's split, when ``zero1``)."""
+    ``data``: the data axis's extent (ZeRO-1's split, when ``zero1``);
+    ``shard_experts``: the params' expert layout (an expert leaf lives on
+    one rank: no sum over the model axis, counted once in the norm)."""
     from repro_torch.train.tree import leaves
     full = {}
+    se = shard_experts
 
     def note(path, leaf):
         shape = list(leaf.shape)
-        if split(path, cfg, tp):
-            dim = model_dim(path, leaf.ndim, cfg, tp)
-            shape[dim] = _full_len(path, shape[dim], cfg, tp)
+        if split(path, cfg, tp, se):
+            dim = model_dim(path, leaf.ndim, cfg, tp, se)
+            shape[dim] = _full_len(path, shape[dim], cfg, tp, se)
         full[path] = tuple(shape)
         return "/".join(path)      # a string: ``leaves`` walks tuples
 
@@ -689,7 +721,7 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
                            for off in (hq, hq + hk) if hi > lo)
     plans = []
     for path in paths:
-        cut = split(path, cfg, tp)
+        cut = split(path, cfg, tp, se)
         grad_sum, norm, kv, cols = None, \
             "model" if cut else "replicated", (), None
         if tp > 1 and (path[-1] in _QK_NORM or path[-1]
@@ -706,7 +738,8 @@ def leaf_plan(params: dict, cfg: ArchConfig, tp: int, rank: int,
             if mine:
                 grad_sum, kv = "kv", fused_kv
             cols = fused_owned
-        z = zero1_dim(path, full[path], cfg, tp, data) if zero1 else None
+        z = zero1_dim(path, full[path], cfg, tp, data, se) if zero1 \
+            else None
         plans.append(LeafPlan(path, cut, grad_sum, norm, z, kv, cols))
     return plans
 

@@ -15,7 +15,8 @@ On a rank grid (``grid``, a ``repro_torch.launch.mesh.RankGrid``, the dry
 run's ``counting_grid``) each function gives that rank's inputs: the
 batch's ``global_batch / dp`` rows (the whole batch when it does not divide
 by dp, as JAX's ``batch_pspecs`` and ``fit_to_mesh`` replicate it), its
-shard of the params (``sharding.shard_params``) and of the AdamW state,
+shard of the params (``sharding.shard_params``, in the model's expert
+layout) and of the AdamW state,
 and under ``zero1`` its slice of each moment over the data axis; a
 cache holds the rank's KV slots and the recurrent state of its heads
 (``Model.init_cache`` under the grid's model group).
@@ -88,7 +89,8 @@ def params_specs(model: Model, dtype: torch.dtype = torch.float32,
     if grid is not None and grid.tp > 1:
         from repro_torch.launch.sharding import shard_params
         params = shard_params(params, grid.coords["model"], grid.tp,
-                              cfg=model.cfg)
+                              cfg=model.cfg,
+                              shard_experts=model.shard_experts)
     return params
 
 

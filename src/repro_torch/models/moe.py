@@ -9,9 +9,7 @@ with their combine weights.  Capacity overflow is dropped.  In training
 the three products go through ``grouped_matmul``, an autograd Function
 whose backward is ``kernels.ops.moe_gmm_bwd`` (the Hopper kernel on the
 card, its plain version on the CPU): the JAX package differentiates its
-einsum branch with XLA's autodiff instead.  The TPU
-mesh constraint ``shard_experts`` is not ported: GSPMD's placement hint has
-no meaning under explicit tensor parallelism.
+einsum branch with XLA's autodiff instead.
 
 Under tensor parallelism (``group``) the router and the top-k run on every
 rank (the router is replicated), so the capacity and the drops equal tp =
@@ -24,6 +22,30 @@ Either way a rank's combine is a partial sum, all-reduced over the group
 (``collectives.reduce_from``); in training the dispatched tokens and the
 combine weights enter through ``collectives.copy_to``, so the tokens and
 the router get the sum of the ranks' partial gradients.
+
+Under ``shard_experts`` (the JAX model's hint that pins the expert buffers
+to the model axis, so that GSPMD routes the tokens with one all-to-all)
+the port does explicitly what the hint asks of GSPMD.  The rank's params
+hold whole experts in GSPMD's padded layout (``sharding.expert_range``:
+ceil(E / tp) a rank from rank 0, a later rank fewer or none).  Every rank
+still routes every token and decides the drops as tp = 1 does, the
+routing being replicated; then each takes its share of the tokens
+(``sharding.head_range(T, rank, tp)``, ``collectives.take_rows``; none
+past T, as at decode), and one all-to-all (``collectives.all_to_all``)
+carries its kept entries to the ranks of their experts in static blocks:
+``n_s = min(C, ceil(T / tp))`` rows an expert from every rank, the most
+any routing can put there (the top-k experts of a token are distinct; a
+routing hook may repeat one, so ``n_s`` is then ``min(C, ceil(T / tp) ·
+k)``).  The splits depend on shapes only, so a rank's bytes are its meta
+count.  A rank scatters what it receives into the ``(E_loc, n, d)``
+buffer that the expert-parallel path builds for the same experts, row
+for row, runs the grouped matmul on it (none for a rank with no expert,
+which still joins every collective with empty blocks), and a second
+all-to-all sends the rows back.  Each rank combines its own tokens, and
+``collectives.gather_rows`` all-gathers them over the group: no
+all-reduce.  Without a group the flag changes nothing, as the hint
+changes nothing on one device.  The JAX package turns its Pallas kernel
+off under the hint; the port keeps its grouped matmul.
 
 Under data parallelism (``dp_group``, training) the routing is the whole
 batch's, as JAX's over its global microbatch: the capacity comes from the
@@ -52,7 +74,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.expert import expert_capacity
 from repro_torch.kernels import ops
-from repro_torch.launch.collectives import copy_to, reduce_from
+from repro_torch.launch.collectives import (all_to_all, copy_to,
+                                           gather_rows, reduce_from,
+                                           take_rows)
+from repro_torch.launch.sharding import expert_range, head_range
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -113,9 +138,99 @@ def router_topk(x, w_router, top_k: int, dp_group=None):
     return expert_idx.to(torch.int32), combine_w, aux
 
 
+def _expert_ffn(hidden_in, params, group_sizes, gated: bool, dtype):
+    """The grouped expert FFN on ``(E, n, d)``: three launches of the
+    grouped matmul (two on the GELU path).  Rows at or past a group's size
+    come out 0 either way.  The casts stay outside the Function, so dw
+    reaches f32 params through them."""
+    if gated:
+        g = F.silu(grouped_matmul(hidden_in, params["w_gate"].to(dtype),
+                                  group_sizes))
+        u = grouped_matmul(hidden_in, params["w_up"].to(dtype), group_sizes)
+        h = g * u
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(grouped_matmul(hidden_in, params["w_up"].to(dtype),
+                                  group_sizes), approximate="tanh")
+    return grouped_matmul(h, params["w_down"].to(dtype), group_sizes)
+
+
+def _pad_row(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (rows, ...) with one zero row after its last: the row that
+    entries which move nothing read."""
+    return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])
+
+
+def _experts_on_ranks(x, combine_w, params, group, *, order, tok_of,
+                      s_sorted, pos_in_e, keep, group_sizes, n: int,
+                      n_s: int, top_k: int, gated: bool):
+    """``shard_experts`` under a group (the module docstring): the
+    entries' rows to their experts' ranks and back by two all-to-alls,
+    each rank's tokens combined and gathered over the group.  The sorted
+    entries, their positions, drops and group sizes are the whole
+    routing's, the same on every rank; returns y (T, d)."""
+    T, d = x.shape
+    tp, me = group.size, group.rank
+    E = group_sizes.shape[0]
+    dev = x.device
+    tok_n = [hi - lo for lo, hi in (head_range(T, r, tp) for r in range(tp))]
+    exp_n = [hi - lo for lo, hi in (expert_range(E, r, tp)
+                                    for r in range(tp))]
+    tlo, T_loc = sum(tok_n[:me]), tok_n[me]
+    elo, E_loc = sum(exp_n[:me]), exp_n[me]
+    ct = -(-T // tp)
+    idx = torch.arange(T * top_k, device=dev)
+    # each entry's source rank (its token's) and its index j among the
+    # entries of its (expert, source) pair: the entries of one expert are
+    # token-major, so a pair's are consecutive
+    src = tok_of // ct
+    key = s_sorted * tp + src
+    per = torch.zeros(((E + 1) * tp,), dtype=torch.long, device=dev) \
+        .scatter_add_(0, key, torch.ones_like(key))
+    j = idx - (torch.cumsum(per, 0) - per)[key]
+    # send: rank me's kept entries, row e * n_s + j (rank s's block is its
+    # experts' rows, E_loc(s) * n_s); the rest into the overflow row
+    sent = keep & (src == me)
+    mine = tok_of - tlo
+    buf = torch.zeros((E * n_s + 1, d), dtype=x.dtype, device=dev)
+    xd = _pad_row(take_rows(x, group, tok_n))
+    buf[torch.where(sent, s_sorted * n_s + j, E * n_s)] = \
+        xd[torch.where(sent, mine, T_loc)]
+    recv = all_to_all(buf[:E * n_s], group, [k * n_s for k in exp_n],
+                      [E_loc * n_s] * tp)
+    # receive: rank r's rows of expert e into the buffer the
+    # expert-parallel path builds, row (e - elo) * n + pos_in_e
+    held = keep & (s_sorted >= elo) & (s_sorted < elo + E_loc)
+    rrow = torch.where(held, src * (E_loc * n_s) + (s_sorted - elo) * n_s
+                       + j, tp * E_loc * n_s)
+    brow = torch.where(held, (s_sorted - elo) * n + pos_in_e, E_loc * n)
+    hidden = torch.zeros((E_loc * n + 1, d), dtype=x.dtype, device=dev)
+    hidden[brow] = _pad_row(recv)[rrow]
+    hidden_in = hidden[:E_loc * n].view(E_loc, n, d)
+    # a rank with no expert launches nothing; its empty buffer keeps the
+    # backward's path through both all-to-alls
+    # (the rank's group sizes copied: the kernel takes them 16-byte aligned)
+    out_e = hidden_in if E_loc == 0 else _expert_ffn(
+        hidden_in, params, group_sizes[elo:elo + E_loc].clone(), gated,
+        x.dtype)
+    back = torch.zeros((tp * E_loc * n_s + 1, d), dtype=x.dtype, device=dev)
+    back[rrow] = _pad_row(out_e.reshape(E_loc * n, d))[brow]
+    got = all_to_all(back[:tp * E_loc * n_s], group, [E_loc * n_s] * tp,
+                     [k * n_s for k in exp_n])
+    # combine the rank's tokens in sorted order (the others and the drops
+    # read the zero row with weight 0 into the row past them)
+    gathered = _pad_row(got)[torch.where(sent, s_sorted * n_s + j, E * n_s)]
+    cw = _pad_row(take_rows(combine_w, group, tok_n).reshape(-1))
+    w = cw[torch.where(sent, order - tlo * top_k, T_loc * top_k)].to(x.dtype)
+    y = torch.zeros((T_loc + 1, d), dtype=x.dtype, device=dev).index_add_(
+        0, torch.where(src == me, mine, T_loc), gathered * w[:, None])
+    return gather_rows(y[:T_loc], group, tok_n)
+
+
 def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
             gated: bool = True, router_fn=None, positions=None, layer=None,
-            valid=None, group=None, dp_group=None):
+            valid=None, group=None, dp_group=None,
+            shard_experts: bool = False):
     """x: (T, d). params: router (d,E), w_gate/w_up (E,d,de), w_down (E,de,d).
 
     ``router_fn`` is the injectable routing hook (``repro_torch.moe.hooks``):
@@ -127,11 +242,16 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     take no real token's capacity.  With ``valid=None`` every row routes
     and competes for capacity (pad tails included), as in JAX.  ``group``
     (an engine group) makes ``params`` one rank's shard, and ``dp_group``
-    ``x`` one data-parallel rank's tokens; see the module docstring.
+    ``x`` one data-parallel rank's tokens; ``shard_experts`` with a group,
+    ``params`` hold the rank's whole experts in the padded layout and the
+    tokens reach them by all-to-all; see the module docstring.
     """
     T, d = x.shape
     E = params["router"].shape[-1]
-    E_loc = params["w_down"].shape[0]          # E / tp under expert parallel
+    a2a = shard_experts and group is not None
+    # E / tp under expert parallel; under shard_experts the routing is
+    # dispatched over every expert, as at tp = 1
+    E_loc = E if a2a else params["w_down"].shape[0]
     first = 0 if group is None or E_loc == E else group.rank * E_loc
     if router_fn is None:
         expert_idx, combine_w, aux = router_topk(x, params["router"], top_k,
@@ -146,9 +266,10 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
             valid=valid)
     ndp = 1 if dp_group is None else dp_group.size
     C = expert_capacity(T * ndp, top_k, E, capacity_factor)
-    # the sharded region: the tokens dispatched and the combine weights
-    xd = copy_to(x, group)
-    combine_w = copy_to(combine_w, group)
+    if not a2a:
+        # the sharded region: the tokens dispatched and the combine weights
+        xd = copy_to(x, group)
+        combine_w = copy_to(combine_w, group)
 
     # --- dispatch: sort (token, k) pairs by expert --------------------------
     # (this rank's experts renumbered from 0; the others and invalid rows
@@ -192,6 +313,16 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     # the router's top-k being distinct experts, below T (a hook's routing
     # may repeat an expert within a token: C then)
     n = min(C, T) if router_fn is None else C
+    group_sizes = torch.clamp(counts[:E_loc], max=room).to(torch.int32)
+    if a2a:
+        ct = -(-T // group.size)
+        n_s = min(C, ct if router_fn is None else ct * top_k)
+        y = _experts_on_ranks(x, combine_w, params, group, order=order,
+                              tok_of=tok_of, s_sorted=s_sorted,
+                              pos_in_e=pos_in_e, keep=keep,
+                              group_sizes=group_sizes, n=n, n_s=n_s,
+                              top_k=top_k, gated=gated)
+        return y, aux
     # flat buffer row: expert * n + pos_in_e, the overflow row E_loc * n
     dst = torch.where(keep, e_sorted * n + pos_in_e,
                       torch.full_like(pos_in_e, E_loc * n))
@@ -200,20 +331,7 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     hidden_in = buf[:E_loc * n].view(E_loc, n, d)
 
     # --- grouped expert FFN: three launches of the grouped matmul -----------
-    # valid rows per expert buffer; rows >= size come out 0 either way.  The
-    # casts stay outside the Function, so dw reaches f32 params through them
-    group_sizes = torch.clamp(counts[:E_loc], max=room).to(torch.int32)
-    if gated:
-        g = F.silu(grouped_matmul(hidden_in, params["w_gate"].to(x.dtype),
-                                  group_sizes))
-        u = grouped_matmul(hidden_in, params["w_up"].to(x.dtype),
-                           group_sizes)
-        h = g * u
-    else:
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(grouped_matmul(hidden_in, params["w_up"].to(x.dtype),
-                                  group_sizes), approximate="tanh")
-    out_e = grouped_matmul(h, params["w_down"].to(x.dtype), group_sizes)
+    out_e = _expert_ffn(hidden_in, params, group_sizes, gated, x.dtype)
 
     # --- combine: gather back and weight ------------------------------------
     # dropped entries read expert 0's row n - 1 (JAX's clamp of slot C)

@@ -90,7 +90,10 @@ every rank samples from the same full logits.  In training each sharded
 region starts with ``copy_to`` (identity forward, the gradient all-reduced
 backward) and the head's gather gives each rank its slice of the gradient,
 so every replicated tensor gets its whole gradient.  Without a group none of
-them runs.
+them runs.  Under ``shard_experts`` (JAX's hint; ``ServingEngine`` does not
+take it, as the JAX engine does not) the params hold whole experts in the
+padded layout and a MoE layer ends with two all-to-alls and an all-gather
+of the ranks' tokens instead of the all-reduce (``models.moe``).
 
 Data parallelism (``dp_group``, training only): the batch is the rank's
 rows (``sharding.shard_batch``); ``loss_fn`` divides the rank's weighted
@@ -423,7 +426,7 @@ def _attn_mlp_block(p, x, cfg, norm_fn=rmsnorm, **kw):
 
 
 def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
-                    dp_group=None, **kw):
+                    dp_group=None, shard_experts=False, **kw):
     """Returns (x, new_cache, the layer's MoE aux loss)."""
     h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
                               cfg, **kw)
@@ -448,7 +451,8 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
                      capacity_factor=cfg.moe.capacity_factor,
                      gated=cfg.mlp_gated, router_fn=routing_hook,
                      positions=pos_flat, layer=layer_idx, valid=valid,
-                     group=kw["group"], dp_group=dp_group)
+                     group=kw["group"], dp_group=dp_group,
+                     shard_experts=shard_experts)
     return x + y.reshape(B, S, d), new_cache, aux
 
 
@@ -575,6 +579,10 @@ class Model:
     # seq_group``: the data group of a batch-1 decode, or ``group`` itself
     # under seq_shard_cache); None: every rank holds whole sequences
     seq_group: Optional[Any] = None
+    # JAX's expert-buffer hint: under ``group`` the params hold whole
+    # experts in the padded layout and the MoE layers carry the tokens to
+    # them by all-to-all (``moe_ffn``); without a group it changes nothing
+    shard_experts: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in ("flash", "chunked", "folded"):
@@ -683,7 +691,8 @@ class Model:
                                    layer_idx=moe_layer,
                                    routing_hook=self.routing_hook,
                                    row_valid=row_valid,
-                                   dp_group=self.dp_group, **kw)
+                                   dp_group=self.dp_group,
+                                   shard_experts=self.shard_experts, **kw)
         if st.kind == ATTN_MLP:
             x, nc = _attn_mlp_block(
                 p, x, cfg, window=self._window_for_layer(

@@ -24,7 +24,8 @@ rank's: ``rank_state``, ``sharding.shard_batch``):
   global loss's, so after the microbatches the gradients are summed over
   the data-parallel group: the mean over dp of the ranks' usual
   data-parallel gradients;
-* over the model axis, the leaves ``sharding.leaf_plan`` marks are summed:
+* over the model axis, the leaves ``sharding.leaf_plan`` marks are summed
+  (an expert held whole on one rank, ``Model.shard_experts``, is not):
   ``q_norm``/``k_norm`` over the model group, and the columns of each KV
   head that several ranks read (their ``wk``/``wv``/``bk``/``bv``) over
   those ranks (``sharding.shared_kv_heads``; one group a head, made here
@@ -81,7 +82,7 @@ def layout_for(model, params, grid, zero1: bool = False) -> Layout:
     tp = grid.tp
     data = grid.mesh.shape["data"]
     plans = leaf_plan(params, model.cfg, tp, grid.coords["model"], data,
-                      zero1)
+                      zero1, model.shard_experts)
     return Layout(plans, grid.model if tp > 1 else None,
                   grid.data if zero1 and data > 1 else None)
 
@@ -206,6 +207,6 @@ def rank_state(model, optimizer: AdamW, params, grid,
     moments, under ``zero1`` its slice of them over the data axis."""
     from repro_torch.launch.sharding import shard_params
     params = shard_params(params, grid.coords["model"], grid.tp,
-                          cfg=model.cfg)
+                          cfg=model.cfg, shard_experts=model.shard_experts)
     return TrainState(params, optimizer.init(
         params, layout_for(model, params, grid, zero1)))
