@@ -201,7 +201,10 @@ result line:
    AdamW steps at (1, 2) with the flag and without it (16 and 40 divide
    tp = 2: the expert-parallel layout, only the token flow differs): the
    flag's run within the f32 tolerance of the CPU's one process and
-   within rtol 1e-4, atol 1e-5 of the flag-off run;
+   within rtol 1e-4, atol 1e-5 of the flag-off run, and step 0's
+   gradients of both runs within 1e-5 of each leaf's largest on the CPU
+   (the params off the CPU's at 1e-5 printed with their step-0 |g|: Adam
+   turns a gradient near its eps into a different step);
 11. query heads that do not divide tp (GSPMD's padded layout, each rank's
    KV heads as KV slots of one group size): one spawn of three ranks and
    one of four share the card over gloo (a check of the sharded path and
@@ -226,8 +229,11 @@ result line:
    collectives against meta), and a B1 S1024 prefill with 4 decode steps
    (a decode's one token leaves ranks 1 and 2 with none) against tp = 1
    on the same weights, in f32 within 1e-4 of the largest logit and in
-   bf16 printed beside tp = 1's own run-to-run difference (bf16 MoE
-   logits do not repeat on the card); phases 2 and 3 hold and time the
+   bf16 within 2e-2 of it (the routing pinned to tp = 1's choices when an
+   expert flips at a near tie, the flips printed), tp = 1's two bf16 runs
+   bitwise equal (the combine adds in a fixed order); one bf16 AdamW step
+   of tiny granite-moe-3b (40 experts, top-8) at tp = 1 repeats bitwise
+   (loss and params) on the card; phases 2 and 3 hold and time the
    grouped matmul and its backward at rank 0's E14 C512 d1536 f512 (both
    directions), their launches from (c); phases 2 and 3 hold the attention
    kernels at the rank shapes (H12 on 4 and on 2 KV slots at tp = 3; H3
@@ -3125,6 +3131,33 @@ def _params_close(got, want, lr, steps, rtol=1e-3, atol=1e-4):
     return ok, worst
 
 
+def _grads_err(got, want):
+    """The largest, over two lists of gradient (or first-moment) tensors,
+    of a leaf's max |got - want| over its largest |want|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        top = float(b.abs().max()) if b.numel() else 0.0
+        worst = max(worst, d / top if top else (math.inf if d else 0.0))
+    return worst
+
+
+def _off_entries(got, want, grads, rtol, atol):
+    """The param entries off ``want`` by more than atol + rtol |want|:
+    (their count, the largest |grad| among them, the largest |grad| of
+    their leaves)."""
+    n, g_off, g_leaf = 0, 0.0, 0.0
+    for a, b, g in zip(got, want, grads):
+        a, b, g = (t.detach().double().cpu() for t in (a, b, g))
+        bad = (a - b).abs() > atol + rtol * b.abs()
+        if bad.any():
+            n += int(bad.sum())
+            g_off = max(g_off, float(g.abs()[bad].max()))
+            g_leaf = max(g_leaf, float(g.abs().max()))
+    return n, g_off, g_leaf
+
+
 def _tiny_batches(cfg, B=4, S=32, n=TINY_TRAIN_STEPS, seed=12):
     import numpy as np
     import torch
@@ -3641,10 +3674,18 @@ GRID_STEPS = 2
 #: expert-parallel layout, only the token flow differs): the two card runs
 #: within ``tests/test_torch_grid.py``'s TOL of each other, and the run
 #: under the flag within the f32 tolerance of the CPU's one process, as
-#: phase 10's other tiny runs (card against CPU, the flag-off run misses
-#: atol 1e-5 by the same entries: 81 of w_gate's 65,536 for phimini)
+#: phase 10's other tiny runs.  Card against CPU, the params miss atol
+#: 1e-5 at a few entries with or without the flag, though step 0's
+#: gradients agree (gated below): Adam moves an entry whose gradient is
+#: within ~100 of its eps (1e-8) by a step that depends on that
+#: gradient's last bits, and step 1 starts from the moved entries
+#: (``tools/moe_card_probe.py``)
 GRID_SE_TINY = ("phimini-moe-tiny", "granite-moe-3b-a800m-tiny")
 GRID_TOL = dict(rtol=1e-4, atol=1e-5)
+#: and their step-0 gradients, both runs against the CPU's: every leaf's
+#: first moment after step 0 ((1 - b1) times the completed gradient) within
+#: 1e-5 of the leaf's largest on the CPU
+GRAD_RTOL = 1e-5
 #: phase 10 (b)'s uncounted steps, timed one by one: the first measures
 #: the peak, the median of all is the step p50
 GRID_TIMED = 5
@@ -3668,7 +3709,9 @@ def _se_tiny_cfg(arch):
 def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1,
                     shard_experts=False):
     """(a) on one rank: two steps of tiny f32 ``cfg`` on the card from the
-    CPU's weights; (losses, grad norms, the rank's params on the host)."""
+    CPU's weights; (losses, grad norms, the rank's params on the host, its
+    first moments and params after step 0, the moments (1 - b1) times the
+    completed gradient)."""
     from repro_torch.launch.sharding import shard_batch
     from repro_torch.models import Model
     from repro_torch.train import AdamW
@@ -3680,14 +3723,18 @@ def _grid_tiny_rank(torch, grid, cfg, params_cpu, batches, zero1,
     full = map_tree(lambda t: t.detach().to(dev).clone(), params_cpu)
     state = rank_state(model, AdamW(lr=TINY_TRAIN_LR), full, grid, zero1)
     step = _grid_step(grid, model, zero1)
-    losses, norms = [], []
+    losses, norms, first = [], [], None
     for b in batches:
         mine = shard_batch({k: v.to(dev) for k, v in b.items()},
                            grid.dp_rank, grid.dp_size)
         state, m = step(state, mine)
         losses.append(float(m["loss_total"]))
         norms.append(float(m["grad_norm"]))
-    return losses, norms, map_tree(lambda t: t.detach().cpu(), state.params)
+        if first is None:
+            first = map_tree(lambda t: t.detach().cpu().clone(),
+                             (state.opt.mu, state.params))
+    return (losses, norms, map_tree(lambda t: t.detach().cpu(),
+                                    state.params), first)
 
 
 def _grid_full_rank(torch, grid, arch, zero1, cfg=None, B=GRID_B,
@@ -3824,7 +3871,7 @@ def _grid_rank(group, job):
 
 def _grid_reference(torch, cfg, params, batches):
     """The CPU's one-process run of phase 10 (a): (losses, grad norms,
-    params)."""
+    params, first moments and params after step 0)."""
     from repro_torch.models import Model
     from repro_torch.train import (AdamW, TrainState, TrainStepConfig,
                                    make_train_step)
@@ -3833,12 +3880,15 @@ def _grid_reference(torch, cfg, params, batches):
     p = map_tree(lambda t: t.detach().clone(), params)
     state = TrainState(p, opt.init(p))
     step = make_train_step(Model(cfg, remat=True), opt, TrainStepConfig())
-    losses, norms = [], []
+    losses, norms, first = [], [], None
     for b in batches:
         state, m = step(state, b)
         losses.append(float(m["loss_total"]))
         norms.append(float(m["grad_norm"]))
-    return losses, norms, state.params
+        if first is None:
+            first = map_tree(lambda t: t.detach().clone(),
+                             (state.opt.mu, state.params))
+    return losses, norms, state.params, first
 
 
 def _grid_full_check(card, path, o, phase="phase 10"):
@@ -3900,6 +3950,7 @@ def grid_training_on_card(torch, card):
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.sharding import gather_params
     from repro_torch.models import Model
+    from repro_torch.train import AdamW
     from repro_torch.train.tree import leaves
     t0 = time.perf_counter()
     job = {"tiny": {}, "batches": {}, "rec": _rec_job(torch, TP),
@@ -3929,7 +3980,7 @@ def grid_training_on_card(torch, card):
     tol = TOL["float32"]
     for arch, (dp, tp), zero1 in GRID_TINY:
         cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
-        losses, norms, want = refs[arch]
+        losses, norms, want, _ = refs[arch]
         got = [r["tiny"][(arch, (dp, tp))] for r in ranks]
         err = max(abs(a - b) / abs(b) for g in got
                   for a, b in zip(g[0] + g[1], losses + norms))
@@ -3951,9 +4002,10 @@ def grid_training_on_card(torch, card):
               f"tiny {arch} on the grid (dp {dp}, tp {tp}) differs from the "
               f"CPU's one process (losses/norms {err}, params {perr}, "
               f"ranks equal {same})")
+    b1 = AdamW().b1
     for arch in GRID_SE_TINY:
         cfg = _se_tiny_cfg(arch)
-        losses, norms, want = se_refs[arch]
+        losses, norms, want, (want_mu, want_p0) = se_refs[arch]
         got = [r["se"][arch][0] for r in ranks]
         off = [r["se"][arch][1] for r in ranks]
         err = max(abs(a - b) / abs(b) for g in got
@@ -3966,6 +4018,15 @@ def grid_training_on_card(torch, card):
             leaves(full), leaves(gather_params([g[2] for g in off], cfg, TP)),
             TINY_TRAIN_LR, GRID_STEPS, **GRID_TOL)
         held = [tuple(g[2]["stage0"]["moe"]["w_up"].shape[:2]) for g in got]
+        gerr = [_grads_err(leaves(gather_params(
+            [g[3][0] for g in runs], cfg, TP, shard_experts=flag)),
+            leaves(want_mu)) for runs, flag in ((got, True), (off, False))]
+        grads0 = [m / (1 - b1) for m in leaves(want_mu)]
+        n0, g0, g_leaf = _off_entries(leaves(gather_params(
+            [g[3][1] for g in got], cfg, TP, shard_experts=True)),
+            leaves(want_p0), grads0, **GRID_TOL)
+        n_off = _off_entries(leaves(full), leaves(want), grads0,
+                             **GRID_TOL)[0]
         print(f"phase 10: tiny {arch} f32 under shard_experts at (1, 2), "
               f"E{cfg.moe.n_experts} top-{cfg.moe.top_k} ((layers, experts) "
               f"a rank {held}), two ranks on the card, {GRID_STEPS} steps: "
@@ -3974,11 +4035,22 @@ def grid_training_on_card(torch, card):
               f"{err:.2g} (tol {tol}); params max abs err {perr:.3g} (tol "
               f"{tol} + {tol} |x| but Adam's ill-conditioned entries); "
               f"against the flag-off run on the card {serr:.3g} (rtol "
-              f"{GRID_TOL['rtol']}, atol {GRID_TOL['atol']})")
+              f"{GRID_TOL['rtol']}, atol {GRID_TOL['atol']}); step 0's "
+              f"gradients against the CPU's, largest over a leaf's largest, "
+              f"with / without the flag {gerr[0]:.3g} / {gerr[1]:.3g} (tol "
+              f"{GRAD_RTOL}); params off the CPU's at rtol "
+              f"{GRID_TOL['rtol']}, atol {GRID_TOL['atol']}: {n0} after "
+              f"step 0, their step-0 |g| at most {g0:.3g} against their "
+              f"leaves' largest {g_leaf:.3g} (Adam's eps 1e-08), {n_off} "
+              f"after step 1")
         check(err <= tol and ok and same,
               f"tiny {arch} under shard_experts at (1, 2) differs from the "
               f"CPU's one process (losses/norms {err}, params {perr}) or "
               f"from the flag-off run on the card ({serr})")
+        check(max(gerr) <= GRAD_RTOL,
+              f"tiny {arch} at (1, 2): step 0's gradients differ from the "
+              f"CPU's by {gerr} of a leaf's largest (with / without "
+              f"shard_experts; tol {GRAD_RTOL})")
     by_path = {}
     for path, arch, (dp, tp), zero1 in GRID_FULL:
         for r in ranks:
@@ -4115,19 +4187,62 @@ def _prefill_decode(torch, model, params, toks, dec):
     return out
 
 
+@contextlib.contextmanager
+def _routing_spy():
+    """Records each ``router_topk`` call's expert choices (T, k), on the
+    host, in call order (a layer's call a model call); changes nothing."""
+    from repro_torch.models import moe
+    orig, seen = moe.router_topk, []
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(out[0].cpu())
+        return out
+    moe.router_topk = spy
+    try:
+        yield seen
+    finally:
+        moe.router_topk = orig
+
+
+def _pin_hook(torch, choices):
+    """A routing hook under ``repro_torch.moe.hooks``' contract that sends
+    the tokens of each call, in call order, to the experts ``choices``
+    recorded for it, weighted by the run's own softmax over them,
+    renormalised as the router does."""
+    it = iter(choices)
+
+    def hook(logits, *, positions, layer, top_k, valid=None):
+        idx = next(it).to(logits.device).long()
+        w = torch.softmax(logits, dim=-1).gather(1, idx)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        return idx.to(torch.int32), w, torch.zeros((), device=logits.device)
+    return hook
+
+
+def _flips(got, want):
+    """(layer, token) choices whose expert sets differ between two runs'
+    recorded routing (the same calls in the same order)."""
+    return sum(int((a.sort(dim=-1).values != b.sort(dim=-1).values)
+                   .any(dim=-1).sum()) for a, b in zip(got, want))
+
+
 def _se_logits(torch, group):
-    """Phase 11 (b) under shard_experts on one rank: granite-moe-3b-a800m
+    """Phase 11 (c) under shard_experts on one rank: granite-moe-3b-a800m
     at published widths cut to 2 layers, one seeded draw on every rank; a
     B1 S1024 prefill and ``SE_STEPS`` decode steps through ``Model`` at tp
     = 1 and at (1, 3) with the rank's whole experts (a decode row's one
     token: ranks 1 and 2 hold none), in f32 compute and in bf16.  Returns
     {dtype: (the largest |got - want| over the calls, the largest |logit|
-    of tp = 1's, every logit finite)}, the bf16 tp = 1 path's own largest
-    difference between two runs, and the grouped matmul launches of the
-    sharded calls.  bf16 MoE logits on the card do not repeat: the
-    combine's atomic adds reorder, a later router flips an expert and a
-    decode step's logits move by up to ~0.8 of ~4 (``PERF.md``), so the
-    f32 run is the one held to tp = 1."""
+    of tp = 1's, every logit finite)}, whether the bf16 tp = 1 path's two
+    runs are bitwise equal and their largest difference, the (layer,
+    token) expert choices that flipped between tp = 1's bf16 run and the
+    rank's, and the grouped matmul launches of the sharded calls.  The
+    combine adds in a fixed order, so a run repeats bitwise; at tp = 3 the
+    attention's output projection sums its ranks' parts in another order
+    than tp = 1, and a near-tied expert can flip: then both bf16 runs are
+    made again with the routing pinned to tp = 1's choices
+    (``_pin_hook``), and that pair is the one compared."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.sharding import shard_params
@@ -4146,22 +4261,71 @@ def _se_logits(torch, group):
     ops.reset_launch_counts()
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, compute_dtype=dtype)
-        got = _prefill_decode(torch, Model(cfg, group=group,
-                                           shard_experts=True),
-                              mine, toks, dec)
-        want = _prefill_decode(torch, Model(cfg), full, toks, dec)
+        with _routing_spy() as routed:
+            got = _prefill_decode(torch, Model(cfg, group=group,
+                                               shard_experts=True),
+                                  mine, toks, dec)
+        with _routing_spy() as chosen:
+            want = _prefill_decode(torch, Model(cfg), full, toks, dec)
         out[dtype] = (max(float((a - b).abs().max())
                           for a, b in zip(got, want)),
                       max(float(b.abs().max()) for b in want),
                       all(bool(torch.isfinite(a).all()) for a in got))
     again = _prefill_decode(torch, Model(cfg), full, toks, dec)
+    same = all(torch.equal(a, b) for a, b in zip(again, want))
     spread = max(float((a - b).abs().max()) for a, b in zip(again, want))
+    flips = _flips(routed, chosen)
+    if flips:
+        got = _prefill_decode(torch, Model(
+            cfg, group=group, shard_experts=True,
+            routing_hook=_pin_hook(torch, chosen)), mine, toks, dec)
+        want = _prefill_decode(torch, Model(
+            cfg, routing_hook=_pin_hook(torch, chosen)), full, toks, dec)
+        out["pinned"] = (max(float((a - b).abs().max())
+                             for a, b in zip(got, want)),
+                         max(float(b.abs().max()) for b in want),
+                         all(bool(torch.isfinite(a).all()) for a in got))
     torch.cuda.synchronize()
     launches = ops.launch_counts()["moe_gmm"]
     del mine, full, got, want, again
     gc.collect()
     torch.cuda.empty_cache()
-    return out, spread, launches
+    return out, (same, spread), flips, launches
+
+
+def _se_train_repeat(torch):
+    """Phase 11 (c)'s train-step repeat: one AdamW step of tiny
+    granite-moe-3b with its published 40 experts and top-8, bf16 compute,
+    tp = 1 on the card, twice from the same weights and batch: (loss and
+    params bitwise equal, the largest param difference, the loss, the
+    grouped matmul's forward and backward launches of a step)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamW, TrainState, TrainStepConfig,
+                                   make_train_step)
+    from repro_torch.train.tree import leaves, map_tree
+    cfg = dataclasses.replace(_se_tiny_cfg("granite-moe-3b-a800m-tiny"),
+                              compute_dtype="bfloat16")
+    params = Model(cfg).init(torch.Generator().manual_seed(3))
+    batch = {k: v.cuda() for k, v in
+             _tiny_batches(cfg, n=1, seed=16)[0].items()}
+    runs = []
+    for _ in range(2):
+        opt = AdamW(lr=TINY_TRAIN_LR)
+        p = map_tree(lambda t: t.detach().cuda().clone(), params)
+        step = make_train_step(Model(cfg, remat=True), opt,
+                               TrainStepConfig())
+        ops.reset_launch_counts()
+        state, m = step(TrainState(p, opt.init(p)), batch)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        runs.append((m["loss_total"].detach().clone(),
+                     leaves(state.params)))
+    (l0, p0), (l1, p1) = runs
+    same = bool(torch.equal(l0, l1)) and all(
+        torch.equal(a, b) for a, b in zip(p0, p1))
+    diff = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+    return same, diff, float(l0), (counts["moe_gmm"], counts["moe_gmm_bwd"])
 
 
 def _heads_rank(group, job):
@@ -4308,7 +4472,7 @@ def heads_on_card(torch, card):
                       f"{json.dumps(ref_pd['network_bytes'])} == the CPU's "
                       f"P/D at tp = 1 on every rank; decisions == the "
                       f"simulator's at the engines' tp")
-        losses, norms, want = ref_train
+        losses, norms, want, _ = ref_train
         got = [r["train"] for r in ranks]
         terr = max(abs(a - b) / abs(b) for g in got
                    for a, b in zip(g[0] + g[1], losses + norms))
@@ -4384,24 +4548,51 @@ def heads_on_card(torch, card):
                   coll.get("model", {}).get("all-to-all", 0) > 0,
                   f"{SE_TRAIN_PATH} rank {r['rank']}: launched {launched}, "
                   f"collectives {coll}")
+        bf16 = TOL["bfloat16"]
         for r in ranks:
-            errs, spread, gmm = r["se_logits"]
+            errs, (same, spread), flips, gmm = r["se_logits"]
             (e32, t32, ok32), (e16, t16, ok16) = (errs["float32"],
                                                   errs["bfloat16"])
+            p16, pt16, pok16 = errs.get("pinned", (e16, t16, ok16))
             tol = TOL["float32"]
+            pinned = (f"with the routing pinned to tp = 1's choices "
+                      f"{p16:.4g} ({p16 / pt16:.2%} of {pt16:.4g}; tol "
+                      f"{bf16}), unpinned {e16:.4g}" if flips else
+                      f"{e16:.4g} ({e16 / t16:.2%} of {t16:.4g}; tol {bf16})")
             print(f"phase 11 [{card}] shard_experts {SE_ARCH} (2 layers) "
                   f"at (1, 3), rank {r['rank']} holding {held[r['rank']]} "
                   f"of {E} experts: B1 S1024 prefill and {SE_STEPS} decode "
                   f"steps against tp = 1's on the same weights: f32 logits "
                   f"max abs err {e32:.3g} ({e32 / t32:.2e} of the largest, "
-                  f"{t32:.4g}; tol {tol}); bf16 {e16:.4g} ({e16 / t16:.2%} "
-                  f"of {t16:.4g}), tp = 1's own two bf16 runs {spread:.4g} "
-                  f"apart; {gmm} moe_gmm launches; {r['se_s']:.1f} s of the "
-                  f"rank's work")
-            check(e32 <= tol * t32 and ok32 and ok16 and gmm > 0,
+                  f"{t32:.4g}; tol {tol}); tp = 1's two bf16 runs bitwise "
+                  f"equal: {same} (largest difference {spread:.4g}); "
+                  f"(layer, token) expert choices flipped against tp = 1's "
+                  f"bf16 run: {flips}; bf16 {pinned}; {gmm} moe_gmm "
+                  f"launches; {r['se_s']:.1f} s of the rank's work")
+            check(e32 <= tol * t32 and ok32 and ok16 and pok16 and gmm > 0,
                   f"shard_experts {SE_ARCH} rank {r['rank']}: f32 logits "
                   f"max err {e32} against tp = 1's largest {t32} (tol "
-                  f"{tol}), finite {ok32}/{ok16}, {gmm} moe_gmm launches")
+                  f"{tol}), finite {ok32}/{ok16}/{pok16}, {gmm} moe_gmm "
+                  f"launches")
+            check(same and spread == 0,
+                  f"shard_experts {SE_ARCH} rank {r['rank']}: tp = 1's two "
+                  f"bf16 runs differ by {spread}")
+            check(p16 <= bf16 * pt16,
+                  f"shard_experts {SE_ARCH} rank {r['rank']}: bf16 logits "
+                  f"max err {p16} against tp = 1's largest {pt16} (tol "
+                  f"{bf16}; {flips} choices flipped, "
+                  f"{'pinned' if flips else 'unpinned'})")
+        t1 = time.perf_counter()
+        same, diff, loss, (fwd, bwd) = _se_train_repeat(torch)
+        print(f"phase 11 [{card}] tiny granite-moe-3b-a800m bf16, "
+              f"{E} experts top-8, one AdamW step twice on the card from "
+              f"the same weights and batch: loss {loss:.6g}, loss and "
+              f"params bitwise equal: {same} (largest param difference "
+              f"{diff:.3g}); {fwd} moe_gmm and {bwd} moe_gmm_bwd launches "
+              f"a step; {time.perf_counter() - t1:.1f} s")
+        check(same and fwd > 0 and bwd > 0,
+              f"tiny granite-moe-3b bf16 top-8 train step: two runs differ "
+              f"(params by up to {diff}) or launched {fwd} / {bwd}")
         by_path[SE_TRAIN_PATH] = ranks[0]["se_train"]["path_launches"]
     print(f"phase 11: ran {time.perf_counter() - t0:.1f} s")
     return by_path
@@ -4651,7 +4842,7 @@ def recurrent_tp_on_card(torch, card, grid_ranks):
                       f"on every rank; decisions == the simulator's at the "
                       f"engines' tp")
         if zamba:
-            losses, norms, want = ref_train
+            losses, norms, want, _ = ref_train
             got = [r["train"] for r in ranks]
             terr = max(abs(a - b) / abs(b) for g in got
                        for a, b in zip(g[0] + g[1], losses + norms))

@@ -4,12 +4,18 @@ The counterpart of ``repro/models/moe.py`` on its ``backend="pallas"``
 branch: tokens are sorted by expert id, packed into per-expert capacity
 buffers, run through the grouped expert matmul (``kernels.ops.moe_gmm``:
 the Hopper kernel for CUDA tensors, its plain version for CPU tensors)
-three times (gate, up, down; twice for the GELU path) and scattered back
-with their combine weights.  Capacity overflow is dropped.  In training
-the three products go through ``grouped_matmul``, an autograd Function
-whose backward is ``kernels.ops.moe_gmm_bwd`` (the Hopper kernel on the
-card, its plain version on the CPU): the JAX package differentiates its
-einsum branch with XLA's autodiff instead.
+three times (gate, up, down; twice for the GELU path) and combined back
+with their weights.  Capacity overflow is dropped.  The combine
+(``combine``) adds each token's weighted rows one after another in
+ascending sorted position, rounding in the compute dtype after each add:
+the order in which JAX's ``.at[tok_of].add`` runs on the CPU, so the two
+agree bitwise in f32 and bf16, and with no float atomics the sum repeats
+on the card at any top-k (``index_add_``'s atomics reordered it there
+past top-2).  In training the three products go through
+``grouped_matmul``, an autograd Function whose backward is
+``kernels.ops.moe_gmm_bwd`` (the Hopper kernel on the card, its plain
+version on the CPU): the JAX package differentiates its einsum branch
+with XLA's autodiff instead.
 
 Under tensor parallelism (``group``) the router and the top-k run on every
 rank (the router is replicated), so the capacity and the drops equal tp =
@@ -43,9 +49,11 @@ for row, runs the grouped matmul on it (none for a rank with no expert,
 which still joins every collective with empty blocks), and a second
 all-to-all sends the rows back.  Each rank combines its own tokens, and
 ``collectives.gather_rows`` all-gathers them over the group: no
-all-reduce.  Without a group the flag changes nothing, as the hint
-changes nothing on one device.  The JAX package turns its Pallas kernel
-off under the hint; the port keeps its grouped matmul.
+all-reduce.  A rank adds its tokens' rows in tp = 1's order, so on the
+CPU the gathered output equals tp = 1's bitwise.  Without a group the
+flag changes nothing, as the hint changes nothing on one device.  The
+JAX package turns its Pallas kernel off under the hint; the port keeps
+its grouped matmul.
 
 Under data parallelism (``dp_group``, training) the routing is the whole
 batch's, as JAX's over its global microbatch: the capacity comes from the
@@ -138,6 +146,36 @@ def router_topk(x, w_router, top_k: int, dp_group=None):
     return expert_idx.to(torch.int32), combine_w, aux
 
 
+def entries_by_token(tok_of: torch.Tensor, top_k: int, lo: int = 0,
+                     n_tok: int | None = None) -> torch.Tensor:
+    """The sorted positions of the entries of tokens ``lo`` to ``lo + n_tok
+    - 1`` (every token when ``n_tok`` is None), each token's ``top_k``
+    consecutive and ascending: ``tok_of`` (T * top_k,) is the token of
+    each sorted entry, and every token has exactly ``top_k``."""
+    pos = torch.argsort(tok_of, stable=True)
+    return pos if n_tok is None else pos[lo * top_k:(lo + n_tok) * top_k]
+
+
+def combine(rows: torch.Tensor, w: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The MoE combine: y (T, d) from ``rows`` (T * top_k, d), the entries'
+    expert outputs, and ``w`` (T * top_k,), their combine weights in
+    ``rows``' dtype, each token's ``top_k`` entries consecutive in ascending
+    sorted position (``entries_by_token``).  Each product is rounded to
+    the dtype, then a token's products are added one after another, every
+    add rounded: the order of JAX's ``jnp.zeros((T, d)).at[tok_of].add(
+    contrib)``, which XLA:CPU runs update by update in index order.  So y
+    equals JAX's bitwise in f32 and bf16 (JAX's sum starts from +0, so a
+    token whose every product is -0 gives -0 here and +0 there), and the
+    sum takes no float atomics and repeats on the card.  ``top_k``
+    launches: the product and ``top_k - 1`` adds (``sum`` over k would
+    accumulate bf16 in f32: another result)."""
+    contrib = (rows * w[:, None]).view(-1, top_k, rows.shape[-1])
+    y = contrib[:, 0]
+    for j in range(1, top_k):
+        y = y + contrib[:, j]
+    return y
+
+
 def _expert_ffn(hidden_in, params, group_sizes, gated: bool, dtype):
     """The grouped expert FFN on ``(E, n, d)``: three launches of the
     grouped matmul (two on the GELU path).  Rows at or past a group's size
@@ -217,14 +255,16 @@ def _experts_on_ranks(x, combine_w, params, group, *, order, tok_of,
     back[rrow] = _pad_row(out_e.reshape(E_loc * n, d))[brow]
     got = all_to_all(back[:tp * E_loc * n_s], group, [E_loc * n_s] * tp,
                      [k * n_s for k in exp_n])
-    # combine the rank's tokens in sorted order (the others and the drops
-    # read the zero row with weight 0 into the row past them)
-    gathered = _pad_row(got)[torch.where(sent, s_sorted * n_s + j, E * n_s)]
-    cw = _pad_row(take_rows(combine_w, group, tok_n).reshape(-1))
-    w = cw[torch.where(sent, order - tlo * top_k, T_loc * top_k)].to(x.dtype)
-    y = torch.zeros((T_loc + 1, d), dtype=x.dtype, device=dev).index_add_(
-        0, torch.where(src == me, mine, T_loc), gathered * w[:, None])
-    return gather_rows(y[:T_loc], group, tok_n)
+    # combine the rank's tokens, each in ascending sorted position as at tp
+    # = 1 (a dropped entry reads the zero row past the received ones)
+    pos = entries_by_token(tok_of, top_k, tlo, T_loc)
+    kept = keep[pos]
+    rows = _pad_row(got)[torch.where(kept, (s_sorted * n_s + j)[pos],
+                                     E * n_s)]
+    cw = take_rows(combine_w, group, tok_n).reshape(-1)
+    w = (cw[order[pos] - tlo * top_k] * kept).to(x.dtype)
+    y = combine(rows, w, top_k)
+    return gather_rows(y, group, tok_n)
 
 
 def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
@@ -333,15 +373,11 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     # --- grouped expert FFN: three launches of the grouped matmul -----------
     out_e = _expert_ffn(hidden_in, params, group_sizes, gated, x.dtype)
 
-    # --- combine: gather back and weight ------------------------------------
+    # --- combine: gather back and weight, in JAX's order ---------------------
     # dropped entries read expert 0's row n - 1 (JAX's clamp of slot C)
-    src = torch.where(keep, dst, torch.full_like(dst, n - 1))
-    gathered = out_e.reshape(E_loc * n, d)[src]             # (T*k, d)
+    # with weight 0; each token's entries in ascending sorted position
+    src = torch.where(keep, dst, n - 1)
     w = (combine_w.reshape(-1)[order] * keep).to(x.dtype)
-    contrib = gathered * w[:, None]
-    # sorted-order adds onto zeros: with top-2 each row takes exactly two
-    # adds, so the order cannot change a bit even where index_add_ runs on
-    # atomics (the card); with top_k > 2 it can in the last bit
-    y = torch.zeros((T, d), dtype=x.dtype, device=x.device) \
-        .index_add_(0, tok_of, contrib)
+    pos = entries_by_token(tok_of, top_k)
+    y = combine(out_e.reshape(E_loc * n, d)[src[pos]], w[pos], top_k)
     return reduce_from(y, group), aux
