@@ -149,6 +149,7 @@ from repro_torch.models.layers import (chunked_attention,
                                        rmsnorm, rmsnorm_ct16, rope,
                                        swiglu_mlp)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.obs.spans import NOOP, span
 
 #: stage kinds that carry per-slot recurrent state
 RECURRENT = (MAMBA2, ZAMBA_SUPER, XLSTM_PAIR)
@@ -290,43 +291,52 @@ def _chunk_kv(k, v, cfg: ArchConfig) -> dict:
     return {"k": k.to(dtype).contiguous(), "v": v.to(dtype).contiguous()}
 
 
-def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
-               cache, block_table, page_size, group=None, attn_impl="flash",
-               seq: Optional[SeqShard] = None):
+def _span(mode: str, name: str):
+    """A profiler span (``obs.spans``) in the serving modes; a training
+    step records none."""
+    return NOOP if mode == "train" else span(name)
+
+
+def _attention(p, x, cfg: ArchConfig, *, norm, positions, lengths, window,
+               mode, cache, block_table, page_size, group=None,
+               attn_impl="flash", seq: Optional[SeqShard] = None):
     """One layer's attention over the heads of ``p`` (all of them, or one
-    rank's shard). Returns (out, new_cache).  ``seq``: a decode over the
-    rank's part of a sequence-sharded cache (see ``Model``)."""
+    rank's shard), on ``norm(x)``. Returns (out, new_cache).  ``seq``: a
+    decode over the rank's part of a sequence-sharded cache (see
+    ``Model``)."""
     B, S, _ = x.shape
     dh = cfg.d_head
-    x = copy_to(x, group)
-    if "wqkv" in p:
-        # the fused projection: this rank's query heads' columns, then its
-        # KV heads' K and V columns (``sharding``'s strided pieces)
-        if group is None:
-            H, KV = cfg.n_heads, cfg.n_kv_heads
+    with _span(mode, "attn.proj"):
+        x = copy_to(norm(x), group)
+        if "wqkv" in p:
+            # the fused projection: this rank's query heads' columns, then
+            # its KV heads' K and V columns (``sharding``'s strided pieces)
+            if group is None:
+                H, KV = cfg.n_heads, cfg.n_kv_heads
+            else:
+                qlo, qhi = query_heads(cfg, group.rank, group.size)
+                klo, khi = kv_heads(cfg, group.rank, group.size)
+                H, KV = qhi - qlo, khi - klo
+            q, k, v = torch.split(x @ p["wqkv"].to(x.dtype),
+                                  [H * dh, KV * dh, KV * dh], dim=-1)
         else:
-            qlo, qhi = query_heads(cfg, group.rank, group.size)
-            klo, khi = kv_heads(cfg, group.rank, group.size)
-            H, KV = qhi - qlo, khi - klo
-        q, k, v = torch.split(x @ p["wqkv"].to(x.dtype),
-                              [H * dh, KV * dh, KV * dh], dim=-1)
-    else:
-        H, KV = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
-        q = x @ p["wq"].to(x.dtype)
-        k = x @ p["wk"].to(x.dtype)
-        v = x @ p["wv"].to(x.dtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, dh)
-    k = k.reshape(B, S, KV, dh)
-    v = v.reshape(B, S, KV, dh)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+            H, KV = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+            q = x @ p["wq"].to(x.dtype)
+            k = x @ p["wk"].to(x.dtype)
+            v = x @ p["wv"].to(x.dtype)
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(x.dtype)
+            k = k + p["bk"].to(x.dtype)
+            v = v + p["bv"].to(x.dtype)
+        q = q.reshape(B, S, H, dh)
+        k = k.reshape(B, S, KV, dh)
+        v = v.reshape(B, S, KV, dh)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    with _span(mode, "attn.rope"):
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     keep = None
     if seq is not None and seq.over_model:
         # the sequence splits over the model ranks: each attends every
@@ -346,65 +356,77 @@ def _attention(p, x, cfg: ArchConfig, *, positions, lengths, window, mode,
     if mode in ("train", "prefill") and attn_impl != "flash":
         # the dry run's plain attentions (JAX's attn_impl); folded has no
         # window, so a windowed layer takes chunked
-        if attn_impl == "folded" and window is None:
-            out = folded_causal_attention(q, k, v, lengths=lengths)
-        else:
-            out = chunked_attention(q, k, v, lengths=lengths, window=window)
-        new_cache = None if mode == "train" else _chunk_kv(k, v, cfg)
+        with _span(mode, "attn.kernel"):
+            if attn_impl == "folded" and window is None:
+                out = folded_causal_attention(q, k, v, lengths=lengths)
+            else:
+                out = chunked_attention(q, k, v, lengths=lengths,
+                                        window=window)
+        with _span(mode, "attn.kv_write"):
+            new_cache = None if mode == "train" else _chunk_kv(k, v, cfg)
     elif mode == "train":
         out = flash_attention(q, k, v, lengths, window)
         new_cache = None
     elif mode == "prefill":
-        out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), lengths, window)
-        new_cache = _chunk_kv(k, v, cfg)
+        with span("attn.kernel"):
+            out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), lengths, window)
+        with span("attn.kv_write"):
+            new_cache = _chunk_kv(k, v, cfg)
     else:
         kc, vc = cache["k_pages"], cache["v_pages"]
-        n_pages = kc.shape[0]
-        maxp = block_table.shape[1]
-        rows = torch.arange(B, device=x.device)
-        if mode == "decode" and seq is not None:
-            # the rank's tokens [lo, hi): local lengths, the query at its
-            # local position (below 0 or past the rank's keys where it
-            # lies outside them); the new K/V lands on the rank holding
-            # its position, the others write past the table
-            pos = (lengths.long() - 1 - seq.lo)[:, None]           # (B,1)
-            mine = (pos >= 0) & (pos < seq.hi - seq.lo)
-        elif mode == "decode":
-            pos = torch.clamp(lengths.long() - 1, min=0)[:, None]   # (B,1)
-        else:
-            start = positions[:, 0].to(torch.int32)
-            pos = positions.long()                                  # (B,S)
-        pidx = pos // page_size
-        page = block_table[rows[:, None],
-                           torch.clamp(pidx, min=0, max=maxp - 1)].long()
-        # writes past the table land on the last page, never read
-        past = pidx >= maxp if seq is None else ~mine
-        page = torch.where(past, torch.full_like(page, n_pages - 1), page)
-        off = pos % page_size
-        # in place (index_put_): the pools are the storage of every slot
-        kc[page, off] = k.to(kc.dtype)
-        vc[page, off] = v.to(vc.dtype)
-        if mode == "decode" and seq is not None:
-            local = torch.clamp(lengths - seq.lo, 0,
-                                seq.hi - seq.lo).to(torch.int32)
-            out, lse = ops.paged_attention(
-                q[:, 0].contiguous(), kc, vc, block_table, local,
-                page_size=page_size, start=pos[:, 0].to(torch.int32),
-                window=window, return_lse=True)
-            out = combine_lse(out, lse, seq.group, keep)[:, None]
-        elif mode == "decode":
-            out = ops.paged_attention(q[:, 0].contiguous(), kc, vc,
-                                      block_table, lengths,
-                                      page_size=page_size,
-                                      window=window)[:, None]
-        else:
-            out = ops.paged_attention(q.contiguous(), kc, vc, block_table,
-                                      lengths, page_size=page_size,
-                                      start=start, window=window)
+        with span("attn.kv_write"):
+            n_pages = kc.shape[0]
+            maxp = block_table.shape[1]
+            rows = torch.arange(B, device=x.device)
+            if mode == "decode" and seq is not None:
+                # the rank's tokens [lo, hi): local lengths, the query at
+                # its local position (below 0 or past the rank's keys
+                # where it lies outside them); the new K/V lands on the
+                # rank holding its position, the others write past the
+                # table
+                pos = (lengths.long() - 1 - seq.lo)[:, None]       # (B,1)
+                mine = (pos >= 0) & (pos < seq.hi - seq.lo)
+            elif mode == "decode":
+                pos = torch.clamp(lengths.long() - 1, min=0)[:, None]
+            else:
+                start = positions[:, 0].to(torch.int32)
+                pos = positions.long()                              # (B,S)
+            pidx = pos // page_size
+            page = block_table[rows[:, None],
+                               torch.clamp(pidx, min=0, max=maxp - 1)].long()
+            # writes past the table land on the last page, never read
+            past = pidx >= maxp if seq is None else ~mine
+            page = torch.where(past, torch.full_like(page, n_pages - 1),
+                               page)
+            off = pos % page_size
+            # in place (index_put_): the pools are the storage of every
+            # slot
+            kc[page, off] = k.to(kc.dtype)
+            vc[page, off] = v.to(vc.dtype)
+        with span("attn.kernel"):
+            if mode == "decode" and seq is not None:
+                local = torch.clamp(lengths - seq.lo, 0,
+                                    seq.hi - seq.lo).to(torch.int32)
+                out, lse = ops.paged_attention(
+                    q[:, 0].contiguous(), kc, vc, block_table, local,
+                    page_size=page_size, start=pos[:, 0].to(torch.int32),
+                    window=window, return_lse=True)
+                out = combine_lse(out, lse, seq.group, keep)[:, None]
+            elif mode == "decode":
+                out = ops.paged_attention(q[:, 0].contiguous(), kc, vc,
+                                          block_table, lengths,
+                                          page_size=page_size,
+                                          window=window)[:, None]
+            else:
+                out = ops.paged_attention(q.contiguous(), kc, vc,
+                                          block_table, lengths,
+                                          page_size=page_size, start=start,
+                                          window=window)
         new_cache = cache
-    out = out.reshape(B, S, H * dh)
-    return reduce_from(out @ p["wo"].to(x.dtype), group), new_cache
+    with _span(mode, "attn.out"):
+        out = out.reshape(B, S, H * dh)
+        return reduce_from(out @ p["wo"].to(x.dtype), group), new_cache
 
 
 def _mlp(p, x, cfg: ArchConfig, group=None):
@@ -417,43 +439,49 @@ def _mlp(p, x, cfg: ArchConfig, group=None):
 
 
 def _attn_mlp_block(p, x, cfg, norm_fn=rmsnorm, **kw):
-    h, new_cache = _attention(p["attn"], norm_fn(x, p["norm1"], cfg.norm_eps),
-                              cfg, **kw)
-    x = x + h
-    x = x + _mlp(p["mlp"], norm_fn(x, p["norm2"], cfg.norm_eps), cfg,
-                 kw["group"])
+    h, new_cache = _attention(
+        p["attn"], x, cfg, norm=lambda t: norm_fn(t, p["norm1"],
+                                                  cfg.norm_eps), **kw)
+    with _span(kw["mode"], "mlp"):
+        x = x + h
+        x = x + _mlp(p["mlp"], norm_fn(x, p["norm2"], cfg.norm_eps), cfg,
+                     kw["group"])
     return x, new_cache
 
 
 def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
                     dp_group=None, shard_experts=False, **kw):
     """Returns (x, new_cache, the layer's MoE aux loss)."""
-    h, new_cache = _attention(p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps),
-                              cfg, **kw)
-    x = x + h
-    B, S, d = x.shape
-    xn = rmsnorm(x, p["norm2"], cfg.norm_eps).reshape(B * S, d)
-    pos_flat = valid = None
-    if routing_hook is not None:
-        # the flattened (B*S,) positions key the hook's per-position
-        # tables; the validity mask drops pad tails (prefill/extend) and,
-        # in decode, empty slots (position 0) and rows the engine marked
-        # unscheduled (``row_valid``, from the negative-token sentinel)
-        positions, lengths = kw["positions"], kw["lengths"]
-        pos_flat = positions.reshape(B * S)
-        if kw["mode"] == "decode":
-            valid = pos_flat > 0
-            if row_valid is not None:
-                valid = valid & row_valid[:, None].expand(B, S).reshape(-1)
-        elif lengths is not None:
-            valid = (positions < lengths[:, None]).reshape(B * S)
-    y, aux = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
-                     capacity_factor=cfg.moe.capacity_factor,
-                     gated=cfg.mlp_gated, router_fn=routing_hook,
-                     positions=pos_flat, layer=layer_idx, valid=valid,
-                     group=kw["group"], dp_group=dp_group,
-                     shard_experts=shard_experts)
-    return x + y.reshape(B, S, d), new_cache, aux
+    h, new_cache = _attention(
+        p["attn"], x, cfg, norm=lambda t: rmsnorm(t, p["norm1"],
+                                                  cfg.norm_eps), **kw)
+    with _span(kw["mode"], "moe"):
+        x = x + h
+        B, S, d = x.shape
+        xn = rmsnorm(x, p["norm2"], cfg.norm_eps).reshape(B * S, d)
+        pos_flat = valid = None
+        if routing_hook is not None:
+            # the flattened (B*S,) positions key the hook's per-position
+            # tables; the validity mask drops pad tails (prefill/extend)
+            # and, in decode, empty slots (position 0) and rows the engine
+            # marked unscheduled (``row_valid``, from the negative-token
+            # sentinel)
+            positions, lengths = kw["positions"], kw["lengths"]
+            pos_flat = positions.reshape(B * S)
+            if kw["mode"] == "decode":
+                valid = pos_flat > 0
+                if row_valid is not None:
+                    valid = valid & row_valid[:, None].expand(
+                        B, S).reshape(-1)
+            elif lengths is not None:
+                valid = (positions < lengths[:, None]).reshape(B * S)
+        y, aux = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
+                         capacity_factor=cfg.moe.capacity_factor,
+                         gated=cfg.mlp_gated, router_fn=routing_hook,
+                         positions=pos_flat, layer=layer_idx, valid=valid,
+                         group=kw["group"], dp_group=dp_group,
+                         shard_experts=shard_experts)
+        return x + y.reshape(B, S, d), new_cache, aux
 
 
 def _keep_rows(new, old, row_valid):
@@ -818,20 +846,24 @@ class Model:
         """Returns (logits_last, cache). tokens: (B,S) ids or (B,S,d)
         embeddings; the cache holds the chunk's K/V contiguously, ``(L, B,
         S, KV, dh)`` per stage."""
-        x = self._embed(params, tokens)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device).expand(B, S)
-        if lengths is None:
-            lengths = torch.full((B,), S, dtype=torch.int32,
-                                 device=x.device)
-        x, caches, _ = self._run_stages(params, x, positions=positions,
-                                        lengths=lengths, mode="prefill",
-                                        cache=None, block_table=None)
-        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        idx = torch.clamp(lengths.long() - 1, min=0)
-        x_last = x[torch.arange(B, device=x.device), idx][:, None]
-        caches["lengths"] = lengths
-        return self._head(params, x_last), caches
+        with span("model.prefill"):
+            with span("embed"):
+                x = self._embed(params, tokens)
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            if lengths is None:
+                lengths = torch.full((B,), S, dtype=torch.int32,
+                                     device=x.device)
+            x, caches, _ = self._run_stages(params, x, positions=positions,
+                                            lengths=lengths, mode="prefill",
+                                            cache=None, block_table=None)
+            with span("head"):
+                x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+                idx = torch.clamp(lengths.long() - 1, min=0)
+                x_last = x[torch.arange(B, device=x.device), idx][:, None]
+                logits = self._head(params, x_last)
+            caches["lengths"] = lengths
+            return logits, caches
 
     def decode(self, params, cache, tokens):
         """One decode step. tokens: (B,1) ids or (B,1,d) embeddings.
@@ -842,30 +874,37 @@ class Model:
         scheduled this step; it runs on token 0, its recurrent state stays
         as it was, and under a routing hook its row takes no MoE capacity
         and is not recorded.  Embeddings have no sentinel."""
-        row_valid = None
-        if not tokens.is_floating_point():
-            row_valid = tokens.reshape(tokens.shape[0], -1)[:, 0] >= 0
-            tokens = torch.clamp(tokens, min=0)
-        x = self._embed(params, tokens)
-        lengths = cache["lengths"] + 1       # include current token
-        positions = (lengths - 1)[:, None]
-        block_table = cache["block_table"]
-        x, stages, _ = self._run_stages(params, x, positions=positions,
-                                        lengths=lengths, mode="decode",
-                                        cache=cache, block_table=block_table,
-                                        row_valid=row_valid)
-        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
-        new_cache = {"lengths": lengths, "block_table": block_table,
-                     **stages}
-        if "seq_range" in cache:
-            new_cache["seq_range"] = cache["seq_range"]
-        return self._head(params, x), new_cache
+        with span("model.decode"):
+            row_valid = None
+            with span("embed"):
+                if not tokens.is_floating_point():
+                    row_valid = tokens.reshape(tokens.shape[0],
+                                               -1)[:, 0] >= 0
+                    tokens = torch.clamp(tokens, min=0)
+                x = self._embed(params, tokens)
+            lengths = cache["lengths"] + 1       # include current token
+            positions = (lengths - 1)[:, None]
+            block_table = cache["block_table"]
+            x, stages, _ = self._run_stages(params, x, positions=positions,
+                                            lengths=lengths, mode="decode",
+                                            cache=cache,
+                                            block_table=block_table,
+                                            row_valid=row_valid)
+            with span("head"):
+                x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+                logits = self._head(params, x)
+            new_cache = {"lengths": lengths, "block_table": block_table,
+                         **stages}
+            if "seq_range" in cache:
+                new_cache["seq_range"] = cache["seq_range"]
+            return logits, new_cache
 
     def _extend_states(self, params, cache, tokens, n_new):
         """Shared body of ``extend`` and ``verify``: append up to S tokens
-        to the cache and return the final-norm hidden states of every
-        position, ``(B, S, d)``, the new cache and ``n_new``."""
-        x = self._embed(params, tokens)
+        to the cache and return the hidden states of every position before
+        the final norm, ``(B, S, d)``, the new cache and ``n_new``."""
+        with span("embed"):
+            x = self._embed(params, tokens)
         B, S = x.shape[:2]
         start = cache["lengths"]
         if n_new is None:
@@ -877,7 +916,6 @@ class Model:
         x, stages, _ = self._run_stages(params, x, positions=positions,
                                         lengths=lengths, mode="extend",
                                         cache=cache, block_table=block_table)
-        x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
         new_cache = {"lengths": lengths, "block_table": block_table,
                      **stages}
         return x, new_cache, n_new
@@ -886,11 +924,15 @@ class Model:
         """Cached/chunked prefill: append up to S tokens (``n_new`` (B,)
         real, rest padding) to a cache holding cache["lengths"] tokens per
         sequence. Returns (last-real-token logits, cache)."""
-        x, new_cache, n_new = self._extend_states(params, cache, tokens,
-                                                  n_new)
-        idx = torch.clamp(n_new.long() - 1, min=0)
-        x_last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-        return self._head(params, x_last), new_cache
+        with span("model.extend"):
+            x, new_cache, n_new = self._extend_states(params, cache, tokens,
+                                                      n_new)
+            with span("head"):
+                x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+                idx = torch.clamp(n_new.long() - 1, min=0)
+                x_last = x[torch.arange(x.shape[0], device=x.device),
+                           idx][:, None]
+                return self._head(params, x_last), new_cache
 
     def verify(self, params, cache, tokens, n_new=None):
         """Speculative verification: ``extend`` the cache with up to S
@@ -899,8 +941,12 @@ class Model:
         the accepted prefix and the bonus token.  K/V of all S positions is
         written; the caller rolls ``lengths`` back to the accepted context
         (rows past it are overwritten by the next write there)."""
-        x, new_cache, _ = self._extend_states(params, cache, tokens, n_new)
-        return self._head(params, x), new_cache
+        with span("model.verify"):
+            x, new_cache, _ = self._extend_states(params, cache, tokens,
+                                                  n_new)
+            with span("head"):
+                x = rmsnorm(x, params["final_norm"], self.cfg.norm_eps)
+                return self._head(params, x), new_cache
 
     # ---- cache construction ----
     def page_geometry(self, batch: int, max_len: int) -> Tuple[int, int]:

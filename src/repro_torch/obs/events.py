@@ -6,7 +6,12 @@ payload)``.  ``t`` is always *simulated* seconds (the shared event
 queue's clock); when the recorder was built with ``wall_clock=True``
 (the real-engine driver) each event additionally carries ``wall`` —
 wall-clock seconds since the recorder was created — so sim-vs-real
-timelines are directly comparable on either axis.
+timelines are directly comparable on either axis.  ``EventRecorder.
+trace_ns`` places a ``wall`` stamp on a ``torch.profiler`` trace's clock.
+An ``iter`` of the real engine also carries ``host``: the iteration's
+blocking host-device waits by kind (``{"h2d", "d2h", "sync"}``,
+``obs.spans.Waits``).  Like ``wall`` it is measured, not decided, so
+``key()`` leaves it out.
 
 Kinds (the ``payload`` column lists the load-bearing keys):
 
@@ -75,17 +80,18 @@ class Event:
     """One recorded action.  ``key()`` is the canonical identity the
     fast==exact parity suite compares — everything except the emission
     sequence number (interleaving across instances differs between
-    bulked and stepped execution) and the wall-clock stamp (which is
-    real time, never reproducible)."""
+    bulked and stepped execution), the wall-clock stamp (which is
+    real time, never reproducible) and the host's wait counts."""
 
     __slots__ = ("t", "kind", "inst", "req", "tenant", "phase", "dur",
-                 "wall", "seq", "payload")
+                 "wall", "host", "seq", "payload")
 
     def __init__(self, t: float, kind: str, inst: Optional[str] = None,
                  req: Optional[int] = None, tenant: Optional[str] = None,
                  phase: Optional[str] = None, dur: float = 0.0,
                  wall: Optional[float] = None, seq: int = 0,
-                 payload: Optional[dict] = None):
+                 payload: Optional[dict] = None,
+                 host: Optional[dict] = None):
         self.t = t
         self.kind = kind
         self.inst = inst
@@ -94,6 +100,7 @@ class Event:
         self.phase = phase
         self.dur = dur
         self.wall = wall
+        self.host = host
         self.seq = seq
         self.payload = payload
 
@@ -103,7 +110,7 @@ class Event:
 
     def to_dict(self) -> dict:
         d = {"t": self.t, "kind": self.kind}
-        for f in ("inst", "req", "tenant", "phase", "wall"):
+        for f in ("inst", "req", "tenant", "phase", "wall", "host"):
             v = getattr(self, f)
             if v is not None:
                 d[f] = v
@@ -120,7 +127,8 @@ class Event:
         return cls(t=d["t"], kind=d["kind"], inst=d.get("inst"),
                    req=d.get("req"), tenant=d.get("tenant"),
                    phase=d.get("phase"), dur=d.get("dur", 0.0),
-                   wall=d.get("wall"), payload=d.get("payload"))
+                   wall=d.get("wall"), payload=d.get("payload"),
+                   host=d.get("host"))
 
     def __repr__(self):
         return (f"Event(t={self.t:.6f}, {self.kind!r}, inst={self.inst!r},"

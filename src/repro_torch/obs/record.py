@@ -34,30 +34,41 @@ class EventRecorder:
 
     ``wall_clock=True`` (real-engine driver) stamps each event with
     wall-clock seconds since the recorder was created, alongside the
-    simulated timestamp.
+    simulated timestamp.  ``epoch_ns`` is the ``torch.profiler`` clock's
+    reading (Unix nanoseconds) at that zero, so ``trace_ns`` puts a stamp
+    on a profiler trace.
     """
 
     def __init__(self, wall_clock: bool = False):
         self.wall_clock = bool(wall_clock)
         self.events: List[Event] = []
-        self._t0 = time.perf_counter()
+        self._zero()
         self._seq = 0
+
+    def _zero(self) -> None:
+        self._t0 = time.perf_counter()
+        self.epoch_ns = time.time_ns()
+
+    def trace_ns(self, wall: float) -> int:
+        """A ``wall`` stamp on the profiler's clock, in nanoseconds."""
+        return self.epoch_ns + round(wall * 1e9)
 
     # -- emission ----------------------------------------------------------
     def emit(self, t: float, kind: str, inst: Optional[str] = None,
              req: Optional[int] = None, tenant: Optional[str] = None,
              phase: Optional[str] = None, dur: float = 0.0,
-             payload: Optional[dict] = None) -> None:
+             payload: Optional[dict] = None,
+             host: Optional[dict] = None) -> None:
         wall = (time.perf_counter() - self._t0) if self.wall_clock else None
         self._seq += 1
         self.events.append(Event(t, kind, inst=inst, req=req, tenant=tenant,
                                  phase=phase, dur=dur, wall=wall,
-                                 seq=self._seq, payload=payload))
+                                 seq=self._seq, payload=payload, host=host))
 
     def clear(self) -> None:
         self.events = []
         self._seq = 0
-        self._t0 = time.perf_counter()
+        self._zero()
 
     # -- views -------------------------------------------------------------
     def sorted_events(self) -> List[Event]:
@@ -136,6 +147,7 @@ class EventRecorder:
         with open(path, "w") as f:
             json.dump({"schema": "repro_torch.obs/1",
                        "wall_clock": self.wall_clock,
+                       "epoch_ns": self.epoch_ns,
                        "events": [ev.to_dict() for ev in self.events]}, f)
 
     @classmethod
@@ -143,6 +155,8 @@ class EventRecorder:
         with open(path) as f:
             d = json.load(f)
         rec = cls(wall_clock=d.get("wall_clock", False))
+        if "epoch_ns" in d:
+            rec.epoch_ns = int(d["epoch_ns"])
         for i, evd in enumerate(d.get("events", [])):
             ev = Event.from_dict(evd)
             ev.seq = i + 1

@@ -83,6 +83,7 @@ from repro_torch.core.memory import MemoryModel
 from repro_torch.core.request import SimRequest
 from repro_torch.moe import ExpertLoadTracker, resolve_routing
 from repro_torch.obs.events import SPEC_STEP
+from repro_torch.obs.spans import span
 from repro_torch.runtime.backend import KvHandoff
 from repro_torch.runtime.prefix_cache import MatchResult
 from repro_torch.runtime.scheduler import ScheduledWork
@@ -254,16 +255,20 @@ class TorchBackend:
     # ---- execution ----
     def execute(self, work: List[ScheduledWork], now: float) -> float:
         t0 = time.perf_counter()
+        self.eng.waits.reset()
         decodes = [w for w in work if w.phase == "decode"]
         prefills = [w for w in work if w.phase == "prefill"]
         if decodes:
             if self.eng.spec is not None:
                 self._spec_decode_step(decodes, now)
             else:
-                self._decode_step(decodes)
+                with span("backend.decode_step"):
+                    self._decode_step(decodes)
         for w in prefills:
-            self._prefill_chunk(w)
-        self.eng.synchronize()
+            with span("backend.prefill_chunk"):
+                self._prefill_chunk(w)
+        with span("backend.sync"):
+            self.eng.synchronize()
         self._iterations += 1
         latency = self.eng.slowest(time.perf_counter() - t0 + self._carry_s)
         self._carry_s = 0.0
@@ -272,57 +277,66 @@ class TorchBackend:
             self._routed_pos = []
         return latency
 
+    def iteration_waits(self) -> dict:
+        """The last ``execute``'s blocking host-device waits by kind."""
+        return self.eng.waits.as_dict()
+
     def _decode_step(self, decodes: List[ScheduledWork]):
         from repro_torch.serve.sampler import greedy
         eng = self.eng
-        tokens = eng._tokens_buf
-        for w in decodes:
-            # the decode writes each scheduled slot's new token at its old
-            # length: make sure that page exists
-            slot = self._slot[w.request.req_id]
-            eng.ensure_capacity(slot, self._len[slot] + 1)
-        hooked = eng.model.routing_hook is not None
-        # a recurrent model's decode moves the state of every row it runs
-        # on a real token, so its unscheduled rows take the sentinel too
-        masked = hooked or eng.model.recurrent
-        if masked:
-            # mark every slot that is not scheduled (free, or mid-prefill)
-            # with the sentinel -1: its row still computes, but is neither
-            # recorded nor given expert capacity, and keeps its recurrent
-            # state.  The engine's buffer keeps the mid-prefill slots'
-            # pending first tokens.
-            tokens = tokens.copy()
-            scheduled_slots = {self._slot[w.request.req_id]
-                               for w in decodes}
-            for slot in range(eng.max_batch):
-                if slot not in scheduled_slots:
-                    tokens[slot, 0] = -1
-        logits, eng.cache = eng.model.decode(eng.params, eng.cache,
-                                             eng.tensor(tokens))
-        nxt = greedy(logits, eng.cfg.vocab).cpu().numpy()
-        scheduled = set()
-        for w in decodes:
-            slot = self._slot[w.request.req_id]
-            eng._tokens_buf[slot, 0] = int(nxt[slot, 0])
-            self.out_tokens.setdefault(w.request.req_id, []).append(
-                int(nxt[slot, 0]))
-            if self.expert_load is not None:
-                # the decode wrote this slot's token at KV index _len
-                self._routed_pos.append(self._len[slot])
-            self._len[slot] += 1
-            scheduled.add(slot)
-        if scheduled != set(self._len) \
-                or (masked and len(self._len) < eng.max_batch):
-            # the full-buffer decode bumped every slot's length; restore
-            # the lengths of mid-prefill / unscheduled slots.  Under a
-            # routing hook (and for a recurrent model) also zero the free
-            # slots every step: the hook's decode mask knows an empty slot
-            # by its position 0, and bumps left to pile up over decode-only
-            # steps would mark phantom rows valid
-            lengths = np.zeros((eng.max_batch,), np.int32)
-            for s, n in self._len.items():
-                lengths[s] = n
-            eng.cache["lengths"] = eng.tensor(lengths)
+        with span("stage"):
+            tokens = eng._tokens_buf
+            for w in decodes:
+                # the decode writes each scheduled slot's new token at its
+                # old length: make sure that page exists
+                slot = self._slot[w.request.req_id]
+                eng.ensure_capacity(slot, self._len[slot] + 1)
+            hooked = eng.model.routing_hook is not None
+            # a recurrent model's decode moves the state of every row it
+            # runs on a real token, so its unscheduled rows take the
+            # sentinel too
+            masked = hooked or eng.model.recurrent
+            if masked:
+                # mark every slot that is not scheduled (free, or
+                # mid-prefill) with the sentinel -1: its row still
+                # computes, but is neither recorded nor given expert
+                # capacity, and keeps its recurrent state.  The engine's
+                # buffer keeps the mid-prefill slots' pending first tokens.
+                tokens = tokens.copy()
+                scheduled_slots = {self._slot[w.request.req_id]
+                                   for w in decodes}
+                for slot in range(eng.max_batch):
+                    if slot not in scheduled_slots:
+                        tokens[slot, 0] = -1
+            tokens = eng.tensor(tokens)
+        logits, eng.cache = eng.model.decode(eng.params, eng.cache, tokens)
+        with span("sample"):
+            nxt = eng.to_host(greedy(logits, eng.cfg.vocab)).numpy()
+        with span("bookkeep"):
+            scheduled = set()
+            for w in decodes:
+                slot = self._slot[w.request.req_id]
+                eng._tokens_buf[slot, 0] = int(nxt[slot, 0])
+                self.out_tokens.setdefault(w.request.req_id, []).append(
+                    int(nxt[slot, 0]))
+                if self.expert_load is not None:
+                    # the decode wrote this slot's token at KV index _len
+                    self._routed_pos.append(self._len[slot])
+                self._len[slot] += 1
+                scheduled.add(slot)
+            if scheduled != set(self._len) \
+                    or (masked and len(self._len) < eng.max_batch):
+                # the full-buffer decode bumped every slot's length;
+                # restore the lengths of mid-prefill / unscheduled slots.
+                # Under a routing hook (and for a recurrent model) also
+                # zero the free slots every step: the hook's decode mask
+                # knows an empty slot by its position 0, and bumps left to
+                # pile up over decode-only steps would mark phantom rows
+                # valid
+                lengths = np.zeros((eng.max_batch,), np.int32)
+                for s, n in self._len.items():
+                    lengths[s] = n
+                eng.cache["lengths"] = eng.tensor(lengths)
 
     def _spec_decode_step(self, decodes: List[ScheduledWork], now: float):
         """One speculative iteration for the scheduled decode set: the
@@ -381,7 +395,7 @@ class TorchBackend:
         for j in range(k_step + 1):
             dlogits, dr.cache = dr.model.decode(dr.params, dr.cache,
                                                 dr.tensor(cur))
-            cur = greedy(dlogits, eng.cfg.vocab).cpu().numpy()
+            cur = dr.to_host(greedy(dlogits, eng.cfg.vocab)).numpy()
             if j < k_step:
                 drafts[:, j] = cur[:, 0]
 
@@ -395,7 +409,8 @@ class TorchBackend:
         vlogits, eng.cache = eng.model.verify(eng.params, eng.cache,
                                               eng.tensor(vt),
                                               eng.tensor(n_new))
-        target = greedy(vlogits, eng.cfg.vocab).cpu().numpy()  # (B, k+1)
+        # (B, k + 1)
+        target = eng.to_host(greedy(vlogits, eng.cfg.vocab)).numpy()
         matched = accept_length(drafts, target)
 
         # 4. acceptance and rollback per scheduled slot
@@ -470,51 +485,61 @@ class TorchBackend:
         from repro_torch.serve.sampler import greedy
         eng = self.eng
         req = w.request
-        toks = self._prompt(req)
-        slot = self._slot.get(req.req_id)
-        if slot is None:
-            slot = eng.slot_free.pop()
-            self._slot[req.req_id] = slot
-            self._len[slot] = 0
-            self._hist[slot] = []
-            self._draft_len.pop(slot, None)
-            restore = self._restore.pop(req.req_id, None)
-            if restore is not None and req.cached_prefix > 0:
-                payload, length = restore
-                length = min(length, req.cached_prefix)
-                # an SSD-tier stub loads here, inside execute()'s timed
-                # region, so the disk read lands on the virtual clock
-                payload = eng.radix.resolve(payload)
-                eng._restore_slot(slot, payload, length)
-                self._len[slot] = length
-                self._hist[slot] = list(toks[:length])
-        start = self._len[slot]
-        end = min(start + w.tokens, len(toks))
-        chunk = toks[start:end]
+        with span("bookkeep"):
+            toks = self._prompt(req)
+            slot = self._slot.get(req.req_id)
+            if slot is None:
+                slot = eng.slot_free.pop()
+                self._slot[req.req_id] = slot
+                self._len[slot] = 0
+                self._hist[slot] = []
+                self._draft_len.pop(slot, None)
+                restore = self._restore.pop(req.req_id, None)
+                if restore is not None and req.cached_prefix > 0:
+                    payload, length = restore
+                    length = min(length, req.cached_prefix)
+                    # an SSD-tier stub loads here, inside execute()'s
+                    # timed region, so the disk read lands on the virtual
+                    # clock
+                    payload = eng.radix.resolve(payload)
+                    eng._restore_slot(slot, payload, length)
+                    self._len[slot] = length
+                    self._hist[slot] = list(toks[:length])
+            start = self._len[slot]
+            end = min(start + w.tokens, len(toks))
+            chunk = toks[start:end]
         logits = None
         if chunk:
-            P = _bucket(len(chunk))
-            pad = np.zeros((1, P), np.int32)
-            pad[0, :len(chunk)] = np.asarray(chunk, np.int32)
-            n_new = eng.tensor([len(chunk)])
+            with span("stage"):
+                P = _bucket(len(chunk))
+                pad = np.zeros((1, P), np.int32)
+                pad[0, :len(chunk)] = np.asarray(chunk, np.int32)
+                n_new = eng.tensor([len(chunk)])
+                if start > 0:
+                    eng.ensure_capacity(slot, start + len(chunk))
+                    sub = eng._slot_subcache(slot, start)
+                pad = eng.tensor(pad)
             if start == 0:
-                logits, c1 = eng.model.prefill(eng.params, eng.tensor(pad),
+                logits, c1 = eng.model.prefill(eng.params, pad,
                                                lengths=n_new)
-                eng._write_slot_from_prefill(slot, c1, len(chunk))
+                with span("write_slot"):
+                    eng._write_slot_from_prefill(slot, c1, len(chunk))
             else:
-                eng.ensure_capacity(slot, start + len(chunk))
-                sub = eng._slot_subcache(slot, start)
-                logits, new_sub = eng.model.extend(eng.params, sub,
-                                                   eng.tensor(pad), n_new)
-                eng._write_slot(slot, new_sub, start + len(chunk))
-            if self.expert_load is not None:
-                # the chunk's tokens occupy KV positions [start, start+n)
-                self._routed_pos.extend(range(start, start + len(chunk)))
-            self._len[slot] = start + len(chunk)
-            self._hist[slot].extend(int(t) for t in chunk)
+                logits, new_sub = eng.model.extend(eng.params, sub, pad,
+                                                   n_new)
+                with span("write_slot"):
+                    eng._write_slot(slot, new_sub, start + len(chunk))
+            with span("bookkeep"):
+                if self.expert_load is not None:
+                    # the chunk's tokens occupy KV positions [start,
+                    # start+n)
+                    self._routed_pos.extend(range(start, start + len(chunk)))
+                self._len[slot] = start + len(chunk)
+                self._hist[slot].extend(int(t) for t in chunk)
         if self._len[slot] >= len(toks) and logits is not None:
             # prompt complete: the last chunk's logits give the first token
-            first = int(greedy(logits, eng.cfg.vocab)[0, 0])
+            with span("sample"):
+                first = int(eng.to_host(greedy(logits, eng.cfg.vocab))[0, 0])
             eng._tokens_buf[slot, 0] = first
             self.out_tokens.setdefault(req.req_id, []).append(first)
             self._emit[slot] = 1

@@ -154,6 +154,12 @@ class RuntimeInstance:
         self.decisions.append(
             tuple((w.request.req_id, w.phase, w.tokens) for w in work))
         latency = self.backend.execute(work, self.queue.now)
+        host = None
+        if self.obs is not None:
+            # the real engine's blocking waits, read before another
+            # instance's iteration can run
+            waits = getattr(self.backend, "iteration_waits", None)
+            host = waits() if waits is not None else None
         self.iterations += 1
         tokens = sum(w.tokens for w in work)
         self.total_tokens += tokens
@@ -168,12 +174,14 @@ class RuntimeInstance:
                 # rough per-step cost, feeding the fast-forward pre-gate
                 self._ff_latency_hint = latency
         self.queue.schedule(latency,
-                            lambda: self._finish_iteration(work, latency),
+                            lambda: self._finish_iteration(work, latency,
+                                                           host),
                             tag=f"{self.name}.iter",
                             skippable=self.iter_skippable)
 
     def _finish_iteration(self, work: List[ScheduledWork],
-                          latency: float = 0.0):
+                          latency: float = 0.0,
+                          host: Optional[dict] = None):
         if not self.alive:
             return
         now = self.queue.now
@@ -192,7 +200,8 @@ class RuntimeInstance:
                               "kv_used": self.mem.total_blocks
                               - self.mem.free_blocks,
                               "running": len(self.scheduler.running),
-                              "waiting": len(self.scheduler.waiting)})
+                              "waiting": len(self.scheduler.waiting)},
+                     host=host)
         for w in work:
             req = w.request
             if w.phase == "prefill":

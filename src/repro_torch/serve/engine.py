@@ -95,6 +95,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import Model
 from repro_torch.models.transformer import RECURRENT, cast_params, torch_dtype
+from repro_torch.obs.spans import Waits, span
 
 
 @dataclasses.dataclass
@@ -464,6 +465,9 @@ class ServingEngine:
         self._slot_pages = [0] * max_batch
         self.slot_free = list(range(max_batch))
         self._tokens_buf = np.zeros((max_batch, 1), np.int32)
+        #: blocking host-device waits (``obs.spans.Waits``); the backend
+        #: resets them at each iteration's start
+        self.waits = Waits()
         self.radix = RealRadixCache(device=self.device) \
             if prefix_cache else None
         # speculative decoding: a nested mechanism-only draft engine with
@@ -476,14 +480,28 @@ class ServingEngine:
                 spec.draft, params=spec.draft_params, max_batch=max_batch,
                 max_len=max_len, name=f"{name}.draft", seed=spec.draft_seed,
                 device=self.device)
+            # one iteration's waits, whichever engine makes them
+            self.draft.waits = self.waits
 
     def tensor(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+        """Host data on the device: a pageable copy, which waits for the
+        stream on a card (a ``wait.h2d``)."""
+        self.waits.h2d += 1
+        with span("wait.h2d"):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A device value read on the host (a ``wait.d2h``)."""
+        self.waits.d2h += 1
+        with span("wait.d2h"):
+            return t.cpu()
 
     def synchronize(self):
         """Wait for the device, so a wall-clock time covers its work."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.waits.sync += 1
+        with span("wait.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def slowest(self, seconds: float) -> float:
         """A wall time measured on this rank -> the largest over the ranks
@@ -562,7 +580,9 @@ class ServingEngine:
 
     def _push_table(self):
         # in place: one-row subcache views share this tensor
-        self.cache["block_table"].copy_(torch.from_numpy(self._table_np))
+        self.waits.h2d += 1
+        with span("wait.h2d"):
+            self.cache["block_table"].copy_(torch.from_numpy(self._table_np))
 
     def _free_pages(self, slot: int):
         if not self._slot_pages[slot]:

@@ -5,7 +5,9 @@ and Chrome trace on the same workload (both priced by the same analytical
 trace); the twins of ``tests/test_obs.py``'s attribution, P/D-segment and
 invisibility tests hold on the port; the CLI re-exports a saved log; and
 ``ServeDriver(recorder=)`` on the port's engine records the same event
-kinds, order and request ids as the JAX driver (wall stamps aside).
+kinds, order and request ids as the JAX driver (wall stamps aside).  The
+recorder's clock maps each wall stamp onto a ``torch.profiler`` trace, and
+an event's wait counts (``host``) round-trip and stay out of its identity.
 """
 import copy
 import dataclasses
@@ -13,6 +15,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -303,8 +306,64 @@ def test_serve_driver_recorder_matches_jax_driver():
         return [(e.kind, e.inst, e.req, e.phase) for e in rec.events]
     assert shape(recs["torch"]) == shape(recs["jax"])
     assert all(e.wall is not None for e in recs["torch"].events)
+    # each iteration carries its blocking waits, ending in one sync
+    for e in recs["torch"].events:
+        assert (e.host is not None) == (e.kind == "iter")
+        if e.host is not None:
+            assert set(e.host) == {"h2d", "d2h", "sync"}
+            assert e.host["sync"] == 1 and e.host["h2d"] >= 1
     attr = runs["torch"]["attribution"]
     assert set(attr["requests"]) == {r.req_id for r in tdrv.finished}
     for row in attr["requests"].values():
         assert sum(row["segments"].values()) == pytest.approx(
             row["total_s"], rel=1e-9, abs=1e-12)
+
+
+# --------------------------------------------------------------------------
+# the recorder's clock and the iteration's wait counts
+# --------------------------------------------------------------------------
+
+HOST = {"h2d": 6, "d2h": 2, "sync": 1}
+
+
+def test_epoch_ns_survives_save_load(tmp_path):
+    rec = tobs.EventRecorder(wall_clock=True)
+    rec.emit(0.5, "iter", inst="e0", dur=0.1, payload={"items": []},
+             host=HOST)
+    log = tmp_path / "events.json"
+    rec.save(str(log))
+    back = tobs.EventRecorder.load(str(log))
+    assert back.epoch_ns == rec.epoch_ns
+    assert back.events[0].host == HOST
+    assert back.trace_ns(back.events[0].wall) == \
+        rec.trace_ns(rec.events[0].wall)
+
+
+def test_wall_maps_into_the_profiler_range_around_it():
+    """An event emitted inside a ``record_function`` range maps, on the
+    profiler's clock, inside that range within a millisecond."""
+    from torch.profiler import ProfilerActivity, profile
+    rec = tobs.EventRecorder(wall_clock=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("probe.iter"):
+            time.sleep(0.001)
+            rec.emit(0.0, "iter", inst="e0")
+            time.sleep(0.001)
+    (r,) = [e for e in prof.profiler.kineto_results.events()
+            if e.name() == "probe.iter"]
+    at = rec.trace_ns(rec.events[0].wall)
+    assert r.start_ns() - 1_000_000 <= at \
+        <= r.start_ns() + r.duration_ns() + 1_000_000
+
+
+def test_event_host_round_trips_and_stays_out_of_key():
+    ev = tobs.Event(1.0, "iter", inst="e0", dur=0.5, wall=2.0,
+                    payload={"items": [[0, "decode", 1]]}, host=HOST)
+    d = ev.to_dict()
+    assert d["host"] == HOST
+    back = tobs.Event.from_dict(d)
+    assert back.host == HOST and back.to_dict() == d
+    bare = tobs.Event(1.0, "iter", inst="e0", dur=0.5, wall=3.0,
+                      payload={"items": [[0, "decode", 1]]})
+    assert bare.key() == ev.key()
+    assert "host" not in bare.to_dict()
