@@ -10,8 +10,9 @@ result line:
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (the flash
    backward too; the grouped matmul's library holds its backward), and the
    count of tensor-core (``HGMMA``) instructions in each library, which
-   must not be 0 for any of them (their bf16 prefill, backward, extend and
-   matmul kernels);
+   must not be 0 for any of the attention and matmul ones (their bf16
+   prefill, backward, extend and matmul kernels; RoPE's library is
+   elementwise);
 2. each kernel against its plain PyTorch version on the card, in f32 and
    bf16, on the awkward shapes of ``tests/test_kernel_backends.py`` and
    ``tests/test_kernels.py`` and on the main paths' own shapes (flash at
@@ -44,8 +45,13 @@ result line:
    before, inside and past the rank's keys, rows with no key (output 0
    and log-sum-exp -inf exactly), gemma3-27b's H32 KV16 dh128 with a
    window of 1024 inside and past the range, and its 16x16 rank of
-   ``long_500k`` (H2 KV1 over 32,768 tokens), in f32 and bf16; every
-   kernel must also give bitwise the same result on a second launch;
+   ``long_500k`` (H2 KV1 over 32,768 tokens), in f32 and bf16; the RoPE
+   kernel bitwise equal to its plain version (``ROPE_CASES``: the
+   benchmark's starcoder2-7b prefill chunk, 64-row decode and extend,
+   llama3.1-8b's chunk, zamba2's dh 64, positions near 524,287; int32 and
+   int64 positions; q and k contiguous and as views of a fused QKV
+   output); every kernel must also give bitwise the same result on a
+   second launch;
 3. each kernel timed at the main paths' shapes with CUDA events, beside
    its plain version, a PyTorch library call computing the same function,
    and the least time the card could take (the grouped matmul at gate/up
@@ -63,7 +69,8 @@ result line:
    one call of each kernel's wrapper (the serves are host-bound); the
    log-sum-exp decode at gemma3-27b's ``long_500k`` rank at 16x16 (B1 H2
    KV1 over 32,768 of 524,288 tokens) beside SDPA over the rank's pages
-   gathered contiguous;
+   gathered contiguous; RoPE of q and k at starcoder2-7b's 2,048-token
+   prefill chunk and 64-row decode beside the ``rotate_half`` form;
 4. serving: tiny f32 llama and phimini-moe models on the card must emit
    the same tokens and make the same decisions as on the CPU (the MoE one
    also under a replayed expert-routing trace, with equal expert-load
@@ -75,7 +82,8 @@ result line:
    three paths at full width, bf16, seeded random weights made on the
    card, each serving 8 requests through ``ServeDriver`` with chunked
    prefill, its launch counts set to 0 just before and read just after:
-   llama3.1-8b (flash prefill, paged extend and decode), phimini-moe (the
+   llama3.1-8b (flash prefill, paged extend and decode, and RoPE once an
+   attention layer of every model call), phimini-moe (the
    same three and the grouped expert matmul, 3 launches per MoE layer per
    model call), and llama3.1-8b speculating k = 4 with a draft sharing its
    weights under a replayed acceptance trace (alpha 0.6; every arrival at
@@ -769,8 +777,69 @@ def kernels_vs_plain(torch, ops, dev):
     flash_bwd_vs_plain(torch, ops, dev, worst)
     gmm_bwd_vs_plain(torch, ops, dev, worst)
     decode_lse_vs_plain(torch, ops, dev, worst)
+    rope_vs_plain(torch, ops, dev, worst)
     no_heads(torch, ops, dev)
     return worst
+
+
+#: (label, B, S, H, KV, dh, positions, theta): the benchmark's
+#: starcoder2-7b (36 query, 4 KV heads) at a 2,048-token prefill chunk, a
+#: 64-row decode and an extend from 1,500; llama3.1-8b's serve chunk;
+#: zamba2's dh 64; a sequence-sharded decode near position 524,287
+ROPE_CASES = (
+    ("prefill chunk", 1, 2048, 36, 4, 128, "prefill", 1e6),
+    ("decode 64 rows", 64, 1, 36, 4, 128, (3000, 3840), 1e6),
+    ("extend from 1500", 4, 256, 36, 4, 128, (1500, 1501), 1e6),
+    ("llama3.1-8b chunk", 1, 256, 32, 8, 128, (293, 294), 5e5),
+    ("zamba2 dh64", 8, 256, 32, 32, 64, (0, 2048), 1e4),
+    ("long_500k decode", 8, 1, 2, 1, 128, (524272, 524288), 1e6),
+)
+
+
+def rope_positions(torch, gen, dev, B, S, where, dtype):
+    """Prefill's ``arange`` expanded over the batch, else each row's
+    first position drawn from the range ``where``, then ``+ arange(S)``."""
+    if where == "prefill":
+        return torch.arange(S, device=dev, dtype=dtype).expand(B, S)
+    start = torch.randint(where[0], where[1], (B, 1), generator=gen,
+                          device=dev)
+    return (start + torch.arange(S, device=dev)).to(dtype)
+
+
+def rope_vs_plain(torch, ops, dev, worst):
+    """The RoPE kernel against its plain version (``layers.rope`` on q and
+    on k) at ``ROPE_CASES``, f32 and bf16, int32 and int64 positions, q
+    and k contiguous and as views of a fused QKV output: bitwise equal,
+    and bitwise over two launches."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for label, B, S, H, KV, dh, where, theta in ROPE_CASES:
+            for pdt in (torch.int32, torch.int64):
+                pos = rope_positions(torch, gen, dev, B, S, where, pdt)
+                x = _rand(torch, gen, (B, S, (H + 2 * KV) * dh), dtype, dev)
+                views = torch.split(x, [H * dh, KV * dh, KV * dh], dim=-1)
+                fused = (views[0].reshape(B, S, H, dh),
+                         views[1].reshape(B, S, KV, dh))
+                for layout, (q, k) in (("contiguous", tuple(
+                        t.contiguous() for t in fused)), ("fused", fused)):
+                    got = ops.rope(q, k, pos, theta)
+                    again = ops.rope(q, k, pos, theta)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"rope ({dn}, {label}, {layout}): two launches "
+                          f"differ")
+                    want = ops.rope_plain(q, k, pos, theta)
+                    err = max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, want))
+                    worst["rope"] = max(worst["rope"], err)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"rope disagrees with its plain version ({dn}, "
+                          f"{label}, {str(pdt)[6:]} positions, {layout}): "
+                          f"{err}")
+            print(f"  rope {dn} {label} B{B} S{S} H{H} KV{KV} dh{dh} "
+                  f"theta {theta:g}: bitwise the plain version's (int32 "
+                  f"and int64 positions, contiguous and fused views)")
 
 
 #: gemma3-27b's 16x16 rank of ``long_500k``: 2 query heads on one KV head
@@ -874,16 +943,18 @@ def no_heads(torch, ops, dev):
                               page_size=64)
     ext = ops.paged_attention(q, pages, pages, table, lt + 64,
                               page_size=64, start=lt)
+    rot = ops.rope(q, kv, lt[:, None].expand(2, 64))
     torch.cuda.synchronize()
-    shapes = [tuple(t.shape) for t in (out, lse, *grads, dec, ext)]
+    shapes = [tuple(t.shape) for t in (out, lse, *grads, dec, ext, *rot)]
     launched = {k: v for k, v in ops.launch_counts().items() if v}
     check(shapes == [(2, 64, 0, 128), (2, 0, 64), (2, 64, 0, 128),
                      (2, 64, 0, 128), (2, 64, 0, 128), (2, 0, 128),
-                     (2, 64, 0, 128)] and not launched,
+                     (2, 64, 0, 128), (2, 64, 0, 128), (2, 64, 0, 128)]
+          and not launched,
           f"H = 0: outputs {shapes}, launches {launched}")
     print(f"phase 2: H = 0 (a rank without query heads): flash, its "
-          f"backward, paged decode and extend return empty outputs "
-          f"{shapes} and launch nothing")
+          f"backward, paged decode and extend, and RoPE return empty "
+          f"outputs {shapes} and launch nothing")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1343,6 +1414,7 @@ def timings(torch, ops, dev):
               f"(a 16x16 rank), query past them, lse written, bf16",
         bound=bound(ops.paged_decode_work(1, Hl, KVl, dh, 2, tl.numel(), n,
                                           lse=True, start=True)))
+    out.update(rope_timings(torch, ops, dev, measure))
     out.update(flash_bwd_timings(torch, ops, dev, measure))
     out.update(gmm_train_timings(torch, ops, dev, measure))
     print("phase 3: times (median of 20, L2 flushed; ms) and the host's "
@@ -1356,6 +1428,44 @@ def timings(torch, ops, dev):
               f"{t['host_us']:.1f} us a call"
               + ("; device dx {dx:.4f}, dw {dw:.4f}".format(**t["split_ms"])
                  if "split_ms" in t else ""))
+    return out
+
+
+def rope_timings(torch, ops, dev, measure):
+    """RoPE of q and k at the benchmark's starcoder2-7b shapes (36 query,
+    4 KV heads of 128, theta 1e6): a 2,048-token prefill chunk and a
+    64-row decode at contexts of 3,000-3,840; the library: the rotation
+    with a cos / sin table built once per call and ``torch.cat``
+    (the ``rotate_half`` form common in PyTorch model code), no kernel of
+    its own.  Its own generator; launches from the llama3.1-8b serve."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf, H, KV, dh, theta = torch.bfloat16, 36, 4, 128, 1e6
+    out = {}
+    for name, B, S, where in (("rope", 1, 2048, "prefill"),
+                              ("rope_decode", 64, 1, (3000, 3840))):
+        q = _rand(torch, gen, (B, S, H, dh), bf, dev)
+        k = _rand(torch, gen, (B, S, KV, dh), bf, dev)
+        pos = rope_positions(torch, gen, dev, B, S, where, torch.int64)
+        inv = 1.0 / theta ** (torch.arange(0, dh, 2, device=dev).float()
+                              / dh)
+
+        def library(q=q, k=k, pos=pos, inv=inv):
+            ang = pos[..., None].float() * inv
+            cos = torch.cat([ang.cos()] * 2, -1)[:, :, None].to(bf)
+            sin = torch.cat([ang.sin()] * 2, -1)[:, :, None].to(bf)
+
+            def rot(x):
+                x1, x2 = x.chunk(2, -1)
+                return x * cos + torch.cat([-x2, x1], -1) * sin
+            return rot(q), rot(k)
+        out[name] = measure(
+            lambda q=q, k=k, pos=pos: ops.rope(q, k, pos, theta),
+            lambda q=q, k=k, pos=pos: ops.rope_plain(q, k, pos, theta),
+            library, kernel="rope",
+            shape=f"B{B} S{S} H{H} KV{KV} dh{dh} bf16, int64 positions "
+                  + ("0..2047" if where == "prefill" else
+                     f"{where[0]}..{where[1] - 1}"),
+            bound=bound(ops.rope_work(B, S, H, KV, dh, 2, 8)))
     return out
 
 
@@ -1765,7 +1875,7 @@ def store_round_trip_on_card(torch):
 
 #: (arch, the kernels its serve must launch)
 PATHS = (("llama3.1-8b", ("flash_attention", "paged_attention_decode",
-                          "paged_attention_extend")),
+                          "paged_attention_extend", "rope")),
          ("phimini-moe", ("flash_attention", "paged_attention_decode",
                           "paged_attention_extend", "moe_gmm")))
 
@@ -1848,6 +1958,9 @@ def serve_full(torch, ops, card, arch, must_launch):
               f"{name} was not launched while serving {arch}")
     calls = (launches["flash_attention"] + launches["paged_attention_decode"]
              + launches["paged_attention_extend"]) // cfg.n_layers
+    check(launches["rope"] == cfg.n_layers * calls,
+          f"{arch}: {launches['rope']} rope launches over {calls} model "
+          f"calls, want {cfg.n_layers} per call")
     if "moe_gmm" in must_launch:
         # gate, up and down in each of the 32 MoE layers of every call
         check(launches["moe_gmm"] == 3 * cfg.n_layers * calls,
@@ -3030,16 +3143,18 @@ def serve_recurrent(torch, ops, card, arch):
 
 @contextlib.contextmanager
 def plain_attention(ops):
-    """Route the model's attention to the plain versions on the card: the
-    wrappers never do that themselves (a CUDA tensor launches its kernel
-    or raises)."""
-    flash, paged = ops.flash_attention, ops.paged_attention
+    """Route the model's attention and RoPE to the plain versions on the
+    card: the wrappers never do that themselves (a CUDA tensor launches
+    its kernel or raises)."""
+    flash, paged, rope = ops.flash_attention, ops.paged_attention, ops.rope
     ops.flash_attention = ops.flash_attention_plain
     ops.paged_attention = ops.paged_attention_plain
+    ops.rope = ops.rope_plain
     try:
         yield
     finally:
-        ops.flash_attention, ops.paged_attention = flash, paged
+        ops.flash_attention, ops.paged_attention, ops.rope = flash, paged, \
+            rope
 
 
 def zamba_f32_probe(torch, ops, card):
@@ -3562,6 +3677,22 @@ def _card_ms(torch, model, step, inputs, reps):
     return statistics.median(times)
 
 
+def attention_layers(cfg):
+    """Attention calls a model call makes: one a layer of attention
+    stages, one a zamba superblock (its shared attention)."""
+    from repro_torch.configs.base import ATTN_MLP, ATTN_MOE, ZAMBA_SUPER
+    return sum(st.n_layers for st in cfg.stages
+               if st.kind in (ATTN_MLP, ATTN_MOE, ZAMBA_SUPER))
+
+
+def rope_launches(cfg, step):
+    """RoPE kernel launches of one step on the card: one an attention
+    layer of a serving step, none in training.  The dry run predicts none:
+    on meta the wrapper runs the plain ops, so its counts are the plain
+    version's."""
+    return 0 if step == "train" else attention_layers(cfg)
+
+
 def dryrun_on_card(torch, ops, card):
     """Phase 9: each step of ``DRYRUN_STEPS`` counted on meta by the dry
     run (``repro_torch.launch.dryrun.count_step``), then run on the card:
@@ -3610,6 +3741,7 @@ def dryrun_on_card(torch, ops, card):
         launches = ops.launch_counts()
         del out
         want_launch = {k: mc.launches().get(k, 0) for k in launches}
+        want_launch["rope"] = rope_launches(cfg, step)
         check(launches == want_launch,
               f"{label}: the card launched {launches}; the dry run "
               f"predicted {want_launch}")
@@ -5031,10 +5163,11 @@ def _seq_dp_rank(torch, grid):
     path_launches = ops.launch_counts()
     err, top = _seq_err(torch, [logits.float().cpu()] + rest, want)
     peak = _card_peak(torch, model, "decode", inputs)
+    want_launch = {k: v for k, v in mc.launches().items() if v}
+    want_launch["rope"] = rope_launches(cfg, "decode")
     out = {"coords": dict(grid.coords), "seq_range": cache["seq_range"],
            "state": (got_state, want_state),
-           "launches": (launches, {k: v for k, v in mc.launches().items()
-                                   if v}),
+           "launches": (launches, want_launch),
            "collectives": (cc.coll_by_axis, mc.coll_by_axis),
            "peak": (peak, mem["peak_bytes"]), "err": err, "top": top,
            "step_ms": step_ms, "path_launches": path_launches}

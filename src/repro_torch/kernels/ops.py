@@ -1,12 +1,13 @@
 """The port's kernel entry points and its kernel registry.
 
 ``flash_attention``, ``flash_attention_bwd``, ``paged_attention``,
-``moe_gmm`` and ``moe_gmm_bwd`` are the kernel wrappers: on a CUDA tensor
-each launches its hand-written Hopper kernel or raises, on a CPU tensor
-each runs its plain PyTorch version.  ``KERNELS`` names every kernel with
-its source and what it replaces in the JAX package (a Pallas TPU kernel,
-except the two backwards: the flash one's counterpart is the plain-JAX
-custom VJP, the grouped matmul's XLA's autodiff of an einsum), and
+``moe_gmm``, ``moe_gmm_bwd`` and ``rope`` are the kernel wrappers: on a
+CUDA tensor each launches its hand-written Hopper kernel or raises, on a
+CPU tensor each runs its plain PyTorch version.  ``KERNELS`` names every
+kernel with its source and what it replaces in the JAX package (a Pallas
+TPU kernel, except the two backwards and RoPE: the flash backward's
+counterpart is the plain-JAX custom VJP, the grouped matmul's XLA's
+autodiff of an einsum, RoPE's the plain-JAX ``rope``), and
 ``launch_counts`` / ``reset_launch_counts`` read and clear the counters
 the wrappers bump at each launch.  The ``*_work`` functions are each
 kernel's one work count, (FLOPs, bytes), which the dry run's counter and
@@ -19,6 +20,7 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rope as _rope
 from repro_torch.kernels.flash_attention import (causal_pairs,
                                                  flash_attention,
                                                  flash_attention_bwd,
@@ -35,11 +37,12 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_decode_work,
                                                  paged_extend_work,
                                                  paged_work)
+from repro_torch.kernels.rope import rope, rope_plain, rope_work
 
 #: name -> (CUDA source in the repo, what it replaces: the TPU kernel, or
 #: for the two backwards what the JAX package trains through instead, plain
-#: JAX (the flash custom VJP; XLA's autodiff of the MoE einsums), not a
-#: Pallas kernel)
+#: JAX (the flash custom VJP; XLA's autodiff of the MoE einsums), and for
+#: RoPE the plain-JAX function; none of these three is a Pallas kernel)
 KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -59,9 +62,12 @@ KERNELS = {
     "moe_gmm_bwd": (
         "src/repro_torch/kernels/csrc/moe_gmm.cu",
         "src/repro/models/moe.py:125"),
+    "rope": (
+        "src/repro_torch/kernels/csrc/rope.cu",
+        "src/repro/models/layers.py:63"),
 }
 
-_COUNTERS = (_flash.LAUNCHES, _paged.LAUNCHES, _gmm.LAUNCHES)
+_COUNTERS = (_flash.LAUNCHES, _paged.LAUNCHES, _gmm.LAUNCHES, _rope.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -84,4 +90,4 @@ __all__ = ["KERNELS", "causal_pairs", "flash_attention",
            "moe_gmm_bwd_plain", "moe_gmm_bwd_work", "moe_gmm_plain",
            "moe_gmm_work", "paged_attention", "paged_attention_plain",
            "paged_decode_work", "paged_extend_work", "paged_work",
-           "reset_launch_counts"]
+           "reset_launch_counts", "rope", "rope_plain", "rope_work"]

@@ -69,15 +69,21 @@ def rmsnorm_ct16(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     return rmsnorm(_CotangentDtype.apply(x), scale, eps)
 
 
+def rope_inv_freq(half: int, theta: float, device) -> torch.Tensor:
+    """RoPE's ``half`` inverse frequencies, f32 (the RoPE kernel's wrapper
+    keeps this tensor per device, so both compute the same bits)."""
+    return torch.exp(-math.log(theta)
+                     * torch.arange(0, half, dtype=torch.float32,
+                                    device=device) / half)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0):
     """Rotary embedding with the half-split rotation.
 
     x: (..., S, H, dh); positions: broadcastable to (..., S)."""
     dh = x.shape[-1]
     half = dh // 2
-    freqs = torch.exp(-math.log(theta)
-                      * torch.arange(0, half, dtype=torch.float32,
-                                     device=x.device) / half)
+    freqs = rope_inv_freq(half, theta, x.device)
     angles = positions[..., None].float() * freqs        # (..., S, half)
     cos = torch.cos(angles)[..., None, :]                # (..., S, 1, half)
     sin = torch.sin(angles)[..., None, :]

@@ -16,6 +16,10 @@ and the same paged slot-KV layout (``init_cache``, ``page_geometry``):
 * ``extend`` writes a chunk of K/V after ``cache["lengths"]`` and runs
   paged attention with per-sequence ``start``.
 
+In these serving modes RoPE rotates a layer's q and k in one kernel call
+(``ops.rope``); training rotates each with ``layers.rope``, which autograd
+differentiates.
+
 Each slot's unallocated table entries point at a scratch page of its own
 (``init_cache``): a free or unscheduled slot's decode writes its K/V there
 and reads back exactly that, as it would from its own row of the JAX
@@ -335,8 +339,11 @@ def _attention(p, x, cfg: ArchConfig, *, norm, positions, lengths, window,
             q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
             k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     with _span(mode, "attn.rope"):
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        if mode == "train":         # autograd differentiates the plain ops
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        else:                       # one kernel launch on the card
+            q, k = ops.rope(q, k, positions, cfg.rope_theta)
     keep = None
     if seq is not None and seq.over_model:
         # the sequence splits over the model ranks: each attends every

@@ -414,7 +414,8 @@ def test_profiler_classifies_every_port_kernel():
     want = {"flash_attention": "flash_attention (port)",
             "paged_attention": "paged_attention (port)",
             "moe_gmm": "moe_gmm (port)",
-            "flash_attention_bwd": "flash_attention_bwd (port)"}
+            "flash_attention_bwd": "flash_attention_bwd (port)",
+            "rope": "rope (port)"}
     symbols = _kernel_symbols()
     names = {n for n, _ in symbols}
     assert {"flash_fwd_kernel", "flash_fwd_wgmma_kernel", "paged_fwd_kernel",
@@ -423,7 +424,8 @@ def test_profiler_classifies_every_port_kernel():
             "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
             "flash_bwd_dkdv_wgmma_kernel",
             "flash_bwd_dq_wgmma_kernel", "gmm_dw_kernel",
-            "gmm_dx_wgmma_kernel", "gmm_dw_wgmma_kernel"} <= names
+            "gmm_dx_wgmma_kernel", "gmm_dw_wgmma_kernel",
+            "rope_qk_kernel"} <= names
     for name, src in symbols:
         ns = "repro_gmm" if src == "moe_gmm" else "repro_attn"
         # the grouped matmul backward's kernels have their own class (its

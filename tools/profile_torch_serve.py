@@ -45,7 +45,8 @@ PORT_CLASSES = (("gmm_dx_wgmma_kernel", "moe_gmm_bwd (port)"),
                 ("flash_bwd_dkdv_kernel", "flash_attention_bwd (port)"),
                 ("flash_bwd_dq_kernel", "flash_attention_bwd (port)"),
                 ("flash_bwd_dkdv_wgmma_kernel", "flash_attention_bwd (port)"),
-                ("flash_bwd_dq_wgmma_kernel", "flash_attention_bwd (port)"))
+                ("flash_bwd_dq_wgmma_kernel", "flash_attention_bwd (port)"),
+                ("rope_qk_kernel", "rope (port)"))
 
 
 def _kernel_class(name: str) -> str:
