@@ -8,10 +8,11 @@
 ``gaps``: for each seed, one process serves a short window of the cell at
 its own load (the timed path, as a run does), takes the sample a run
 takes, and prints one JSON line of statistics of the served tokens' gaps
-against the float32 reference (the program's readings); with
-``--control``, of the tokens that the reference computed through float8
-(e4m3) projections puts first (the control's); with ``--witness``, of
-the program's own whole-sequence forward.  ``--dtype float32`` serves
+against the float32 reference of the configuration's family (the
+program's readings); with ``--control``, of the tokens that the
+reference computed through float8 (e4m3) projections puts first (the
+control's); with ``--witness``, of the program's own whole-sequence
+forward.  ``--dtype float32`` serves
 the program in float32 (a second witness).
 
 ``sweep``: the open-loop cell at each offered rate (requests a second of
@@ -41,7 +42,7 @@ def witness(cell, params, seqs, want):
     import torch
     from perfbench import harness
     from repro_torch.models import Model
-    cfg = harness.arch_config(cell.config)
+    cfg = harness.arch_config(cell.config, cell.family)
     model = Model(cfg)
     dev = params["final_norm"].device
     out = []
@@ -60,7 +61,7 @@ def readings(cell, seed, seconds, device, control=True, second=False):
     (``below_witness``); with the run's unfinished and short requests."""
     import torch
     from perfbench import check, harness
-    from perfbench.reference.decoder import logits_at
+    logits_at = cell.family.logits_at
     s = harness.serve(cell, seed, seconds, False, device,
                       time.perf_counter())
     spec = cell.limits

@@ -3,8 +3,9 @@ reference.
 
 Once the window has closed and the program is freed, a sample of the
 window's finished requests, drawn from the seed and always holding the
-longest one, is run through ``reference.decoder`` over each prompt and
-its served tokens (teacher-forced).  A served token's gap is how far its
+longest one, is run through the plain reference of the configuration's
+family (its ``logits_at``; ``reference/``) over each prompt and its
+served tokens (teacher-forced).  A served token's gap is how far its
 reference logit lies below the reference's best at that position.  The
 cell's limits file (``perfbench/limits/<cell>.json``) holds the sample
 to one or more of ``max_logit_gap`` (the
@@ -23,8 +24,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-
-from perfbench.reference.decoder import logits_at
 
 
 def sample(seed: int, prompts: Dict[int, list], served: Dict[int, list],
@@ -68,7 +67,7 @@ def gaps(ref: List[torch.Tensor], picks: List[torch.Tensor]) -> torch.Tensor:
 
 def compare(params, sizes: dict, spec: dict, seed: int,
             prompts: Dict[int, list], served: Dict[int, list],
-            lengths: Dict[int, int], unfinished: int) -> dict:
+            lengths: Dict[int, int], unfinished: int, *, family) -> dict:
     short = sum(1 for i in served if len(served[i]) != lengths[i])
     ok = {i: s for i, s in served.items() if len(s) == lengths[i] and s}
     ids = sample(seed, prompts, ok, int(spec["sample_tokens"]),
@@ -78,7 +77,7 @@ def compare(params, sizes: dict, spec: dict, seed: int,
         t0 = time.perf_counter()
         seqs, want = teacher_forced(prompts, ok, ids)
         with torch.no_grad():
-            ref = logits_at(params, sizes, seqs, want)
+            ref = family.logits_at(params, sizes, seqs, want)
         g = gaps(ref, [torch.as_tensor(ok[i]) for i in ids])
         q = g.float().quantile(g.new_tensor([0.5, 0.99]).float())
         print(f"reference: {len(ids)} requests, {g.numel()} served tokens, "

@@ -1,6 +1,6 @@
 """The ``cuda`` marker, and a throwaway benchmark of tiny cells for the
 CPU tests: ``BENCHMARK.json``, configuration and traffic files in a
-temporary root, the real metric readers beside them."""
+temporary root, the real metric readers and families beside them."""
 import json
 from pathlib import Path
 
@@ -54,9 +54,11 @@ def write_tiny(root: Path, dtype: str = "bfloat16") -> Path:
     (root / "perfbench" / "traffic").mkdir(parents=True)
     (root / "perfbench" / "limits").mkdir(parents=True)
     (root / "perfbench" / "metrics").symlink_to(HERE / "metrics")
+    (root / "perfbench" / "reference").symlink_to(HERE / "reference")
     for name, (arch, sizes) in TINY_SIZES.items():
         (root / "perfbench" / "configs" / f"{name}.json").write_text(
             json.dumps({"name": name, "arch": arch, "dtype": dtype,
+                        "reference": "perfbench/reference/decoder.py",
                         "sizes": sizes}))
     for name, arrival in (("tiny-open", {"process": "stratified",
                                          "rate": 20.0}),

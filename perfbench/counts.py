@@ -7,6 +7,11 @@ once, whatever a kernel reads again; work that depends on the data
 the inputs at hand, not for the most they could need.  A roofline bound
 is the larger of operations over the peak rate and bytes over the peak
 bandwidth.
+
+An attention call's ``window`` is the port's: a query at position ``p``
+sees the keys at ``p - window + 1`` ... ``p``.  None, or a window as wide
+as the context (the port passes ``2 ** 30`` for the global layers of a
+local:global interleave), counts full causal attention.
 """
 from __future__ import annotations
 
@@ -28,12 +33,28 @@ def causal_pairs(start: int, n: int) -> int:
     return n * start + n * (n + 1) // 2
 
 
+def window_pairs(start: int, n: int, window=None) -> int:
+    """(query, key) pairs of ``n`` queries at positions ``start`` ...
+    ``start + n - 1``, each attending the keys up to its own position that
+    lie inside ``window``: ``causal_pairs`` where the window reaches back
+    to position 0."""
+    if window is None:
+        return causal_pairs(start, n)
+    inside = max(0, min(start + n, window) - start)
+    return causal_pairs(start, inside) + (n - inside) * window
+
+
+def _first_key(start: int, window) -> int:
+    """The first key position a query at ``start`` sees."""
+    return 0 if window is None else max(0, start - window + 1)
+
+
 def flash_prefill(lengths: Sequence[int], H: int, KV: int, dh: int,
-                  itemsize: int = 2):
+                  itemsize: int = 2, window=None):
     """(FLOPs, bytes) of a causal prefill over rows of ``lengths`` real
-    tokens: QK^T and PV over the causal pairs; Q, K, V read, O written,
-    the lengths read."""
-    flops = sum(4 * H * dh * causal_pairs(0, n) for n in lengths)
+    tokens: QK^T and PV over the causal pairs inside the window; Q, K, V
+    read, O written, the lengths read."""
+    flops = sum(4 * H * dh * window_pairs(0, n, window) for n in lengths)
     tok = sum(lengths)
     nbytes = (2 * tok * H * dh + 2 * tok * KV * dh) * itemsize \
         + 4 * len(lengths)
@@ -41,27 +62,35 @@ def flash_prefill(lengths: Sequence[int], H: int, KV: int, dh: int,
 
 
 def paged_extend(starts: Sequence[int], news: Sequence[int], H: int,
-                 KV: int, dh: int, page_size: int, itemsize: int = 2):
+                 KV: int, dh: int, page_size: int, itemsize: int = 2,
+                 window=None):
     """(FLOPs, bytes) of an extend: row b appends ``news[b]`` queries after
-    ``starts[b]`` cached tokens and attends causally over all of them.
-    Q read and O written for the new tokens, K and V read once for the
-    whole context, each row's block-table entries, starts and lengths."""
-    flops = sum(4 * H * dh * causal_pairs(s, n) for s, n in zip(starts, news))
+    ``starts[b]`` cached tokens and attends causally over those inside the
+    window.  Q read and O written for the new tokens, K and V read once
+    for every key some query of the row sees, the block-table entries of
+    their pages, starts and lengths."""
+    flops = sum(4 * H * dh * window_pairs(s, n, window)
+                for s, n in zip(starts, news))
     new = sum(news)
-    ctx = sum(s + n for s, n in zip(starts, news))
-    pages = sum(-(-(s + n) // page_size) for s, n in zip(starts, news))
+    first = [_first_key(s, window) for s in starts]
+    ctx = sum(s + n - f for s, n, f in zip(starts, news, first))
+    pages = sum(-(-(s + n) // page_size) - f // page_size
+                for s, n, f in zip(starts, news, first))
     nbytes = (2 * new * H * dh + 2 * ctx * KV * dh) * itemsize \
         + 4 * pages + 8 * len(starts)
     return flops, nbytes
 
 
 def paged_decode(lengths: Sequence[int], H: int, KV: int, dh: int,
-                 page_size: int, itemsize: int = 2):
-    """(FLOPs, bytes) of one decode step: one query a row over its
-    ``lengths[b]`` keys."""
-    flops = sum(4 * H * dh * n for n in lengths)
-    ctx = sum(lengths)
-    pages = sum(-(-n // page_size) for n in lengths)
+                 page_size: int, itemsize: int = 2, window=None):
+    """(FLOPs, bytes) of one decode step: one query a row over the keys of
+    its ``lengths[b]`` inside the window."""
+    first = [_first_key(n - 1, window) for n in lengths]
+    seen = [n - f for n, f in zip(lengths, first)]
+    flops = sum(4 * H * dh * k for k in seen)
+    ctx = sum(seen)
+    pages = sum(-(-n // page_size) - f // page_size
+                for n, f in zip(lengths, first))
     nbytes = (2 * len(lengths) * H * dh + 2 * ctx * KV * dh) * itemsize \
         + 4 * pages + 4 * len(lengths)
     return flops, nbytes

@@ -5,7 +5,7 @@
 calls ``main``).  The run
 
 1. draws the cell's weights on the card and its requests from the seed
-   (``weights.py``, ``workload.py``);
+   (the configuration's family's ``make_params``, ``workload.py``);
 2. builds the program's normal serving path for the cell:
    ``repro_torch.serve.ServeDriver`` over one ``ServingEngine``, the
    runtime's scheduler with chunked prefill, ``TorchBackend``;
@@ -18,7 +18,7 @@ calls ``main``).  The run
    ``PROFILE_S`` seconds run under ``torch.profiler``;
 5. serves on until every request of the window has finished (at most
    ``DRAIN_S``), reads the peak memory, frees the program and compares
-   a sample of the served tokens with the plain reference
+   a sample of the served tokens with the family's plain reference
    (``check.py``);
 6. prints the checks on standard error and one JSON line on standard
    output, last.
@@ -73,40 +73,63 @@ class Run:
     events: Optional[list] = None
     rec_t0: float = 0.0
     profile: Optional[object] = None
+    family: Optional[object] = None   # the configuration's family module
 
 
 # --------------------------------------------------------------------------
 # the program, built for the cell
 # --------------------------------------------------------------------------
 
-def arch_config(config: dict):
+def _fields(kind, given: dict, where: str) -> dict:
+    """``given`` checked against the fields of the dataclass ``kind``, an
+    unknown key refused by name; float and bool fields as their type."""
+    types = {f.name: getattr(f.type, "__name__", f.type)
+             for f in dataclasses.fields(kind)}
+    unknown = sorted(set(given) - set(types))
+    if unknown:
+        raise ValueError(f"{where}: {', '.join(unknown)} name no field of "
+                         f"the program's {kind.__name__}")
+    cast = {"float": float, "bool": bool}
+    return {k: cast[types[k]](v) if types[k] in cast else v
+            for k, v in given.items()}
+
+
+def arch_config(config: dict, family):
     """The program's ``ArchConfig`` for a configuration file: the registry
-    entry named by ``arch`` with the file's sizes."""
+    entry named by ``arch`` with every field that ``sizes`` names
+    (``stages`` a list of ``Stage`` fields, by default one stage of
+    attention + MLP, or + MoE; ``moe`` the ``MoECfg`` fields, or no MoE
+    where it is left out), refused unless the family's reference
+    computes it."""
     from repro_torch.configs import registry
-    from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MoECfg,
-                                          simple_stages)
-    s = config["sizes"]
+    from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, ArchConfig,
+                                          MoECfg, Stage, simple_stages)
+    name = config["name"]
     base = registry.get_config(config["arch"])
+    s = _fields(ArchConfig, config["sizes"], f"{name}: sizes")
+    own = {"name": name, "compute_dtype": config["dtype"]}
+    if set(s) & set(own):
+        raise ValueError(f"{name}: sizes may not set "
+                         f"{', '.join(sorted(set(s) & set(own)))}: the "
+                         f"file's name and dtype do")
     moe = s.get("moe")
-    cfg = dataclasses.replace(
-        base, n_layers=s["n_layers"], d_model=s["d_model"],
-        n_heads=s["n_heads"], n_kv_heads=s["n_kv_heads"], d_head=s["d_head"],
-        d_ff=s["d_ff"], vocab=s["vocab"], rope_theta=float(s["rope_theta"]),
-        norm_eps=float(s["norm_eps"]), mlp_gated=bool(s["mlp_gated"]),
-        moe=None if moe is None else MoECfg(
-            n_experts=moe["n_experts"], top_k=moe["top_k"],
-            d_expert=moe["d_expert"],
-            capacity_factor=float(moe["capacity_factor"])),
-        stages=simple_stages(ATTN_MOE if moe else ATTN_MLP, s["n_layers"]),
-        compute_dtype=config["dtype"], name=config["name"])
-    plain = (not cfg.qkv_bias and not cfg.qk_norm and not cfg.sliding_window
-             and not cfg.tie_embeddings and not cfg.n_codebooks
-             and cfg.embed_inputs and (moe is not None or not cfg.mlp_gated)
-             and (moe is None or cfg.mlp_gated))
-    if not plain:
-        raise ValueError(f"{config['name']}: the reference covers a GELU "
-                         f"MLP or SwiGLU experts, with no bias, QK norm, "
-                         f"window, tied or codebook head")
+    if moe is not None:
+        s["moe"] = MoECfg(**_fields(MoECfg, moe, f"{name}: sizes.moe"))
+    s.setdefault("moe", None)
+    if "stages" in s:
+        s["stages"] = tuple(Stage(**_fields(Stage, st, f"{name}: stages"))
+                            for st in s["stages"])
+        n = s.get("n_layers", base.n_layers)
+        if sum(st.n_layers for st in s["stages"]) != n:
+            raise ValueError(f"{name}: the stages' layers do not add up to "
+                             f"n_layers {n}")
+    else:
+        s["stages"] = simple_stages(ATTN_MOE if moe else ATTN_MLP,
+                                    s["n_layers"])
+    cfg = dataclasses.replace(base, **s, **own)
+    reason = family.covers(cfg)
+    if reason is not None:
+        raise ValueError(f"{name}: {reason}")
     return cfg
 
 
@@ -250,11 +273,10 @@ def serve(cell, seed: int, seconds: float, trace: bool, device,
     """Set up, serve the window and let its requests finish, read the
     metrics, and free the program."""
     from repro_torch.obs import EventRecorder
-    from perfbench.weights import make_params
-    cfg = arch_config(cell.config)
+    cfg = arch_config(cell.config, cell.family)
     sizes = sizes_of(cell.config, cfg)
-    params = make_params(sizes, seed, device,
-                         dtype=getattr(torch, cell.config["dtype"]))
+    params = cell.family.make_params(
+        sizes, seed, device, dtype=getattr(torch, cell.config["dtype"]))
     traffic = Traffic(cell.traffic, seed, sizes["vocab"])
     rec = EventRecorder(wall_clock=True) if trace else None
     engine, driver = build(cfg, params, cell.traffic, device, recorder=rec)
@@ -311,7 +333,7 @@ def serve(cell, seed: int, seconds: float, trace: bool, device,
               events=rec.events if rec is not None else None,
               rec_t0=rec._t0 if rec is not None else 0.0,
               profile=capture.reduce() if capture is not None
-              and capture.prof is not None else None)
+              and capture.prof is not None else None, family=cell.family)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = cell.readers[m["name"]](run)
@@ -348,7 +370,8 @@ def serve_cell(cell, seed: int, seconds: float, trace: bool, device,
     checks last."""
     s = serve(cell, seed, seconds, trace, device, t_start)
     verdict = check.compare(s.params, s.sizes, cell.limits, seed,
-                            s.prompts, s.served, s.lengths, s.unfinished)
+                            s.prompts, s.served, s.lengths, s.unfinished,
+                            family=cell.family)
     return {"correct": verdict["correct"], **s.out,
             "checks": verdict["checks"]}
 

@@ -1,5 +1,6 @@
 """What the metric files under ``metrics/`` share: the window's requests
-and iterations, and the profile's rooflines and model FLOPs.
+and iterations, and the profile's rooflines and model FLOPs (the
+configuration's family counts them: ``run.family.model_flops``).
 
 Each returns None where the run holds nothing to read (no traced
 profile, no iteration of the kind, no call of the kernel), so the harness
@@ -66,16 +67,19 @@ def roofline(run, families) -> Optional[float]:
 
 
 def call_work(fam: str, c: dict):
+    """(FLOPs, bytes) of one recorded kernel call, its window honoured."""
+    window = c.get("window")
     if fam == "flash":
         B, S, H, dh = c["q"]
         lengths = c["lengths"] if c["lengths"] is not None else [S] * B
-        return counts.flash_prefill(lengths, H, c["KV"], dh, c["itemsize"])
+        return counts.flash_prefill(lengths, H, c["KV"], dh, c["itemsize"],
+                                    window)
     if fam == "extend":
         B, S, H, dh = c["q"]
         starts = c["start"]
         news = [n - s for n, s in zip(c["lengths"], starts)]
         return counts.paged_extend(starts, news, H, c["KV"], dh,
-                                   c["page_size"], c["itemsize"])
+                                   c["page_size"], c["itemsize"], window)
     if fam == "gmm":
         E, C, d = c["x"]
         return counts.moe_gmm(E, C, d, c["w"][2], c["group_sizes"],
@@ -95,5 +99,5 @@ def mfu(run) -> Optional[float]:
             # a prefill chunk's logits are the last token's; a decode's
             # its one token's
             chunks.append((start, n, 1))
-    flops = counts.model_flops(run.sizes, chunks)
+    flops = run.family.model_flops(run.sizes, chunks)
     return 100.0 * flops / (p.window_s * counts.PEAK_BF16_FLOPS)

@@ -1,4 +1,11 @@
-"""Plain float32 forward pass of the decoders the cells serve.
+"""The family of the plain pre-norm decoder: its float32 forward pass,
+its seeded weights and its FLOP count.
+
+A configuration file names its family module under ``reference``; this
+is the first (see ``perfbench/reference/__init__.py`` for what a family
+exports).  ``covers`` says which of the program's configurations this
+reference computes; ``make_params`` is ``weights.make_params`` and
+``model_flops`` is ``counts.model_flops``.
 
 One pre-norm decoder covers both families of the benchmark's
 configurations: a dense one (GQA attention with RoPE, then a GELU MLP:
@@ -39,7 +46,32 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from perfbench.counts import model_flops  # noqa: F401  (the family's count)
+from perfbench.weights import make_params  # noqa: F401  (its weights)
+
 FP8_MAX = 448.0
+
+
+def covers(cfg) -> Optional[str]:
+    """None where this reference computes the program's ``cfg``: one
+    stage of attention + GELU MLP, or of attention + SwiGLU experts with
+    no shared expert; else why not."""
+    moe = cfg.moe
+    plain = (not cfg.qkv_bias and not cfg.qk_norm and not cfg.sliding_window
+             and not cfg.tie_embeddings and not cfg.n_codebooks
+             and cfg.embed_inputs and (moe is not None or not cfg.mlp_gated)
+             and (moe is None or cfg.mlp_gated))
+    if not plain:
+        return ("the reference covers a GELU MLP or SwiGLU experts, with no "
+                "bias, QK norm, window, tied or codebook head")
+    kind = "attn_moe" if moe is not None else "attn_mlp"
+    if [(st.kind, st.n_layers, st.local_global_period)
+            for st in cfg.stages] != [(kind, cfg.n_layers, 0)] \
+            or (moe is not None and moe.n_shared_experts):
+        return ("the reference covers one stage of attention + MLP or "
+                "attention + MoE layers, with no local:global interleave "
+                "or shared expert")
+    return None
 
 
 def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -50,7 +82,7 @@ def _fp8(t: torch.Tensor, dim: int) -> torch.Tensor:
     return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
-class _Linear:
+class Linear:
     def __init__(self, quantize: Optional[str]):
         if quantize not in (None, "fp8"):
             raise ValueError(f"quantize {quantize!r}: None or 'fp8'")
@@ -65,6 +97,13 @@ class _Linear:
         if self.quantize:
             x = _fp8(x, -1)
         return x @ w
+
+
+def no_tf32(dev: torch.device):
+    """Float32 matmuls in float32 on a card: TF32 off."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float):
@@ -90,9 +129,10 @@ def rope(x: torch.Tensor, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def causal_attention(q, k, v, block: int = 512):
+def causal_attention(q, k, v, block: int = 512, window=None):
     """q (S, H, dh), k / v (S, KV, dh): softmax attention of each query
-    over the keys at or before it, query head h reading KV head
+    over the keys at or before it (and, with a ``window``, less than
+    ``window`` positions before it), query head h reading KV head
     h // (H / KV); (S, H * dh)."""
     S, H, dh = q.shape
     G = H // k.shape[1]
@@ -104,13 +144,16 @@ def causal_attention(q, k, v, block: int = 512):
         qb = q[lo:hi].transpose(0, 1)                       # (H, b, dh)
         s = (qb @ k[:, :hi].transpose(1, 2)) / math.sqrt(dh)
         pos = torch.arange(lo, hi, device=q.device)[:, None]
-        s = s.masked_fill(torch.arange(hi, device=q.device)[None, :] > pos,
-                          float("-inf"))
+        key = torch.arange(hi, device=q.device)[None, :]
+        masked = key > pos
+        if window is not None:
+            masked = masked | (pos - key >= window)
+        s = s.masked_fill(masked, float("-inf"))
         out[lo:hi] = (torch.softmax(s, dim=-1) @ v[:, :hi]).transpose(0, 1)
     return out.reshape(S, H * dh)
 
 
-def moe(x, router, w_gate, w_up, w_down, top_k: int, lin: _Linear):
+def moe(x, router, w_gate, w_up, w_down, top_k: int, lin: Linear):
     """Top-k routing over the router's softmax, weights renormalised, every
     routed (token, expert) pair computed: x (T, d) -> (T, d)."""
     probs = torch.softmax(x @ router.float(), dim=-1)
@@ -136,10 +179,8 @@ def logits_at(params: dict, sizes: dict, seqs: Sequence[Sequence[int]],
     vocabulary at the positions ``want[i]``: (len(want[i]), vocab)."""
     dev = torch.device(device) if device is not None else \
         params["final_norm"].device
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    lin = _Linear(quantize)
+    no_tf32(dev)
+    lin = Linear(quantize)
     H, KV, dh = sizes["n_heads"], sizes["n_kv_heads"], sizes["d_head"]
     eps, V = sizes["norm_eps"], sizes["vocab"]
     moe_cfg = sizes.get("moe")

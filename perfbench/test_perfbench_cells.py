@@ -24,7 +24,7 @@ def test_every_cell_of_the_benchmark_loads():
         # every per-layer metric's end-to-end metric is reported here
         e2e = {m["name"] for m in cell.end_to_end}
         assert all(m["moves"] in e2e for m in cell.per_layer)
-        cfg = harness.arch_config(cell.config)
+        cfg = harness.arch_config(cell.config, cell.family)
         assert cfg.n_layers == cell.config["sizes"]["n_layers"]
 
 

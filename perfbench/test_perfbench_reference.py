@@ -6,6 +6,7 @@ import torch
 
 from perfbench import harness
 from perfbench.conftest import TINY_SIZES
+from perfbench.reference import decoder
 from perfbench.reference.decoder import logits_at
 from perfbench.weights import make_params
 
@@ -21,7 +22,7 @@ def program_logits(cfg, params, tokens):
 def test_reference_matches_program(name):
     arch, sizes = TINY_SIZES[name]
     config = {"name": name, "arch": arch, "dtype": "float32", "sizes": sizes}
-    cfg = harness.arch_config(config)
+    cfg = harness.arch_config(config, decoder)
     sz = harness.sizes_of(config, cfg)
     params = make_params(sz, seed=2 ** 33 + 5, device="cpu",
                          dtype=torch.float32)
@@ -39,7 +40,7 @@ def test_reference_matches_program(name):
 def test_reference_takes_sequences_of_any_length_together():
     arch, sizes = TINY_SIZES["tiny-moe"]
     config = {"name": "m", "arch": arch, "dtype": "float32", "sizes": sizes}
-    sz = harness.sizes_of(config, harness.arch_config(config))
+    sz = harness.sizes_of(config, harness.arch_config(config, decoder))
     params = make_params(sz, seed=3, device="cpu", dtype=torch.float32)
     a, b = list(range(5, 30)), list(range(40, 49))
     both = logits_at(params, sz, [a, b], [[3, 24], [0, 8]])

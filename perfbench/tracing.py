@@ -8,8 +8,9 @@ The harness's spans are ``record_function`` ranges named
 ``torch.cuda.synchronize``, a device operation that starts inside such a
 span belongs to that iteration.  The kernel wrappers of
 ``repro_torch.kernels.ops`` are wrapped while the capture is on, so each
-call's shapes and its lengths, starts and group sizes (device tensors,
-read once the capture ends) are known for the benchmark's own counts.
+call's shapes, its attention window and its lengths, starts and group
+sizes (device tensors, read once the capture ends) are known for the
+benchmark's own counts.
 """
 from __future__ import annotations
 
@@ -121,7 +122,7 @@ class Capture:
 
         def flash_w(q, k, v, lengths=None, window=None, return_lse=False):
             calls["flash"].append({"q": tuple(q.shape), "KV": k.shape[2],
-                                   "lengths": lengths,
+                                   "lengths": lengths, "window": window,
                                    "itemsize": q.element_size()})
             return flash(q, k, v, lengths, window, return_lse)
 
@@ -130,6 +131,7 @@ class Capture:
             calls[fam].append({"q": tuple(q.shape), "KV": k_pages.shape[2],
                                "page_size": kw.get("page_size"),
                                "lengths": lengths, "start": kw.get("start"),
+                               "window": kw.get("window"),
                                "itemsize": q.element_size()})
             return paged(q, k_pages, v_pages, block_table, lengths, **kw)
 
