@@ -36,7 +36,14 @@ class MoECfg:
     top_k: int
     d_expert: int               # per-expert FFN hidden size
     capacity_factor: float = 1.25
-    n_shared_experts: int = 0
+    n_shared_experts: int = 0   # one SwiGLU of n_shared * d_expert beside
+    # the routed experts, run on every token
+    # "softmax": top-k of the router's softmax, weights renormalised;
+    # "sigmoid": the router's sigmoid scores (its product in f32), top-k of
+    # the scores plus a per-layer expert bias (``moe.expert_bias``,
+    # selection only), weights the unbiased scores renormalised
+    score_func: str = "softmax"
+    route_scale: float = 1.0    # the combine weights' multiplier
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +73,12 @@ class ArchConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     sliding_window: int = 0     # window size for local layers (0 = none)
+    rope_local_only: bool = False   # global layers of a local:global
+    # interleave attend without RoPE (NoPE)
+    attn_out_gate: bool = False     # attention output times sigmoid of a
+    # projection of the layer's normed input (``attn.wg``), before ``wo``
+    sandwich_norm: bool = False     # an RMSNorm on each sublayer's output
+    # before its residual add (``post_attn_norm``, ``post_mlp_norm``)
     mlp_gated: bool = True      # SwiGLU (3 mats) vs plain GELU MLP (2 mats)
     # MoE / SSM options
     moe: Optional[MoECfg] = None
@@ -74,6 +87,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     n_codebooks: int = 0        # musicgen-style multi-head output (0 = plain LM)
     embed_inputs: bool = True   # False -> input_specs provides embeddings (stub frontend)
+    embed_multiplier: float = 1.0   # the embedding's output scaled (muP)
     # norm
     norm_eps: float = 1e-5
     # sub-quadratic? (drives long_500k applicability)
@@ -98,7 +112,10 @@ class ArchConfig:
         return ((self.vocab + 255) // 256) * 256
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks + head)."""
+        """Analytic parameter count (embedding + blocks + head).  Over the
+        published vocabulary, not the padded one the params hold, and
+        without QK-norm scales, as the JAX package counts (the dry run's
+        model FLOPs are held to its count)."""
         d, ff, V = self.d_model, self.d_ff, self.vocab
         emb = V * d if self.embed_inputs else 0
         head = 0 if self.tie_embeddings else V * d * max(1, self.n_codebooks or 1)
@@ -108,16 +125,21 @@ class ArchConfig:
         attn = d * q + 2 * d * kv + q * d  # wq, wk, wv, wo
         if self.qkv_bias:
             attn += q + 2 * kv
+        if self.attn_out_gate:
+            attn += d * q                  # wg
+        norms = (4 if self.sandwich_norm else 2) * d
         mlp = (3 if self.mlp_gated else 2) * d * ff  # SwiGLU vs plain MLP
         for st in self.stages:
             n = st.n_layers
             if st.kind == ATTN_MLP:
-                total += n * (attn + mlp + 2 * d)
+                total += n * (attn + mlp + norms)
             elif st.kind == ATTN_MOE:
                 m = self.moe
                 expert = 3 * d * m.d_expert
-                total += n * (attn + d * m.n_experts  # router
-                              + (m.n_experts + m.n_shared_experts) * expert + 2 * d)
+                bias = m.n_experts if m.score_func == "sigmoid" else 0
+                total += n * (attn + d * m.n_experts + bias  # router
+                              + (m.n_experts + m.n_shared_experts) * expert
+                              + norms)
             elif st.kind == MAMBA2:
                 total += n * self._mamba_params() + n * d
             elif st.kind == ZAMBA_SUPER:

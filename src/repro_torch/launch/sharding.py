@@ -415,6 +415,15 @@ def unsupported(cfg: ArchConfig, tp: int, fuse_qkv: bool = False,
             and not experts_parallel(cfg, tp) and cfg.moe.d_expert % tp:
         why.append(f"{cfg.moe.n_experts} experts do not split over "
                    f"tp={tp}, nor does d_expert {cfg.moe.d_expert}")
+    # weights with no rule of the model axis yet: refused, not replicated
+    # or cut wrong
+    if cfg.attn_out_gate:
+        why.append("the attention output gate (attn.wg) has no tp split")
+    if "attn_moe" in present and cfg.moe.n_shared_experts:
+        why.append("the shared expert (moe.shared_*) has no tp split")
+    if "attn_moe" in present and cfg.moe.score_func == "sigmoid":
+        why.append("the sigmoid router's expert bias (moe.expert_bias) has "
+                   "no tp rule")
     return f"{cfg.name}: " + "; ".join(why) if why else None
 
 

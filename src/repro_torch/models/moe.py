@@ -86,6 +86,7 @@ from repro_torch.launch.collectives import (all_to_all, copy_to,
                                            gather_rows, reduce_from,
                                            take_rows)
 from repro_torch.launch.sharding import expert_range, head_range
+from repro_torch.obs.spans import mode_span
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -122,6 +123,24 @@ def normalize_topk(probs: torch.Tensor, top_k: int):
     combine_w = combine_w / torch.clamp(combine_w.sum(-1, keepdim=True),
                                         min=1e-9)
     return expert_idx, combine_w
+
+
+def sigmoid_topk(x, w_router, top_k: int, bias=None,
+                 route_scale: float = 1.0):
+    """The sigmoid router (``MoECfg.score_func == "sigmoid"``): scores
+    ``s = sigmoid(x @ w_router)`` with the product in f32, the top k of ``s
+    + bias`` chosen (``bias`` (E,), selection only; ties to the lower index,
+    a stable descending sort), their weights ``s`` renormalised (``+ 1e-20``)
+    and scaled by ``route_scale``: (expert_idx (T,k) int32, combine_w (T,k)
+    f32, aux 0; no balance loss)."""
+    s = torch.sigmoid(x.float() @ w_router.float())            # (T, E)
+    pick = s if bias is None else s + bias.float()
+    expert_idx = torch.sort(pick, dim=-1, descending=True,
+                            stable=True).indices[..., :top_k]
+    w = s.gather(-1, expert_idx)
+    combine_w = w / (w.sum(-1, keepdim=True) + 1e-20) * route_scale
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return expert_idx.to(torch.int32), combine_w, aux
 
 
 def router_topk(x, w_router, top_k: int, dp_group=None):
@@ -270,7 +289,8 @@ def _experts_on_ranks(x, combine_w, params, group, *, order, tok_of,
 def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
             gated: bool = True, router_fn=None, positions=None, layer=None,
             valid=None, group=None, dp_group=None,
-            shard_experts: bool = False):
+            shard_experts: bool = False, score_func: str = "softmax",
+            route_scale: float = 1.0, mode: str = "train"):
     """x: (T, d). params: router (d,E), w_gate/w_up (E,d,de), w_down (E,de,d).
 
     ``router_fn`` is the injectable routing hook (``repro_torch.moe.hooks``):
@@ -285,6 +305,11 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     ``x`` one data-parallel rank's tokens; ``shard_experts`` with a group,
     ``params`` hold the rank's whole experts in the padded layout and the
     tokens reach them by all-to-all; see the module docstring.
+
+    ``score_func`` "sigmoid" routes by ``sigmoid_topk`` with the layer's
+    ``params["expert_bias"]`` and ``route_scale``.  In a serving ``mode``
+    the ``moe.*`` spans wrap the route, the dispatch, the experts and the
+    combine.
     """
     T, d = x.shape
     E = params["router"].shape[-1]
@@ -293,67 +318,86 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
     # dispatched over every expert, as at tp = 1
     E_loc = E if a2a else params["w_down"].shape[0]
     first = 0 if group is None or E_loc == E else group.rank * E_loc
-    if router_fn is None:
-        expert_idx, combine_w, aux = router_topk(x, params["router"], top_k,
-                                                 dp_group)
-    else:
-        if dp_group is not None:
-            raise ValueError("moe_ffn: a routing hook under data "
-                             "parallelism")
-        logits = (x @ params["router"].to(x.dtype)).float()
-        expert_idx, combine_w, aux = router_fn(
-            logits, positions=positions, layer=layer, top_k=top_k,
-            valid=valid)
-    ndp = 1 if dp_group is None else dp_group.size
-    C = expert_capacity(T * ndp, top_k, E, capacity_factor)
-    if not a2a:
-        # the sharded region: the tokens dispatched and the combine weights
-        xd = copy_to(x, group)
-        combine_w = copy_to(combine_w, group)
+    with mode_span(mode, "moe.route"):
+        if router_fn is not None:
+            if dp_group is not None:
+                raise ValueError("moe_ffn: a routing hook under data "
+                                 "parallelism")
+            logits = (x @ params["router"].to(x.dtype)).float()
+            expert_idx, combine_w, aux = router_fn(
+                logits, positions=positions, layer=layer, top_k=top_k,
+                valid=valid)
+        elif score_func == "sigmoid":
+            expert_idx, combine_w, aux = sigmoid_topk(
+                x, params["router"], top_k, params.get("expert_bias"),
+                route_scale)
+        else:
+            expert_idx, combine_w, aux = router_topk(x, params["router"],
+                                                     top_k, dp_group)
+    with mode_span(mode, "moe.dispatch"):
+        ndp = 1 if dp_group is None else dp_group.size
+        C = expert_capacity(T * ndp, top_k, E, capacity_factor)
+        if not a2a:
+            # the sharded region: the tokens dispatched and the combine
+            # weights
+            xd = copy_to(x, group)
+            combine_w = copy_to(combine_w, group)
 
-    # --- dispatch: sort (token, k) pairs by expert --------------------------
-    # (this rank's experts renumbered from 0; the others and invalid rows
-    # into the trash bucket E_loc, past every expert)
-    flat_e = expert_idx.reshape(-1).long() - first          # (T*k,)
-    routed = (flat_e >= 0) & (flat_e < E_loc) if E_loc != E else None
-    if valid is not None:
-        v = valid[:, None].expand(T, top_k).reshape(-1)
-        routed = v if routed is None else routed & v
-    if routed is None:
-        sort_e = flat_e
-    else:
-        sort_e = torch.where(routed, flat_e, torch.full_like(flat_e, E_loc))
-    order = torch.argsort(sort_e, stable=True)
-    tok_of = order // top_k                                 # token per entry
-    e_sorted = flat_e[order]
-    s_sorted = sort_e[order]
-    # position within expert group = rank - group_start[expert]
-    # (scatter_add_, not bincount: bincount syncs the host on the card)
-    counts = torch.zeros((E_loc + 1,), dtype=torch.long, device=x.device) \
-        .scatter_add_(0, sort_e, torch.ones_like(sort_e))
-    starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * top_k, device=x.device) - starts[s_sorted]
-    # the slots the lower data-parallel ranks take in each expert first
-    slot, room = pos_in_e, C
-    if dp_group is not None:
-        every = expert_idx.reshape(-1).long()
+        # --- dispatch: sort (token, k) pairs by expert ----------------------
+        # (this rank's experts renumbered from 0; the others and invalid rows
+        # into the trash bucket E_loc, past every expert)
+        flat_e = expert_idx.reshape(-1).long() - first          # (T*k,)
+        routed = (flat_e >= 0) & (flat_e < E_loc) if E_loc != E else None
         if valid is not None:
-            every = torch.where(v, every, torch.full_like(every, E))
-        mine = torch.zeros((E + 1,), dtype=torch.long, device=x.device) \
-            .scatter_add_(0, every, torch.ones_like(every))
-        ranks = dp_group.all_gather_dim(mine[None], 0)       # (dp, E + 1)
-        below = ranks[:dp_group.rank].sum(dim=0)
-        offset = torch.zeros((E_loc + 1,), dtype=torch.long,
-                             device=x.device)
-        offset[:E_loc] = below[first:first + E_loc]
-        slot = pos_in_e + offset[s_sorted]
-        room = torch.clamp(C - offset[:E_loc], min=0)
-    keep = (slot < C) & (s_sorted < E_loc)                  # capacity drop
-    # the rows an expert holds here: a kept entry's pos_in_e is below C and,
-    # the router's top-k being distinct experts, below T (a hook's routing
-    # may repeat an expert within a token: C then)
-    n = min(C, T) if router_fn is None else C
-    group_sizes = torch.clamp(counts[:E_loc], max=room).to(torch.int32)
+            v = valid[:, None].expand(T, top_k).reshape(-1)
+            routed = v if routed is None else routed & v
+        if routed is None:
+            sort_e = flat_e
+        else:
+            sort_e = torch.where(routed, flat_e,
+                                 torch.full_like(flat_e, E_loc))
+        order = torch.argsort(sort_e, stable=True)
+        tok_of = order // top_k                             # token per entry
+        e_sorted = flat_e[order]
+        s_sorted = sort_e[order]
+        # position within expert group = rank - group_start[expert]
+        # (scatter_add_, not bincount: bincount syncs the host on the card)
+        counts = torch.zeros((E_loc + 1,), dtype=torch.long,
+                             device=x.device) \
+            .scatter_add_(0, sort_e, torch.ones_like(sort_e))
+        starts = torch.cumsum(counts, 0) - counts
+        pos_in_e = torch.arange(T * top_k, device=x.device) \
+            - starts[s_sorted]
+        # the slots the lower data-parallel ranks take in each expert first
+        slot, room = pos_in_e, C
+        if dp_group is not None:
+            every = expert_idx.reshape(-1).long()
+            if valid is not None:
+                every = torch.where(v, every, torch.full_like(every, E))
+            mine = torch.zeros((E + 1,), dtype=torch.long, device=x.device) \
+                .scatter_add_(0, every, torch.ones_like(every))
+            ranks = dp_group.all_gather_dim(mine[None], 0)   # (dp, E + 1)
+            below = ranks[:dp_group.rank].sum(dim=0)
+            offset = torch.zeros((E_loc + 1,), dtype=torch.long,
+                                 device=x.device)
+            offset[:E_loc] = below[first:first + E_loc]
+            slot = pos_in_e + offset[s_sorted]
+            room = torch.clamp(C - offset[:E_loc], min=0)
+        keep = (slot < C) & (s_sorted < E_loc)              # capacity drop
+        # the rows an expert holds here: a kept entry's pos_in_e is below C
+        # and, the router's top-k being distinct experts, below T (a hook's
+        # routing may repeat an expert within a token: C then)
+        n = min(C, T) if router_fn is None else C
+        group_sizes = torch.clamp(counts[:E_loc], max=room).to(torch.int32)
+        if not a2a:
+            # flat buffer row: expert * n + pos_in_e, the overflow row
+            # E_loc * n
+            dst = torch.where(keep, e_sorted * n + pos_in_e,
+                              torch.full_like(pos_in_e, E_loc * n))
+            buf = torch.zeros((E_loc * n + 1, d), dtype=x.dtype,
+                              device=x.device)
+            buf[dst] = xd[tok_of]
+            hidden_in = buf[:E_loc * n].view(E_loc, n, d)
     if a2a:
         ct = -(-T // group.size)
         n_s = min(C, ct if router_fn is None else ct * top_k)
@@ -363,21 +407,17 @@ def moe_ffn(x, params, *, top_k: int, capacity_factor: float = 1.25,
                               group_sizes=group_sizes, n=n, n_s=n_s,
                               top_k=top_k, gated=gated)
         return y, aux
-    # flat buffer row: expert * n + pos_in_e, the overflow row E_loc * n
-    dst = torch.where(keep, e_sorted * n + pos_in_e,
-                      torch.full_like(pos_in_e, E_loc * n))
-    buf = torch.zeros((E_loc * n + 1, d), dtype=x.dtype, device=x.device)
-    buf[dst] = xd[tok_of]
-    hidden_in = buf[:E_loc * n].view(E_loc, n, d)
 
     # --- grouped expert FFN: three launches of the grouped matmul -----------
-    out_e = _expert_ffn(hidden_in, params, group_sizes, gated, x.dtype)
+    with mode_span(mode, "moe.experts"):
+        out_e = _expert_ffn(hidden_in, params, group_sizes, gated, x.dtype)
 
     # --- combine: gather back and weight, in JAX's order ---------------------
     # dropped entries read expert 0's row n - 1 (JAX's clamp of slot C)
     # with weight 0; each token's entries in ascending sorted position
-    src = torch.where(keep, dst, n - 1)
-    w = (combine_w.reshape(-1)[order] * keep).to(x.dtype)
-    pos = entries_by_token(tok_of, top_k)
-    y = combine(out_e.reshape(E_loc * n, d)[src[pos]], w[pos], top_k)
-    return reduce_from(y, group), aux
+    with mode_span(mode, "moe.combine"):
+        src = torch.where(keep, dst, n - 1)
+        w = (combine_w.reshape(-1)[order] * keep).to(x.dtype)
+        pos = entries_by_token(tok_of, top_k)
+        y = combine(out_e.reshape(E_loc * n, d)[src[pos]], w[pos], top_k)
+        return reduce_from(y, group), aux

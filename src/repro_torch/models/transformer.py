@@ -20,6 +20,18 @@ In these serving modes RoPE rotates a layer's q and k in one kernel call
 (``ops.rope``); training rotates each with ``layers.rope``, which autograd
 differentiates.
 
+A local:global interleave counts its layers over the whole model (layer
+``i`` of the model is global iff ``i % P == P - 1``, ``P`` its stage's
+period), and MoE layers take their windows as MLP layers do.  The options
+of the port's own afmoe model (trinity-mini, which the JAX package
+lacks), each off by default: ``rope_local_only`` (global layers attend
+without RoPE), ``attn_out_gate`` (the attention output times sigmoid of
+``attn.wg`` applied to the layer's normed input, before ``wo``),
+``sandwich_norm`` (``post_attn_norm`` and ``post_mlp_norm`` on each
+sublayer's output before its residual add), ``embed_multiplier``, and, in
+``MoECfg``, sigmoid scoring with a per-layer expert bias, a route scale
+and shared experts (``moe.shared_*``, added to the routed sum).
+
 Each slot's unallocated table entries point at a scratch page of its own
 (``init_cache``): a free or unscheduled slot's decode writes its K/V there
 and reads back exactly that, as it would from its own row of the JAX
@@ -153,14 +165,15 @@ from repro_torch.models.layers import (chunked_attention,
                                        rmsnorm, rmsnorm_ct16, rope,
                                        swiglu_mlp)
 from repro_torch.models.moe import moe_ffn
-from repro_torch.obs.spans import NOOP, span
+from repro_torch.obs.spans import mode_span as _span, span
 
 #: stage kinds that carry per-slot recurrent state
 RECURRENT = (MAMBA2, ZAMBA_SUPER, XLSTM_PAIR)
 #: zamba superblock: Mamba2 blocks before the shared attention block
 ZAMBA_INNER = 6
 #: params the recurrent blocks read in f32 whatever the compute dtype
-_F32_PARAMS = frozenset({"A_log", "dt_bias", "D", "r_gates"})
+_F32_PARAMS = frozenset({"A_log", "dt_bias", "D", "r_gates",
+                         "expert_bias"})
 
 #: global layers of a local:global interleave attend without a window
 _GLOBAL_WINDOW = 2 ** 30
@@ -211,6 +224,8 @@ def _init_attn(gen, cfg: ArchConfig, lead: tuple, fuse_qkv=False,
     if cfg.qk_norm:
         p["q_norm"] = m.zeros(lead + (dh,), device=kw.get("device"))
         p["k_norm"] = m.zeros(lead + (dh,), device=kw.get("device"))
+    if cfg.attn_out_gate:
+        p["wg"] = m.dense_init(gen, d, H * dh, lead=lead, **kw)
     return p
 
 
@@ -224,13 +239,26 @@ def _init_mlp(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
             "w_out": m.dense_init(gen, ff, d, lead=lead, **kw)}
 
 
+def _init_attn_ffn(gen, cfg: ArchConfig, lead: tuple, fuse_qkv: bool,
+                   name: str, ffn, **kw) -> dict:
+    """An attention + feed-forward layer: the norms, the attention, then
+    the feed-forward ``name`` that ``ffn()`` draws; with ``sandwich_norm``,
+    a norm on each sublayer's output too."""
+    dev = kw.get("device")
+    p = {"norm1": m.zeros(lead + (cfg.d_model,), device=dev),
+         "attn": _init_attn(gen, cfg, lead, fuse_qkv, **kw),
+         "norm2": m.zeros(lead + (cfg.d_model,), device=dev)}
+    p[name] = ffn()
+    if cfg.sandwich_norm:
+        p["post_attn_norm"] = m.zeros(lead + (cfg.d_model,), device=dev)
+        p["post_mlp_norm"] = m.zeros(lead + (cfg.d_model,), device=dev)
+    return p
+
+
 def _init_attn_mlp(gen, cfg: ArchConfig, lead: tuple, fuse_qkv=False,
                    **kw) -> dict:
-    dev = kw.get("device")
-    return {"norm1": m.zeros(lead + (cfg.d_model,), device=dev),
-            "attn": _init_attn(gen, cfg, lead, fuse_qkv, **kw),
-            "norm2": m.zeros(lead + (cfg.d_model,), device=dev),
-            "mlp": _init_mlp(gen, cfg, lead, **kw)}
+    return _init_attn_ffn(gen, cfg, lead, fuse_qkv, "mlp",
+                          lambda: _init_mlp(gen, cfg, lead, **kw), **kw)
 
 
 def _init_mamba_layer(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
@@ -247,16 +275,28 @@ def _init_xlstm_pair(gen, cfg: ArchConfig, lead: tuple, **kw) -> dict:
 
 
 def _init_moe(gen, cfg: ArchConfig, L: int, **kw) -> dict:
+    """The router and the routed experts; the shared expert (``shared_*``,
+    one SwiGLU of ``n_shared_experts * d_expert``) where there is one, and
+    the sigmoid router's expert bias (f32, zero)."""
     d, mo = cfg.d_model, cfg.moe
     router = m.dense_init(gen, d, mo.n_experts, lead=(L,),
                           device=kw.get("device")) * 0.1
-    return {"router": router.to(kw.get("dtype", torch.float32)),
-            "w_gate": m.dense_init(gen, d, mo.d_expert,
-                                   lead=(L, mo.n_experts), **kw),
-            "w_up": m.dense_init(gen, d, mo.d_expert,
-                                 lead=(L, mo.n_experts), **kw),
-            "w_down": m.dense_init(gen, mo.d_expert, d,
-                                   lead=(L, mo.n_experts), **kw)}
+    p = {"router": router.to(kw.get("dtype", torch.float32)),
+         "w_gate": m.dense_init(gen, d, mo.d_expert,
+                                lead=(L, mo.n_experts), **kw),
+         "w_up": m.dense_init(gen, d, mo.d_expert,
+                              lead=(L, mo.n_experts), **kw),
+         "w_down": m.dense_init(gen, mo.d_expert, d,
+                                lead=(L, mo.n_experts), **kw)}
+    if mo.n_shared_experts:
+        fs = mo.n_shared_experts * mo.d_expert
+        p["shared_gate"] = m.dense_init(gen, d, fs, lead=(L,), **kw)
+        p["shared_up"] = m.dense_init(gen, d, fs, lead=(L,), **kw)
+        p["shared_down"] = m.dense_init(gen, fs, d, lead=(L,), **kw)
+    if mo.score_func == "sigmoid":
+        p["expert_bias"] = m.zeros((L, mo.n_experts),
+                                   device=kw.get("device"))
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -293,12 +333,6 @@ def _chunk_kv(k, v, cfg: ArchConfig) -> dict:
     fused projection's output, which would keep all of it alive)."""
     dtype = torch_dtype(cfg.compute_dtype)
     return {"k": k.to(dtype).contiguous(), "v": v.to(dtype).contiguous()}
-
-
-def _span(mode: str, name: str):
-    """A profiler span (``obs.spans``) in the serving modes; a training
-    step records none."""
-    return NOOP if mode == "train" else span(name)
 
 
 def _attention(p, x, cfg: ArchConfig, *, norm, positions, lengths, window,
@@ -338,12 +372,15 @@ def _attention(p, x, cfg: ArchConfig, *, norm, positions, lengths, window,
         if cfg.qk_norm:
             q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
             k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    with _span(mode, "attn.rope"):
-        if mode == "train":         # autograd differentiates the plain ops
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
-        else:                       # one kernel launch on the card
-            q, k = ops.rope(q, k, positions, cfg.rope_theta)
+    h = x                           # the normed input: the gate reads it
+    # (``rope_local_only``: a global layer attends without RoPE)
+    if not (cfg.rope_local_only and window == _GLOBAL_WINDOW):
+        with _span(mode, "attn.rope"):
+            if mode == "train":     # autograd differentiates the plain ops
+                q = rope(q, positions, cfg.rope_theta)
+                k = rope(k, positions, cfg.rope_theta)
+            else:                   # one kernel launch on the card
+                q, k = ops.rope(q, k, positions, cfg.rope_theta)
     keep = None
     if seq is not None and seq.over_model:
         # the sequence splits over the model ranks: each attends every
@@ -431,8 +468,11 @@ def _attention(p, x, cfg: ArchConfig, *, norm, positions, lengths, window,
                                           page_size=page_size, start=start,
                                           window=window)
         new_cache = cache
+    out = out.reshape(B, S, H * dh)
+    if cfg.attn_out_gate:
+        with _span(mode, "attn.gate"):
+            out = out * torch.sigmoid(h @ p["wg"].to(h.dtype))
     with _span(mode, "attn.out"):
-        out = out.reshape(B, S, H * dh)
         return reduce_from(out @ p["wo"].to(x.dtype), group), new_cache
 
 
@@ -445,14 +485,20 @@ def _mlp(p, x, cfg: ArchConfig, group=None):
     return reduce_from(y, group)
 
 
+def _post(p, name: str, y, cfg, norm_fn=rmsnorm):
+    """A sublayer's output, through its own norm under ``sandwich_norm``."""
+    return norm_fn(y, p[name], cfg.norm_eps) if cfg.sandwich_norm else y
+
+
 def _attn_mlp_block(p, x, cfg, norm_fn=rmsnorm, **kw):
     h, new_cache = _attention(
         p["attn"], x, cfg, norm=lambda t: norm_fn(t, p["norm1"],
                                                   cfg.norm_eps), **kw)
     with _span(kw["mode"], "mlp"):
-        x = x + h
-        x = x + _mlp(p["mlp"], norm_fn(x, p["norm2"], cfg.norm_eps), cfg,
-                     kw["group"])
+        x = x + _post(p, "post_attn_norm", h, cfg, norm_fn)
+        f = _mlp(p["mlp"], norm_fn(x, p["norm2"], cfg.norm_eps), cfg,
+                 kw["group"])
+        x = x + _post(p, "post_mlp_norm", f, cfg, norm_fn)
     return x, new_cache
 
 
@@ -462,8 +508,9 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
     h, new_cache = _attention(
         p["attn"], x, cfg, norm=lambda t: rmsnorm(t, p["norm1"],
                                                   cfg.norm_eps), **kw)
+    mo = cfg.moe
     with _span(kw["mode"], "moe"):
-        x = x + h
+        x = x + _post(p, "post_attn_norm", h, cfg)
         B, S, d = x.shape
         xn = rmsnorm(x, p["norm2"], cfg.norm_eps).reshape(B * S, d)
         pos_flat = valid = None
@@ -482,13 +529,21 @@ def _attn_moe_block(p, x, cfg, *, layer_idx, routing_hook, row_valid,
                         B, S).reshape(-1)
             elif lengths is not None:
                 valid = (positions < lengths[:, None]).reshape(B * S)
-        y, aux = moe_ffn(xn, p["moe"], top_k=cfg.moe.top_k,
-                         capacity_factor=cfg.moe.capacity_factor,
+        y, aux = moe_ffn(xn, p["moe"], top_k=mo.top_k,
+                         capacity_factor=mo.capacity_factor,
                          gated=cfg.mlp_gated, router_fn=routing_hook,
                          positions=pos_flat, layer=layer_idx, valid=valid,
                          group=kw["group"], dp_group=dp_group,
-                         shard_experts=shard_experts)
-        return x + y.reshape(B, S, d), new_cache, aux
+                         shard_experts=shard_experts,
+                         score_func=mo.score_func,
+                         route_scale=mo.route_scale, mode=kw["mode"])
+        if mo.n_shared_experts:
+            with _span(kw["mode"], "moe.shared"):
+                q = p["moe"]
+                y = y + swiglu_mlp(xn, q["shared_gate"], q["shared_up"],
+                                   q["shared_down"])
+        y = _post(p, "post_mlp_norm", y.reshape(B, S, d), cfg)
+        return x + y, new_cache, aux
 
 
 def _keep_rows(new, old, row_valid):
@@ -643,10 +698,9 @@ class Model:
         for i, st in enumerate(cfg.stages):
             lead = (st.n_layers,)
             if st.kind == ATTN_MOE:
-                p = {"norm1": m.zeros(lead + (cfg.d_model,), device=device),
-                     "attn": _init_attn(gen, cfg, lead, self.fuse_qkv, **kw),
-                     "norm2": m.zeros(lead + (cfg.d_model,), device=device),
-                     "moe": _init_moe(gen, cfg, st.n_layers, **kw)}
+                p = _init_attn_ffn(gen, cfg, lead, self.fuse_qkv, "moe",
+                                   lambda: _init_moe(gen, cfg, st.n_layers,
+                                                     **kw), **kw)
             elif st.kind == ATTN_MLP:
                 p = _init_attn_mlp(gen, cfg, lead, self.fuse_qkv, **kw)
             elif st.kind == MAMBA2:
@@ -681,11 +735,16 @@ class Model:
         ids = tokens.long()
         n = table.shape[0]
         if n == self.cfg.padded_vocab:
-            return table[ids]
-        local = ids - self.group.rank * n
-        outside = (local < 0) | (local >= n)
-        x = table[local.clamp(0, n - 1)].masked_fill(outside[..., None], 0)
-        return reduce_from(x, self.group)
+            x = table[ids]
+        else:
+            local = ids - self.group.rank * n
+            outside = (local < 0) | (local >= n)
+            x = table[local.clamp(0, n - 1)].masked_fill(outside[..., None],
+                                                         0)
+            x = reduce_from(x, self.group)
+        if self.cfg.embed_multiplier != 1.0:
+            x = x * self.cfg.embed_multiplier
+        return x
 
     def _head(self, params, x):
         """Logits over the *padded* vocab; consumers slice [..., :vocab];
@@ -705,8 +764,10 @@ class Model:
         return logits
 
     def _window_for_layer(self, li: int, period: int) -> Optional[int]:
-        """None = full causal everywhere; global layers of a local:global
-        interleave get a window wider than any context."""
+        """The window of the model's layer ``li`` (counted over every stage)
+        in a stage of local:global ``period``.  None = full causal
+        everywhere; global layers of a local:global interleave get a window
+        wider than any context."""
         cfg = self.cfg
         if cfg.sliding_window == 0 or period == 0:
             return None
@@ -716,13 +777,13 @@ class Model:
 
     def _layer(self, st, li, moe_layer, p, x, kcache, shared, row_valid,
                **kw):
-        """One layer of stage ``st``: (x, its new cache or state, its MoE
-        aux loss or None)."""
+        """One layer of stage ``st``, the model's layer ``li``: (x, its new
+        cache or state, its MoE aux loss or None)."""
         cfg = self.cfg
         kw["cache"] = kcache
         if st.kind == ATTN_MOE:
-            # MoE layers attend without a window, as in JAX
-            return _attn_moe_block(p, x, cfg, window=None,
+            return _attn_moe_block(p, x, cfg, window=self._window_for_layer(
+                                       li, st.local_global_period),
                                    layer_idx=moe_layer,
                                    routing_hook=self.routing_hook,
                                    row_valid=row_valid,
@@ -771,6 +832,7 @@ class Model:
         new_caches = {}
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         moe_off = 0          # model-wide MoE layer index of the stage's 0
+        layer_off = 0        # model-wide layer index of the stage's 0
         remat = mode == "train" and self.remat
         for i, st in enumerate(cfg.stages):
             key = f"stage{i}"
@@ -779,7 +841,7 @@ class Model:
             for li in range(st.n_layers):
                 p = _layer(sp, li)
                 kcache = None if cache is None else _layer(cache[key], li)
-                args = (st, li, moe_off + li, p, x, kcache,
+                args = (st, layer_off + li, moe_off + li, p, x, kcache,
                         params.get("shared_attn"), row_valid)
                 kw = dict(positions=positions, lengths=lengths, mode=mode,
                           block_table=block_table, page_size=self.page_size,
@@ -795,6 +857,7 @@ class Model:
                 layer_caches.append(nc)
             if st.kind == ATTN_MOE:
                 moe_off += st.n_layers
+            layer_off += st.n_layers
             if mode == "train":
                 continue
             if mode == "prefill" or st.kind in (MAMBA2, XLSTM_PAIR):

@@ -29,8 +29,14 @@ verify}``
 ``attn.rope``                     rotary embedding of q and k
 ``attn.kv_write``                 page-index math and the K/V writes
 ``attn.kernel``                   the attention kernel's call
+``attn.gate``                     the output gate's product and multiply
 ``attn.out``                      the output projection
 ``mlp`` / ``moe``                 the norm, the MLP (or MoE) and residuals
+``moe.route``                     the router's product and top-k
+``moe.dispatch``                  the entries' sort and the expert buffer
+``moe.experts``                   the grouped matmul's products
+``moe.shared``                    the shared expert
+``moe.combine``                   the weighted sum of each token's rows
 ``wait.{h2d,d2h,sync}``           a blocking wait, as counted below
 ================================  ==========================================
 
@@ -40,6 +46,8 @@ push), ``d2h`` a read of a device value (``ServingEngine.to_host``),
 ``sync`` a synchronize.  On a card each empties the launch queue; the
 counts are of the sites, so the CPU counts the same.  One integer add a
 site, never one a layer.
+
+A model without MoE layers makes no ``moe.*`` span.
 """
 from __future__ import annotations
 
@@ -62,6 +70,12 @@ def span(name: str):
     if _collecting():
         return _range(PREFIX + name)
     return NOOP
+
+
+def mode_span(mode: str, name: str):
+    """``span(name)`` in the serving modes; a training step records
+    none."""
+    return NOOP if mode == "train" else span(name)
 
 
 class Waits:

@@ -263,15 +263,42 @@ def _arch_names():
     return list_archs()
 
 
+def _port_only_at_defaults(port, jax_cfg, where):
+    """The port's config has every field of the JAX package's, equal to
+    it, and every field the JAX package lacks sits at its default."""
+    jax_fields = {f.name for f in dataclasses.fields(jax_cfg)}
+    port_fields = {f.name for f in dataclasses.fields(port)}
+    assert jax_fields <= port_fields, (where, jax_fields - port_fields)
+    for f in dataclasses.fields(port):
+        value = getattr(port, f.name)
+        if f.name not in jax_fields:
+            assert value == f.default, (where, f.name, value)
+            continue
+        want = getattr(jax_cfg, f.name)
+        if dataclasses.is_dataclass(value) and dataclasses.is_dataclass(want):
+            _port_only_at_defaults(value, want, f"{where}.{f.name}")
+        elif isinstance(value, tuple) and value and \
+                dataclasses.is_dataclass(value[0]):
+            assert len(value) == len(want), (where, f.name)
+            for i, (v, w) in enumerate(zip(value, want)):
+                _port_only_at_defaults(v, w, f"{where}.{f.name}[{i}]")
+        else:
+            assert value == want, (where, f.name, value, want)
+
+
 @pytest.mark.parametrize("tiny", [False, True])
 def test_copied_configs_match(tiny):
+    """Every JAX architecture is registered in the port with every field
+    the JAX config has equal, and the port's own fields at their defaults;
+    the port's own architectures are named (``registry.PORT_ONLY``)."""
     from repro.configs import get_config as jax_get_config
     from repro_torch.configs import get_config, list_archs
-    assert list_archs() == _arch_names()
-    for name in list_archs():
+    from repro_torch.configs.registry import PORT_ONLY
+    assert PORT_ONLY == ("trinity-mini",)
+    assert sorted(_arch_names() + list(PORT_ONLY)) == list_archs()
+    for name in _arch_names():
         n = name + "-tiny" if tiny else name
-        assert dataclasses.asdict(get_config(n)) == \
-            dataclasses.asdict(jax_get_config(n)), n
+        _port_only_at_defaults(get_config(n), jax_get_config(n), n)
 
 
 def test_copied_workload_generator_matches():
